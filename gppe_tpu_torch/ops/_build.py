@@ -1,0 +1,100 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``gppe_tpu_torch/csrc`` are compiled by ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface and
+loaded with :mod:`ctypes`; nothing includes PyTorch's headers, so a build
+takes seconds. The library is built at first use into ``build/`` at the
+root of the checkout, under a name keyed by a hash of the sources and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+
+No ``--use_fast_math``: it swaps in approximate ``sqrtf``/``expf``, and the
+kernels' parity bounds rest on the IEEE versions.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+SOURCES = ("matern_matmat.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+
+
+def find_nvcc():
+    """nvcc from ``$CUDA_HOME/bin``, else from ``PATH``, else from the CUDA
+    root PyTorch itself detects; raise if there is none."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").is_file():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME to a CUDA toolkit (>= 12, for "
+        "sm_90a) or put nvcc on PATH to build gppe_tpu_torch's kernels")
+
+
+def nvcc_command(nvcc, output):
+    """The full nvcc command line that builds the library at ``output``."""
+    return [nvcc, *NVCC_FLAGS, "-o", str(output),
+            *(str(CSRC_DIR / s) for s in SOURCES)]
+
+
+def library_path():
+    """``build/libgppe_tpu_torch_<hash>.so``, keyed by sources and flags."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgppe_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _build(path):
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a private name and rename: a concurrent build or a reader
+    # never sees a half-written library
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = nvcc_command(nvcc, tmp)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    if not path.is_file():
+        _build(path)
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gppe_matern_matmat.restype = i32
+    lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                       i32, i32, i32, i32, i32, ptr]
+    lib.gppe_cuda_error_string.restype = ctypes.c_char_p
+    lib.gppe_cuda_error_string.argtypes = [i32]
+    _lib = lib
+    return lib

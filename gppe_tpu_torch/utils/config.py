@@ -1,0 +1,44 @@
+"""Precision policy.
+
+A float32 product in TF32 keeps about three decimal digits: that is the
+bf16-class error that moved eta* by 4% in the reference
+(gppe_tpu/ops/pallas_kernels.py, dot-mode table). The Lanczos
+reorthogonalisation products run on cuBLAS, so they are exposed to it
+too. :func:`setup` pins every float32 product to full IEEE float32; each
+entry point of the package calls it (importing the package changes no
+global state).
+
+Dtypes on the card: the fused Matern kernel and the Lanczos vectors are
+float32, the Lanczos alpha/beta sums and the basis projections float64
+(the H100 has native f64), and the per-eta likelihood math float64 numpy
+on the host. The CPU tests run everything in float64.
+"""
+
+import torch
+
+
+def setup():
+    """Disable TF32 in cuBLAS and cuDNN and set the float32 matmul
+    precision to "highest". Idempotent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def precision_state():
+    """The settings :func:`setup` controls, for logging."""
+    return {
+        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+    }
+
+
+def resolve_device(device):
+    """``torch.device(device)``, with a bare "cuda" pinned to the current
+    CUDA device so that "cuda" and "cuda:0" name the same place. Never
+    substitutes another device type."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -2,12 +2,18 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. The slice ported so far is the
-matrix-free profile-likelihood MLE:
+counterpart sits at the same path. Ported so far are three paths, each
+on a hand-written CUDA kernel of ``ops.cuda_kernels``:
 
-    utils.data -> ops.operators.MaternOperator (CUDA kernel
-    ops.cuda_kernels.matern_matmat) -> ops.stochastic.lanczos ->
-    models.large_scale.KrylovProfileLikelihood.fit
+* the matrix-free profile-likelihood MLE:
+  utils.data -> ops.operators.MaternOperator (kernel ``matern_matmat``)
+  -> ops.stochastic.lanczos ->
+  models.large_scale.KrylovProfileLikelihood.fit;
+* the grid-batched MLE over many correlation scales:
+  models.grid_krylov.GridKrylovProfileLikelihood (kernel
+  ``matern_matmat_multirho``) -> fit_all;
+* the tapered-sparse MLE: ops.taper.TaperedMaternOperator (kernel
+  ``matern_matmat_blocksparse``) -> KrylovProfileLikelihood.fit.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 
@@ -22,6 +28,12 @@ Policy (see :mod:`gppe_tpu_torch.utils.config`):
 The package imports neither ``jax`` nor ``gppe_tpu``.
 """
 
+from .models.grid_krylov import GridKrylovProfileLikelihood
+from .models.large_scale import KrylovProfileLikelihood
+from .ops.operators import MaternOperator
+from .ops.taper import TaperedMaternOperator
+
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+__all__ = ["GridKrylovProfileLikelihood", "KrylovProfileLikelihood",
+           "MaternOperator", "TaperedMaternOperator", "__version__"]

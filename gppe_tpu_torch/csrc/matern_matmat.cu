@@ -47,33 +47,15 @@
 
 #include <cstdint>
 
+#include "matern_common.cuh"
+
+using namespace gppe;
+
 namespace {
 
 constexpr int kRows = 128;  // output rows per block, one per thread
 constexpr int kCols = 128;  // column points per shared-memory tile
-constexpr int kMaxD = 8;    // largest point dimension
 constexpr int kMaxRC = 32;  // V columns per block; wider V uses grid.y
-
-// nu codes, shared with gppe_tpu_torch/ops/cuda_kernels.py::_NU_CODES
-constexpr int kNuHalf = 0;       // nu = 1/2
-constexpr int kNuThreeHalf = 1;  // nu = 3/2
-constexpr int kNuFiveHalf = 2;   // nu = 5/2
-constexpr int kNuGauss = 3;      // nu >= 100, the Gaussian limit
-
-template <int NU>
-__device__ __forceinline__ float matern_from_d2(float d2) {
-  if constexpr (NU == kNuHalf) {
-    return expf(-sqrtf(d2));
-  } else if constexpr (NU == kNuThreeHalf) {
-    const float s = sqrtf(3.0f * d2);
-    return (1.0f + s) * expf(-s);
-  } else if constexpr (NU == kNuFiveHalf) {
-    const float s = sqrtf(5.0f * d2);
-    return (1.0f + s + d2 * (5.0f / 3.0f)) * expf(-s);
-  } else {
-    return expf(-0.5f * d2);
-  }
-}
 
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded coordinates).
 // RC: V columns per block; 0 for a Frobenius-only launch (V and out unused).

@@ -52,6 +52,30 @@ def _tridiag_solve_e1(alpha, beta, eta, rhs0):
     return _tridiag_solve(alpha, beta, eta, rhs)
 
 
+def random_block(n, num_probes, key, device, dtype, generator=None,
+                 probes=None, v_defl=None):
+    """The engines' random block on ``device``: Rademacher ``probes``
+    (n, num_probes) and a normal deflation start ``v_defl`` (n, 1). What
+    the caller gives is taken as it is; the rest is drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``), else from a new
+    one seeded with ``key``."""
+    if generator is None and (probes is None or v_defl is None):
+        generator = torch.Generator(device=device).manual_seed(key)
+    if probes is None:
+        probes = torch.randint(0, 2, (n, num_probes), generator=generator,
+                               device=device)
+        probes = (2 * probes - 1).to(dtype)
+    if v_defl is None:
+        v_defl = torch.randn((n, 1), generator=generator, device=device,
+                             dtype=dtype)
+    probes = torch.as_tensor(probes, dtype=dtype, device=device)
+    v_defl = torch.as_tensor(v_defl, dtype=dtype, device=device).reshape(n, 1)
+    if probes.shape != (n, num_probes):
+        raise ValueError(f"probes must be ({n}, {num_probes}); "
+                         f"got {tuple(probes.shape)}")
+    return probes, v_defl
+
+
 class KrylovProfileLikelihood:
     """Profile-likelihood MLE over eta on a matrix-free operator."""
 
@@ -98,21 +122,8 @@ class KrylovProfileLikelihood:
         # block, the deflation chain and the trace probes ride the same
         # batched matmats; the deflation happens after the fact through
         # the one-pass quadrature collapse (stochastic.deflated_quadrature)
-        if generator is None and (probes is None or v_defl is None):
-            generator = torch.Generator(device=device).manual_seed(key)
-        if probes is None:
-            probes = torch.randint(0, 2, (self.n, num_probes),
-                                   generator=generator, device=device)
-            probes = (2 * probes - 1).to(dtype)
-        if v_defl is None:
-            v_defl = torch.randn((self.n, 1), generator=generator,
-                                 device=device, dtype=dtype)
-        probes = torch.as_tensor(probes, dtype=dtype, device=device)
-        v_defl = torch.as_tensor(v_defl, dtype=dtype,
-                                 device=device).reshape(self.n, 1)
-        if probes.shape != (self.n, num_probes):
-            raise ValueError(f"probes must be ({self.n}, {num_probes}); "
-                             f"got {tuple(probes.shape)}")
+        probes, v_defl = random_block(self.n, num_probes, key, device, dtype,
+                                      generator, probes, v_defl)
         AB = torch.cat([A_dev, v_defl, probes], dim=1)
         alphas, betas, V = stochastic.lanczos(matvec, AB, lanczos_steps,
                                               reorthogonalize=True)

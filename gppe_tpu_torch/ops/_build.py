@@ -3,9 +3,11 @@
 The sources under ``gppe_tpu_torch/csrc`` are compiled by ``nvcc`` for
 Hopper (``sm_90a``) into one shared library with a plain C interface and
 loaded with :mod:`ctypes`; nothing includes PyTorch's headers, so a build
-takes seconds. The library is built at first use into ``build/`` at the
-root of the checkout, under a name keyed by a hash of the sources and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+takes seconds. Each source is compiled to an object by an ``nvcc`` of its
+own, all started together, and one more ``nvcc`` links them. The library is
+built at first use into ``build/`` at the root of the checkout, under a
+name keyed by a hash of the sources, the headers and the flags, so an
+edited source is rebuilt and a stale library is never loaded.
 
 No ``--use_fast_math``: it swaps in approximate ``sqrtf``/``expf``, and the
 kernels' parity bounds rest on the IEEE versions.
@@ -21,9 +23,10 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("matern_matmat.cu",)
+SOURCES = ("matern_matmat.cu", "matern_multirho.cu", "matern_blocksparse.cu")
+HEADERS = ("matern_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -45,16 +48,22 @@ def find_nvcc():
         "sm_90a) or put nvcc on PATH to build gppe_tpu_torch's kernels")
 
 
-def nvcc_command(nvcc, output):
-    """The full nvcc command line that builds the library at ``output``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(output),
-            *(str(CSRC_DIR / s) for s in SOURCES)]
+def nvcc_commands(nvcc, output, extra_flags=()):
+    """The nvcc command lines that build the library at ``output``: one
+    compile per source (independent of each other), then the link. The
+    objects go beside ``output``. ``extra_flags`` are added to the compiles
+    (``("-Xptxas", "-v")`` reports registers and spills)."""
+    objects = [f"{output}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj,
+                 str(CSRC_DIR / s)] for s, obj in zip(SOURCES, objects)]
+    link = [nvcc, "-shared", "-o", str(output), *objects]
+    return compiles, link
 
 
 def library_path():
     """``build/libgppe_tpu_torch_<hash>.so``, keyed by sources and flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
@@ -68,17 +77,28 @@ def _build(path):
     # never sees a half-written library
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = nvcc_command(nvcc, tmp)
+    compiles, link = nvcc_commands(nvcc, tmp)
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outputs = [proc.communicate()[0] for proc in procs]  # waits for all
+        for cmd, proc, output in zip(compiles, procs, outputs):
+            _check_nvcc(cmd, proc.returncode, output)
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout)
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for leftover in (tmp, *(cmd[-2] for cmd in compiles)):
+            if os.path.exists(leftover):
+                os.unlink(leftover)
+
+
+def _check_nvcc(cmd, returncode, output):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {returncode}:\n"
+                           f"{' '.join(cmd)}\n{output}")
 
 
 def load():
@@ -94,6 +114,13 @@ def load():
     lib.gppe_matern_matmat.restype = i32
     lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                        i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_multirho.restype = i32
+    lib.gppe_matern_multirho.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                         i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_blocksparse.restype = i32
+    lib.gppe_matern_blocksparse.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                            i32, i32, i32, i32, i32,
+                                            ctypes.c_float, i32, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
     _lib = lib

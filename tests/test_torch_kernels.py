@@ -25,6 +25,7 @@ from gppe_tpu.utils import data as jdata  # noqa: E402
 from gppe_tpu_torch.ops import _build, cuda_kernels  # noqa: E402
 from gppe_tpu_torch.ops import kernels as tk  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
+from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -197,7 +198,15 @@ def test_cpu_path_launches_no_kernel():
     op = tops.MaternOperator(pts, scale, device="cpu", dtype=F64)
     op.matmat(V)
     op.trace_pow(2)
-    assert cuda_kernels.launch_counts == {"matern_matmat": 0}
+    cuda_kernels.matern_matmat_multirho(_t(pts), [0.1, 0.2],
+                                        _t(np.stack([V, V])), 0.5)
+    top = ttaper.TaperedMaternOperator(pts, 0.1, density=0.1, tile=16,
+                                       device="cpu", dtype=F64)
+    top.matmat(V)
+    top.trace_pow(2)
+    assert cuda_kernels.launch_counts == {
+        "matern_matmat": 0, "matern_matmat_multirho": 0,
+        "matern_matmat_blocksparse": 0}
 
 
 @pytest.mark.parametrize("kind", ["general_nu", "bf16", "bf16x3", "gram",
@@ -229,16 +238,27 @@ def test_unported_or_invalid_requests_raise(kind):
 
 
 def test_build_command_flags():
-    cmd = _build.nvcc_command("nvcc", "/tmp/x.so")
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
-    assert all(os.path.isfile(p) for p in cmd if p.endswith(".cu"))
-    # the library name is keyed by sources and flags
+    compiles, link = _build.nvcc_commands("nvcc", "/tmp/x.so")
+    # one compile per source, each for sm_90a and without fast math
+    assert len(compiles) == len(_build.SOURCES) == 3
+    objects = []
+    for cmd in compiles:
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined and "-c" in cmd
+        assert "use_fast_math" not in joined
+        sources = [p for p in cmd if p.endswith(".cu")]
+        assert len(sources) == 1 and os.path.isfile(sources[0])
+        objects.append(cmd[cmd.index("-o") + 1])
+    assert link[:4] == ["nvcc", "-shared", "-o", "/tmp/x.so"]
+    assert link[4:] == objects and len(set(objects)) == 3
+    flagged = _build.nvcc_commands("nvcc", "/tmp/x.so", ("-Xptxas", "-v"))
+    assert all("-Xptxas" in cmd for cmd in flagged[0])
+    # the library name is keyed by sources, headers and flags
     assert _build.library_path().name.startswith("libgppe_tpu_torch_")
-    src = open(os.path.join(REPO, "gppe_tpu_torch", "csrc",
-                            "matern_matmat.cu")).read()
-    assert "use_fast_math" not in src.replace("WITHOUT --use_fast_math", "")
+    for name in _build.SOURCES + _build.HEADERS:
+        src = open(os.path.join(REPO, "gppe_tpu_torch", "csrc", name)).read()
+        assert "use_fast_math" not in src.replace(
+            "WITHOUT --use_fast_math", "").replace("no --use_fast_math", "")
 
 
 def test_port_imports_without_jax():
@@ -246,6 +266,7 @@ def test_port_imports_without_jax():
             "sys.modules['gppe_tpu'] = None; "
             "import gppe_tpu_torch, gppe_tpu_torch.ops.cuda_kernels, "
             "gppe_tpu_torch.ops.operators, gppe_tpu_torch.ops.stochastic, "
+            "gppe_tpu_torch.ops.taper, gppe_tpu_torch.models.grid_krylov, "
             "gppe_tpu_torch.models.large_scale; print('ok')")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of gppe_tpu_torch on one NVIDIA GPU.
 
-Drives the port's three paths through their public entry points, after
+Drives the port's paths through their public entry points, after
 building the CUDA kernels from the sources in this checkout and checking
 each against its plain PyTorch version on the card:
 
@@ -12,7 +12,11 @@ each against its plain PyTorch version on the card:
     (GridKrylovProfileLikelihood -> fit_all; kernel
     matern_matmat_multirho);
   * the tapered-sparse MLE at n = 2^20 grid points (TaperedMaternOperator
-    -> KrylovProfileLikelihood -> fit; kernel matern_matmat_blocksparse).
+    -> KrylovProfileLikelihood -> fit; kernel matern_matmat_blocksparse);
+  * the precision-matrix path: the n = 100,000 MLE under each tile-dot
+    mode (drivers.profile_kernel_matrix.run_one -> fit; 'bf16x3' and
+    'bf16' on the tensor-core kernel matern_matmat_mma), and the roofline
+    sweep (drivers.roofline_matvec.main), the caller of the Gram form.
 
     python3 chip_smoke.py
 
@@ -36,8 +40,20 @@ Phases, each raising on failure:
  10. the grid path at n = 100,000, 8 rhos, with launch counts;
  11. the n = 16384 tapered engine on cuda vs cpu float64;
  12. the tapered path at n = 2^20, with launch counts;
- 13. kernel and plain time (and error) of the two new kernels at their
-     paths' shapes.
+ 13. kernel and plain time (and error) of the multi-rho and block-sparse
+     kernels at their paths' shapes;
+ 14. the tile-dot modes and the Gram form vs their own plain versions
+     (float32, same rounding) and vs plain float64 'highest', in all three
+     kernels;
+ 15. the n = 1024 engine under 'bf16x3' on cuda vs cpu float64 'highest';
+     the small grid and tapered engines, then the grid path (n = 100,000,
+     8 rhos) and the tapered path (n = 2^20) at full size, under 'bf16x3'
+     as the module default, with launch counts;
+ 16. the precision-matrix path at n = 100,000: the three modes, each
+     engine fitted, with launch counts;
+ 17. the roofline sweep at n = 100,000, 12 rows;
+ 18. kernel and plain time (and error) of the mode and Gram kernels at
+     their paths' shapes.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device.
@@ -52,6 +68,7 @@ import time
 import numpy as np
 import torch
 
+from gppe_tpu_torch.drivers import profile_kernel_matrix, roofline_matvec
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
@@ -68,10 +85,12 @@ GRID_RHOS, GRID_STEPS, GRID_PROBES = np.linspace(0.05, 0.3, 8), 32, 8
 # the tapered path (the reference's sparse race at its largest size)
 TAPER_SIDE, TAPER_SCALE, TAPER_DENSITY = 1024, 0.005, 1e-3
 
-# published peaks of one H100 SXM: device-memory rate and float32 rate
-# outside the tensor cores; a kernel's bound is the larger of its bytes
-# over the one and its operations over the other
+# published peaks of one H100 SXM: device-memory rate, float32 rate
+# outside the tensor cores and dense bf16 rate of the tensor cores; a
+# kernel's bound is the largest of its bytes and of each class of its
+# operations over that class's own peak
 PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 # operations per pair beyond the distance: scale/sqrt/exp and the closed
 # form's polynomial, by nu
 NU_OPS = {0.5: 3, 1.5: 7, 2.5: 10}
@@ -328,11 +347,13 @@ def phase_kernel_time(dev):
             "bound_by": bound_by}
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, tensor_ops=0):
     """The least time (ms) the card could take: bytes over its memory
-    rate or operations over its float32 rate, whichever is larger."""
+    rate, CUDA-core operations over its float32 rate or tensor-core
+    operations over its dense bf16 rate, whichever is largest."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = max(ops / PEAK_F32_OPS_PER_S, tensor_ops / PEAK_BF16_OPS_PER_S) \
+        * 1e3
     return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
 
 
@@ -594,7 +615,7 @@ def phase_grid_path(dev):
                                "sigma0_rel_gap": sigma0_gap})
     if not ok:
         raise AssertionError(f"grid path failed: launches {launches}")
-    return launches["matern_matmat_multirho"]
+    return launches["matern_matmat_multirho"], results
 
 
 # -- the tapered path ---------------------------------------------------------
@@ -677,7 +698,7 @@ def phase_tapered_path(dev):
         peak_device_memory_bytes=peak)
     if not ok:
         raise AssertionError(f"tapered path failed: {res}, {launches}")
-    return launches["matern_matmat_blocksparse"], op
+    return launches["matern_matmat_blocksparse"], op, res
 
 
 # -- times of the two new kernels at their paths' shapes ----------------------
@@ -783,6 +804,564 @@ def phase_blocksparse_time(dev, op):
             "bound_by": bound_by}
 
 
+# -- the tile-dot modes and the Gram form -------------------------------------
+
+# Frobenius-relative bounds against plain float64 'highest': 'bf16x3' keeps
+# the exact mode's bound; 'bf16' must SHOW its rounding (the reference
+# records 2.2e-3) and stay under 5e-3; the Gram form's cancellation puts
+# ~1e-3 of kernel error on near-coincident pairs (the reference's envelope,
+# tests/test_kernels.py::test_gram_dist_mode_accuracy). Under 'gram' +
+# 'bf16' the rounding (2e-3) is the larger of the two, so that pair is held
+# to the bf16 band. u.Kv vs v.Ku: 1e-6 in 'highest', 1e-4 once V is rounded.
+BF16_BAND = (1e-4, 5e-3)
+GRAM_FROB_TOL, GRAM_MAXABS_TOL, SKEW_TOL = 1e-3, 2e-2, 1e-4
+NEW_MODES = ("bf16x3", "bf16")
+
+
+def mode_verdict(rec, dot_mode, dist_mode="diff"):
+    """Hold one case's errors to its mode's bounds. ``rec`` has
+    ``frob_rel_err``/``max_abs_err`` (kernel vs plain float64 'highest'),
+    ``frob_vs_own_plain`` (kernel vs its plain version in float32 with the
+    same rounding) and ``mode_signature`` (that plain version vs float64
+    'highest': what the mode's rounding costs); under the Gram form and a
+    bf16 mode also ``frob_vs_exact_twin`` (kernel vs the plain float32 Gram
+    version at 'highest')."""
+    frob, own = rec["frob_rel_err"], rec["frob_vs_own_plain"]
+    if dot_mode == "bf16":
+        ok = BF16_BAND[0] < frob < BF16_BAND[1]
+    elif dist_mode == "gram":
+        ok = frob < GRAM_FROB_TOL
+    else:
+        ok = frob < FROB_TOL
+    if dist_mode == "gram":
+        # (bf16's own rounding, 2^-9 of every product, is past the Gram
+        # form's max-abs envelope, so that pair has the band alone)
+        ok = ok and own < GRAM_FROB_TOL and (
+            dot_mode == "bf16" or rec["max_abs_err"] < GRAM_MAXABS_TOL)
+        if dot_mode != "highest":
+            # the Gram form's cancellation (~1e-4) hides bf16x3's signature
+            # (~5e-6) from float64, but the kernel and the plain versions
+            # share that cancellation: the kernel must sit closer to its own
+            # plain version than half its distance to the plain 'highest'
+            # Gram version, where a 'highest' kernel in its place would sit
+            ok = ok and own < 0.5 * rec["frob_vs_exact_twin"]
+    elif dot_mode != "highest":
+        # the kernel rounds as its plain version does: it is closer to it
+        # than the rounding is large (a 'highest' kernel in its place would
+        # sit a whole signature away)
+        ok = ok and own < 0.5 * rec["mode_signature"]
+    else:
+        ok = ok and own < FROB_TOL and rec["max_abs_err"] < MAXABS_TOL
+    if "symmetry_rel_err" in rec:
+        ok = ok and rec["symmetry_rel_err"] < (
+            SYM_TOL if dot_mode == "highest" and dist_mode == "diff"
+            else SKEW_TOL)
+    return bool(ok)
+
+
+def mode_errors(got, own, want, exact_twin=None):
+    """The errors :func:`mode_verdict` reads: the kernel ``got`` against
+    plain float64 'highest' (``want``) and against its own plain float32
+    version ``own``, ``own`` against ``want``, and, where given, ``got``
+    against ``exact_twin``, the plain float32 version at the same distance
+    form and 'highest'."""
+    frob, max_abs = compare(got, want)
+    rec = {"frob_rel_err": frob, "max_abs_err": max_abs,
+           "frob_vs_own_plain": compare(got, own.double())[0],
+           "mode_signature": compare(own, want)[0]}
+    if exact_twin is not None:
+        rec["frob_vs_exact_twin"] = compare(got, exact_twin.double())[0]
+    return rec
+
+
+def mode_case(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=RHO,
+              n_cols=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts = torch.rand((n, d), generator=g, device=dev)
+    cols = (None if n_cols is None
+            else torch.rand((n_cols, d), generator=g, device=dev))
+    nc = n if n_cols is None else n_cols
+    V = torch.randn((nc, r), generator=g, device=dev)
+    kw = dict(points_cols=cols, dot_mode=dot_mode, dist_mode=dist_mode)
+    before = dict(cuda_kernels.launch_counts)
+    got = cuda_kernels.matern_matmat(pts, scale, V, nu, **kw)
+    torch.cuda.synchronize()
+    kernel = "matern_matmat" if dot_mode == "highest" else "matern_matmat_mma"
+    launched = {k: v - before[k] for k, v in cuda_kernels.launch_counts.items()
+                if v != before[k]}
+    assert launched == {kernel: 1}, launched
+    assert got.shape == (n, r) and bool(torch.isfinite(got).all())
+    own = cuda_kernels.matern_matmat_plain(
+        pts, kernels.broadcast_scale(scale, d, dtype=F32, device=dev), V, nu,
+        block_rows=4096, **kw)
+    want = cuda_kernels.matern_matmat_plain(
+        pts.double(), kernels.broadcast_scale(scale, d, dtype=F64,
+                                              device=dev),
+        V.double(), nu, points_cols=None if cols is None else cols.double(),
+        block_rows=4096, dot_mode="highest")
+    rec = {"dot_mode": dot_mode, "dist_mode": dist_mode, "n": n,
+           "n_cols": nc, "r": r, "nu": nu, "d": d, "scale": scale}
+    twin = None
+    if dist_mode == "gram" and dot_mode != "highest":
+        twin = cuda_kernels.matern_matmat_plain(
+            pts, kernels.broadcast_scale(scale, d, dtype=F32, device=dev), V,
+            nu, block_rows=4096, **{**kw, "dot_mode": "highest"})
+    rec.update(mode_errors(got, own, want, twin))
+    if n_cols is None and r == 1:
+        u = torch.randn((n, 1), generator=g, device=dev)
+        Ku = cuda_kernels.matern_matmat(pts, scale, u, nu, **kw)
+        rec.update(symmetry(u, V, Ku, got))
+    ok = mode_verdict(rec, dot_mode, dist_mode)
+    log(phase="parity_modes", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"matern_matmat in mode {dot_mode}/{dist_mode} "
+                             f"is out of its bounds: {rec}")
+
+
+def multirho_mode_case(dev, dot_mode, n, B, r, nu, d=2, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts = torch.rand((n, d), generator=g, device=dev)
+    rhos = torch.linspace(0.05, 0.3, B, device=dev)
+    V = torch.randn((B, n, r), generator=g, device=dev)
+    got, tk2 = cuda_kernels.matern_matmat_multirho(
+        pts, rhos, V, nu, dot_mode=dot_mode, return_frobenius=True)
+    torch.cuda.synchronize()
+    own = cuda_kernels.matern_matmat_multirho_plain(
+        pts, rhos, V, nu, dot_mode=dot_mode, block_rows=4096)
+    want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
+        pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), nu,
+        return_frobenius=True, block_rows=4096, dot_mode="highest")
+    rec = {"kernel": "matern_matmat_multirho", "dot_mode": dot_mode, "n": n,
+           "B": B, "r": r, "nu": nu, "d": d,
+           "trace_rel_err": float(torch.max(
+               torch.abs(tk2 - tk2_want) / tk2_want))}
+    rec.update(mode_errors(got, own, want))
+    # the traces sum the unrounded k^2 in every mode
+    ok = mode_verdict(rec, dot_mode) and rec["trace_rel_err"] < TRACE_RTOL
+    log(phase="parity_modes", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"matern_matmat_multirho in mode {dot_mode} is "
+                             f"out of its bounds: {rec}")
+
+
+def blocksparse_mode_case(dev, dot_mode, n, r, nu, tile, seed=0):
+    pts = np.random.RandomState(seed).rand(n, 2)
+    op = TaperedMaternOperator(pts, 0.05, nu=nu, density=0.02, tile=tile,
+                               device=dev)
+    tau = clear_threshold(op)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = torch.zeros((op.n_pad, r), device=dev)
+    V[:n] = torch.randn((n, r), generator=g, device=dev)
+    args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
+    kw = dict(n=n, row_ptr=op._row_ptr)
+    got, fro = cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, V, *args, dot_mode=dot_mode, frobenius=True, **kw)
+    torch.cuda.synchronize()
+    own = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted, V, *args, dot_mode=dot_mode, **kw)
+    want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V.double(), *args, frobenius=True,
+        dot_mode="highest", **kw)
+    assert not bool(got[n:].any())
+    rec = {"kernel": "matern_matmat_blocksparse", "dot_mode": dot_mode,
+           "n": n, "r": r, "nu": nu, "tile": op.tile, "tau": tau,
+           "trace_rel_err": abs(float(fro) - float(fro_want))
+           / float(fro_want)}
+    rec.update(mode_errors(got, own, want))
+    ok = mode_verdict(rec, dot_mode) and rec["trace_rel_err"] < TRACE_RTOL
+    log(phase="parity_modes", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"matern_matmat_blocksparse in mode {dot_mode} "
+                             f"is out of its bounds: {rec}")
+
+
+def phase_parity_modes(dev):
+    for dist_mode in cuda_kernels.DIST_MODES:
+        for dot_mode in cuda_kernels.DOT_MODES:
+            cases = [dict(n=3001, r=r, nu=0.5) for r in (1, 8, 23, 24, 40)]
+            cases += [dict(n=1024, r=24, nu=0.5)]
+            cases += [dict(n=3001, r=24, nu=nu) for nu in (1.5, 2.5, 150.0)]
+            cases += [dict(n=3001, r=8, nu=nu, d=d, seed=d)
+                      for d in (1, 3) for nu in (0.5, 2.5)]
+            cases += [dict(n=3001, r=7, nu=0.5, scale=[0.08, 0.2],
+                           n_cols=1025, seed=2)]
+            for c in cases:
+                mode_case(dev, dot_mode, dist_mode, **c)
+    for dot_mode in NEW_MODES:
+        for c in ([dict(n=3001, B=3, r=r, nu=0.5) for r in (1, 8, 16, 24)]
+                  + [dict(n=1024, B=8, r=16, nu=1.5),
+                     dict(n=3001, B=3, r=7, nu=2.5, d=3, seed=3)]):
+            multirho_mode_case(dev, dot_mode, **c)
+        for c in ([dict(n=3001, r=r, nu=0.5, tile=128, seed=3)
+                   for r in (1, 7, 24, 33)]
+                  + [dict(n=3001, r=16, nu=1.5, tile=512, seed=4)]):
+            blocksparse_mode_case(dev, dot_mode, **c)
+
+
+def phase_engines_bf16x3(dev):
+    """Phase 4 with the card's engine under 'bf16x3' (the tensor-core
+    kernel), against the cpu float64 'highest' engine from the same numpy
+    data and random block; then the n = 1024 grid engine and the n = 16384
+    tapered engine on the card with 'bf16x3' made the module default by
+    assignment (neither takes a mode of its own), against their cpu float64
+    'highest' twins. Bounds of phases 4, 9 and 11."""
+    pts, z, X = make_problem(1024, 0)
+    probes, v_defl = random_block(1024, 16, 1)
+    cuda_kernels.reset_launch_counts()
+    fits = {}
+    for name, device, dtype, mode in (("cuda_f32_bf16x3", dev, F32, "bf16x3"),
+                                      ("cpu_f64_highest", "cpu", F64,
+                                       "highest")):
+        op = MaternOperator(pts, RHO, nu=NU, device=device, dtype=dtype,
+                            dot_mode=mode)
+        fits[name] = KrylovProfileLikelihood(
+            op, X, z, lanczos_steps=32, num_probes=16, device=device,
+            dtype=dtype, probes=probes, v_defl=v_defl).fit()
+    launches = dict(cuda_kernels.launch_counts)
+    a, b = fits["cuda_f32_bf16x3"], fits["cpu_f64_highest"]
+    eta_rel, sigma0_rel = rel_gap(a["eta"], b["eta"]), rel_gap(
+        a["sigma0"], b["sigma0"])
+    ok = (a["success"] and b["success"] and eta_rel < 5e-2
+          and sigma0_rel < 5e-3 and launches["matern_matmat_mma"] == 32
+          and launches["matern_matmat"] == 1)
+    log(phase="engine_1024_bf16x3", ok=ok, launches=launches, **fits,
+        eta_rel_err=eta_rel, sigma0_rel_err=sigma0_rel)
+    if not ok:
+        raise AssertionError("n = 1024 engine under bf16x3: cuda and cpu "
+                             "fits disagree")
+
+    rhos = np.asarray([0.08, 0.1, 0.15])
+    gprobes, gv_defl = random_block(1024, 8, 1)
+    gkw = dict(nu_static=NU, lanczos_steps=32, num_probes=8,
+               matrix_free=True, chunk=3, probes=gprobes, v_defl=gv_defl)
+    side = 128
+    tpts, tz, tX = tapered_problem(side)
+    tprobes, tv_defl = random_block(side * side, PROBES, 3)
+    tkw = dict(lanczos_steps=STEPS, num_probes=PROBES, probes=tprobes,
+               v_defl=tv_defl)
+
+    def build(device, dtype):
+        grid = GridKrylovProfileLikelihood(
+            pts, X, z, rhos, np.full(3, NU), device=device, dtype=dtype,
+            **gkw).fit_all()
+        op = TaperedMaternOperator(tpts, TAPER_SCALE, nu=NU,
+                                   density=TAPER_DENSITY, device=device,
+                                   dtype=dtype)
+        return grid, KrylovProfileLikelihood(op, tX, tz, device=device,
+                                             dtype=dtype, **tkw).fit()
+
+    cpu_grid, cpu_taper = build("cpu", F64)
+    cuda_kernels.reset_launch_counts()
+    previous = cuda_kernels.DEFAULT_DOT_MODE
+    cuda_kernels.DEFAULT_DOT_MODE = "bf16x3"
+    try:
+        got_grid, got_taper = build(dev, F32)
+    finally:
+        cuda_kernels.DEFAULT_DOT_MODE = previous
+    launches = dict(cuda_kernels.launch_counts)
+    recs = [{"engine": "grid", "rho": float(rho),
+             "eta_rel_err": rel_gap(g["eta"], c["eta"]),
+             "sigma0_rel_err": rel_gap(g["sigma0"], c["sigma0"]),
+             "success": bool(g["success"])}
+            for g, c, rho in zip(got_grid, cpu_grid, rhos)]
+    recs.append({"engine": "tapered",
+                 "eta_rel_err": rel_gap(got_taper["eta"], cpu_taper["eta"]),
+                 "sigma0_rel_err": rel_gap(got_taper["sigma0"],
+                                           cpu_taper["sigma0"]),
+                 "success": bool(got_taper["success"])})
+    ok = (all(r["success"] and r["eta_rel_err"] < 5e-2
+              and r["sigma0_rel_err"] < 5e-3 for r in recs)
+          and launches["matern_matmat_multirho"] == 33
+          and launches["matern_matmat_blocksparse"] == STEPS + 1)
+    log(phase="engines_default_bf16x3", ok=ok, launches=launches,
+        engines=recs)
+    if not ok:
+        raise AssertionError("grid or tapered engine under the default "
+                             "bf16x3 disagrees with cpu float64")
+
+
+def phase_paths_bf16x3(dev, grid_exact, taper_op, taper_exact):
+    """The grid path (one chunk of 8 rhos at n = 100,000) and the tapered
+    path (n = 2^20) at full size with 'bf16x3' made the module default by
+    assignment: the launches of B2 and B3 under the mode, counted at the
+    shapes their times are taken at. ``grid_exact`` and ``taper_exact`` are
+    the fits of the same paths under 'highest' (phases 10 and 12); the
+    tapered operator's geometry does not depend on the mode and is reused."""
+    pts, z, X = make_problem(N_MAIN, 7)
+    B = len(GRID_RHOS)
+    probes, v_defl = random_block(N_MAIN, GRID_PROBES, 2)
+    tpts, tz, tX = tapered_problem(TAPER_SIDE)
+    previous = cuda_kernels.DEFAULT_DOT_MODE
+    cuda_kernels.DEFAULT_DOT_MODE = "bf16x3"
+    try:
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        grid = GridKrylovProfileLikelihood(
+            pts, X, z, GRID_RHOS, np.full(B, NU), nu_static=NU,
+            lanczos_steps=GRID_STEPS, num_probes=GRID_PROBES,
+            matrix_free=True, chunk=B, device=dev, probes=probes,
+            v_defl=v_defl)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        grid_launches = dict(cuda_kernels.launch_counts)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = KrylovProfileLikelihood(taper_op, tX, tz, lanczos_steps=STEPS,
+                                      num_probes=PROBES, device=dev)
+        torch.cuda.synchronize()
+        taper_s = time.perf_counter() - t0
+        taper_launches = dict(cuda_kernels.launch_counts)
+    finally:
+        cuda_kernels.DEFAULT_DOT_MODE = previous
+    results, res = grid.fit_all(), eng.fit()
+    fits = [{"rho": r["rho"], "eta": r["eta"], "sigma0": r["sigma0"],
+             "eta_rel_gap_to_highest": rel_gap(r["eta"], e["eta"]),
+             "sigma0_rel_gap_to_highest": rel_gap(r["sigma0"], e["sigma0"]),
+             "success": bool(r["success"])}
+            for r, e in zip(results, grid_exact)]
+    taper = {"eta_star": res["eta"], "sigma0": res["sigma0"],
+             "eta_rel_gap_to_highest": rel_gap(res["eta"],
+                                               taper_exact["eta"]),
+             "sigma0_rel_gap_to_highest": rel_gap(res["sigma0"],
+                                                  taper_exact["sigma0"]),
+             "success": bool(res["success"])}
+    # the default random block is drawn from the same seed under either
+    # mode, so the fits differ by the mode's rounding alone
+    ok = (all(f["success"] and f["eta_rel_gap_to_highest"] < 1e-2
+              and f["sigma0_rel_gap_to_highest"] < 1e-3
+              for f in fits + [taper])
+          and 0.18 < res["sigma0"] < 0.22
+          and grid_launches["matern_matmat_multirho"] == GRID_STEPS + 1
+          and taper_launches["matern_matmat_blocksparse"] == STEPS + 1
+          and grid_launches["matern_matmat"] == 0
+          and taper_launches["matern_matmat"] == 0)
+    log(phase="paths_default_bf16x3", ok=ok, n_grid=N_MAIN, B=B,
+        n_tapered=taper_op.shape[0], grid_setup_seconds=grid_s,
+        tapered_setup_seconds=taper_s, grid_launches=grid_launches,
+        tapered_launches=taper_launches, grid_fits=fits, tapered_fit=taper)
+    if not ok:
+        raise AssertionError("the grid or the tapered path under the "
+                             "default bf16x3 failed")
+    return {"matern_matmat_multirho":
+            grid_launches["matern_matmat_multirho"],
+            "matern_matmat_blocksparse":
+            taper_launches["matern_matmat_blocksparse"]}
+
+
+def phase_precision_matrix(dev):
+    """The precision-matrix path at n = 100,000: the engine constructed
+    under each tile-dot mode (twice; chained matvec time; error against the
+    plain exact path; der1(1)), then fitted. A construction is 64 matvec
+    launches of the mode's kernel and one trace(K^2) launch, which always
+    goes to the FP32 kernel (the trace sums the unrounded k^2)."""
+    cuda_kernels.reset_launch_counts()
+    records, mma_launches = {}, {}
+    for mode in cuda_kernels.DOT_MODES:
+        before = cuda_kernels.launch_counts["matern_matmat_mma"]
+        rec, eng = profile_kernel_matrix.run_one(mode, n=N_MAIN, device=dev,
+                                                 return_engine=True)
+        mma_launches[mode] = (cuda_kernels.launch_counts["matern_matmat_mma"]
+                              - before)
+        t0 = time.perf_counter()
+        res = eng.fit()
+        rec["fit_seconds_host_numpy"] = time.perf_counter() - t0
+        rec.update(eta_star=res["eta"], sigma0=res["sigma0"],
+                   sigma=res["sigma"], fit_success=bool(res["success"]))
+        records[mode] = rec
+    launches = dict(cuda_kernels.launch_counts)
+    ok = all(r["fit_success"] and all(np.isfinite(
+        r[k]) for k in ("eta_star", "sigma0", "sigma"))
+        for r in records.values())
+    for mode, rec in records.items():
+        kernel = ("matern_matmat" if mode == "highest"
+                  else "matern_matmat_mma")
+        want = ({kernel: STEPS + 1} if mode == "highest"
+                else {kernel: STEPS, "matern_matmat": 1})
+        ok = ok and rec["launches_per_construction"] == want
+    for mode in ("highest", "bf16x3"):
+        ok = ok and 0.19 < records[mode]["sigma0"] < 0.21
+    gaps = {mode: rel_gap(records[mode]["eta_star"],
+                          records["highest"]["eta_star"])
+            for mode in NEW_MODES}
+    # 'bf16' is only required to fit: its gap is recorded, not bounded
+    ok = ok and gaps["bf16x3"] < 1e-2 and mma_launches["highest"] == 0
+    log(phase="precision_matrix", ok=ok, n=N_MAIN, rho=RHO, nu=NU,
+        lanczos_steps=STEPS, num_probes=PROBES,
+        eta_star_rel_gap_to_highest=gaps, launches_total=launches,
+        modes=list(records.values()))
+    if not ok:
+        raise AssertionError(f"precision-matrix path failed: {records}")
+    return mma_launches
+
+
+def phase_roofline(dev):
+    """The roofline sweep at n = 100,000, 12 rows, reps cut to 3 warm and 5
+    timed products per row."""
+    cuda_kernels.reset_launch_counts()
+    out = roofline_matvec.main(n=N_MAIN, device=dev, warm=3, reps=5,
+                               verbose=False)
+    launches = dict(cuda_kernels.launch_counts)
+    rows = out["rows"]
+    shares = [row[k] for row in rows for k in ("pct_f32_peak",
+                                               "pct_bf16_peak")]
+    gram_launches = sum(
+        row["launches"].get("matern_matmat", 0) for row in rows
+        if row["dist_mode"] == "gram" and row["dot_mode"] == "highest")
+    ok = (len(rows) == 12 and all(0 <= s <= 100 for s in shares)
+          and launches["matern_matmat_mma"] == 6 * 8
+          and launches["matern_matmat"] == 6 * 8 and gram_launches == 3 * 8)
+    log(phase="roofline", ok=ok, launches=launches, **out)
+    if not ok:
+        raise AssertionError(f"roofline sweep failed: {out}")
+    return gram_launches
+
+
+def phase_mode_time(dev, taper_op):
+    """Kernel, plain and error at the paths' shapes: matern_matmat at
+    n = 100,000, r = 24 under diff/bf16x3, diff/bf16 and gram/highest, with
+    diff/highest timed in the same turns; multirho (B = 8, r = 16) and
+    blocksparse (the full-size pair list, r = 24) under 'bf16x3'."""
+    pts, _, _ = make_problem(N_MAIN, 7)
+    r, d = 24, 2
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    V = torch.randn((N_MAIN, r), generator=g, device=dev)
+    scale = kernels.broadcast_scale(RHO, d, dtype=F32, device=dev)
+    want = cuda_kernels.matern_matmat_plain(
+        P.double(), scale.double(), V.double(), NU, block_rows=1024)
+    pairs = N_MAIN * N_MAIN
+    nbytes = 4 * (N_MAIN * d + 2 * N_MAIN * r)
+    configs = {"bf16x3": ("bf16x3", "diff"), "bf16": ("bf16", "diff"),
+               "gram": ("highest", "gram")}
+    fns = {"kernel_highest": lambda: cuda_kernels.matern_matmat(
+        P, scale, V, NU)}
+    for name, (dot_mode, dist_mode) in configs.items():
+        kw = dict(dot_mode=dot_mode, dist_mode=dist_mode)
+        fns[f"kernel_{name}"] = lambda kw=kw: cuda_kernels.matern_matmat(
+            P, scale, V, NU, **kw)
+        fns[f"plain_{name}"] = lambda kw=kw: \
+            cuda_kernels.matern_matmat_plain(P, scale, V, NU,
+                                             block_rows=1024, **kw)
+    med, times = median_in_turns(fns)
+    out, ok = {}, True
+    for name, (dot_mode, dist_mode) in configs.items():
+        got = fns[f"kernel_{name}"]()
+        own = fns[f"plain_{name}"]()
+        rec = {"dot_mode": dot_mode, "dist_mode": dist_mode}
+        rec.update(mode_errors(got, own, want))
+        ok = mode_verdict(rec, dot_mode, dist_mode) and ok
+        # per pair on the CUDA cores: the distance (3d, or the Gram form's
+        # 2d + 3), scale/sqrt/exp, and in a bf16 mode the rounding of k
+        # (2 per bf16 value and the residual's subtraction); on the tensor
+        # cores 2r per product
+        products = {"highest": 0, "bf16x3": 3, "bf16": 1}[dot_mode]
+        core = (2 * d + 3 if dist_mode == "gram" else 3 * d) + nu_ops(NU)
+        core += {"highest": 2 * r, "bf16x3": 5, "bf16": 2}[dot_mode]
+        bound_ms, bound_by = bound(nbytes, pairs * core,
+                                   pairs * 2 * r * products)
+        out[name] = {"max_abs_err": rec["max_abs_err"],
+                     "ms": med[f"kernel_{name}"],
+                     "plain_ms": med[f"plain_{name}"], "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        log(phase="mode_time", ok=ok, n=N_MAIN, r=r, reps=7, **rec,
+            kernel_ms_median=med[f"kernel_{name}"],
+            plain_f32_ms_median=med[f"plain_{name}"],
+            kernel_highest_diff_ms_median=med["kernel_highest"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            kernel_ms_all=times[f"kernel_{name}"])
+    del want
+    if not ok:
+        raise AssertionError("a mode kernel is out of its bounds at the "
+                             "main path's shape")
+
+    # multirho under bf16x3 at the grid path's shape
+    B, r2 = len(GRID_RHOS), 16
+    rhos = torch.as_tensor(GRID_RHOS, dtype=F32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    V2 = torch.randn((B, N_MAIN, r2), generator=g, device=dev)
+    fns = {"kernel": lambda: cuda_kernels.matern_matmat_multirho(
+               P, rhos, V2, NU, dot_mode="bf16x3"),
+           "plain": lambda: cuda_kernels.matern_matmat_multirho_plain(
+               P, rhos, V2, NU, dot_mode="bf16x3"),
+           "kernel_highest": lambda: cuda_kernels.matern_matmat_multirho(
+               P, rhos, V2, NU)}
+    med, times = median_in_turns(fns)
+    want = cuda_kernels.matern_matmat_multirho_plain(
+        P.double(), 1.0 / (1.0 / rhos).double(), V2.double(), NU)
+    rec = {"kernel": "matern_matmat_multirho", "dot_mode": "bf16x3"}
+    got, own = fns["kernel"](), fns["plain"]()
+    rec.update(mode_errors(got, own, want))
+    del want, got, own
+    ok = mode_verdict(rec, "bf16x3")
+    # the bound is the function's, not this kernel's choice of FP32 FMAs:
+    # the three products are bf16 operands with float32 sums, charged to
+    # the tensor cores' peak; the distance, the closed form and the
+    # rounding of k per rho stay CUDA-core operations
+    bound_ms, bound_by = bound(
+        4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
+        pairs * (3 * d + 1 + B * (nu_ops(NU) + 5)),
+        pairs * B * 6 * r2)
+    out["multirho_bf16x3"] = {
+        "max_abs_err": rec["max_abs_err"], "ms": med["kernel"],
+        "plain_ms": med["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+    log(phase="mode_time", ok=ok, n=N_MAIN, B=B, r=r2, reps=7, **rec,
+        kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
+        kernel_highest_ms_median=med["kernel_highest"], bound_ms=bound_ms,
+        bound_by=bound_by, kernel_ms_all=times["kernel"])
+    if not ok:
+        raise AssertionError("multirho under bf16x3 is out of its bounds at "
+                             "the grid path's shape")
+    del V2
+
+    # blocksparse under bf16x3 on the tapered path's pair list
+    op = taper_op
+    n, r3 = op.shape[0], 24
+    g = torch.Generator(device=dev).manual_seed(13)
+    V3 = torch.randn((op.n_pad, r3), generator=g, device=dev)
+    V3[n:] = 0
+    tau = clear_threshold(op)
+    kw = dict(n=n, row_ptr=op._row_ptr)
+    geometry = (op.pair_i, op._pair_j, op.tile)
+    got = cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, V3, op.nu, tau, *geometry, dot_mode="bf16x3", **kw)
+    own = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted, V3, op.nu, tau, *geometry, dot_mode="bf16x3", **kw)
+    want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V3.double(), op.nu, tau, *geometry, **kw)
+    rec = {"kernel": "matern_matmat_blocksparse", "dot_mode": "bf16x3",
+           "tau": tau}
+    rec.update(mode_errors(got, own, want))
+    del want, got, own
+    ok = mode_verdict(rec, "bf16x3")
+    args = (op.nu, op.threshold, *geometry)
+    med, times = median_in_turns({
+        "kernel": lambda: cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V3, *args, dot_mode="bf16x3", **kw),
+        "plain": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
+            op.points_sorted, V3, *args, dot_mode="bf16x3", **kw),
+        "kernel_highest": lambda: cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V3, *args, **kw)})
+    real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
+    tile_pairs = int(np.sum(real[op.pair_i].astype(np.int64)
+                            * real[op.pair_j]))
+    bound_ms, bound_by = bound(
+        4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
+             + len(op.pair_j)),
+        tile_pairs * (3 * d + nu_ops(op.nu) + 1 + 5), tile_pairs * 6 * r3)
+    out["blocksparse_bf16x3"] = {
+        "max_abs_err": rec["max_abs_err"], "ms": med["kernel"],
+        "plain_ms": med["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
+    log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=tile_pairs, **rec,
+        kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
+        kernel_highest_ms_median=med["kernel_highest"], bound_ms=bound_ms,
+        bound_by=bound_by, kernel_ms_all=times["kernel"])
+    if not ok:
+        raise AssertionError("blocksparse under bf16x3 is out of its bounds "
+                             "at the tapered path's shape")
+    return out
+
+
 def kernel_record(name, source, replaces, launches, measured):
     # library_ms: no single PyTorch call computes any of these products,
     # because K is never stored (40 GB at n = 10^5)
@@ -802,11 +1381,22 @@ def main():
     phase_parity_multirho(dev)
     phase_parity_blocksparse(dev)
     phase_grid_engine_1024(dev)
-    launches_2 = phase_grid_path(dev)
+    launches_2, grid_fits = phase_grid_path(dev)
     phase_tapered_engine_16384(dev)
-    launches_3, op = phase_tapered_path(dev)
+    launches_3, op, taper_fit = phase_tapered_path(dev)
     measured_2 = phase_multirho_time(dev)
     measured_3 = phase_blocksparse_time(dev, op)
+    phase_parity_modes(dev)
+    phase_engines_bf16x3(dev)
+    launches_default = phase_paths_bf16x3(dev, grid_fits, op, taper_fit)
+    launches_mma = phase_precision_matrix(dev)
+    launches_gram = phase_roofline(dev)
+    measured = phase_mode_time(dev, op)
+    if not all((launches_1, launches_2, launches_3, launches_mma["bf16x3"],
+                launches_mma["bf16"], launches_gram,
+                launches_default["matern_matmat_multirho"],
+                launches_default["matern_matmat_blocksparse"])):
+        raise AssertionError("a kernel of a path was never launched on it")
     print(nvidia_smi())
     print(json.dumps({"kernels": [
         kernel_record("matern_matmat", "matern_matmat.cu", 103, launches_1,
@@ -814,7 +1404,22 @@ def main():
         kernel_record("matern_matmat_multirho", "matern_multirho.cu", 356,
                       launches_2, measured_2),
         kernel_record("matern_matmat_blocksparse", "matern_blocksparse.cu",
-                      487, launches_3, measured_3)]}))
+                      487, launches_3, measured_3),
+        # the tile-dot modes (pallas_kernels._tile_dot, :64) and the Gram
+        # form (_matmat_kernel_gram, :128), each on the path that runs it
+        kernel_record("matern_matmat_mma[bf16x3]", "matern_matmat_mma.cu",
+                      64, launches_mma["bf16x3"], measured["bf16x3"]),
+        kernel_record("matern_matmat_mma[bf16]", "matern_matmat_mma.cu", 64,
+                      launches_mma["bf16"], measured["bf16"]),
+        kernel_record("matern_matmat[gram]", "matern_matmat.cu", 128,
+                      launches_gram, measured["gram"]),
+        kernel_record("matern_matmat_multirho[bf16x3]", "matern_multirho.cu",
+                      64, launches_default["matern_matmat_multirho"],
+                      measured["multirho_bf16x3"]),
+        kernel_record("matern_matmat_blocksparse[bf16x3]",
+                      "matern_blocksparse.cu", 64,
+                      launches_default["matern_matmat_blocksparse"],
+                      measured["blocksparse_bf16x3"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,8 +9,18 @@
 // float64, so one launch with r = 0 gives trace(K^2) = ||K||_F^2.
 //
 // Replaces gppe_tpu/ops/pallas_kernels.py::_matmat_kernel (the TPU's fused
-// distance -> Matern -> tile-dot -> accumulate kernel) and folds in the XLA
-// trace(K^2) pass gppe_tpu/ops/operators.py::_matern_frobenius2_blocked.
+// distance -> Matern -> tile-dot -> accumulate kernel) at its exact tile-dot
+// mode 'highest', and folds in the XLA trace(K^2) pass
+// gppe_tpu/ops/operators.py::_matern_frobenius2_blocked. With the GRAM flag
+// it replaces ::_matmat_kernel_gram at the same mode: the squared distance is
+// |x|^2 + |y|^2 - 2 x.y, clamped at 0, on points the caller has centred on
+// the column mean and with the norms the caller computed (as the TPU
+// wrapper did). On the TPU the d <= 8 contraction x.y went to the matrix
+// unit; here it is d float32 FMAs per pair on the CUDA cores, beside the d
+// subtract + d FMA of the difference form, so at d = 2 the Gram form saves
+// nothing on this card and keeps its cancellation error (~1e-3 on
+// near-coincident pairs). It is ported for parity, not for speed. The bf16
+// tile-dot modes are matern_matmat_mma.cu.
 //
 // What bounds it on this card. Each pair (i, j) costs d subtract/FMAs for the
 // squared distance, one sqrtf and one expf (the SFU's MUFU.RSQ / MUFU.EX2 plus
@@ -60,10 +70,13 @@ constexpr int kMaxRC = 32;  // V columns per block; wider V uses grid.y
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded coordinates).
 // RC: V columns per block; 0 for a Frobenius-only launch (V and out unused).
 // FRO: also write the per-row float64 sum of k^2 (grid.y == 0 blocks only).
-template <int NU, int D, int RC, bool FRO>
+// GRAM: the Gram-form distance from centred points and their norms.
+template <int NU, int D, int RC, bool FRO, bool GRAM>
 __global__ void __launch_bounds__(kRows)
     matern_matmat_kernel(const float* __restrict__ rows,
                          const float* __restrict__ cols,
+                         const float* __restrict__ rows_norm,
+                         const float* __restrict__ cols_norm,
                          const float* __restrict__ V, float* __restrict__ out,
                          double* __restrict__ fro_rows, int nr, int nc, int d,
                          int r) {
@@ -71,6 +84,7 @@ __global__ void __launch_bounds__(kRows)
   constexpr int kRC = RC > 0 ? RC : 1;
   __shared__ float s_pts[kD][kCols];
   __shared__ __align__(16) float s_v[kCols][kRC];
+  __shared__ float s_norm[GRAM ? kCols : 1];
 
   const int dim = D > 0 ? D : d;
   const int row = blockIdx.x * kRows + threadIdx.x;
@@ -82,6 +96,8 @@ __global__ void __launch_bounds__(kRows)
   for (int k = 0; k < kD; ++k) {
     x[k] = (live && k < dim) ? rows[static_cast<int64_t>(row) * dim + k] : 0.0f;
   }
+  float x_norm = 0.0f;
+  if constexpr (GRAM) x_norm = live ? rows_norm[row] : 0.0f;
   float acc[kRC];
 #pragma unroll
   for (int c = 0; c < kRC; ++c) acc[c] = 0.0f;
@@ -96,6 +112,10 @@ __global__ void __launch_bounds__(kRows)
       s_pts[k][j] = (j < tc && k < dim)
                         ? cols[static_cast<int64_t>(j0 + j) * dim + k]
                         : 0.0f;
+    }
+    if constexpr (GRAM) {  // kRows == kCols: one norm per thread
+      s_norm[threadIdx.x] =
+          threadIdx.x < tc ? cols_norm[j0 + threadIdx.x] : 0.0f;
     }
     if constexpr (RC > 0) {
       for (int e = threadIdx.x; e < kCols * RC; e += kRows) {
@@ -117,10 +137,17 @@ __global__ void __launch_bounds__(kRows)
     float fro_tile = 0.0f;
     for (int j = 0; j < tc; ++j) {
       float d2 = 0.0f;
+      if constexpr (GRAM) {
+        float dot = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kD; ++k) {
-        const float diff = x[k] - s_pts[k][j];
-        d2 = fmaf(diff, diff, d2);
+        for (int k = 0; k < kD; ++k) dot = fmaf(x[k], s_pts[k][j], dot);
+        d2 = fmaxf(fmaf(-2.0f, dot, x_norm + s_norm[j]), 0.0f);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kD; ++k) {
+          const float diff = x[k] - s_pts[k][j];
+          d2 = fmaf(diff, diff, d2);
+        }
       }
       const float kv = matern_from_d2<NU>(d2);
       if constexpr (FRO) fro_tile = fmaf(kv, kv, fro_tile);
@@ -145,6 +172,8 @@ __global__ void __launch_bounds__(kRows)
 struct Args {
   const float* rows;
   const float* cols;
+  const float* rows_norm;  // both norms null: the difference form
+  const float* cols_norm;
   const float* V;
   float* out;
   double* fro_rows;
@@ -152,53 +181,66 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NU, int D, int RC, bool FRO>
+static_assert(kRows == kCols, "the column norms are staged one per thread");
+
+template <int NU, int D, int RC, bool FRO, bool GRAM>
 cudaError_t launch(const Args& a) {
   int chunks = 1;
   if constexpr (RC > 0) chunks = (a.r + RC - 1) / RC;
   const dim3 grid((a.nr + kRows - 1) / kRows, chunks);
-  matern_matmat_kernel<NU, D, RC, FRO><<<grid, kRows, 0, a.stream>>>(
-      a.rows, a.cols, a.V, a.out, a.fro_rows, a.nr, a.nc, a.d, a.r);
+  matern_matmat_kernel<NU, D, RC, FRO, GRAM><<<grid, kRows, 0, a.stream>>>(
+      a.rows, a.cols, a.rows_norm, a.cols_norm, a.V, a.out, a.fro_rows, a.nr,
+      a.nc, a.d, a.r);
   return cudaGetLastError();
 }
 
-template <int NU, int D, int RC>
+template <int NU, int D, int RC, bool GRAM>
 cudaError_t launch_fro(const Args& a) {
-  return a.fro_rows != nullptr ? launch<NU, D, RC, true>(a)
-                               : launch<NU, D, RC, false>(a);
+  return a.fro_rows != nullptr ? launch<NU, D, RC, true, GRAM>(a)
+                               : launch<NU, D, RC, false, GRAM>(a);
 }
 
-template <int NU, int D>
+template <int NU, int D, bool GRAM>
 cudaError_t launch_rc(const Args& a) {
   if (a.r == 0) {
-    return a.fro_rows != nullptr ? launch<NU, D, 0, true>(a)
+    return a.fro_rows != nullptr ? launch<NU, D, 0, true, GRAM>(a)
                                  : cudaErrorInvalidValue;
   }
-  if (a.r <= 8) return launch_fro<NU, D, 8>(a);
-  if (a.r <= 16) return launch_fro<NU, D, 16>(a);
-  if (a.r <= 24) return launch_fro<NU, D, 24>(a);
-  return launch_fro<NU, D, kMaxRC>(a);
+  if (a.r <= 8) return launch_fro<NU, D, 8, GRAM>(a);
+  if (a.r <= 16) return launch_fro<NU, D, 16, GRAM>(a);
+  if (a.r <= 24) return launch_fro<NU, D, 24, GRAM>(a);
+  return launch_fro<NU, D, kMaxRC, GRAM>(a);
 }
 
 template <int NU>
 cudaError_t launch_d(const Args& a) {
-  return a.d == 2 ? launch_rc<NU, 2>(a) : launch_rc<NU, 0>(a);
+  // the Gram form has the any-d instances only: it loses to the difference
+  // form at every d on this card, so it is not worth a specialisation
+  if (a.rows_norm != nullptr) return launch_rc<NU, 0, true>(a);
+  return a.d == 2 ? launch_rc<NU, 2, false>(a) : launch_rc<NU, 0, false>(a);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Does
-// not synchronise and allocates nothing. `V` and `out` may be null when
-// r == 0; `fro_rows` (nr float64) is null unless the k^2 row sums are wanted.
+// not synchronise and allocates nothing. `rows_norm` (nr) and `cols_norm`
+// (nc) are both null for the difference form, or hold the squared norms of
+// the (centred) rows and cols for the Gram form. `V` and `out` may be null
+// when r == 0; `fro_rows` (nr float64) is null unless the k^2 row sums are
+// wanted.
 extern "C" int gppe_matern_matmat(const void* rows, const void* cols,
-                                  const void* V, void* out, void* fro_rows,
-                                  int nr, int nc, int d, int r, int nu_code,
-                                  void* stream) {
-  if (nr <= 0 || nc < 0 || d < 1 || d > kMaxD || r < 0) {
+                                  const void* rows_norm,
+                                  const void* cols_norm, const void* V,
+                                  void* out, void* fro_rows, int nr, int nc,
+                                  int d, int r, int nu_code, void* stream) {
+  if (nr <= 0 || nc < 0 || d < 1 || d > kMaxD || r < 0 ||
+      (rows_norm == nullptr) != (cols_norm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(rows),
                static_cast<const float*>(cols),
+               static_cast<const float*>(rows_norm),
+               static_cast<const float*>(cols_norm),
                static_cast<const float*>(V),
                static_cast<float*>(out),
                static_cast<double*>(fro_rows),

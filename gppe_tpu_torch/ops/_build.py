@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("matern_matmat.cu", "matern_multirho.cu", "matern_blocksparse.cu")
+SOURCES = ("matern_matmat.cu", "matern_matmat_mma.cu", "matern_multirho.cu",
+           "matern_blocksparse.cu")
 HEADERS = ("matern_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -112,15 +113,18 @@ def load():
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gppe_matern_matmat.restype = i32
-    lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr,
+    lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                        i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_matmat_mma.restype = i32
+    lib.gppe_matern_matmat_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                           i32, i32, i32, i32, i32, i32, ptr]
     lib.gppe_matern_multirho.restype = i32
     lib.gppe_matern_multirho.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                         i32, i32, i32, i32, i32, ptr]
+                                         i32, i32, i32, i32, i32, i32, ptr]
     lib.gppe_matern_blocksparse.restype = i32
     lib.gppe_matern_blocksparse.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                             i32, i32, i32, i32, i32,
-                                            ctypes.c_float, i32, ptr]
+                                            ctypes.c_float, i32, i32, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
     _lib = lib

@@ -5,12 +5,17 @@ takes the plain PyTorch version for tensors on the CPU and launches its
 CUDA kernel for tensors on a CUDA device; there is no fallback from one to
 the other.
 
-``matern_matmat`` (kernel source ``csrc/matern_matmat.cu``) replaces the
-TPU kernel ``pallas_kernels._matmat_kernel``: K @ V with K the Matern
-correlation of the scaled points, never stored, plus an optional
-trace(K^2) output that replaces the XLA pass
-``operators._matern_frobenius2_blocked``. It computes in IEEE float32 (the
-reference's ``'highest'`` dot mode).
+``matern_matmat`` replaces the TPU kernels ``pallas_kernels._matmat_kernel``
+and ``_matmat_kernel_gram``: K @ V with K the Matern correlation of the
+scaled points, never stored, plus an optional trace(K^2) output that
+replaces the XLA pass ``operators._matern_frobenius2_blocked``. Its exact
+mode (``dot_mode='highest'``, IEEE float32 FMAs) and every trace(K^2) pass
+run ``csrc/matern_matmat.cu``; the ``'bf16x3'`` and ``'bf16'`` tile-dot
+modes of ``pallas_kernels._tile_dot`` run ``csrc/matern_matmat_mma.cu``,
+which issues the products on the tensor cores (bf16 operands, float32
+sums). ``dist_mode='gram'`` takes d^2 = |x|^2 + |y|^2 - 2 x.y on points
+centred on the column mean instead of the exact difference form, in either
+kernel.
 
 ``matern_matmat_multirho`` (``csrc/matern_multirho.cu``) replaces
 ``pallas_kernels._multirho_kernel``: K(rho_b) @ V_b for a batch of
@@ -20,6 +25,14 @@ isotropic scales over one set of raw points, with per-rho trace(K_b^2).
 ``pallas_kernels._blocksparse_kernel``: the hard-tapered K @ V over a list
 of active tile pairs, plus an optional trace(K^2) output that replaces the
 XLA scan of ``taper.TaperedMaternOperator.trace_pow``.
+
+``matern_matmat_multirho`` and ``matern_matmat_blocksparse`` take the same
+three dot modes; there the rounded operands are multiplied by float32 FMAs
+inside the kernels' own summation design.
+
+The tile-dot modes round the operands only: a trace(K^2) output always
+sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
+in every mode).
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -31,12 +44,22 @@ import torch
 from . import kernels
 from ..utils.config import setup
 
-launch_counts = {"matern_matmat": 0, "matern_matmat_multirho": 0,
+DOT_MODES = ("highest", "bf16x3", "bf16")
+# ``dot_mode=None`` means this module default, read at call time (a caller
+# may change it by assignment; it then reaches every engine that passes no
+# mode of its own)
+DEFAULT_DOT_MODE = "highest"
+DIST_MODES = ("diff", "gram")
+
+launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
+                 "matern_matmat_multirho": 0,
                  "matern_matmat_blocksparse": 0}
 
-# nu -> template code of csrc/matern_matmat.cu (kNuHalf ... kNuGauss)
+# nu -> template code of csrc/matern_common.cuh (kNuHalf ... kNuGauss)
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
 _GAUSS_CODE = 3
+# dot mode -> template code of csrc/matern_common.cuh (kDotHighest ...)
+_DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
 _MAX_D = 8
 
 
@@ -45,39 +68,94 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
-def _check_modes(dot_mode, dist_mode="diff"):
-    if dot_mode not in (None, "highest"):
-        raise NotImplementedError(
-            f"dot_mode={dot_mode!r}: only the exact float32 'highest' mode is "
-            f"ported; the reference's 'bf16x3' and 'bf16' tile-dot modes are "
-            f"still to port")
-    if dist_mode != "diff":
-        raise NotImplementedError(
-            f"dist_mode={dist_mode!r}: only the difference-form distance "
-            f"'diff' is ported; the Gram-form kernel is still to port")
+def resolve_dot_mode(dot_mode):
+    """``dot_mode``, or the module default for None; raises on a name that
+    is not one of ``DOT_MODES``."""
+    dot_mode = DEFAULT_DOT_MODE if dot_mode is None else dot_mode
+    if dot_mode not in DOT_MODES:
+        raise ValueError(f"dot_mode must be one of {DOT_MODES}; got "
+                         f"{dot_mode}")
+    return dot_mode
+
+
+def _check_dist_mode(dist_mode):
+    if dist_mode not in DIST_MODES:
+        raise ValueError(f"dist_mode must be 'diff' or 'gram'; got "
+                         f"{dist_mode}")
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def tile_dot_plain(K, V, dot_mode):
+    """K @ V at the precision of ``pallas_kernels._tile_dot``, whatever the
+    inputs' dtype: 'highest' multiplies them as they are; 'bf16' rounds
+    both operands to bfloat16 and multiplies in the inputs' dtype; 'bf16x3'
+    splits each operand into a bfloat16 high part and the bfloat16 rounding
+    of the residual and sums hi.hi + lo.hi + hi.lo (only lo.lo is dropped).
+    """
+    dot_mode = resolve_dot_mode(dot_mode)
+    if dot_mode == "highest":
+        return K @ V
+    k_hi, v_hi = _bf16_round(K), _bf16_round(V)
+    if dot_mode == "bf16":
+        return k_hi @ v_hi
+    k_lo, v_lo = _bf16_round(K - k_hi), _bf16_round(V - v_hi)
+    return k_hi @ v_hi + k_lo @ v_hi + k_hi @ v_lo
+
+
+def _gram_operands(rows_s, cols_s):
+    """The Gram form's operands from the scaled row and column points:
+    both centred on the column mean (distances do not change, and smaller
+    |x|^2 loses less to cancellation), and their squared norms."""
+    center = cols_s.mean(dim=0, keepdim=True)
+    rows_c = (rows_s - center).contiguous()
+    cols_c = (cols_s - center).contiguous()
+    return (rows_c, cols_c, (rows_c * rows_c).sum(dim=1),
+            (cols_c * cols_c).sum(dim=1))
+
+
+def _gram_distance(rows_c, cols_c, rows_norm, cols_norm):
+    d2 = (rows_norm[:, None] + cols_norm[None, :]
+          - 2.0 * (rows_c @ cols_c.T))
+    return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
 def matern_matmat_plain(points, scale, V, nu, points_cols=None,
-                        frobenius=False, block_rows=1024):
+                        frobenius=False, block_rows=1024, dot_mode=None,
+                        dist_mode="diff"):
     """Plain PyTorch K @ V by row blocks, in the inputs' dtype.
 
     Each block's correlation tile is computed, multiplied and discarded
-    (the form of ``gppe_tpu.ops.operators._matern_matmat_blocked``). With
-    ``frobenius`` also returns sum K^2 (trace(K^2) for square K; the form
-    of ``_matern_frobenius2_blocked``). ``V`` may be None when only the
-    sum is wanted."""
+    (the form of ``gppe_tpu.ops.operators._matern_matmat_blocked``); the
+    product is :func:`tile_dot_plain` at ``dot_mode``. ``dist_mode='gram'``
+    takes the distance as |x|^2 + |y|^2 - 2 x.y on points centred on the
+    mean of the scaled column points, clamped at 0. With ``frobenius`` also
+    returns sum K^2 of the unrounded K (trace(K^2) for square K; the form
+    of ``_matern_frobenius2_blocked``). ``V`` may be None when only the sum
+    is wanted."""
     setup()  # K @ V on the card must not run in TF32
+    dot_mode = resolve_dot_mode(dot_mode)
+    _check_dist_mode(dist_mode)
     cols = points if points_cols is None else points_cols
     nr = points.shape[0]
+    if dist_mode == "gram":
+        rows_c, cols_c, rows_norm, cols_norm = _gram_operands(
+            points / scale, cols / scale)
     out = None if V is None else torch.empty(
         (nr, V.shape[1]), dtype=V.dtype, device=V.device)
     fro = torch.zeros((), dtype=points.dtype, device=points.device)
     for i in range(0, nr, block_rows):
-        dist = kernels.pairwise_scaled_distance(
-            points[i:i + block_rows], cols, scale)
+        if dist_mode == "gram":
+            dist = _gram_distance(rows_c[i:i + block_rows], cols_c,
+                                  rows_norm[i:i + block_rows], cols_norm)
+        else:
+            dist = kernels.pairwise_scaled_distance(
+                points[i:i + block_rows], cols, scale)
         Kblk = kernels.matern(dist, nu)
         if out is not None:
-            out[i:i + block_rows] = Kblk @ V
+            out[i:i + block_rows] = tile_dot_plain(Kblk, V, dot_mode)
         if frobenius:
             fro = fro + torch.sum(Kblk * Kblk)
     return (out, fro) if frobenius else out
@@ -90,14 +168,23 @@ def matern_matmat(points, scale, V, nu, points_cols=None, dot_mode=None,
 
     ``points`` (nr, d) with d <= 8, ``V`` (nc, r) or None (only with
     ``frobenius``); ``scale`` is a scalar or per-dimension correlation
-    scale. Returns out (nr, r), and with ``frobenius=True`` the pair
-    (out, sum K^2), out None when V is None; the sum is a 0-d tensor,
-    float64 on the CUDA path.
+    scale. ``dot_mode``: one of ``DOT_MODES`` (None: ``DEFAULT_DOT_MODE``),
+    the precision of the K-tile times V product; 'bf16x3' and 'bf16' round
+    V, so the map is not exactly linear and u.Kv differs from v.Ku at the
+    1e-6 level. ``dist_mode``: 'diff' (exact differences) or 'gram'
+    (|x|^2 + |y|^2 - 2 x.y on centred points: about 1e-3 of kernel error on
+    near-coincident pairs). Returns out (nr, r), and with
+    ``frobenius=True`` the pair (out, sum K^2), out None when V is None;
+    the sum is a 0-d tensor of the unrounded k^2, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_plain` (in their own dtype,
-    ``block_rows`` rows at a time); CUDA tensors launch the float32 kernel
-    and must be float32 and contiguous."""
-    _check_modes(dot_mode, dist_mode)
+    ``block_rows`` rows at a time); CUDA tensors launch a float32 kernel
+    and must be float32 and contiguous: the FP32-FMA kernel for 'highest'
+    and for the sum K^2, the tensor-core kernel for the product in the two
+    bf16 modes (so a call that asks for both in such a mode launches
+    both)."""
+    dot_mode = resolve_dot_mode(dot_mode)
+    _check_dist_mode(dist_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
@@ -114,13 +201,16 @@ def matern_matmat(points, scale, V, nu, points_cols=None, dot_mode=None,
         raise ValueError(f"scale must be a scalar or have {d} entries")
     if device.type == "cpu":
         return matern_matmat_plain(points, scale, V, nu, points_cols,
-                                   frobenius, block_rows)
+                                   frobenius, block_rows, dot_mode,
+                                   dist_mode)
     if device.type != "cuda":
         raise ValueError(f"matern_matmat runs on cpu or cuda, not {device}")
-    return _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius)
+    return _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
+                               dot_mode, dist_mode)
 
 
-def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius):
+def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
+                        dot_mode, dist_mode):
     from . import _build
 
     nr, d = points.shape
@@ -139,6 +229,10 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius):
 
     rows_s = (points / scale).contiguous()
     cols_s = rows_s if points_cols is None else (cols / scale).contiguous()
+    rows_norm = cols_norm = None
+    if dist_mode == "gram" and nr > 0 and nc > 0:
+        # the kernels take the centred points and their norms from here
+        rows_s, cols_s, rows_norm, cols_norm = _gram_operands(rows_s, cols_s)
     out = None if V is None else torch.empty(
         (nr, r), dtype=torch.float32, device=points.device)
     fro_rows = (torch.zeros(nr, dtype=torch.float64, device=points.device)
@@ -148,16 +242,28 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius):
 
     lib = _build.load()
     code = _NU_CODES.get(nu, _GAUSS_CODE)
+    # the tensor-core kernel multiplies; every sum K^2 is the FP32 kernel's
+    on_mma = dot_mode != "highest" and r > 0
+    geometry = (rows_s.data_ptr(), cols_s.data_ptr(),
+                None if rows_norm is None else rows_norm.data_ptr(),
+                None if cols_norm is None else cols_norm.data_ptr())
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gppe_matern_matmat(
-            rows_s.data_ptr(), cols_s.data_ptr(),
-            None if V is None else V.data_ptr(),
-            None if out is None else out.data_ptr(),
-            None if fro_rows is None else fro_rows.data_ptr(),
-            nr, nc, d, r, code, stream)
-    _raise_on_cuda_error(lib, err, "matern_matmat")
-    launch_counts["matern_matmat"] += 1
+        if on_mma:
+            err = lib.gppe_matern_matmat_mma(
+                *geometry, V.data_ptr(), out.data_ptr(), nr, nc, d, r, code,
+                _DOT_CODES[dot_mode], stream)
+            _raise_on_cuda_error(lib, err, "matern_matmat_mma")
+            launch_counts["matern_matmat_mma"] += 1
+        if frobenius or not on_mma:
+            product = not on_mma and V is not None
+            err = lib.gppe_matern_matmat(
+                *geometry, V.data_ptr() if product else None,
+                out.data_ptr() if product else None,
+                None if fro_rows is None else fro_rows.data_ptr(),
+                nr, nc, d, r if product else 0, code, stream)
+            _raise_on_cuda_error(lib, err, "matern_matmat")
+            launch_counts["matern_matmat"] += 1
     if frobenius:
         return out, fro_rows.sum()
     return out
@@ -187,14 +293,17 @@ def _raise_on_cuda_error(lib, err, what):
 # -- multi-rho -------------------------------------------------------------
 
 def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
-                                 block_rows=1024):
+                                 block_rows=1024, dot_mode=None):
     """Plain PyTorch K(rho_b) @ V_b by row blocks, in the inputs' dtype.
 
     One distance block serves the whole rho batch, in the kernel's
     arithmetic order: d^2 by differences on the raw points, one sqrt, then
-    per rho a multiply by 1/rho_b and the closed form. ``V`` (B, n, r) in
-    any strides, or None when only the traces are wanted."""
+    per rho a multiply by 1/rho_b and the closed form; the product is
+    :func:`tile_dot_plain` at ``dot_mode``, the traces sum the unrounded
+    k^2. ``V`` (B, n, r) in any strides, or None when only the traces are
+    wanted."""
     setup()
+    dot_mode = resolve_dot_mode(dot_mode)
     n = points.shape[0]
     inv = 1.0 / rhos
     B = rhos.shape[0]
@@ -207,7 +316,8 @@ def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
         for b in range(B):
             Kblk = kernels.matern(r0 * inv[b], nu)
             if out is not None:
-                out[b, i:i + block_rows] = Kblk @ V[b]
+                out[b, i:i + block_rows] = tile_dot_plain(Kblk, V[b],
+                                                          dot_mode)
             if return_frobenius:
                 fro[b] += torch.sum(Kblk * Kblk)
     return (out, fro) if return_frobenius else out
@@ -219,14 +329,17 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
 
     ``points`` (n, d) RAW (unscaled) points with d <= 8; ``rhos`` (B,);
     ``V`` (B, n, r), or None with ``return_frobenius`` when only the traces
-    are wanted. Returns out (B, n, r) and, with ``return_frobenius=True``,
-    the pair (out, trace(K_b^2) (B,)), out None when V is None; the traces
-    are float64 on the CUDA path.
+    are wanted. ``dot_mode`` as in :func:`matern_matmat`. Returns out
+    (B, n, r) and, with ``return_frobenius=True``, the pair (out,
+    trace(K_b^2) (B,)), out None when V is None; the traces are float64 on
+    the CUDA path.
 
     CPU tensors take :func:`matern_matmat_multirho_plain` (in their own
     dtype, ``block_rows`` rows at a time); CUDA tensors launch the float32
-    kernel and must be float32 and contiguous."""
-    _check_modes(dot_mode)
+    kernel and must be float32 and contiguous. In the two bf16 modes the
+    kernel's instances carry no trace output, so a call that asks for the
+    product and the traces launches twice."""
+    dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not return_frobenius:
         raise ValueError("V=None is only meaningful with return_frobenius")
@@ -246,15 +359,29 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
                              f"got {tuple(V.shape)}")
     if device.type == "cpu":
         return matern_matmat_multirho_plain(points, rhos, V, nu,
-                                            return_frobenius, block_rows)
+                                            return_frobenius, block_rows,
+                                            dot_mode)
     if device.type != "cuda":
         raise ValueError(f"matern_matmat_multirho runs on cpu or cuda, "
                          f"not {device}")
     return _matern_matmat_multirho_cuda(points, rhos, V, nu,
-                                        return_frobenius)
+                                        return_frobenius, dot_mode)
 
 
-def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius):
+def _launch_plan(dot_mode, r, frobenius):
+    """The launches of one multirho or blocksparse call, as (with product,
+    with k^2 sums, dot code) triples: one launch, but for a bf16 mode that
+    is asked for both outputs (those instances carry no k^2 sums)."""
+    if dot_mode == "highest" or r == 0:
+        return [(r > 0, frobenius, _DOT_CODES["highest"])]
+    plan = [(True, False, _DOT_CODES[dot_mode])]
+    if frobenius:
+        plan.append((False, True, _DOT_CODES["highest"]))
+    return plan
+
+
+def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius,
+                                 dot_mode):
     from . import _build
 
     n, d = points.shape
@@ -274,14 +401,16 @@ def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius):
         code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(points.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.gppe_matern_multirho(
-                points.data_ptr(), inv_rho.data_ptr(),
-                None if V is None else V.data_ptr(),
-                None if out is None else out.data_ptr(),
-                None if fro_rows is None else fro_rows.data_ptr(),
-                n, d, B, r, code, stream)
-        _raise_on_cuda_error(lib, err, "matern_matmat_multirho")
-        launch_counts["matern_matmat_multirho"] += 1
+            for product, sums, dot_code in _launch_plan(
+                    dot_mode, r, return_frobenius):
+                err = lib.gppe_matern_multirho(
+                    points.data_ptr(), inv_rho.data_ptr(),
+                    V.data_ptr() if product else None,
+                    out.data_ptr() if product else None,
+                    fro_rows.data_ptr() if sums else None,
+                    n, d, B, r if product else 0, code, dot_code, stream)
+                _raise_on_cuda_error(lib, err, "matern_matmat_multirho")
+                launch_counts["matern_matmat_multirho"] += 1
     return (out, fro_rows.sum(dim=1)) if return_frobenius else out
 
 
@@ -339,12 +468,14 @@ def _blocksparse_geometry(points_sorted, pair_i, pair_j, tile, n, row_ptr):
 
 def matern_matmat_blocksparse_plain(points_sorted, V, nu, tau, pair_i,
                                     pair_j, tile, n=None, frobenius=False,
-                                    row_ptr=None):
+                                    row_ptr=None, dot_mode=None):
     """Plain PyTorch tapered K @ V, one row tile at a time against that
     tile's active column tiles, in the inputs' dtype; the hard taper
-    ``k >= tau ? k : 0`` is taken in that dtype too. Arguments as
-    :func:`matern_matmat_blocksparse`."""
+    ``k >= tau ? k : 0`` is taken in that dtype too, on the unrounded k,
+    and the product is :func:`tile_dot_plain` at ``dot_mode``. Arguments
+    as :func:`matern_matmat_blocksparse`."""
     setup()
+    dot_mode = resolve_dot_mode(dot_mode)
     tile, n, num_tiles, row_ptr, pair_j = _blocksparse_geometry(
         points_sorted, pair_i, pair_j, tile, n, row_ptr)
     out = None if V is None else torch.zeros(
@@ -360,7 +491,7 @@ def matern_matmat_blocksparse_plain(points_sorted, V, nu, tau, pair_i,
         Kblk = kernels.matern(dist, nu)
         Kblk = torch.where(Kblk >= tau, Kblk, torch.zeros_like(Kblk))
         if out is not None:
-            out[rows] = Kblk @ V[cols]
+            out[rows] = tile_dot_plain(Kblk, V[cols], dot_mode)
         if frobenius:
             fro = fro + torch.sum(Kblk * Kblk)
     return (out, fro) if frobenius else out
@@ -422,15 +553,17 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     pair list is checked, on the host (a caller that multiplies often
     passes it, and ``pair_j`` as an int32 tensor on the device, and
     answers for both). ``tau``: the taper threshold; entries with k < tau
-    are zero.
+    are zero. ``dot_mode`` as in :func:`matern_matmat`.
 
     Returns out (n_pad, r), and with ``frobenius=True`` the pair (out, sum
     of squared tapered entries = trace(K^2)), out None when V is None; the
     sum is a 0-d tensor, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_blocksparse_plain`; CUDA tensors
-    launch the float32 kernel and must be float32 and contiguous."""
-    _check_modes(dot_mode)
+    launch the float32 kernel and must be float32 and contiguous (twice
+    for a bf16 mode asked for the product and the trace, as
+    :func:`matern_matmat_multirho`)."""
+    dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
@@ -447,17 +580,18 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     if device.type == "cpu":
         return matern_matmat_blocksparse_plain(
             points_sorted, V, nu, tau, pair_i, pair_j, tile, n, frobenius,
-            row_ptr)
+            row_ptr, dot_mode)
     if device.type != "cuda":
         raise ValueError(f"matern_matmat_blocksparse runs on cpu or cuda, "
                          f"not {device}")
     return _matern_matmat_blocksparse_cuda(
         points_sorted, V, nu, tau, pair_i, pair_j, tile, n, frobenius,
-        row_ptr)
+        row_ptr, dot_mode)
 
 
 def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
-                                    pair_j, tile, n, frobenius, row_ptr):
+                                    pair_j, tile, n, frobenius, row_ptr,
+                                    dot_mode):
     from . import _build
 
     n_pad, d = points_sorted.shape
@@ -485,13 +619,16 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
         code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(points_sorted.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.gppe_matern_blocksparse(
-                points_sorted.data_ptr(),
-                None if V is None else V.data_ptr(),
-                None if out is None else out.data_ptr(),
-                None if fro_rows is None else fro_rows.data_ptr(),
-                row_ptr.data_ptr(), pair_j.data_ptr(),
-                n, d, r, tile, num_tiles, float(tau), code, stream)
-        _raise_on_cuda_error(lib, err, "matern_matmat_blocksparse")
-        launch_counts["matern_matmat_blocksparse"] += 1
+            for product, sums, dot_code in _launch_plan(dot_mode, r,
+                                                        frobenius):
+                err = lib.gppe_matern_blocksparse(
+                    points_sorted.data_ptr(),
+                    V.data_ptr() if product else None,
+                    out.data_ptr() if product else None,
+                    fro_rows.data_ptr() if sums else None,
+                    row_ptr.data_ptr(), pair_j.data_ptr(),
+                    n, d, r if product else 0, tile, num_tiles, float(tau),
+                    code, dot_code, stream)
+                _raise_on_cuda_error(lib, err, "matern_matmat_blocksparse")
+                launch_counts["matern_matmat_blocksparse"] += 1
     return (out, fro_rows.sum()) if frobenius else out

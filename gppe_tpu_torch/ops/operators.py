@@ -1,9 +1,11 @@
 """Matrix-free Matern correlation operator: K @ V without storing K.
 
 Counterpart of ``gppe_tpu.ops.operators.MaternOperator``. On a CUDA
-device ``matmat`` and ``trace_pow(2)`` launch the fused CUDA kernel
-(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`); on the CPU they
-run its plain row-blocked PyTorch version. The points live on the device
+device ``matmat`` and ``trace_pow(2)`` launch the fused CUDA kernels
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`: the FP32-FMA
+kernel at ``dot_mode='highest'`` and for the trace, the tensor-core kernel
+at 'bf16x3' and 'bf16'); on the CPU they run the plain row-blocked PyTorch
+version. The points live on the device
 (0.8 MB at n = 10^5); K (40 GB at n = 10^5) never exists.
 """
 
@@ -25,10 +27,15 @@ class MaternOperator:
                  device="cuda", dtype=torch.float32, dot_mode=None):
         """``device``/``dtype``: where and in what the points and every
         product live (the CUDA kernel takes float32). ``block_rows``: rows
-        per block of the plain CPU path. ``dot_mode``: None or 'highest'
-        (exact float32, the only ported mode)."""
+        per block of the plain CPU path. ``dot_mode``: tile-dot precision
+        of ``matmat``, one of ``cuda_kernels.DOT_MODES``; None follows
+        ``cuda_kernels.DEFAULT_DOT_MODE`` ('highest', exact float32) at
+        each call. 'bf16x3' rounds the operand, so u.(Kv) and v.(Ku) differ
+        at ~1e-6: harmless to Lanczos, which re-measures its residuals, but
+        not for consumers with tolerances below that floor."""
         setup()
-        cuda_kernels._check_modes(dot_mode, "diff")
+        if dot_mode is not None:
+            cuda_kernels.resolve_dot_mode(dot_mode)
         self.nu = kernels.check_static_nu(nu)
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -60,14 +67,15 @@ class MaternOperator:
 
     def trace_pow(self, exponent):
         """Exact trace(K^p) for p in {0, 1, 2}: diag(K) = 1 so the trace is
-        n; trace(K^2) = ||K||_F^2 from one Frobenius-only pass."""
+        n; trace(K^2) = ||K||_F^2 from one Frobenius-only pass, exact in
+        every dot mode."""
         if exponent == 0 or exponent == 1:
             return torch.tensor(float(self._n), dtype=self.dtype,
                                 device=self.device)
         if exponent == 2:
             _, fro = cuda_kernels.matern_matmat(
-                self.points, self.scale, None, self.nu, frobenius=True,
-                block_rows=self.block_rows)
+                self.points, self.scale, None, self.nu, dot_mode="highest",
+                frobenius=True, block_rows=self.block_rows)
             return fro
         raise ValueError("exponent must be 0, 1 or 2")
 

@@ -12,6 +12,12 @@ error (< 2e-5) and its largest absolute error (< 5e-4); trace(K^2) to
 rtol 1e-5; u.Kv vs v.Ku to 1e-6 of |u| |Kv|. The tapered product is
 compared at a threshold that no pair comes within 1e-5 (relative) of, so
 that float32 and float64 taper the same entries.
+
+The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
+Frobenius bound and must sit closer to its own plain version (same
+rounding) than the rounding is large; 'bf16' must show its rounding
+(1e-4 < error < 5e-3); the Gram form has the reference's envelope (1e-3,
+max-abs 2e-2; tests/test_kernels.py::test_gram_dist_mode_accuracy).
 """
 
 import numpy as np
@@ -19,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from gppe_tpu_torch.drivers import (  # noqa: E402
+    profile_kernel_matrix, roofline_matvec)
 from gppe_tpu_torch.models.grid_krylov import (  # noqa: E402
     GridKrylovProfileLikelihood)
 from gppe_tpu_torch.models.large_scale import (  # noqa: E402
@@ -209,10 +217,14 @@ def test_multirho_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError, match="d <= 8"):
         cuda_kernels.matern_matmat_multirho(
             torch.rand(300, 9, device=dev), rhos, V, 0.5)
-    with pytest.raises(NotImplementedError, match="bf16x3"):
+    with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5,
-                                            dot_mode="bf16x3")
+                                            dot_mode="bf16x2")
     assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
+    # a bf16 mode asked for the product and the traces launches twice
+    cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16x3",
+                                        return_frobenius=True)
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 4
     assert cuda_kernels.launch_counts["matern_matmat"] == 0
 
 
@@ -336,9 +348,9 @@ def test_blocksparse_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError, match="d <= 8"):
         cuda_kernels.matern_matmat_blocksparse(
             torch.rand(op.n_pad, 9, device=dev), V, *args, **kw)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat_blocksparse(pts, V, *args,
-                                               dot_mode="bf16", **kw)
+                                               dot_mode="bf8", **kw)
     with pytest.raises(ValueError, match="int32"):
         cuda_kernels.matern_matmat_blocksparse(
             pts, V, *args, n=n, row_ptr=op._row_ptr.long())
@@ -368,3 +380,215 @@ def test_tapered_engine_n16384_cuda_matches_cpu(dev):
     assert got["success"] and want["success"]
     np.testing.assert_allclose(got["eta"], want["eta"], rtol=5e-2)
     np.testing.assert_allclose(got["sigma0"], want["sigma0"], rtol=5e-3)
+
+
+# -- the tile-dot modes and the Gram form -------------------------------------
+
+def _frob(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def _assert_mode_bounds(got, own, want, dot_mode, dist_mode="diff"):
+    """``got``: the kernel; ``own``: its plain version in float32 with the
+    same rounding; ``want``: plain float64 'highest'."""
+    err, signature = _frob(got, want), _frob(own, want)
+    if dot_mode == "bf16":
+        assert 1e-4 < err < 5e-3
+    else:
+        assert err < (1e-3 if dist_mode == "gram" else 2e-5)
+    if dist_mode == "gram":
+        assert _frob(got, own) < 1e-3
+        if dot_mode != "bf16":
+            assert float(torch.max(torch.abs(got.double() - want))) < 2e-2
+    elif dot_mode != "highest":
+        # an exact kernel in the mode's place would sit a signature away
+        assert _frob(got, own) < 0.5 * signature
+
+
+def _check_mode(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=0.1,
+                n_cols=None, seed=0):
+    rng = np.random.RandomState(seed)
+    pts = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev)
+    cols = (None if n_cols is None else
+            torch.as_tensor(rng.rand(n_cols, d), dtype=F32, device=dev))
+    nc = n if n_cols is None else n_cols
+    V = torch.as_tensor(rng.standard_normal((nc, r)), dtype=F32, device=dev)
+    kw = dict(points_cols=cols, dot_mode=dot_mode, dist_mode=dist_mode)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.matern_matmat(pts, scale, V, nu, **kw)
+    torch.cuda.synchronize()
+    mma = 0 if dot_mode == "highest" else 1
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == mma
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1 - mma
+    own = cuda_kernels.matern_matmat_plain(
+        pts, kernels.broadcast_scale(scale, d, dtype=F32, device=dev), V, nu,
+        block_rows=n, **kw)
+    want = cuda_kernels.matern_matmat_plain(
+        pts.double(), kernels.broadcast_scale(scale, d, dtype=F64,
+                                              device=dev),
+        V.double(), nu, points_cols=None if cols is None else cols.double(),
+        block_rows=n, dot_mode="highest")
+    assert got.shape == (n, r) and bool(torch.isfinite(got).all())
+    _assert_mode_bounds(got, own, want, dot_mode, dist_mode)
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("r", [1, 8, 23, 24, 40])
+def test_mma_kernel_widths(dev, dot_mode, r):
+    _check_mode(dev, dot_mode, "diff", 3001, r, 0.5)
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 150.0])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_mma_kernel_branches_and_dims(dev, dot_mode, nu, d):
+    _check_mode(dev, dot_mode, "diff", 1500, 9, nu, d=d, seed=d)
+
+
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3", "bf16"])
+@pytest.mark.parametrize("nu", [0.5, 2.5])
+@pytest.mark.parametrize("r", [7, 24, 40])
+def test_gram_form(dev, dot_mode, nu, r):
+    _check_mode(dev, dot_mode, "gram", 3001, r, nu, seed=r)
+
+
+@pytest.mark.parametrize("dist_mode", ["diff", "gram"])
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3", "bf16"])
+def test_modes_anisotropic_rectangular(dev, dot_mode, dist_mode):
+    if (dot_mode, dist_mode) != ("highest", "diff"):    # covered above
+        _check_mode(dev, dot_mode, dist_mode, 3001, 7, 0.5,
+                    scale=[0.08, 0.2], n_cols=1025, seed=2)
+    _check_mode(dev, dot_mode, dist_mode, 515, 24, 1.5, d=3,
+                scale=[0.1, 0.25, 0.3], n_cols=130, seed=3)
+
+
+def test_bf16x3_skew_is_bounded(dev):
+    """'bf16x3' rounds v, so u.Kv and v.Ku differ: by less than 1e-4 of
+    |u| |Kv| (the reference's bound), where 'highest' keeps 1e-6."""
+    rng = np.random.RandomState(2)
+    pts = torch.as_tensor(rng.rand(3001, 2), dtype=F32, device=dev)
+    u, v = (torch.as_tensor(rng.standard_normal((3001, 1)), dtype=F32,
+                            device=dev) for _ in range(2))
+    Kv = cuda_kernels.matern_matmat(pts, 0.1, v, 0.5,
+                                    dot_mode="bf16x3").double()
+    Ku = cuda_kernels.matern_matmat(pts, 0.1, u, 0.5,
+                                    dot_mode="bf16x3").double()
+    a = float((u.double() * Kv).sum())
+    b = float((v.double() * Ku).sum())
+    scale = float(torch.linalg.norm(u.double()) * torch.linalg.norm(Kv))
+    assert abs(a - b) / scale < 1e-4
+
+
+def test_mma_wrapper_counts_launches(dev):
+    """The tensor-core kernel multiplies, the FP32 kernel sums k^2: a mode
+    asked for both launches both, and the trace is the exact one."""
+    pts = torch.rand(300, 2, device=dev)
+    V = torch.rand(300, 3, device=dev)
+    cuda_kernels.reset_launch_counts()
+    out, fro = cuda_kernels.matern_matmat(pts, 0.1, V, 0.5,
+                                          dot_mode="bf16x3", frobenius=True)
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1
+    _, exact = cuda_kernels.matern_matmat(pts, 0.1, None, 0.5,
+                                          frobenius=True)
+    assert float(fro) == float(exact)
+    op = MaternOperator(pts, 0.1, device=dev, dot_mode="bf16")
+    cuda_kernels.reset_launch_counts()
+    op.matmat(V)
+    op.trace_pow(2)
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1
+    with pytest.raises(TypeError, match="float32"):
+        cuda_kernels.matern_matmat(pts.double(), 0.1, V.double(), 0.5,
+                                   dot_mode="bf16x3")
+    with pytest.raises(ValueError, match="dot_mode must be one of"):
+        cuda_kernels.matern_matmat(pts, 0.1, V, 0.5, dot_mode="tf32")
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("r", [1, 8, 16, 24])
+def test_multirho_modes(dev, dot_mode, r):
+    rng = np.random.RandomState(r)
+    n, B = 3001, 3
+    pts = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
+    rhos = torch.as_tensor(np.linspace(0.06, 0.3, B), dtype=F32, device=dev)
+    V = torch.as_tensor(rng.standard_normal((B, n, r)), dtype=F32,
+                        device=dev)
+    got, tk2 = cuda_kernels.matern_matmat_multirho(
+        pts, rhos, V, 1.5, dot_mode=dot_mode, return_frobenius=True)
+    torch.cuda.synchronize()
+    own = cuda_kernels.matern_matmat_multirho_plain(pts, rhos, V, 1.5,
+                                                    dot_mode=dot_mode)
+    want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
+        pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), 1.5,
+        return_frobenius=True, dot_mode="highest")
+    _assert_mode_bounds(got, own, want, dot_mode)
+    np.testing.assert_allclose(tk2.cpu().numpy(), tk2_want.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("r", [1, 7, 24, 33])
+def test_blocksparse_modes(dev, dot_mode, r):
+    n = 3001
+    op, args, kw = _tapered(dev, n, 0.5, 128, seed=3)
+    rng = np.random.RandomState(r)
+    V = torch.zeros((op.n_pad, r), device=dev)
+    V[:n] = torch.as_tensor(rng.standard_normal((n, r)), dtype=F32)
+    got, fro = cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, V, *args, dot_mode=dot_mode, frobenius=True, **kw)
+    torch.cuda.synchronize()
+    own = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted, V, *args, dot_mode=dot_mode, **kw)
+    want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V.double(), *args, frobenius=True,
+        dot_mode="highest", **kw)
+    _assert_mode_bounds(got, own, want, dot_mode)
+    np.testing.assert_allclose(float(fro), float(fro_want), rtol=1e-5)
+    assert not bool(got[n:].any())
+
+
+def test_engine_n1024_bf16x3_matches_cpu_highest(dev):
+    rng = np.random.RandomState(0)
+    pts = rng.rand(1024, 2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    probes = np.sign(rng.standard_normal((1024, 16)))
+    v_defl = rng.standard_normal((1024, 1))
+    fits = []
+    cuda_kernels.reset_launch_counts()
+    for device, dtype, mode in ((dev, F32, "bf16x3"), ("cpu", F64,
+                                                       "highest")):
+        op = MaternOperator(pts, 0.1, nu=0.5, device=device, dtype=dtype,
+                            dot_mode=mode)
+        fits.append(KrylovProfileLikelihood(
+            op, X, z, lanczos_steps=32, num_probes=16, device=device,
+            dtype=dtype, probes=probes, v_defl=v_defl).fit())
+    got, want = fits
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 32
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1
+    assert got["success"] and want["success"]
+    np.testing.assert_allclose(got["eta"], want["eta"], rtol=5e-2)
+    np.testing.assert_allclose(got["sigma0"], want["sigma0"], rtol=5e-3)
+
+
+def test_entry_points_on_the_card(dev):
+    """Both entry points at n = 4096: the mode's kernel is the one that
+    ran, and no share of a peak reads above 100."""
+    rec = profile_kernel_matrix.run_one("bf16x3", n=4096, device=dev,
+                                        lanczos_steps=16, num_probes=4,
+                                        chain_reps=5)
+    assert rec["launches_per_construction"] == {"matern_matmat_mma": 16,
+                                                "matern_matmat": 1}
+    assert 1e-7 < rec["rel_err_vs_plain"] < 2e-5
+    out = roofline_matvec.main(n=4096, device=dev, warm=1, reps=3,
+                               verbose=False)
+    assert len(out["rows"]) == 12
+    for row in out["rows"]:
+        assert 0 <= row["pct_f32_peak"] <= 100
+        assert 0 <= row["pct_bf16_peak"] <= 100
+        kernel = ("matern_matmat" if row["dot_mode"] == "highest"
+                  else "matern_matmat_mma")
+        assert row["launches"] == {kernel: 4}

@@ -107,9 +107,9 @@ def test_multirho_rejects():
     pts = torch.rand(20, 2, dtype=F64)
     V = torch.rand(2, 20, 3, dtype=F64)
     rhos = [0.1, 0.2]
-    with pytest.raises(NotImplementedError, match="bf16x3"):
+    with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5,
-                                            dot_mode="bf16x3")
+                                            dot_mode="bf16x2")
     with pytest.raises(NotImplementedError, match="general nu"):
         cuda_kernels.matern_matmat_multirho(pts, rhos, V, 1.0)
     with pytest.raises(ValueError, match="V must be"):

@@ -198,6 +198,10 @@ def test_cpu_path_launches_no_kernel():
     op = tops.MaternOperator(pts, scale, device="cpu", dtype=F64)
     op.matmat(V)
     op.trace_pow(2)
+    tops.MaternOperator(pts, scale, device="cpu", dtype=F64,
+                        dot_mode="bf16x3").matmat(V)
+    cuda_kernels.matern_matmat(_t(pts), scale, _t(V), 0.5, dot_mode="bf16",
+                               dist_mode="gram")
     cuda_kernels.matern_matmat_multirho(_t(pts), [0.1, 0.2],
                                         _t(np.stack([V, V])), 0.5)
     top = ttaper.TaperedMaternOperator(pts, 0.1, density=0.1, tile=16,
@@ -205,8 +209,8 @@ def test_cpu_path_launches_no_kernel():
     top.matmat(V)
     top.trace_pow(2)
     assert cuda_kernels.launch_counts == {
-        "matern_matmat": 0, "matern_matmat_multirho": 0,
-        "matern_matmat_blocksparse": 0}
+        "matern_matmat": 0, "matern_matmat_mma": 0,
+        "matern_matmat_multirho": 0, "matern_matmat_blocksparse": 0}
 
 
 @pytest.mark.parametrize("kind", ["general_nu", "bf16", "bf16x3", "gram",
@@ -220,13 +224,29 @@ def test_unported_or_invalid_requests_raise(kind):
         with pytest.raises(NotImplementedError):
             tops.MaternOperator(pts, scale, nu=3.0, device="cpu")
     elif kind in ("bf16", "bf16x3"):
-        with pytest.raises(NotImplementedError, match="dot_mode"):
-            cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dot_mode=kind)
-        with pytest.raises(NotImplementedError):
-            tops.MaternOperator(pts, scale, device="cpu", dot_mode=kind)
+        # ported: the mode runs, through the wrapper and the operator, and
+        # rounds (it differs from the exact product, by less than bf16's
+        # 2^-8); a name that is no mode raises with the reference's wording
+        want = cuda_kernels.matern_matmat(P, scale, Vt, 0.5)
+        got = cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dot_mode=kind)
+        op = tops.MaternOperator(pts, scale, device="cpu", dtype=F64,
+                                 dot_mode=kind)
+        assert torch.equal(op.matmat(Vt), got)
+        err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        assert 0 < err < 2 ** -8
+        with pytest.raises(ValueError, match="dot_mode must be one of"):
+            cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dot_mode=kind + "x")
+        with pytest.raises(ValueError, match="dot_mode must be one of"):
+            tops.MaternOperator(pts, scale, device="cpu", dot_mode="fp8")
     elif kind == "gram":
-        with pytest.raises(NotImplementedError, match="dist_mode"):
-            cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dist_mode="gram")
+        # ported: the Gram form runs and agrees with the difference form to
+        # float64 cancellation; an unknown form raises
+        want = cuda_kernels.matern_matmat(P, scale, Vt, 0.5)
+        got = cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dist_mode="gram")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        with pytest.raises(ValueError, match="dist_mode must be 'diff' or"):
+            cuda_kernels.matern_matmat(P, scale, Vt, 0.5, dist_mode="dot")
     elif kind == "meta_device":
         # neither cpu nor cuda: no plain-version fallback, a clean error
         with pytest.raises(ValueError, match="cpu or cuda"):
@@ -240,7 +260,7 @@ def test_unported_or_invalid_requests_raise(kind):
 def test_build_command_flags():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/x.so")
     # one compile per source, each for sm_90a and without fast math
-    assert len(compiles) == len(_build.SOURCES) == 3
+    assert len(compiles) == len(_build.SOURCES) == 4
     objects = []
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -250,7 +270,7 @@ def test_build_command_flags():
         assert len(sources) == 1 and os.path.isfile(sources[0])
         objects.append(cmd[cmd.index("-o") + 1])
     assert link[:4] == ["nvcc", "-shared", "-o", "/tmp/x.so"]
-    assert link[4:] == objects and len(set(objects)) == 3
+    assert link[4:] == objects and len(set(objects)) == 4
     flagged = _build.nvcc_commands("nvcc", "/tmp/x.so", ("-Xptxas", "-v"))
     assert all("-Xptxas" in cmd for cmd in flagged[0])
     # the library name is keyed by sources, headers and flags

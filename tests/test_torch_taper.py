@@ -151,9 +151,9 @@ def test_blocksparse_rejects():
     pts = torch.rand(64, 2, dtype=F64)
     V = torch.rand(64, 2, dtype=F64)
     pi = pj = np.arange(2, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat_blocksparse(pts, V, 0.5, 0.1, pi, pj, 32,
-                                               dot_mode="bf16")
+                                               dot_mode="bf8")
     with pytest.raises(ValueError, match="multiple of tile"):
         cuda_kernels.matern_matmat_blocksparse(pts, V, 0.5, 0.1, pi, pj, 48)
     with pytest.raises(ValueError, match="real points"):

@@ -3,6 +3,8 @@
 
     python3 chip_profile.py ptxas           # registers and spills per kernel
     python3 chip_profile.py main grid taper # torch.profiler, one setup each
+    python3 chip_profile.py --dot-mode bf16x3 grid taper
+    python3 chip_profile.py modes           # kernel ms under each dot mode
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -12,8 +14,17 @@ compiler reports.
 full-size paths twice - a warm-up, then one construction under
 ``torch.profiler`` - and print one JSON line: the host window, the device
 time by kernel name, and the device's idle share of the window (one minus
-the union of the kernel intervals over the window). Exits non-zero without
-a CUDA device.
+the union of the kernel intervals over the window). ``--dot-mode`` makes
+that tile-dot mode the module default for the profiled setups.
+
+``modes`` times the three products through their public wrappers at the
+paths' shapes (matern_matmat n = 100,000, r = 24; matern_matmat_multirho
+B = 8, r = 16; matern_matmat_blocksparse n = 2^20, r = 24) under every
+tile-dot mode, in turns, median of 7. It uses nothing but the wrappers, so
+the same file run from a checkout of another commit times that commit's
+kernels: two commits in one call on one card is the comparison that counts.
+
+Exits non-zero without a CUDA device.
 """
 
 import json
@@ -30,7 +41,7 @@ import torch
 import chip_smoke as cs
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
-from gppe_tpu_torch.ops import _build
+from gppe_tpu_torch.ops import _build, cuda_kernels
 from gppe_tpu_torch.ops.operators import MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
 
@@ -113,6 +124,7 @@ def profile_setup(name, build):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     print(json.dumps({
         "phase": f"profile_{name}", "nvidia_smi": cs.nvidia_smi(),
+        "dot_mode": cuda_kernels.DEFAULT_DOT_MODE,
         "window_ms_profiled": window_ms,
         "window_ms_unprofiled": plain_window_ms,
         "device_busy_ms": busy_ms,
@@ -122,12 +134,49 @@ def profile_setup(name, build):
         - sum(t for _, (_, t) in top)}), flush=True)
 
 
+def mode_times(dev):
+    """Median ms of each product at its path's shape under each dot mode."""
+    pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
+    P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    V = torch.randn((cs.N_MAIN, 24), generator=g, device=dev)
+    B = len(cs.GRID_RHOS)
+    rhos = torch.as_tensor(cs.GRID_RHOS, dtype=torch.float32, device=dev)
+    VB = torch.randn((B, cs.N_MAIN, 16), generator=g, device=dev)
+    tpts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
+    op = TaperedMaternOperator(tpts, cs.TAPER_SCALE, nu=cs.NU,
+                               density=cs.TAPER_DENSITY, device=dev)
+    VT = torch.randn((op.n_pad, 24), generator=g, device=dev)
+    VT[op.shape[0]:] = 0
+    fns = {}
+    for mode in cuda_kernels.DOT_MODES:
+        fns[f"matern_matmat[{mode}]"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat(P, cs.RHO, V, cs.NU, dot_mode=mode)
+        fns[f"matern_matmat_multirho[{mode}]"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_multirho(P, rhos, VB, cs.NU,
+                                                dot_mode=mode)
+        fns[f"matern_matmat_blocksparse[{mode}]"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, VT, op.nu, op.threshold, op.pair_i,
+                op._pair_j, op.tile, n=op.shape[0], row_ptr=op._row_ptr,
+                dot_mode=mode)
+    med, times = cs.median_in_turns(fns)
+    print(json.dumps({"phase": "mode_times", "nvidia_smi": cs.nvidia_smi(),
+                      "n": cs.N_MAIN, "n_tapered": op.shape[0], "reps": 7,
+                      "ms_median": med, "ms_all": times}), flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: needs an NVIDIA GPU")
     dev = cs.phase_device()
+    if "--dot-mode" in argv:
+        cuda_kernels.DEFAULT_DOT_MODE = cuda_kernels.resolve_dot_mode(
+            argv[argv.index("--dot-mode") + 1])
     if "ptxas" in argv:
         ptxas_report()
+    if "modes" in argv:
+        mode_times(dev)
     if "main" in argv:
         pts, z, X = cs.make_problem(cs.N_MAIN, 7)
         op = MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)

@@ -10,9 +10,12 @@ each against its plain PyTorch version on the card:
     KrylovProfileLikelihood -> fit; kernel matern_matmat);
   * the grid-batched MLE over 8 rhos at n = 100,000
     (GridKrylovProfileLikelihood -> fit_all; kernel
-    matern_matmat_multirho);
+    matern_matmat_multirho, and under 'bf16x3' the tensor-core kernel
+    matern_matmat_multirho_mma);
   * the tapered-sparse MLE at n = 2^20 grid points (TaperedMaternOperator
-    -> KrylovProfileLikelihood -> fit; kernel matern_matmat_blocksparse);
+    -> KrylovProfileLikelihood -> fit; kernel matern_matmat_blocksparse,
+    and under 'bf16x3' the tensor-core kernel
+    matern_matmat_blocksparse_mma);
   * the precision-matrix path: the n = 100,000 MLE under each tile-dot
     mode (drivers.profile_kernel_matrix.run_one -> fit; 'bf16x3' and
     'bf16' on the tensor-core kernel matern_matmat_mma), and the roofline
@@ -43,8 +46,8 @@ Phases, each raising on failure:
  13. kernel and plain time (and error) of the multi-rho and block-sparse
      kernels at their paths' shapes;
  14. the tile-dot modes and the Gram form vs their own plain versions
-     (float32, same rounding) and vs plain float64 'highest', in all three
-     kernels;
+     (float32, same rounding) and vs plain float64 'highest': the three
+     tensor-core kernels and the Gram flag;
  15. the n = 1024 engine under 'bf16x3' on cuda vs cpu float64 'highest';
      the small grid and tapered engines, then the grid path (n = 100,000,
      8 rhos) and the tapered path (n = 2^20) at full size, under 'bf16x3'
@@ -53,7 +56,7 @@ Phases, each raising on failure:
      engine fitted, with launch counts;
  17. the roofline sweep at n = 100,000, 12 rows;
  18. kernel and plain time (and error) of the mode and Gram kernels at
-     their paths' shapes.
+     their paths' shapes, the multi-rho one rho by rho.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device.
@@ -615,7 +618,7 @@ def phase_grid_path(dev):
                                "sigma0_rel_gap": sigma0_gap})
     if not ok:
         raise AssertionError(f"grid path failed: launches {launches}")
-    return launches["matern_matmat_multirho"], results
+    return launches["matern_matmat_multirho"], results, setup_s
 
 
 # -- the tapered path ---------------------------------------------------------
@@ -698,7 +701,7 @@ def phase_tapered_path(dev):
         peak_device_memory_bytes=peak)
     if not ok:
         raise AssertionError(f"tapered path failed: {res}, {launches}")
-    return launches["matern_matmat_blocksparse"], op, res
+    return launches["matern_matmat_blocksparse"], op, res, setup_s
 
 
 # -- times of the two new kernels at their paths' shapes ----------------------
@@ -887,8 +890,7 @@ def mode_case(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=RHO,
     got = cuda_kernels.matern_matmat(pts, scale, V, nu, **kw)
     torch.cuda.synchronize()
     kernel = "matern_matmat" if dot_mode == "highest" else "matern_matmat_mma"
-    launched = {k: v - before[k] for k, v in cuda_kernels.launch_counts.items()
-                if v != before[k]}
+    launched = launched_since(before)
     assert launched == {kernel: 1}, launched
     assert got.shape == (n, r) and bool(torch.isfinite(got).all())
     own = cuda_kernels.matern_matmat_plain(
@@ -918,21 +920,35 @@ def mode_case(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=RHO,
                              f"is out of its bounds: {rec}")
 
 
+def launched_since(before):
+    """The launch counters that moved since the snapshot ``before``."""
+    return {k: v - before[k] for k, v in cuda_kernels.launch_counts.items()
+            if v != before[k]}
+
+
 def multirho_mode_case(dev, dot_mode, n, B, r, nu, d=2, seed=0):
+    """One product and trace launch of the multi-rho pair of kernels under
+    a bf16 mode. The rho batch is that of the grid path, stretched by
+    sqrt(d / 2) so that the scaled distances stay of its order in any d."""
     g = torch.Generator(device=dev).manual_seed(seed)
     pts = torch.rand((n, d), generator=g, device=dev)
-    rhos = torch.linspace(0.05, 0.3, B, device=dev)
+    rhos = torch.linspace(0.05, 0.3, B, device=dev) * float(np.sqrt(d / 2))
     V = torch.randn((B, n, r), generator=g, device=dev)
+    before = dict(cuda_kernels.launch_counts)
     got, tk2 = cuda_kernels.matern_matmat_multirho(
         pts, rhos, V, nu, dot_mode=dot_mode, return_frobenius=True)
     torch.cuda.synchronize()
+    launched = launched_since(before)
+    assert launched == {"matern_matmat_multirho_mma": 1,
+                        "matern_matmat_multirho": 1}, launched
+    assert got.shape == (B, n, r) and bool(torch.isfinite(got).all())
     own = cuda_kernels.matern_matmat_multirho_plain(
         pts, rhos, V, nu, dot_mode=dot_mode, block_rows=4096)
     want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
         pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), nu,
         return_frobenius=True, block_rows=4096, dot_mode="highest")
-    rec = {"kernel": "matern_matmat_multirho", "dot_mode": dot_mode, "n": n,
-           "B": B, "r": r, "nu": nu, "d": d,
+    rec = {"kernel": "matern_matmat_multirho_mma", "dot_mode": dot_mode,
+           "n": n, "B": B, "r": r, "nu": nu, "d": d,
            "trace_rel_err": float(torch.max(
                torch.abs(tk2 - tk2_want) / tk2_want))}
     rec.update(mode_errors(got, own, want))
@@ -944,30 +960,55 @@ def multirho_mode_case(dev, dot_mode, n, B, r, nu, d=2, seed=0):
                              f"out of its bounds: {rec}")
 
 
-def blocksparse_mode_case(dev, dot_mode, n, r, nu, tile, seed=0):
-    pts = np.random.RandomState(seed).rand(n, 2)
-    op = TaperedMaternOperator(pts, 0.05, nu=nu, density=0.02, tile=tile,
+def blocksparse_mode_case(dev, dot_mode, n, r, nu, tile, d=2, scale=0.05,
+                          seed=0):
+    rng = np.random.RandomState(seed)
+    if d <= 3:
+        pts = rng.rand(n, d)
+    else:
+        # a flat cloud of side 10 turned into d dimensions: in a cube of
+        # that many dimensions the taper ball holds most of the points and
+        # no threshold is clear of every pair
+        q, _ = np.linalg.qr(rng.standard_normal((d, 2)))
+        pts = (10.0 * rng.rand(n, 2)) @ q.T
+    op = TaperedMaternOperator(pts, scale, nu=nu, density=0.02, tile=tile,
                                device=dev)
     tau = clear_threshold(op)
     g = torch.Generator(device=dev).manual_seed(seed)
-    V = torch.zeros((op.n_pad, r), device=dev)
-    V[:n] = torch.randn((n, r), generator=g, device=dev)
+
+    def padded(width):
+        X = torch.zeros((op.n_pad, width), device=dev)
+        X[:n] = torch.randn((n, width), generator=g, device=dev)
+        return X
+
+    V = padded(r)
     args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=n, row_ptr=op._row_ptr)
+    before = dict(cuda_kernels.launch_counts)
     got, fro = cuda_kernels.matern_matmat_blocksparse(
         op.points_sorted, V, *args, dot_mode=dot_mode, frobenius=True, **kw)
     torch.cuda.synchronize()
+    launched = launched_since(before)
+    assert launched == {"matern_matmat_blocksparse_mma": 1,
+                        "matern_matmat_blocksparse": 1}, launched
     own = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted, V, *args, dot_mode=dot_mode, **kw)
     want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), V.double(), *args, frobenius=True,
         dot_mode="highest", **kw)
+    assert got.shape == (op.n_pad, r) and bool(torch.isfinite(got).all())
     assert not bool(got[n:].any())
-    rec = {"kernel": "matern_matmat_blocksparse", "dot_mode": dot_mode,
-           "n": n, "r": r, "nu": nu, "tile": op.tile, "tau": tau,
+    rec = {"kernel": "matern_matmat_blocksparse_mma", "dot_mode": dot_mode,
+           "n": n, "r": r, "nu": nu, "d": d, "tile": op.tile,
+           "pairs": len(op.pair_i), "tau": tau,
            "trace_rel_err": abs(float(fro) - float(fro_want))
            / float(fro_want)}
     rec.update(mode_errors(got, own, want))
+    if r == 1:
+        u = padded(1)
+        Ku = cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, u, *args, dot_mode=dot_mode, **kw)
+        rec.update(symmetry(u, V, Ku, got))
     ok = mode_verdict(rec, dot_mode) and rec["trace_rel_err"] < TRACE_RTOL
     log(phase="parity_modes", ok=ok, **rec)
     if not ok:
@@ -987,14 +1028,30 @@ def phase_parity_modes(dev):
                            n_cols=1025, seed=2)]
             for c in cases:
                 mode_case(dev, dot_mode, dist_mode, **c)
+    # the tensor-core kernels of the multi-rho and the block-sparse product:
+    # every width class (1, 2, 3 n8 tiles, chunks), batches that fill, half
+    # fill and overflow a block's rho group, ragged n, every nu, d up to 8
     for dot_mode in NEW_MODES:
-        for c in ([dict(n=3001, B=3, r=r, nu=0.5) for r in (1, 8, 16, 24)]
+        for c in ([dict(n=3001, B=3, r=r, nu=0.5)
+                   for r in (1, 8, 16, 23, 24, 40)]
                   + [dict(n=1024, B=8, r=16, nu=1.5),
-                     dict(n=3001, B=3, r=7, nu=2.5, d=3, seed=3)]):
+                     dict(n=3001, B=9, r=16, nu=2.5, seed=1),
+                     dict(n=2050, B=1, r=24, nu=150.0, seed=2),
+                     dict(n=3001, B=3, r=8, nu=0.5, d=1, seed=3),
+                     dict(n=3001, B=3, r=7, nu=2.5, d=3, seed=4),
+                     dict(n=2050, B=8, r=16, nu=1.5, d=8, seed=5)]):
             multirho_mode_case(dev, dot_mode, **c)
         for c in ([dict(n=3001, r=r, nu=0.5, tile=128, seed=3)
-                   for r in (1, 7, 24, 33)]
-                  + [dict(n=3001, r=16, nu=1.5, tile=512, seed=4)]):
+                   for r in (1, 8, 16, 23, 24, 40)]
+                  + [dict(n=3001, r=16, nu=1.5, tile=512, seed=4),
+                     dict(n=2050, r=24, nu=2.5, tile=512, seed=5),
+                     dict(n=3001, r=7, nu=150.0, tile=128, seed=6),
+                     dict(n=3001, r=8, nu=0.5, tile=128, d=1, scale=0.005,
+                          seed=7),
+                     dict(n=3001, r=24, nu=1.5, tile=128, d=3, scale=0.2,
+                          seed=8),
+                     dict(n=2050, r=8, nu=0.5, tile=512, d=8, scale=1.0,
+                          seed=9)]):
             blocksparse_mode_case(dev, dot_mode, **c)
 
 
@@ -1071,8 +1128,10 @@ def phase_engines_bf16x3(dev):
                  "success": bool(got_taper["success"])})
     ok = (all(r["success"] and r["eta_rel_err"] < 5e-2
               and r["sigma0_rel_err"] < 5e-3 for r in recs)
-          and launches["matern_matmat_multirho"] == 33
-          and launches["matern_matmat_blocksparse"] == STEPS + 1)
+          and launches["matern_matmat_multirho_mma"] == 32
+          and launches["matern_matmat_multirho"] == 1
+          and launches["matern_matmat_blocksparse_mma"] == STEPS
+          and launches["matern_matmat_blocksparse"] == 1)
     log(phase="engines_default_bf16x3", ok=ok, launches=launches,
         engines=recs)
     if not ok:
@@ -1080,12 +1139,15 @@ def phase_engines_bf16x3(dev):
                              "bf16x3 disagrees with cpu float64")
 
 
-def phase_paths_bf16x3(dev, grid_exact, taper_op, taper_exact):
+def phase_paths_bf16x3(dev, grid_exact, taper_op, taper_exact,
+                       setup_seconds_highest):
     """The grid path (one chunk of 8 rhos at n = 100,000) and the tapered
     path (n = 2^20) at full size with 'bf16x3' made the module default by
-    assignment: the launches of B2 and B3 under the mode, counted at the
-    shapes their times are taken at. ``grid_exact`` and ``taper_exact`` are
-    the fits of the same paths under 'highest' (phases 10 and 12); the
+    assignment: the launches of the two tensor-core kernels, counted at the
+    shapes their times are taken at (each construction also launches its
+    exact kernel once, for the trace). ``grid_exact`` and ``taper_exact``
+    are the fits of the same paths under 'highest' (phases 10 and 12) and
+    ``setup_seconds_highest`` their (grid, tapered) setup seconds; the
     tapered operator's geometry does not depend on the mode and is reused."""
     pts, z, X = make_problem(N_MAIN, 7)
     B = len(GRID_RHOS)
@@ -1132,21 +1194,26 @@ def phase_paths_bf16x3(dev, grid_exact, taper_op, taper_exact):
               and f["sigma0_rel_gap_to_highest"] < 1e-3
               for f in fits + [taper])
           and 0.18 < res["sigma0"] < 0.22
-          and grid_launches["matern_matmat_multirho"] == GRID_STEPS + 1
-          and taper_launches["matern_matmat_blocksparse"] == STEPS + 1
-          and grid_launches["matern_matmat"] == 0
-          and taper_launches["matern_matmat"] == 0)
+          and grid_launches == {**dict.fromkeys(grid_launches, 0),
+                                "matern_matmat_multirho_mma": GRID_STEPS,
+                                "matern_matmat_multirho": 1}
+          and taper_launches == {**dict.fromkeys(taper_launches, 0),
+                                 "matern_matmat_blocksparse_mma": STEPS,
+                                 "matern_matmat_blocksparse": 1})
     log(phase="paths_default_bf16x3", ok=ok, n_grid=N_MAIN, B=B,
         n_tapered=taper_op.shape[0], grid_setup_seconds=grid_s,
-        tapered_setup_seconds=taper_s, grid_launches=grid_launches,
+        tapered_setup_seconds=taper_s,
+        grid_setup_seconds_highest=setup_seconds_highest[0],
+        tapered_setup_seconds_highest=setup_seconds_highest[1],
+        grid_launches=grid_launches,
         tapered_launches=taper_launches, grid_fits=fits, tapered_fit=taper)
     if not ok:
         raise AssertionError("the grid or the tapered path under the "
                              "default bf16x3 failed")
-    return {"matern_matmat_multirho":
-            grid_launches["matern_matmat_multirho"],
-            "matern_matmat_blocksparse":
-            taper_launches["matern_matmat_blocksparse"]}
+    return {"matern_matmat_multirho_mma":
+            grid_launches["matern_matmat_multirho_mma"],
+            "matern_matmat_blocksparse_mma":
+            taper_launches["matern_matmat_blocksparse_mma"]}
 
 
 def phase_precision_matrix(dev):
@@ -1220,8 +1287,10 @@ def phase_roofline(dev):
 def phase_mode_time(dev, taper_op):
     """Kernel, plain and error at the paths' shapes: matern_matmat at
     n = 100,000, r = 24 under diff/bf16x3, diff/bf16 and gram/highest, with
-    diff/highest timed in the same turns; multirho (B = 8, r = 16) and
-    blocksparse (the full-size pair list, r = 24) under 'bf16x3'."""
+    diff/highest timed in the same turns; the tensor-core multirho kernel
+    (B = 8, r = 16) and blocksparse kernel (the full-size pair list,
+    r = 24) under both bf16 modes, their 'highest' kernels in the same
+    turns."""
     pts, _, _ = make_problem(N_MAIN, 7)
     r, d = 24, 2
     P = torch.as_tensor(pts, dtype=F32, device=dev)
@@ -1275,46 +1344,59 @@ def phase_mode_time(dev, taper_op):
         raise AssertionError("a mode kernel is out of its bounds at the "
                              "main path's shape")
 
-    # multirho under bf16x3 at the grid path's shape
+    # the tensor-core multirho kernel at the grid path's shape, held to its
+    # bounds one rho at a time: K is nearly dense at the largest rho, where
+    # the sums are longest
     B, r2 = len(GRID_RHOS), 16
     rhos = torch.as_tensor(GRID_RHOS, dtype=F32, device=dev)
     g = torch.Generator(device=dev).manual_seed(12)
     V2 = torch.randn((B, N_MAIN, r2), generator=g, device=dev)
-    fns = {"kernel": lambda: cuda_kernels.matern_matmat_multirho(
-               P, rhos, V2, NU, dot_mode="bf16x3"),
-           "plain": lambda: cuda_kernels.matern_matmat_multirho_plain(
-               P, rhos, V2, NU, dot_mode="bf16x3"),
-           "kernel_highest": lambda: cuda_kernels.matern_matmat_multirho(
-               P, rhos, V2, NU)}
+    fns = {"kernel_highest": lambda: cuda_kernels.matern_matmat_multirho(
+        P, rhos, V2, NU)}
+    for mode in NEW_MODES:
+        fns[f"kernel_{mode}"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_multirho(P, rhos, V2, NU,
+                                                dot_mode=mode)
+        fns[f"plain_{mode}"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_multirho_plain(P, rhos, V2, NU,
+                                                      dot_mode=mode)
     med, times = median_in_turns(fns)
     want = cuda_kernels.matern_matmat_multirho_plain(
         P.double(), 1.0 / (1.0 / rhos).double(), V2.double(), NU)
-    rec = {"kernel": "matern_matmat_multirho", "dot_mode": "bf16x3"}
-    got, own = fns["kernel"](), fns["plain"]()
-    rec.update(mode_errors(got, own, want))
-    del want, got, own
-    ok = mode_verdict(rec, "bf16x3")
-    # the bound is the function's, not this kernel's choice of FP32 FMAs:
-    # the three products are bf16 operands with float32 sums, charged to
-    # the tensor cores' peak; the distance, the closed form and the
-    # rounding of k per rho stay CUDA-core operations
-    bound_ms, bound_by = bound(
-        4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
-        pairs * (3 * d + 1 + B * (nu_ops(NU) + 5)),
-        pairs * B * 6 * r2)
-    out["multirho_bf16x3"] = {
-        "max_abs_err": rec["max_abs_err"], "ms": med["kernel"],
-        "plain_ms": med["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
-    log(phase="mode_time", ok=ok, n=N_MAIN, B=B, r=r2, reps=7, **rec,
-        kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
-        kernel_highest_ms_median=med["kernel_highest"], bound_ms=bound_ms,
-        bound_by=bound_by, kernel_ms_all=times["kernel"])
-    if not ok:
-        raise AssertionError("multirho under bf16x3 is out of its bounds at "
-                             "the grid path's shape")
-    del V2
+    for mode in NEW_MODES:
+        got, own = fns[f"kernel_{mode}"](), fns[f"plain_{mode}"]()
+        per_rho = [mode_errors(got[b], own[b], want[b]) for b in range(B)]
+        ok = all(mode_verdict(e, mode) for e in per_rho)
+        rec = {"kernel": "matern_matmat_multirho_mma", "dot_mode": mode,
+               "rhos": list(GRID_RHOS),
+               **{k: [e[k] for e in per_rho] for k in per_rho[0]}}
+        del got, own
+        # the bound is the function's: the products are bf16 operands with
+        # float32 sums, charged to the tensor cores' peak; the distance, the
+        # closed form and the rounding of k per rho are CUDA-core operations
+        products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
+        bound_ms, bound_by = bound(
+            4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
+            pairs * (3 * d + 1 + B * (nu_ops(NU) + rounding)),
+            pairs * B * 2 * r2 * products)
+        out[f"multirho_{mode}"] = {
+            "max_abs_err": max(rec["max_abs_err"]),
+            "ms": med[f"kernel_{mode}"], "plain_ms": med[f"plain_{mode}"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        log(phase="mode_time", ok=ok, n=N_MAIN, B=B, r=r2, reps=7, **rec,
+            kernel_ms_median=med[f"kernel_{mode}"],
+            plain_f32_ms_median=med[f"plain_{mode}"],
+            kernel_highest_ms_median=med["kernel_highest"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            kernel_ms_all=times[f"kernel_{mode}"])
+        if not ok:
+            raise AssertionError(f"multirho under {mode} is out of its "
+                                 f"bounds at the grid path's shape")
+    del want, V2
 
-    # blocksparse under bf16x3 on the tapered path's pair list
+    # the tensor-core blocksparse kernel on the tapered path's pair list;
+    # the errors at a threshold clear of every pair, the times at the
+    # operator's own
     op = taper_op
     n, r3 = op.shape[0], 24
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1323,42 +1405,53 @@ def phase_mode_time(dev, taper_op):
     tau = clear_threshold(op)
     kw = dict(n=n, row_ptr=op._row_ptr)
     geometry = (op.pair_i, op._pair_j, op.tile)
-    got = cuda_kernels.matern_matmat_blocksparse(
-        op.points_sorted, V3, op.nu, tau, *geometry, dot_mode="bf16x3", **kw)
-    own = cuda_kernels.matern_matmat_blocksparse_plain(
-        op.points_sorted, V3, op.nu, tau, *geometry, dot_mode="bf16x3", **kw)
+    args = (op.nu, op.threshold, *geometry)
+    fns = {"kernel_highest": lambda: cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, V3, *args, **kw)}
+    for mode in NEW_MODES:
+        fns[f"kernel_{mode}"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, V3, *args, dot_mode=mode, **kw)
+        fns[f"plain_{mode}"] = lambda mode=mode: \
+            cuda_kernels.matern_matmat_blocksparse_plain(
+                op.points_sorted, V3, *args, dot_mode=mode, **kw)
+    med, times = median_in_turns(fns)
     want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), V3.double(), op.nu, tau, *geometry, **kw)
-    rec = {"kernel": "matern_matmat_blocksparse", "dot_mode": "bf16x3",
-           "tau": tau}
-    rec.update(mode_errors(got, own, want))
-    del want, got, own
-    ok = mode_verdict(rec, "bf16x3")
-    args = (op.nu, op.threshold, *geometry)
-    med, times = median_in_turns({
-        "kernel": lambda: cuda_kernels.matern_matmat_blocksparse(
-            op.points_sorted, V3, *args, dot_mode="bf16x3", **kw),
-        "plain": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
-            op.points_sorted, V3, *args, dot_mode="bf16x3", **kw),
-        "kernel_highest": lambda: cuda_kernels.matern_matmat_blocksparse(
-            op.points_sorted, V3, *args, **kw)})
     real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
     tile_pairs = int(np.sum(real[op.pair_i].astype(np.int64)
                             * real[op.pair_j]))
-    bound_ms, bound_by = bound(
-        4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
-             + len(op.pair_j)),
-        tile_pairs * (3 * d + nu_ops(op.nu) + 1 + 5), tile_pairs * 6 * r3)
-    out["blocksparse_bf16x3"] = {
-        "max_abs_err": rec["max_abs_err"], "ms": med["kernel"],
-        "plain_ms": med["plain"], "bound_ms": bound_ms, "bound_by": bound_by}
-    log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=tile_pairs, **rec,
-        kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
-        kernel_highest_ms_median=med["kernel_highest"], bound_ms=bound_ms,
-        bound_by=bound_by, kernel_ms_all=times["kernel"])
-    if not ok:
-        raise AssertionError("blocksparse under bf16x3 is out of its bounds "
-                             "at the tapered path's shape")
+    for mode in NEW_MODES:
+        got = cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V3, op.nu, tau, *geometry, dot_mode=mode, **kw)
+        again = cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V3, op.nu, tau, *geometry, dot_mode=mode, **kw)
+        own = cuda_kernels.matern_matmat_blocksparse_plain(
+            op.points_sorted, V3, op.nu, tau, *geometry, dot_mode=mode, **kw)
+        rec = {"kernel": "matern_matmat_blocksparse_mma", "dot_mode": mode,
+               "tau": tau, "same_bits_run_to_run": torch.equal(got, again)}
+        rec.update(mode_errors(got, own, want))
+        del got, again, own
+        ok = mode_verdict(rec, mode) and rec["same_bits_run_to_run"]
+        products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
+        bound_ms, bound_by = bound(
+            4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
+                 + len(op.pair_j)),
+            tile_pairs * (3 * d + nu_ops(op.nu) + 1 + rounding),
+            tile_pairs * 2 * r3 * products)
+        out[f"blocksparse_{mode}"] = {
+            "max_abs_err": rec["max_abs_err"], "ms": med[f"kernel_{mode}"],
+            "plain_ms": med[f"plain_{mode}"], "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=tile_pairs,
+            **rec, kernel_ms_median=med[f"kernel_{mode}"],
+            plain_f32_ms_median=med[f"plain_{mode}"],
+            kernel_highest_ms_median=med["kernel_highest"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            kernel_ms_all=times[f"kernel_{mode}"])
+        if not ok:
+            raise AssertionError(f"blocksparse under {mode} is out of its "
+                                 f"bounds at the tapered path's shape")
     return out
 
 
@@ -1381,21 +1474,22 @@ def main():
     phase_parity_multirho(dev)
     phase_parity_blocksparse(dev)
     phase_grid_engine_1024(dev)
-    launches_2, grid_fits = phase_grid_path(dev)
+    launches_2, grid_fits, grid_setup_s = phase_grid_path(dev)
     phase_tapered_engine_16384(dev)
-    launches_3, op, taper_fit = phase_tapered_path(dev)
+    launches_3, op, taper_fit, taper_setup_s = phase_tapered_path(dev)
     measured_2 = phase_multirho_time(dev)
     measured_3 = phase_blocksparse_time(dev, op)
     phase_parity_modes(dev)
     phase_engines_bf16x3(dev)
-    launches_default = phase_paths_bf16x3(dev, grid_fits, op, taper_fit)
+    launches_default = phase_paths_bf16x3(dev, grid_fits, op, taper_fit,
+                                          (grid_setup_s, taper_setup_s))
     launches_mma = phase_precision_matrix(dev)
     launches_gram = phase_roofline(dev)
     measured = phase_mode_time(dev, op)
     if not all((launches_1, launches_2, launches_3, launches_mma["bf16x3"],
                 launches_mma["bf16"], launches_gram,
-                launches_default["matern_matmat_multirho"],
-                launches_default["matern_matmat_blocksparse"])):
+                launches_default["matern_matmat_multirho_mma"],
+                launches_default["matern_matmat_blocksparse_mma"])):
         raise AssertionError("a kernel of a path was never launched on it")
     print(nvidia_smi())
     print(json.dumps({"kernels": [
@@ -1413,12 +1507,13 @@ def main():
                       launches_mma["bf16"], measured["bf16"]),
         kernel_record("matern_matmat[gram]", "matern_matmat.cu", 128,
                       launches_gram, measured["gram"]),
-        kernel_record("matern_matmat_multirho[bf16x3]", "matern_multirho.cu",
-                      64, launches_default["matern_matmat_multirho"],
+        kernel_record("matern_matmat_multirho_mma[bf16x3]",
+                      "matern_multirho_mma.cu", 64,
+                      launches_default["matern_matmat_multirho_mma"],
                       measured["multirho_bf16x3"]),
-        kernel_record("matern_matmat_blocksparse[bf16x3]",
-                      "matern_blocksparse.cu", 64,
-                      launches_default["matern_matmat_blocksparse"],
+        kernel_record("matern_matmat_blocksparse_mma[bf16x3]",
+                      "matern_blocksparse_mma.cu", 64,
+                      launches_default["matern_matmat_blocksparse_mma"],
                       measured["blocksparse_bf16x3"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,14 +31,9 @@
 // per thread, two-level float32 sums, float64 k^2 sums). Every pair of an
 // active tile pair is evaluated, also those beyond the taper radius.
 //
-// The tile-dot modes of ::_tile_dot (MODE; 'bf16x3' and 'bf16') round the
-// tapered k per pair and V as its tile is staged, and sum the one or three
-// products by the same float32 FMAs (round_k, stage_v, tile_fma in
-// matern_common.cuh): bf16 operands and float32 sums, as on the TPU, in this
-// kernel's ownership and summation design. The taper is taken on the
-// unrounded k. These modes add instructions and save none, so they are
-// slower than 'highest' here (tensor cores are a redesign of this kernel);
-// they exist for any d only and carry no trace output.
+// This is the exact tile-dot precision ('highest': IEEE float32 FMAs) and
+// every trace; the 'bf16x3' and 'bf16' products are
+// matern_blocksparse_mma.cu.
 //
 // The hard taper compares float32 k with float32 tau. A pair whose k lies
 // within rounding of tau can fall on the other side than in float64; the
@@ -62,9 +57,8 @@ constexpr int kMaxRC = 32;  // V columns per block; wider V uses grid.y
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded coordinates).
 // RC: V columns per block; 0 for a trace-only launch (V and out unused).
 // FRO: also write the per-row float64 sum of k^2 (grid.y == 0 blocks only).
-// MODE: the tile-dot mode (kDotHighest, kDotBf16x3, kDotBf16).
 // grid.x: row tile * blocks per tile + block within the tile.
-template <int NU, int D, int RC, bool FRO, int MODE>
+template <int NU, int D, int RC, bool FRO>
 __global__ void __launch_bounds__(kRows)
     blocksparse_kernel(const float* __restrict__ pts,
                        const float* __restrict__ V, float* __restrict__ out,
@@ -115,7 +109,7 @@ __global__ void __launch_bounds__(kRows)
           const int c = e % RC;
           s_v[j][c] =
               (j < tc && c0 + c < r)
-                  ? stage_v<MODE>(V[static_cast<int64_t>(j0 + j) * r + c0 + c])
+                  ? V[static_cast<int64_t>(j0 + j) * r + c0 + c]
                   : 0.0f;
         }
       }
@@ -135,12 +129,8 @@ __global__ void __launch_bounds__(kRows)
         float kv = matern_from_d2<NU>(d2);
         kv = kv >= tau ? kv : 0.0f;  // the hard taper
         if constexpr (FRO) fro_tile = fmaf(kv, kv, fro_tile);
-        float k_hi, k_lo;
-        round_k<MODE>(kv, k_hi, k_lo);
 #pragma unroll
-        for (int c = 0; c < RC; ++c) {
-          part[c] = tile_fma<MODE>(k_hi, k_lo, s_v[j][c], part[c]);
-        }
+        for (int c = 0; c < RC; ++c) part[c] = fmaf(kv, s_v[j][c], part[c]);
       }
 #pragma unroll
       for (int c = 0; c < RC; ++c) acc[c] += part[c];
@@ -167,12 +157,12 @@ struct Args {
   double* fro_rows;
   const int* row_ptr;
   const int* col_tiles;
-  int n, d, r, tile, num_tiles, dot_code;
+  int n, d, r, tile, num_tiles;
   float tau;
   cudaStream_t stream;
 };
 
-template <int NU, int D, int RC, bool FRO, int MODE>
+template <int NU, int D, int RC, bool FRO>
 cudaError_t launch(const Args& a) {
   int chunks = 1;
   if constexpr (RC > 0) chunks = (a.r + RC - 1) / RC;
@@ -180,7 +170,7 @@ cudaError_t launch(const Args& a) {
   const int64_t grid_x = static_cast<int64_t>(a.num_tiles) * blocks_per_tile;
   if (grid_x > 2147483647LL || chunks > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(grid_x), chunks);
-  blocksparse_kernel<NU, D, RC, FRO, MODE><<<grid, kRows, 0, a.stream>>>(
+  blocksparse_kernel<NU, D, RC, FRO><<<grid, kRows, 0, a.stream>>>(
       a.pts, a.V, a.out, a.fro_rows, a.row_ptr, a.col_tiles, a.n, a.d, a.r,
       a.tile, blocks_per_tile, a.tau);
   return cudaGetLastError();
@@ -188,14 +178,14 @@ cudaError_t launch(const Args& a) {
 
 template <int NU, int D, int RC>
 cudaError_t launch_fro(const Args& a) {
-  return a.fro_rows != nullptr ? launch<NU, D, RC, true, kDotHighest>(a)
-                               : launch<NU, D, RC, false, kDotHighest>(a);
+  return a.fro_rows != nullptr ? launch<NU, D, RC, true>(a)
+                               : launch<NU, D, RC, false>(a);
 }
 
 template <int NU, int D>
 cudaError_t launch_rc(const Args& a) {
   if (a.r == 0) {
-    return a.fro_rows != nullptr ? launch<NU, D, 0, true, kDotHighest>(a)
+    return a.fro_rows != nullptr ? launch<NU, D, 0, true>(a)
                                  : cudaErrorInvalidValue;
   }
   if (a.r <= 8) return launch_fro<NU, D, 8>(a);
@@ -204,20 +194,8 @@ cudaError_t launch_rc(const Args& a) {
   return launch_fro<NU, D, kMaxRC>(a);
 }
 
-// The bf16 modes: any-d instances, a product and no trace output.
-template <int NU, int MODE>
-cudaError_t launch_mode(const Args& a) {
-  if (a.r == 0 || a.fro_rows != nullptr) return cudaErrorInvalidValue;
-  if (a.r <= 8) return launch<NU, 0, 8, false, MODE>(a);
-  if (a.r <= 16) return launch<NU, 0, 16, false, MODE>(a);
-  if (a.r <= 24) return launch<NU, 0, 24, false, MODE>(a);
-  return launch<NU, 0, kMaxRC, false, MODE>(a);
-}
-
 template <int NU>
 cudaError_t launch_d(const Args& a) {
-  if (a.dot_code == kDotBf16x3) return launch_mode<NU, kDotBf16x3>(a);
-  if (a.dot_code == kDotBf16) return launch_mode<NU, kDotBf16>(a);
   return a.d == 2 ? launch_rc<NU, 2>(a) : launch_rc<NU, 0>(a);
 }
 
@@ -228,17 +206,14 @@ cudaError_t launch_d(const Args& a) {
 // points, of which the first n are real; `row_ptr` has num_tiles + 1 int32
 // entries and `col_tiles` row_ptr[num_tiles] int32 tile indices. `V` and
 // `out` may be null when r == 0; `fro_rows` (num_tiles * tile float64, pad
-// rows left untouched) is null unless the k^2 row sums are wanted, and must
-// be null (and r > 0) when `dot_code` is not kDotHighest.
+// rows left untouched) is null unless the k^2 row sums are wanted.
 extern "C" int gppe_matern_blocksparse(const void* pts, const void* V,
                                        void* out, void* fro_rows,
                                        const void* row_ptr,
                                        const void* col_tiles, int n, int d,
                                        int r, int tile, int num_tiles,
-                                       float tau, int nu_code, int dot_code,
-                                       void* stream) {
+                                       float tau, int nu_code, void* stream) {
   if (n <= 0 || d < 1 || d > kMaxD || r < 0 || tile <= 0 || num_tiles <= 0 ||
-      dot_code < 0 || dot_code > kDotBf16 ||
       static_cast<int64_t>(num_tiles) * tile > 2147483647LL ||
       static_cast<int64_t>(num_tiles) * tile < n) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -254,7 +229,6 @@ extern "C" int gppe_matern_blocksparse(const void* pts, const void* V,
                r,
                tile,
                num_tiles,
-               dot_code,
                tau,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;

@@ -63,6 +63,7 @@
 #include <cstdint>
 
 #include "matern_common.cuh"
+#include "matern_mma.cuh"
 
 using namespace gppe;
 
@@ -72,47 +73,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpRows = 32;            // two m16 tiles per warp
 constexpr int kRows = kWarps * kWarpRows;  // output rows per block
-constexpr int kCols = 128;               // column points per staged tile
-constexpr int kStep = 16;                // depth of one mma
+constexpr int kCols = kMmaCols;          // column points per staged tile
+constexpr int kStep = kMmaStep;          // depth of one mma
 constexpr int kMaxNT = 4;                // n8 tiles per block: 32 V columns
-constexpr int kLdV = kCols + 8;          // bf16 per staged V column
-
-__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(x));
-}
-
-// k0 (the lower column index) and k1 rounded to bf16 and packed into one
-// fragment register; with X3 also their residuals.
-template <bool X3>
-__device__ __forceinline__ void pack_pair(float k0, float k1, uint32_t& hi,
-                                          uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(k0);
-  const __nv_bfloat16 h1 = __float2bfloat16_rn(k1);
-  hi = bf16_bits(h0) | (bf16_bits(h1) << 16);
-  if constexpr (X3) {
-    const __nv_bfloat16 l0 = __float2bfloat16_rn(k0 - __bfloat162float(h0));
-    const __nv_bfloat16 l1 = __float2bfloat16_rn(k1 - __bfloat162float(h1));
-    lo = bf16_bits(l0) | (bf16_bits(l1) << 16);
-  } else {
-    lo = 0u;
-  }
-}
-
-// c += a (16 x 16, row-major fragment) * b (16 x 8, column-major fragment).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  float d0, d1, d2, d3;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-  c[0] = d0;
-  c[1] = d1;
-  c[2] = d2;
-  c[3] = d3;
-}
 
 // NT: n8 tiles of V columns per block. X3: 'bf16x3' (else 'bf16').
 // GRAM: the Gram-form distance from centred points and their norms.
@@ -186,12 +149,7 @@ __global__ void __launch_bounds__(kThreads)
       const float v = (j < tc && c0 + c < r)
                           ? V[static_cast<int64_t>(j0 + j) * r + c0 + c]
                           : 0.0f;
-      const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-      s_vhi[c][j] = __bfloat16_as_ushort(hi);
-      if constexpr (X3) {
-        s_vlo[c][j] = __bfloat16_as_ushort(
-            __float2bfloat16_rn(v - __bfloat162float(hi)));
-      }
+      stage_split<X3>(v, s_vhi[c][j], s_vlo[X3 ? c : 0][X3 ? j : 0]);
     }
     __syncthreads();
 
@@ -283,24 +241,11 @@ __global__ void __launch_bounds__(kThreads)
       // b1 the same column, rows + 8
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(
-            &s_vhi[nt * 8 + g][kk + 2 * tig]);
-        const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(
-            &s_vhi[nt * 8 + g][kk + 8 + 2 * tig]);
-        uint32_t bl0 = 0u, bl1 = 0u;
-        if constexpr (X3) {
-          bl0 = *reinterpret_cast<const uint32_t*>(
-              &s_vlo[nt * 8 + g][kk + 2 * tig]);
-          bl1 = *reinterpret_cast<const uint32_t*>(
-              &s_vlo[nt * 8 + g][kk + 8 + 2 * tig]);
-        }
+        const BFragment b = load_b<X3>(s_vhi[nt * 8 + g],
+                                       s_vlo[X3 ? nt * 8 + g : 0], kk, tig);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(part[mt][nt], a_hi[mt], bh0, bh1);
-          if constexpr (X3) {
-            mma_bf16(part[mt][nt], a_lo[mt], bh0, bh1);
-            mma_bf16(part[mt][nt], a_hi[mt], bl0, bl1);
-          }
+          mma_tile_dot<X3>(part[mt][nt], a_hi[mt], a_lo[mt], b);
         }
       }
     }

@@ -8,7 +8,9 @@
 // float64, so one launch with r = 0 gives trace(K(rho_b)^2) for the batch.
 //
 // Replaces gppe_tpu/ops/pallas_kernels.py::_multirho_kernel, the engine of
-// the grid-batched Krylov factorization (models/grid_krylov.py). It keeps
+// the grid-batched Krylov factorization (models/grid_krylov.py), at the
+// exact tile-dot precision ('highest': IEEE float32 FMAs) and for every
+// trace; the 'bf16x3' and 'bf16' products are matern_multirho_mma.cu. It keeps
 // that kernel's arithmetic order: d^2 by differences on the raw points, one
 // sqrtf, then per rho one multiply by 1/rho_b (rounded to float32 by the
 // caller) and the closed form from the distance (matern_from_r). That
@@ -52,16 +54,6 @@
 //     bound. The compensation terms live in shared memory, one slot per
 //     thread and sum, touched once per 128 columns: held in registers (or
 //     as float64 sums) they cost 40% of the kernel's speed;
-//   * the tile-dot modes of ::_tile_dot (MODE; 'bf16x3' and 'bf16') round k
-//     per pair and V as its tile is staged, and sum the one or three
-//     products by the same float32 FMAs into the same sums (round_k,
-//     stage_v, tile_fma in matern_common.cuh): what the TPU kernel computes
-//     with bf16 operands and float32 sums, in this kernel's ownership and
-//     summation design. That adds instructions and saves none, so these
-//     modes are slower than 'highest' here; moving the products onto the
-//     tensor cores is a redesign of this kernel. They exist for any d only
-//     and carry no trace output (the traces always sum the unrounded k^2;
-//     the wrapper takes them from a trace-only launch);
 //   * __launch_bounds__(128, 4) holds the main instance to 128 registers
 //     (4 blocks per SM; left alone the compiler took 167 and fit 3), which
 //     took a launch at the grid path's shape from 162 ms to 148 ms.
@@ -85,9 +77,8 @@ constexpr int kMaxRC = 16;  // V columns per block; wider V uses grid.y
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded coordinates).
 // BT: rhos per thread. RC: V columns per block; 0 for a trace-only launch.
 // FRO: also write the float64 k^2 row sums (column chunk 0 only).
-// MODE: the tile-dot mode (kDotHighest, kDotBf16x3, kDotBf16).
 // grid.x: row blocks; grid.y: rho group * column chunks + column chunk.
-template <int NU, int D, int BT, int RC, bool FRO, int MODE>
+template <int NU, int D, int BT, int RC, bool FRO>
 __global__ void __launch_bounds__(kRows, 4)
     multirho_kernel(const float* __restrict__ pts,
                     const float* __restrict__ inv_rho,
@@ -150,9 +141,7 @@ __global__ void __launch_bounds__(kRows, 4)
         const int t = e / (RC * kCols);
         s_v[t][j][c] =
             (j < tc && c0 + c < r && b0 + t < B)
-                ? stage_v<MODE>(V[(static_cast<int64_t>(b0 + t) * n + j0 + j) *
-                                      r +
-                                  c0 + c])
+                ? V[(static_cast<int64_t>(b0 + t) * n + j0 + j) * r + c0 + c]
                 : 0.0f;
       }
     }
@@ -180,11 +169,9 @@ __global__ void __launch_bounds__(kRows, 4)
       for (int t = 0; t < BT; ++t) {
         const float kv = matern_from_r<NU>(r0 * inv[t]);
         if constexpr (FRO) fro_tile[t] = fmaf(kv, kv, fro_tile[t]);
-        float k_hi, k_lo;
-        round_k<MODE>(kv, k_hi, k_lo);
 #pragma unroll
         for (int c = 0; c < RC; ++c) {
-          part[t][c] = tile_fma<MODE>(k_hi, k_lo, s_v[t][j][c], part[t][c]);
+          part[t][c] = fmaf(kv, s_v[t][j][c], part[t][c]);
         }
       }
     }
@@ -224,51 +211,40 @@ struct Args {
   const float* V;
   float* out;
   double* fro_rows;
-  int n, d, B, r, dot_code;
+  int n, d, B, r;
   cudaStream_t stream;
 };
 
-template <int NU, int D, int BT, int RC, bool FRO, int MODE>
+template <int NU, int D, int BT, int RC, bool FRO>
 cudaError_t launch(const Args& a) {
   int chunks = 1;
   if constexpr (RC > 0) chunks = (a.r + RC - 1) / RC;
   const int64_t grid_y = static_cast<int64_t>((a.B + BT - 1) / BT) * chunks;
   if (grid_y > 65535) return cudaErrorInvalidValue;
   const dim3 grid((a.n + kRows - 1) / kRows, static_cast<unsigned>(grid_y));
-  multirho_kernel<NU, D, BT, RC, FRO, MODE><<<grid, kRows, 0, a.stream>>>(
+  multirho_kernel<NU, D, BT, RC, FRO><<<grid, kRows, 0, a.stream>>>(
       a.pts, a.inv_rho, a.V, a.out, a.fro_rows, a.n, a.d, a.B, a.r);
   return cudaGetLastError();
 }
 
 template <int NU, int D, int RC>
 cudaError_t launch_fro(const Args& a) {
-  return a.fro_rows != nullptr ? launch<NU, D, kBT, RC, true, kDotHighest>(a)
-                               : launch<NU, D, kBT, RC, false, kDotHighest>(a);
+  return a.fro_rows != nullptr ? launch<NU, D, kBT, RC, true>(a)
+                               : launch<NU, D, kBT, RC, false>(a);
 }
 
 template <int NU, int D>
 cudaError_t launch_rc(const Args& a) {
   if (a.r == 0) {
-    return a.fro_rows != nullptr
-               ? launch<NU, D, kBTFro, 0, true, kDotHighest>(a)
-               : cudaErrorInvalidValue;
+    return a.fro_rows != nullptr ? launch<NU, D, kBTFro, 0, true>(a)
+                                 : cudaErrorInvalidValue;
   }
   if (a.r <= 8) return launch_fro<NU, D, 8>(a);
   return launch_fro<NU, D, kMaxRC>(a);
 }
 
-// The bf16 modes: any-d instances, a product and no trace output.
-template <int NU, int MODE>
-cudaError_t launch_mode(const Args& a) {
-  if (a.r == 0 || a.fro_rows != nullptr) return cudaErrorInvalidValue;
-  if (a.r <= 8) return launch<NU, 0, kBT, 8, false, MODE>(a);
-  return launch<NU, 0, kBT, kMaxRC, false, MODE>(a);
-}
-
 template <int NU>
 cudaError_t launch_d(const Args& a) {
-  if (a.dot_code == kDotBf16x3) return launch_mode<NU, kDotBf16x3>(a);
-  if (a.dot_code == kDotBf16) return launch_mode<NU, kDotBf16>(a);
   return a.d == 2 ? launch_rc<NU, 2>(a) : launch_rc<NU, 0>(a);
 }
 
@@ -277,14 +253,12 @@ cudaError_t launch_d(const Args& a) {
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Does
 // not synchronise and allocates nothing. `inv_rho` holds B float32 values
 // 1/rho_b. `V` and `out` may be null when r == 0; `fro_rows` (B * n float64,
-// row-major (B, n)) is null unless the k^2 row sums are wanted, and must be
-// null (and r > 0) when `dot_code` is not kDotHighest.
+// row-major (B, n)) is null unless the k^2 row sums are wanted.
 extern "C" int gppe_matern_multirho(const void* pts, const void* inv_rho,
                                     const void* V, void* out, void* fro_rows,
                                     int n, int d, int B, int r, int nu_code,
-                                    int dot_code, void* stream) {
-  if (n <= 0 || d < 1 || d > kMaxD || B <= 0 || r < 0 || dot_code < 0 ||
-      dot_code > kDotBf16) {
+                                    void* stream) {
+  if (n <= 0 || d < 1 || d > kMaxD || B <= 0 || r < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(pts),
@@ -296,7 +270,6 @@ extern "C" int gppe_matern_multirho(const void* pts, const void* inv_rho,
                d,
                B,
                r,
-               dot_code,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (nu_code) {

@@ -10,7 +10,7 @@ name keyed by a hash of the sources, the headers and the flags, so an
 edited source is rebuilt and a stale library is never loaded.
 
 No ``--use_fast_math``: it swaps in approximate ``sqrtf``/``expf``, and the
-kernels' parity bounds rest on the IEEE versions.
+exact kernels' parity bounds rest on the IEEE versions.
 """
 
 import ctypes
@@ -24,8 +24,9 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("matern_matmat.cu", "matern_matmat_mma.cu", "matern_multirho.cu",
-           "matern_blocksparse.cu")
-HEADERS = ("matern_common.cuh",)
+           "matern_multirho_mma.cu", "matern_blocksparse.cu",
+           "matern_blocksparse_mma.cu")
+HEADERS = ("matern_common.cuh", "matern_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -120,11 +121,18 @@ def load():
                                            i32, i32, i32, i32, i32, i32, ptr]
     lib.gppe_matern_multirho.restype = i32
     lib.gppe_matern_multirho.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                         i32, i32, i32, i32, i32, i32, ptr]
+                                         i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_multirho_mma.restype = i32
+    lib.gppe_matern_multirho_mma.argtypes = [ptr, ptr, ptr, ptr,
+                                             i32, i32, i32, i32, i32, i32, ptr]
     lib.gppe_matern_blocksparse.restype = i32
     lib.gppe_matern_blocksparse.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                             i32, i32, i32, i32, i32,
-                                            ctypes.c_float, i32, i32, ptr]
+                                            ctypes.c_float, i32, ptr]
+    lib.gppe_matern_blocksparse_mma.restype = i32
+    lib.gppe_matern_blocksparse_mma.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                                i32, i32, i32, i32, i32,
+                                                ctypes.c_float, i32, i32, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
     _lib = lib

@@ -17,18 +17,21 @@ sums). ``dist_mode='gram'`` takes d^2 = |x|^2 + |y|^2 - 2 x.y on points
 centred on the column mean instead of the exact difference form, in either
 kernel.
 
-``matern_matmat_multirho`` (``csrc/matern_multirho.cu``) replaces
-``pallas_kernels._multirho_kernel``: K(rho_b) @ V_b for a batch of
-isotropic scales over one set of raw points, with per-rho trace(K_b^2).
+``matern_matmat_multirho`` replaces ``pallas_kernels._multirho_kernel``:
+K(rho_b) @ V_b for a batch of isotropic scales over one set of raw points,
+with per-rho trace(K_b^2).
 
-``matern_matmat_blocksparse`` (``csrc/matern_blocksparse.cu``) replaces
+``matern_matmat_blocksparse`` replaces
 ``pallas_kernels._blocksparse_kernel``: the hard-tapered K @ V over a list
 of active tile pairs, plus an optional trace(K^2) output that replaces the
 XLA scan of ``taper.TaperedMaternOperator.trace_pow``.
 
-``matern_matmat_multirho`` and ``matern_matmat_blocksparse`` take the same
-three dot modes; there the rounded operands are multiplied by float32 FMAs
-inside the kernels' own summation design.
+Both take the same three dot modes, split the same way: 'highest' and
+every trace run the FP32-FMA kernels (``csrc/matern_multirho.cu``,
+``csrc/matern_blocksparse.cu``), the 'bf16x3' and 'bf16' products run
+tensor-core kernels of their own (``csrc/matern_multirho_mma.cu``,
+``csrc/matern_blocksparse_mma.cu``); :func:`_launch_plan` is the routing
+table.
 
 The tile-dot modes round the operands only: a trace(K^2) output always
 sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
@@ -53,13 +56,16 @@ DIST_MODES = ("diff", "gram")
 
 launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
                  "matern_matmat_multirho": 0,
-                 "matern_matmat_blocksparse": 0}
+                 "matern_matmat_multirho_mma": 0,
+                 "matern_matmat_blocksparse": 0,
+                 "matern_matmat_blocksparse_mma": 0}
 
 # nu -> template code of csrc/matern_common.cuh (kNuHalf ... kNuGauss)
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
 _GAUSS_CODE = 3
-# dot mode -> template code of csrc/matern_common.cuh (kDotHighest ...)
-_DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
+# reduced dot mode -> code of csrc/matern_common.cuh (kDotBf16x3, kDotBf16);
+# 'highest' has kernels of its own that take no code
+_DOT_CODES = {"bf16x3": 1, "bf16": 2}
 _MAX_D = 8
 
 
@@ -335,10 +341,12 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
     the CUDA path.
 
     CPU tensors take :func:`matern_matmat_multirho_plain` (in their own
-    dtype, ``block_rows`` rows at a time); CUDA tensors launch the float32
-    kernel and must be float32 and contiguous. In the two bf16 modes the
-    kernel's instances carry no trace output, so a call that asks for the
-    product and the traces launches twice."""
+    dtype, ``block_rows`` rows at a time); CUDA tensors must be float32
+    and contiguous and launch a float32 kernel: 'highest' and the traces
+    the FP32-FMA kernel (``csrc/matern_multirho.cu``), the product under
+    'bf16x3' or 'bf16' the tensor-core kernel
+    (``csrc/matern_multirho_mma.cu``), which carries no trace output, so
+    such a call that asks for the product and the traces launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not return_frobenius:
@@ -368,15 +376,20 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
                                         return_frobenius, dot_mode)
 
 
-def _launch_plan(dot_mode, r, frobenius):
-    """The launches of one multirho or blocksparse call, as (with product,
-    with k^2 sums, dot code) triples: one launch, but for a bf16 mode that
-    is asked for both outputs (those instances carry no k^2 sums)."""
+def _launch_plan(kernel, dot_mode, r, frobenius):
+    """The launches of one ``matern_matmat_<kernel>`` call on the card
+    (``kernel``: 'multirho' or 'blocksparse'), as (C entry, launch counter,
+    with product, with k^2 sums) tuples. 'highest', and a call without V,
+    is one launch of the FP32-FMA kernel. The product under 'bf16x3' or
+    'bf16' is one launch of the tensor-core kernel, which sums no k^2:
+    the sums, where asked for, are a second, trace-only launch of the
+    FP32-FMA kernel (they never round)."""
+    exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
     if dot_mode == "highest" or r == 0:
-        return [(r > 0, frobenius, _DOT_CODES["highest"])]
-    plan = [(True, False, _DOT_CODES[dot_mode])]
+        return [(*exact, r > 0, frobenius)]
+    plan = [(f"{exact[0]}_mma", f"{exact[1]}_mma", True, False)]
     if frobenius:
-        plan.append((False, True, _DOT_CODES["highest"]))
+        plan.append((*exact, False, True))
     return plan
 
 
@@ -401,16 +414,22 @@ def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius,
         code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(points.device):
             stream = torch.cuda.current_stream().cuda_stream
-            for product, sums, dot_code in _launch_plan(
-                    dot_mode, r, return_frobenius):
-                err = lib.gppe_matern_multirho(
-                    points.data_ptr(), inv_rho.data_ptr(),
-                    V.data_ptr() if product else None,
-                    out.data_ptr() if product else None,
-                    fro_rows.data_ptr() if sums else None,
-                    n, d, B, r if product else 0, code, dot_code, stream)
-                _raise_on_cuda_error(lib, err, "matern_matmat_multirho")
-                launch_counts["matern_matmat_multirho"] += 1
+            for entry, counter, product, sums in _launch_plan(
+                    "multirho", dot_mode, r, return_frobenius):
+                if entry == "gppe_matern_multirho_mma":
+                    err = lib.gppe_matern_multirho_mma(
+                        points.data_ptr(), inv_rho.data_ptr(), V.data_ptr(),
+                        out.data_ptr(), n, d, B, r, code,
+                        _DOT_CODES[dot_mode], stream)
+                else:
+                    err = lib.gppe_matern_multirho(
+                        points.data_ptr(), inv_rho.data_ptr(),
+                        V.data_ptr() if product else None,
+                        out.data_ptr() if product else None,
+                        fro_rows.data_ptr() if sums else None,
+                        n, d, B, r if product else 0, code, stream)
+                _raise_on_cuda_error(lib, err, counter)
+                launch_counts[counter] += 1
     return (out, fro_rows.sum(dim=1)) if return_frobenius else out
 
 
@@ -560,9 +579,11 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     sum is a 0-d tensor, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_blocksparse_plain`; CUDA tensors
-    launch the float32 kernel and must be float32 and contiguous (twice
-    for a bf16 mode asked for the product and the trace, as
-    :func:`matern_matmat_multirho`)."""
+    must be float32 and contiguous and launch a float32 kernel: 'highest'
+    and the trace the FP32-FMA kernel (``csrc/matern_blocksparse.cu``),
+    the product under 'bf16x3' or 'bf16' the tensor-core kernel
+    (``csrc/matern_blocksparse_mma.cu``); a call in such a mode that asks
+    for the product and the trace launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not frobenius:
@@ -619,16 +640,22 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
         code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(points_sorted.device):
             stream = torch.cuda.current_stream().cuda_stream
-            for product, sums, dot_code in _launch_plan(dot_mode, r,
-                                                        frobenius):
-                err = lib.gppe_matern_blocksparse(
-                    points_sorted.data_ptr(),
-                    V.data_ptr() if product else None,
-                    out.data_ptr() if product else None,
-                    fro_rows.data_ptr() if sums else None,
-                    row_ptr.data_ptr(), pair_j.data_ptr(),
-                    n, d, r if product else 0, tile, num_tiles, float(tau),
-                    code, dot_code, stream)
-                _raise_on_cuda_error(lib, err, "matern_matmat_blocksparse")
-                launch_counts["matern_matmat_blocksparse"] += 1
+            geometry = (row_ptr.data_ptr(), pair_j.data_ptr())
+            for entry, counter, product, sums in _launch_plan(
+                    "blocksparse", dot_mode, r, frobenius):
+                if entry == "gppe_matern_blocksparse_mma":
+                    err = lib.gppe_matern_blocksparse_mma(
+                        points_sorted.data_ptr(), V.data_ptr(),
+                        out.data_ptr(), *geometry, n, d, r, tile, num_tiles,
+                        float(tau), code, _DOT_CODES[dot_mode], stream)
+                else:
+                    err = lib.gppe_matern_blocksparse(
+                        points_sorted.data_ptr(),
+                        V.data_ptr() if product else None,
+                        out.data_ptr() if product else None,
+                        fro_rows.data_ptr() if sums else None,
+                        *geometry, n, d, r if product else 0, tile,
+                        num_tiles, float(tau), code, stream)
+                _raise_on_cuda_error(lib, err, counter)
+                launch_counts[counter] += 1
     return (out, fro_rows.sum()) if frobenius else out

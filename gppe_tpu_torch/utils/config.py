@@ -25,6 +25,17 @@ def setup():
     torch.set_float32_matmul_precision("highest")
 
 
+def warm_cpu_threads():
+    """Run one vectorised sqrt on every intra-op CPU thread and discard it.
+
+    On some hosts the first vectorised sqrt a thread runs after the process
+    starts comes back approximate (about 1e-4 relative) for that thread's
+    chunk; every later call is exact. The package's CPU path exists for
+    tests and rehearsals, which compare at 1e-5 and tighter: they call this
+    once, when they are imported, so that no comparison meets that call."""
+    torch.sqrt(torch.rand(1 << 20))
+
+
 def precision_state():
     """The settings :func:`setup` controls, for logging."""
     return {

@@ -17,7 +17,11 @@ The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
 Frobenius bound and must sit closer to its own plain version (same
 rounding) than the rounding is large; 'bf16' must show its rounding
 (1e-4 < error < 5e-3); the Gram form has the reference's envelope (1e-3,
-max-abs 2e-2; tests/test_kernels.py::test_gram_dist_mode_accuracy).
+max-abs 2e-2; tests/test_kernels.py::test_gram_dist_mode_accuracy). In
+the multi-rho and the block-sparse product the two bf16 modes are
+tensor-core kernels of their own (matern_matmat_multirho_mma,
+matern_matmat_blocksparse_mma) that take sqrt and exp2 as the bare
+hardware approximations (2^-22 relative): far inside the same bounds.
 """
 
 import numpy as np
@@ -221,11 +225,18 @@ def test_multirho_counts_launches_and_checks_inputs(dev):
         cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5,
                                             dot_mode="bf16x2")
     assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
-    # a bf16 mode asked for the product and the traces launches twice
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 0
+    # a bf16 mode asked for the product and the traces launches both
+    # kernels: the tensor-core one multiplies, the exact one sums k^2
     cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16x3",
                                         return_frobenius=True)
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 4
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 3
+    cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16")
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 3
     assert cuda_kernels.launch_counts["matern_matmat"] == 0
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 0
 
 
 def test_grid_engine_n1024_cuda_matches_cpu_and_single_operator(dev):
@@ -355,6 +366,19 @@ def test_blocksparse_counts_launches_and_checks_inputs(dev):
         cuda_kernels.matern_matmat_blocksparse(
             pts, V, *args, n=n, row_ptr=op._row_ptr.long())
     assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 0
+    # a bf16 mode asked for the product and the trace launches both kernels
+    _, fro = cuda_kernels.matern_matmat_blocksparse(
+        pts, V, *args, dot_mode="bf16x3", frobenius=True, **kw)
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    cuda_kernels.matern_matmat_blocksparse(pts, V, *args, dot_mode="bf16",
+                                           **kw)
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    _, exact = cuda_kernels.matern_matmat_blocksparse(pts, None, *args,
+                                                      frobenius=True, **kw)
+    assert float(fro) == float(exact)       # the trace never rounds
 
 
 def test_tapered_engine_n16384_cuda_matches_cpu(dev):
@@ -507,47 +531,164 @@ def test_mma_wrapper_counts_launches(dev):
     assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
 
 
-@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
-@pytest.mark.parametrize("r", [1, 8, 16, 24])
-def test_multirho_modes(dev, dot_mode, r):
-    rng = np.random.RandomState(r)
-    n, B = 3001, 3
-    pts = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
-    rhos = torch.as_tensor(np.linspace(0.06, 0.3, B), dtype=F32, device=dev)
+def _skew(u, v, Ku, Kv):
+    """|u.Kv - v.Ku| relative to |u| |Kv|, dots in float64."""
+    a = float((u.double() * Kv.double()).sum())
+    b = float((v.double() * Ku.double()).sum())
+    return abs(a - b) / float(torch.linalg.norm(u.double())
+                              * torch.linalg.norm(Kv.double()))
+
+
+# every width class of the tensor-core multi-rho kernel (1, 2, 3 n8 tiles,
+# 16-column chunks), batches that fill, half fill and overflow a block's
+# group of 4 rhos, ragged n, every nu, d up to 8
+MULTIRHO_MODE_CASES = (
+    [(3001, 3, r, 1.5, 2) for r in (1, 8, 16, 23, 24, 40)]
+    + [(1024, 8, 16, 0.5, 2), (3001, 9, 16, 2.5, 2), (2050, 1, 24, 150.0, 2),
+       (3001, 3, 8, 0.5, 1), (3001, 3, 7, 2.5, 3), (2050, 8, 16, 1.5, 8)])
+
+
+def _multirho_problem(dev, n, B, r, d, seed):
+    """The grid path's rho batch, stretched by sqrt(d / 2) so the scaled
+    distances stay of its order in any d."""
+    rng = np.random.RandomState(seed)
+    pts = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev)
+    rhos = torch.as_tensor(np.linspace(0.06, 0.3, B) * np.sqrt(d / 2),
+                           dtype=F32, device=dev)
     V = torch.as_tensor(rng.standard_normal((B, n, r)), dtype=F32,
                         device=dev)
+    return pts, rhos, V
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n, B, r, nu, d", MULTIRHO_MODE_CASES)
+def test_multirho_modes(dev, dot_mode, n, B, r, nu, d):
+    pts, rhos, V = _multirho_problem(dev, n, B, r, d, seed=r + d)
+    cuda_kernels.reset_launch_counts()
     got, tk2 = cuda_kernels.matern_matmat_multirho(
-        pts, rhos, V, 1.5, dot_mode=dot_mode, return_frobenius=True)
+        pts, rhos, V, nu, dot_mode=dot_mode, return_frobenius=True)
     torch.cuda.synchronize()
-    own = cuda_kernels.matern_matmat_multirho_plain(pts, rhos, V, 1.5,
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
+    own = cuda_kernels.matern_matmat_multirho_plain(pts, rhos, V, nu,
                                                     dot_mode=dot_mode)
     want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
-        pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), 1.5,
+        pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), nu,
         return_frobenius=True, dot_mode="highest")
+    assert got.shape == (B, n, r) and bool(torch.isfinite(got).all())
     _assert_mode_bounds(got, own, want, dot_mode)
     np.testing.assert_allclose(tk2.cpu().numpy(), tk2_want.cpu().numpy(),
                                rtol=1e-5)
 
 
 @pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
-@pytest.mark.parametrize("r", [1, 7, 24, 33])
-def test_blocksparse_modes(dev, dot_mode, r):
-    n = 3001
-    op, args, kw = _tapered(dev, n, 0.5, 128, seed=3)
-    rng = np.random.RandomState(r)
+def test_multirho_mma_single_rho_vs_matern_matmat_mma(dev, dot_mode):
+    """B = 1 against the single-scale tensor-core kernel on pre-scaled
+    points. The two scale at different places (the distance here, the
+    points there) and this kernel takes sqrt and exp2 as approximations, so
+    k differs in its last bits before it is rounded to bf16: the products
+    agree to a quarter of what the mode's rounding itself costs."""
+    rng = np.random.RandomState(4)
+    pts = torch.as_tensor(rng.rand(3001, 2), dtype=F32, device=dev)
+    V = torch.as_tensor(rng.standard_normal((3001, 16)), dtype=F32,
+                        device=dev)
+    got = cuda_kernels.matern_matmat_multirho(
+        pts, torch.tensor([0.1], device=dev), V[None], 0.5,
+        dot_mode=dot_mode)[0]
+    ref = cuda_kernels.matern_matmat(pts, 0.1, V, 0.5, dot_mode=dot_mode)
+    want = cuda_kernels.matern_matmat_plain(
+        pts.double(), kernels.broadcast_scale(0.1, 2, dtype=F64, device=dev),
+        V.double(), 0.5)
+    signature = _frob(ref, want)
+    assert _frob(got, ref) < 0.25 * signature
+
+
+# as MULTIRHO_MODE_CASES, for the block-sparse tensor-core kernel: every
+# width class up to the 32-column chunks, tiles 128 and 512, ragged n (pad
+# rows and columns), every nu, d up to 8: (n, r, nu, tile, d, scale, seed),
+# each seed one whose geometry has a threshold clear of every pair
+BLOCKSPARSE_MODE_CASES = (
+    [(3001, r, 0.5, 128, 2, 0.05, 3) for r in (1, 8, 16, 23, 24, 40)]
+    + [(3001, 16, 1.5, 512, 2, 0.05, 4), (2050, 24, 2.5, 512, 2, 0.05, 5),
+       (3001, 7, 150.0, 128, 2, 0.05, 6), (3001, 8, 0.5, 128, 1, 0.005, 7),
+       (3001, 24, 1.5, 128, 3, 0.2, 8), (2050, 8, 0.5, 512, 8, 1.0, 9)])
+
+
+def _tapered_any_d(dev, n, nu, tile, d, scale, seed):
+    rng = np.random.RandomState(seed)
+    if d <= 3:
+        pts = rng.rand(n, d)
+    else:
+        # a flat cloud of side 10 turned into d dimensions: in a cube of
+        # that many dimensions the taper ball holds most of the points and
+        # no threshold is clear of every pair
+        q, _ = np.linalg.qr(rng.standard_normal((d, 2)))
+        pts = (10.0 * rng.rand(n, 2)) @ q.T
+    op = TaperedMaternOperator(pts, scale, nu=nu, density=0.02, tile=tile,
+                               device=dev)
+    geometry = (op.pair_i, op._pair_j, op.tile)
+    kw = dict(n=n, row_ptr=op._row_ptr)
+    tau = cuda_kernels.blocksparse_clear_threshold(
+        op.points_sorted.double(), op.nu, op.threshold, *geometry, **kw)
+    return op, (op.nu, tau, *geometry), kw
+
+
+def _padded_normal(op, n, r, rng, dev):
     V = torch.zeros((op.n_pad, r), device=dev)
     V[:n] = torch.as_tensor(rng.standard_normal((n, r)), dtype=F32)
+    return V
+
+
+@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n, r, nu, tile, d, scale, seed",
+                         BLOCKSPARSE_MODE_CASES)
+def test_blocksparse_modes(dev, dot_mode, n, r, nu, tile, d, scale, seed):
+    op, args, kw = _tapered_any_d(dev, n, nu, tile, d, scale, seed)
+    V = _padded_normal(op, n, r, np.random.RandomState(r), dev)
+    cuda_kernels.reset_launch_counts()
     got, fro = cuda_kernels.matern_matmat_blocksparse(
         op.points_sorted, V, *args, dot_mode=dot_mode, frobenius=True, **kw)
     torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 1
     own = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted, V, *args, dot_mode=dot_mode, **kw)
     want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), V.double(), *args, frobenius=True,
         dot_mode="highest", **kw)
+    assert got.shape == (op.n_pad, r) and bool(torch.isfinite(got).all())
     _assert_mode_bounds(got, own, want, dot_mode)
     np.testing.assert_allclose(float(fro), float(fro_want), rtol=1e-5)
     assert not bool(got[n:].any())
+
+
+@pytest.mark.parametrize("kernel", ["multirho", "blocksparse"])
+def test_mma_kernels_skew_and_determinism(dev, kernel):
+    """Both tensor-core kernels under 'bf16x3': u.Kv vs v.Ku within 1e-4
+    of |u| |Kv| (V is rounded, so the map is not exactly linear; 'highest'
+    keeps 1e-6), and two launches give the same bits (a block owns its
+    rows and walks its columns in a fixed order; no atomics)."""
+    n = 3001
+    rng = np.random.RandomState(6)
+    if kernel == "multirho":
+        pts, rhos, _ = _multirho_problem(dev, n, 3, 1, 2, seed=6)
+        u, v = (torch.as_tensor(rng.standard_normal((3, n, 1)), dtype=F32,
+                                device=dev) for _ in range(2))
+        product = lambda w: cuda_kernels.matern_matmat_multirho(  # noqa: E731
+            pts, rhos, w, 0.5, dot_mode="bf16x3")
+        Ku, Kv = product(u), product(v)
+        for b in range(3):
+            assert _skew(u[b], v[b], Ku[b], Kv[b]) < 1e-4
+    else:
+        op, args, kw = _tapered(dev, n, 0.5, 128, seed=2)
+        u, v = (_padded_normal(op, n, 1, rng, dev) for _ in range(2))
+        product = lambda w: cuda_kernels.matern_matmat_blocksparse(  # noqa: E731
+            op.points_sorted, w, *args, dot_mode="bf16x3", **kw)
+        Ku, Kv = product(u), product(v)
+        assert _skew(u, v, Ku, Kv) < 1e-4
+    assert torch.equal(product(v), Kv)
+    wide = torch.cat([v] * 24, dim=-1).contiguous()
+    assert torch.equal(product(wide), product(wide))
 
 
 def test_engine_n1024_bf16x3_matches_cpu_highest(dev):

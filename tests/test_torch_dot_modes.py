@@ -11,6 +11,8 @@ oracle that rounds with ``ml_dtypes.bfloat16``, and to the JAX body only
 within the band the rounding must produce.
 """
 
+import os
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -21,10 +23,13 @@ from gppe_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from gppe_tpu.ops import taper as jtaper  # noqa: E402
 from gppe_tpu_torch.models import grid_krylov as tgk  # noqa: E402
 from gppe_tpu_torch.models import large_scale as tls  # noqa: E402
-from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
+from gppe_tpu_torch.ops import _build, cuda_kernels  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
+from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+
+warm_cpu_threads()
 
 F32, F64 = torch.float32, torch.float64
 # what rounding both operands to bfloat16 must cost (the reference records
@@ -284,6 +289,46 @@ def test_blocksparse_modes_vs_pallas_interpret(dot_mode):
     exact = cuda_kernels.matern_matmat_blocksparse(
         pts_sorted, None, *geometry, n=n, frobenius=True)[1]
     assert torch.equal(fro, exact)
+
+
+# -- which kernel a call launches on the card ---------------------------------
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "gppe_tpu_torch", "csrc")
+
+
+@pytest.mark.parametrize("kernel", ["multirho", "blocksparse"])
+@pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
+@pytest.mark.parametrize("r, frobenius", [(0, True), (1, False), (1, True),
+                                          (16, False), (24, True),
+                                          (40, False)])
+def test_launch_plan_routes_modes_to_kernels(kernel, dot_mode, r, frobenius):
+    """The routing table of the multi-rho and the block-sparse wrapper on
+    the card: 'highest', and any call without V, is one launch of the
+    FP32-FMA kernel with whatever was asked for; a 'bf16x3' or 'bf16'
+    product is one launch of the tensor-core kernel, counted under its own
+    name, and the k^2 sums (never rounded) are then a trace-only launch of
+    the FP32-FMA kernel."""
+    exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
+    mma = (f"gppe_matern_{kernel}_mma", f"matern_matmat_{kernel}_mma")
+    plan = cuda_kernels._launch_plan(kernel, dot_mode, r, frobenius)
+    if dot_mode == "highest" or r == 0:
+        assert plan == [(*exact, r > 0, frobenius)]
+        assert not any("mma" in name for launch in plan
+                       for name in launch[:2])
+    else:
+        assert plan[0] == (*mma, True, False)
+        assert plan[1:] == ([(*exact, False, True)] if frobenius else [])
+    # one launch multiplies (if there is a V), one sums k^2 (if asked)
+    assert sum(launch[2] for launch in plan) == (r > 0)
+    assert sum(launch[3] for launch in plan) == frobenius
+    for entry, counter, _, _ in plan:
+        assert counter in cuda_kernels.launch_counts
+        source = f"matern_{kernel}_mma.cu" if entry.endswith("_mma") \
+            else f"matern_{kernel}.cu"
+        assert source in _build.SOURCES
+        with open(os.path.join(CSRC, source)) as f:
+            assert f'extern "C" int {entry}(' in f.read()
 
 
 # -- the operator and the engines ---------------------------------------------

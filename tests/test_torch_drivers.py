@@ -19,6 +19,9 @@ torch = pytest.importorskip("torch")
 from gppe_tpu_torch.drivers import profile_kernel_matrix  # noqa: E402
 from gppe_tpu_torch.drivers import roofline_matvec  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
+from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+
+warm_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(n=512, device="cpu", lanczos_steps=16, num_probes=4,

@@ -27,6 +27,9 @@ from gppe_tpu_torch.ops import kernels as tk  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
+from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+
+warm_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
@@ -210,7 +213,8 @@ def test_cpu_path_launches_no_kernel():
     top.trace_pow(2)
     assert cuda_kernels.launch_counts == {
         "matern_matmat": 0, "matern_matmat_mma": 0,
-        "matern_matmat_multirho": 0, "matern_matmat_blocksparse": 0}
+        "matern_matmat_multirho": 0, "matern_matmat_multirho_mma": 0,
+        "matern_matmat_blocksparse": 0, "matern_matmat_blocksparse_mma": 0}
 
 
 @pytest.mark.parametrize("kind", ["general_nu", "bf16", "bf16x3", "gram",
@@ -260,7 +264,7 @@ def test_unported_or_invalid_requests_raise(kind):
 def test_build_command_flags():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/x.so")
     # one compile per source, each for sm_90a and without fast math
-    assert len(compiles) == len(_build.SOURCES) == 4
+    assert len(compiles) == len(_build.SOURCES) == 6
     objects = []
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -270,7 +274,7 @@ def test_build_command_flags():
         assert len(sources) == 1 and os.path.isfile(sources[0])
         objects.append(cmd[cmd.index("-o") + 1])
     assert link[:4] == ["nvcc", "-shared", "-o", "/tmp/x.so"]
-    assert link[4:] == objects and len(set(objects)) == 4
+    assert link[4:] == objects and len(set(objects)) == 6
     flagged = _build.nvcc_commands("nvcc", "/tmp/x.so", ("-Xptxas", "-v"))
     assert all("-Xptxas" in cmd for cmd in flagged[0])
     # the library name is keyed by sources, headers and flags

@@ -18,6 +18,9 @@ from gppe_tpu.ops import stochastic as jst  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import root_finding as troot  # noqa: E402
 from gppe_tpu_torch.ops import stochastic as tst  # noqa: E402
+from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+
+warm_cpu_threads()
 
 F64 = torch.float64
 

@@ -21,6 +21,9 @@ from gppe_tpu_torch.models import large_scale as tls  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
 from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
+from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+
+warm_cpu_threads()
 
 F64 = torch.float64
 

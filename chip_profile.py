@@ -5,6 +5,8 @@
     python3 chip_profile.py main grid taper # torch.profiler, one setup each
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
+    python3 chip_profile.py eta             # eta* under other products
+    python3 chip_profile.py variants DIR... # matern_matmat per kernel variant
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -20,9 +22,24 @@ that tile-dot mode the module default for the profiled setups.
 ``modes`` times the three products through their public wrappers at the
 paths' shapes (matern_matmat n = 100,000, r = 24; matern_matmat_multirho
 B = 8, r = 16; matern_matmat_blocksparse n = 2^20, r = 24) under every
-tile-dot mode, in turns, median of 7. It uses nothing but the wrappers, so
-the same file run from a checkout of another commit times that commit's
-kernels: two commits in one call on one card is the comparison that counts.
+tile-dot mode, 'highest' included, and each wrapper's trace-only call, in
+turns, median of 7. It uses nothing but the wrappers, so the same file run
+from a checkout of another commit times that commit's kernels: two commits
+in one call on one card is the comparison that counts.
+
+``eta`` fits the main path's engine (chip_smoke.py phase 5) with its
+products computed other ways, the trace(K^2) launch kept: the kernel in
+each dot mode, the plain float32 version, the float64 product rounded once
+to float32, and the 'highest' kernel's product times (1 + eps N(0, 1)) for
+a few eps and seeds, or times 1 -+ 1e-6. It measures how far eta* moves
+under changes of the products at float32 level, random or coherent.
+
+``variants`` takes directories that each hold a copy of the package
+(``DIR/gppe_tpu_torch``) with one change to its kernel sources, builds
+their libraries in parallel, and times matern_matmat at n = 100,000,
+r = 24 under every tile-dot mode with each library in turns, in this one
+process, with each library's error against plain float64: how the design
+choices of ``matern_matmat_mma.cu`` were made.
 
 Exits non-zero without a CUDA device.
 """
@@ -38,10 +55,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+F32 = torch.float32
+
 import chip_smoke as cs
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
-from gppe_tpu_torch.ops import _build, cuda_kernels
+from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
 from gppe_tpu_torch.ops.operators import MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
 
@@ -160,10 +179,116 @@ def mode_times(dev):
                 op.points_sorted, VT, op.nu, op.threshold, op.pair_i,
                 op._pair_j, op.tile, n=op.shape[0], row_ptr=op._row_ptr,
                 dot_mode=mode)
+    # the trace-only calls: the exact kernels in every mode
+    fns["matern_matmat[trace]"] = lambda: cuda_kernels.matern_matmat(
+        P, cs.RHO, None, cs.NU, frobenius=True)
+    fns["matern_matmat_multirho[trace]"] = lambda: \
+        cuda_kernels.matern_matmat_multirho(P, rhos, None, cs.NU,
+                                            return_frobenius=True)
+    fns["matern_matmat_blocksparse[trace]"] = lambda: \
+        cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, op.nu, op.threshold, op.pair_i,
+            op._pair_j, op.tile, n=op.shape[0], row_ptr=op._row_ptr,
+            frobenius=True)
     med, times = cs.median_in_turns(fns)
     print(json.dumps({"phase": "mode_times", "nvidia_smi": cs.nvidia_smi(),
                       "n": cs.N_MAIN, "n_tapered": op.shape[0], "reps": 7,
                       "ms_median": med, "ms_all": times}), flush=True)
+
+
+def eta_sensitivity(dev):
+    """eta* of the main path under other products (see the docstring)."""
+    pts, z, X = cs.make_problem(cs.N_MAIN, 7)
+    op = MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)
+    kernel = cuda_kernels.matern_matmat
+
+    def fit(product=None, mode="highest"):
+        def wrapper(points, scale, V, nu, **kw):
+            if V is None or product is None:        # the trace, or a mode
+                return kernel(points, scale, V, nu, **kw)
+            return product(points, scale, V, nu, **kw)
+
+        cuda_kernels.matern_matmat = wrapper
+        previous = cuda_kernels.DEFAULT_DOT_MODE
+        cuda_kernels.DEFAULT_DOT_MODE = mode
+        try:
+            return KrylovProfileLikelihood(
+                op, X, z, lanczos_steps=cs.STEPS, num_probes=cs.PROBES,
+                device=dev).fit()["eta"]
+        finally:
+            cuda_kernels.matern_matmat = kernel
+            cuda_kernels.DEFAULT_DOT_MODE = previous
+
+    def plain(dtype):
+        def product(points, scale, V, nu, **kw):
+            s = kernels.broadcast_scale(scale, points.shape[1], dtype=dtype,
+                                        device=points.device)
+            return cuda_kernels.matern_matmat_plain(
+                points.to(dtype), s, V.to(dtype), nu).float()
+        return product
+
+    def scaled(factor):
+        def product(points, scale, V, nu, **kw):
+            return kernel(points, scale, V, nu, **kw) * factor
+        return product
+
+    def noisy(eps, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def product(points, scale, V, nu, **kw):
+            out = kernel(points, scale, V, nu, **kw)
+            return out * (1.0 + eps * torch.randn(out.shape, generator=g,
+                                                  device=dev))
+        return product
+
+    ref = fit(plain(torch.float64))
+    etas = {"float64_product": ref, "plain_float32": fit(plain(F32))}
+    for mode in cuda_kernels.DOT_MODES:
+        etas[f"kernel[{mode}]"] = fit(mode=mode)
+    for eps in (3e-7, 1e-6, 3e-6):
+        for seed in range(3):
+            etas[f"kernel[highest]*(1+{eps:g}N)#{seed}"] = fit(
+                noisy(eps, seed))
+    for factor in (1.0 - 1e-6, 1.0 + 1e-6):
+        etas[f"kernel[highest]*{factor:.6f}"] = fit(scaled(factor))
+    print(json.dumps({"phase": "eta_sensitivity",
+                      "nvidia_smi": cs.nvidia_smi(), "n": cs.N_MAIN,
+                      "eta_star": etas, "rel_gap_to_float64_product": {
+                          k: abs(v - ref) / ref for k, v in etas.items()}}),
+          flush=True)
+
+
+def variant_times(dev, dirs):
+    """Median ms and errors of matern_matmat under each dot mode with the
+    kernel library of each package copy in ``dirs``."""
+    load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
+            "print(_build.library_path())")
+    procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
+                              stdout=subprocess.PIPE, text=True)
+             for d in dirs]
+    libs = {d: _build.load(Path(p.communicate()[0].split()[-1]))
+            for d, p in zip(dirs, procs)}
+    pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
+    P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    V = torch.randn((cs.N_MAIN, 24), generator=g, device=dev)
+    scale = torch.tensor([cs.RHO, cs.RHO], device=dev)
+    want = cuda_kernels.matern_matmat_plain(P.double(), scale.double(),
+                                            V.double(), cs.NU)
+
+    def product(d, mode):
+        _build._lib = libs[d]       # the wrappers launch this library's
+        return cuda_kernels.matern_matmat(P, scale, V, cs.NU, dot_mode=mode)
+
+    fns = {f"{d}[{m}]": (lambda d=d, m=m: product(d, m))
+           for d in dirs for m in cuda_kernels.DOT_MODES}
+    errors = {k: cs.compare(f(), want) for k, f in fns.items()}
+    med, times = cs.median_in_turns(fns)
+    _build._lib = None
+    print(json.dumps({"phase": "variant_times", "nvidia_smi": cs.nvidia_smi(),
+                      "n": cs.N_MAIN, "r": 24, "reps": 7, "ms_median": med,
+                      "frob_and_max_abs_vs_f64": errors, "ms_all": times}),
+          flush=True)
 
 
 def main(argv):
@@ -177,6 +302,10 @@ def main(argv):
         ptxas_report()
     if "modes" in argv:
         mode_times(dev)
+    if "eta" in argv:
+        eta_sensitivity(dev)
+    if "variants" in argv:
+        variant_times(dev, argv[argv.index("variants") + 1:])
     if "main" in argv:
         pts, z, X = cs.make_problem(cs.N_MAIN, 7)
         op = MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)

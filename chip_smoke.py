@@ -7,7 +7,9 @@ each against its plain PyTorch version on the card:
 
   * the matrix-free profile-likelihood MLE at n = 100,000 random 2-D
     points, Matern nu = 0.5, rho = 0.1 (MaternOperator ->
-    KrylovProfileLikelihood -> fit; kernel matern_matmat);
+    KrylovProfileLikelihood -> fit; the products on the tensor-core kernel
+    matern_matmat_mma, 'highest' as 3xTF32, and trace(K^2) on
+    matern_matmat);
   * the grid-batched MLE over 8 rhos at n = 100,000
     (GridKrylovProfileLikelihood -> fit_all; kernel
     matern_matmat_multirho, and under 'bf16x3' the tensor-core kernel
@@ -17,9 +19,9 @@ each against its plain PyTorch version on the card:
     and under 'bf16x3' the tensor-core kernel
     matern_matmat_blocksparse_mma);
   * the precision-matrix path: the n = 100,000 MLE under each tile-dot
-    mode (drivers.profile_kernel_matrix.run_one -> fit; 'bf16x3' and
-    'bf16' on the tensor-core kernel matern_matmat_mma), and the roofline
-    sweep (drivers.roofline_matvec.main), the caller of the Gram form.
+    mode (drivers.profile_kernel_matrix.run_one -> fit; every mode on the
+    tensor-core kernel matern_matmat_mma), and the roofline sweep
+    (drivers.roofline_matvec.main), the caller of the Gram form.
 
     python3 chip_smoke.py
 
@@ -29,11 +31,13 @@ Phases, each raising on failure:
   2. build: compile (or load) the kernel library, print the seconds;
   3. matern_matmat vs plain float64 on the card: ragged n, several widths,
      all four nu branches, d in {1, 2, 3}, an anisotropic scale and a
-     rectangular K; bounds of the reference's on-chip tier;
+     rectangular K; bounds of the reference's on-chip tier; the product's
+     gap to its plain 3xTF32 version logged beside them;
   4. the n = 1024 engine on cuda (float32 kernel path) vs cpu (float64
      plain path) from the same numpy data and random block;
   5. the main path at n = 100,000, with launch counts;
-  6. kernel and plain time (and error) at the main path's shape;
+  6. kernel and plain time (and error) at the main path's shape: the
+     'highest' product and the trace(K^2) launch;
   7. matern_matmat_multirho vs plain float64 on the card, and at B = 1
      vs matern_matmat;
   8. matern_matmat_blocksparse vs plain float64 on the card, at taper
@@ -89,15 +93,21 @@ GRID_RHOS, GRID_STEPS, GRID_PROBES = np.linspace(0.05, 0.3, 8), 32, 8
 TAPER_SIDE, TAPER_SCALE, TAPER_DENSITY = 1024, 0.005, 1e-3
 
 # published peaks of one H100 SXM: device-memory rate, float32 rate
-# outside the tensor cores and dense bf16 rate of the tensor cores; a
-# kernel's bound is the largest of its bytes and of each class of its
-# operations over that class's own peak
+# outside the tensor cores and the dense bf16 and tf32 rates of the tensor
+# cores; a kernel's bound is the largest of its bytes and of each class of
+# its operations over that class's own peak
 PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
-PEAK_BF16_OPS_PER_S = 989e12
+PEAK_BF16_OPS_PER_S, PEAK_TF32_OPS_PER_S = 989e12, 495e12
 # operations per pair beyond the distance: scale/sqrt/exp and the closed
 # form's polynomial, by nu
 NU_OPS = {0.5: 3, 1.5: 7, 2.5: 10}
 NU_OPS_GAUSS = 3
+
+# eta* of the main path with its products as float32 FMAs on the CUDA
+# cores, where 'highest' ran before it moved to the tensor cores as 3xTF32
+# (NVIDIA H100 80GB HBM3): logged beside this run's, the two should agree
+# to 1e-4 (the gap 'bf16x3' leaves is 1.1e-4)
+ETA_STAR_FP32_FMA = 88.6670
 
 # reference on-chip bounds (tests_tpu/test_onchip.py)
 FROB_TOL, MAXABS_TOL, TRACE_RTOL, SYM_TOL = 2e-5, 5e-4, 1e-5, 1e-6
@@ -187,6 +197,8 @@ def parity_case(dev, n, r, nu, d=2, scale=RHO, n_cols=None, seed=0):
         rec["frob_rel_err"], rec["max_abs_err"] = compare(got, want)
         ok = (ok and rec["frob_rel_err"] < FROB_TOL
               and rec["max_abs_err"] < MAXABS_TOL)
+        rec["frob_vs_tf32x3_plain"] = tf32x3_gap(got, pts, cols, scale, V,
+                                                 nu)
     if n_cols is None and r == 1:
         u = torch.randn((n, 1), generator=g, device=dev)
         Ku = cuda_kernels.matern_matmat(pts, scale, u, nu)
@@ -195,6 +207,20 @@ def parity_case(dev, n, r, nu, d=2, scale=RHO, n_cols=None, seed=0):
     log(phase="parity", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"kernel disagrees with the plain version: {rec}")
+
+
+def tf32x3_gap(got, rows, cols, scale, V, nu):
+    """Frobenius gap of the kernel's 'highest' product ``got`` (of the
+    first rows only, if it has fewer than ``rows``) to its plain 3xTF32
+    version on the same float32 K (``cuda_kernels._tf32x3_dot_plain``):
+    logged beside the bounds, which hold the kernel to float64."""
+    m = got.shape[0]
+    dist = kernels.pairwise_scaled_distance(
+        rows[:m], rows if cols is None else cols,
+        kernels.broadcast_scale(scale, rows.shape[1], dtype=F32,
+                                device=rows.device))
+    emu = cuda_kernels._tf32x3_dot_plain(kernels.matern(dist, nu), V)
+    return compare(got, emu.double())[0]
 
 
 def phase_parity(dev):
@@ -257,7 +283,8 @@ def phase_main_path(dev):
                                       num_probes=PROBES, device=dev)
         torch.cuda.synchronize()
         setups.append(time.perf_counter() - t0)
-        launches.append(cuda_kernels.launch_counts["matern_matmat"])
+        launches.append({k: v for k, v in cuda_kernels.launch_counts.items()
+                         if v})
 
     eng.der1(1.0)
     n_evals = 100
@@ -269,17 +296,23 @@ def phase_main_path(dev):
     t0 = time.perf_counter()
     res = eng.fit()
     fit_s = time.perf_counter() - t0
-    total_launches = cuda_kernels.launch_counts["matern_matmat"]
+    total_launches = {k: v for k, v in cuda_kernels.launch_counts.items()
+                      if v}
     finite = all(np.isfinite(v) for v in (res["eta"], res["sigma0"],
                                           res["sigma"]))
+    # a construction: STEPS products on the tensor-core kernel ('highest'
+    # as 3xTF32) and one trace(K^2) launch of the FP32 kernel
+    per_setup = {"matern_matmat_mma": STEPS, "matern_matmat": 1}
     ok = (res["success"] and finite and 0.19 < res["sigma0"] < 0.21
-          and launches == [STEPS + 1, 2 * (STEPS + 1)]
-          and total_launches == 2 * (STEPS + 1))
+          and launches == [per_setup, {k: 2 * v for k, v in
+                                       per_setup.items()}]
+          and total_launches == launches[1])
     log(phase="main_path", ok=ok, n=N_MAIN, rho=RHO, nu=NU,
         lanczos_steps=STEPS, num_probes=PROBES,
         setup_first_seconds=setups[0], setup_second_seconds=setups[1],
         der1_evals_per_s_host_numpy=host_evals_per_s, fit_seconds=fit_s,
         eta_star=res["eta"], sigma0=res["sigma0"], sigma=res["sigma"],
+        eta_star_rel_gap_to_fp32_fma=rel_gap(res["eta"], ETA_STAR_FP32_FMA),
         fit_iterations=res["iterations"],
         launches_after_each_setup=launches,
         launches_total=total_launches,
@@ -302,7 +335,8 @@ def timed(fn, reps):
 
 def phase_kernel_time(dev):
     """Kernel vs plain at the main path's shape: n = 100,000 points, the
-    engine's r = 24 block; and the r = 0 trace(K^2) launch."""
+    engine's r = 24 block under 'highest' (the tensor-core kernel, 3xTF32),
+    and the r = 0 trace(K^2) launch (the FP32 kernel)."""
     pts, _, _ = make_problem(N_MAIN, 7)
     P = torch.as_tensor(pts, dtype=F32, device=dev)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -325,38 +359,60 @@ def phase_kernel_time(dev):
         block_rows=1024)
     frob, max_abs = compare(got, want)
     trace_rel = abs(float(fro) - float(fro_want)) / float(fro_want)
+    # u.Kv vs v.Ku at the full shape, one column each
+    u, v = V[:, :1].contiguous(), V[:, 1:2].contiguous()
+    sym = symmetry(u, v, cuda_kernels.matern_matmat(P, scale, u, NU),
+                   cuda_kernels.matern_matmat(P, scale, v, NU))
+    # the first 2048 rows against the plain 3xTF32 version (logged)
+    tf32x3 = tf32x3_gap(got[:2048], P, None, RHO, V, NU)
     ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
-          and trace_rel < TRACE_RTOL)
+          and trace_rel < TRACE_RTOL and sym["symmetry_rel_err"] < SYM_TOL)
 
     med, times = median_in_turns({"kernel": kern, "plain": plain,
                                   "kernel_fro": kern_fro,
                                   "plain_fro": plain_fro})
     r, d = 24, 2
+    pairs = N_MAIN * N_MAIN
+    # the product as 3xTF32: three tf32 products on the tensor cores, and
+    # per pair on the CUDA cores the distance, k and the split of k (3)
     bound_ms, bound_by = bound(
         4 * (N_MAIN * d + 2 * N_MAIN * r),
-        N_MAIN * N_MAIN * (3 * d + nu_ops(NU) + 2 * r))
+        pairs * (3 * d + nu_ops(NU) + 3), tf32_ops=pairs * 2 * r * 3)
+    # what the same product would need as float32 FMAs on the CUDA cores
+    bound_fp32_ms, _ = bound(4 * (N_MAIN * d + 2 * N_MAIN * r),
+                             pairs * (3 * d + nu_ops(NU) + 2 * r))
+    # the trace: per pair the distance, k and one FMA for k^2
+    trace_bound_ms, trace_bound_by = bound(
+        4 * N_MAIN * d + 8, pairs * (3 * d + nu_ops(NU) + 2))
     log(phase="kernel_time", ok=ok, n=N_MAIN, r=r, reps=7,
         frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        **sym, frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_fro"],
         plain_f32_trace_ms_median=med["plain_fro"],
         bound_ms=bound_ms, bound_by=bound_by,
-        kernel_ms_all=times["kernel"], plain_ms_all=times["plain"])
+        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        kernel_ms_all=times["kernel"], plain_ms_all=times["plain"],
+        kernel_trace_ms_all=times["kernel_fro"])
     if not ok:
         raise AssertionError("kernel disagrees with the plain version at "
                              "the main path's shape")
-    return {"max_abs_err": max_abs, "ms": med["kernel"],
-            "plain_ms": med["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return ({"max_abs_err": max_abs, "ms": med["kernel"],
+             "plain_ms": med["plain"], "bound_ms": bound_ms,
+             "bound_by": bound_by},
+            {"max_abs_err": abs(float(fro) - float(fro_want)),
+             "ms": med["kernel_fro"], "plain_ms": med["plain_fro"],
+             "bound_ms": trace_bound_ms, "bound_by": trace_bound_by})
 
 
-def bound(nbytes, ops, tensor_ops=0):
+def bound(nbytes, ops, tensor_ops=0, tf32_ops=0):
     """The least time (ms) the card could take: bytes over its memory
-    rate, CUDA-core operations over its float32 rate or tensor-core
-    operations over its dense bf16 rate, whichever is largest."""
+    rate, CUDA-core operations over its float32 rate, tensor-core
+    operations on bf16 operands over its dense bf16 rate, or on tf32
+    operands over its dense tf32 rate, whichever is largest."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_F32_OPS_PER_S, tensor_ops / PEAK_BF16_OPS_PER_S) \
-        * 1e3
+    t_ops = max(ops / PEAK_F32_OPS_PER_S, tensor_ops / PEAK_BF16_OPS_PER_S,
+                tf32_ops / PEAK_TF32_OPS_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
 
 
@@ -889,9 +945,8 @@ def mode_case(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=RHO,
     before = dict(cuda_kernels.launch_counts)
     got = cuda_kernels.matern_matmat(pts, scale, V, nu, **kw)
     torch.cuda.synchronize()
-    kernel = "matern_matmat" if dot_mode == "highest" else "matern_matmat_mma"
     launched = launched_since(before)
-    assert launched == {kernel: 1}, launched
+    assert launched == {"matern_matmat_mma": 1}, launched
     assert got.shape == (n, r) and bool(torch.isfinite(got).all())
     own = cuda_kernels.matern_matmat_plain(
         pts, kernels.broadcast_scale(scale, d, dtype=F32, device=dev), V, nu,
@@ -1220,8 +1275,9 @@ def phase_precision_matrix(dev):
     """The precision-matrix path at n = 100,000: the engine constructed
     under each tile-dot mode (twice; chained matvec time; error against the
     plain exact path; der1(1)), then fitted. A construction is 64 matvec
-    launches of the mode's kernel and one trace(K^2) launch, which always
-    goes to the FP32 kernel (the trace sums the unrounded k^2)."""
+    launches of the tensor-core kernel in the mode's format and one
+    trace(K^2) launch, which always goes to the FP32 kernel (the trace sums
+    the unrounded k^2)."""
     cuda_kernels.reset_launch_counts()
     records, mma_launches = {}, {}
     for mode in cuda_kernels.DOT_MODES:
@@ -1240,19 +1296,17 @@ def phase_precision_matrix(dev):
     ok = all(r["fit_success"] and all(np.isfinite(
         r[k]) for k in ("eta_star", "sigma0", "sigma"))
         for r in records.values())
-    for mode, rec in records.items():
-        kernel = ("matern_matmat" if mode == "highest"
-                  else "matern_matmat_mma")
-        want = ({kernel: STEPS + 1} if mode == "highest"
-                else {kernel: STEPS, "matern_matmat": 1})
-        ok = ok and rec["launches_per_construction"] == want
+    for rec in records.values():
+        ok = ok and rec["launches_per_construction"] == {
+            "matern_matmat_mma": STEPS, "matern_matmat": 1}
     for mode in ("highest", "bf16x3"):
         ok = ok and 0.19 < records[mode]["sigma0"] < 0.21
     gaps = {mode: rel_gap(records[mode]["eta_star"],
                           records["highest"]["eta_star"])
             for mode in NEW_MODES}
     # 'bf16' is only required to fit: its gap is recorded, not bounded
-    ok = ok and gaps["bf16x3"] < 1e-2 and mma_launches["highest"] == 0
+    ok = (ok and gaps["bf16x3"] < 1e-2
+          and all(mma_launches[m] > 0 for m in cuda_kernels.DOT_MODES))
     log(phase="precision_matrix", ok=ok, n=N_MAIN, rho=RHO, nu=NU,
         lanczos_steps=STEPS, num_probes=PROBES,
         eta_star_rel_gap_to_highest=gaps, launches_total=launches,
@@ -1271,13 +1325,15 @@ def phase_roofline(dev):
     launches = dict(cuda_kernels.launch_counts)
     rows = out["rows"]
     shares = [row[k] for row in rows for k in ("pct_f32_peak",
-                                               "pct_bf16_peak")]
+                                               "pct_bf16_peak",
+                                               "pct_tf32_peak")]
     gram_launches = sum(
-        row["launches"].get("matern_matmat", 0) for row in rows
+        row["launches"].get("matern_matmat_mma", 0) for row in rows
         if row["dist_mode"] == "gram" and row["dot_mode"] == "highest")
+    # every row's products on the tensor-core kernel, none on the FP32 one
     ok = (len(rows) == 12 and all(0 <= s <= 100 for s in shares)
-          and launches["matern_matmat_mma"] == 6 * 8
-          and launches["matern_matmat"] == 6 * 8 and gram_launches == 3 * 8)
+          and launches["matern_matmat_mma"] == 12 * 8
+          and launches["matern_matmat"] == 0 and gram_launches == 3 * 8)
     log(phase="roofline", ok=ok, launches=launches, **out)
     if not ok:
         raise AssertionError(f"roofline sweep failed: {out}")
@@ -1287,7 +1343,8 @@ def phase_roofline(dev):
 def phase_mode_time(dev, taper_op):
     """Kernel, plain and error at the paths' shapes: matern_matmat at
     n = 100,000, r = 24 under diff/bf16x3, diff/bf16 and gram/highest, with
-    diff/highest timed in the same turns; the tensor-core multirho kernel
+    diff/highest timed in the same turns (all four on the tensor-core
+    kernel); the tensor-core multirho kernel
     (B = 8, r = 16) and blocksparse kernel (the full-size pair list,
     r = 24) under both bf16 modes, their 'highest' kernels in the same
     turns."""
@@ -1321,14 +1378,17 @@ def phase_mode_time(dev, taper_op):
         rec.update(mode_errors(got, own, want))
         ok = mode_verdict(rec, dot_mode, dist_mode) and ok
         # per pair on the CUDA cores: the distance (3d, or the Gram form's
-        # 2d + 3), scale/sqrt/exp, and in a bf16 mode the rounding of k
-        # (2 per bf16 value and the residual's subtraction); on the tensor
-        # cores 2r per product
-        products = {"highest": 0, "bf16x3": 3, "bf16": 1}[dot_mode]
+        # 2d + 3), scale/sqrt/exp, and the split or rounding of k (3 for
+        # two tf32 values, 5 for two bf16 values, 2 for one); on the tensor
+        # cores 2r per product, three products but under 'bf16', tf32
+        # operands under 'highest'
         core = (2 * d + 3 if dist_mode == "gram" else 3 * d) + nu_ops(NU)
-        core += {"highest": 2 * r, "bf16x3": 5, "bf16": 2}[dot_mode]
-        bound_ms, bound_by = bound(nbytes, pairs * core,
-                                   pairs * 2 * r * products)
+        core += {"highest": 3, "bf16x3": 5, "bf16": 2}[dot_mode]
+        tensor = pairs * 2 * r * (1 if dot_mode == "bf16" else 3)
+        bound_ms, bound_by = (
+            bound(nbytes, pairs * core, tf32_ops=tensor)
+            if dot_mode == "highest" else
+            bound(nbytes, pairs * core, tensor))
         out[name] = {"max_abs_err": rec["max_abs_err"],
                      "ms": med[f"kernel_{name}"],
                      "plain_ms": med[f"plain_{name}"], "bound_ms": bound_ms,
@@ -1460,8 +1520,11 @@ def kernel_record(name, source, replaces, launches, measured):
     # because K is never stored (40 GB at n = 10^5)
     return {"name": name, "route": "cuda",
             "source": f"gppe_tpu_torch/csrc/{source}",
-            "replaces": f"gppe_tpu/ops/pallas_kernels.py:{replaces}",
-            "launches": launches, **measured, "library_ms": None}
+            "replaces": replaces, "launches": launches, **measured,
+            "library_ms": None}
+
+
+PALLAS = "gppe_tpu/ops/pallas_kernels.py"
 
 
 def main():
@@ -1470,7 +1533,7 @@ def main():
     phase_parity(dev)
     phase_engine_1024(dev)
     launches_1 = phase_main_path(dev)
-    measured_1 = phase_kernel_time(dev)
+    measured_1, measured_trace = phase_kernel_time(dev)
     phase_parity_multirho(dev)
     phase_parity_blocksparse(dev)
     phase_grid_engine_1024(dev)
@@ -1486,33 +1549,41 @@ def main():
     launches_mma = phase_precision_matrix(dev)
     launches_gram = phase_roofline(dev)
     measured = phase_mode_time(dev, op)
-    if not all((launches_1, launches_2, launches_3, launches_mma["bf16x3"],
+    if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
+                launches_2, launches_3, launches_mma["bf16x3"],
                 launches_mma["bf16"], launches_gram,
                 launches_default["matern_matmat_multirho_mma"],
                 launches_default["matern_matmat_blocksparse_mma"])):
         raise AssertionError("a kernel of a path was never launched on it")
     print(nvidia_smi())
     print(json.dumps({"kernels": [
-        kernel_record("matern_matmat", "matern_matmat.cu", 103, launches_1,
+        # the main path: every product on the tensor-core kernel ('highest'
+        # as 3xTF32), trace(K^2) on the FP32 kernel
+        kernel_record("matern_matmat_mma[highest]", "matern_matmat_mma.cu",
+                      f"{PALLAS}:103", launches_1["matern_matmat_mma"],
                       measured_1),
-        kernel_record("matern_matmat_multirho", "matern_multirho.cu", 356,
-                      launches_2, measured_2),
+        kernel_record("matern_matmat", "matern_matmat.cu",
+                      "gppe_tpu/ops/operators.py:42",
+                      launches_1["matern_matmat"], measured_trace),
+        kernel_record("matern_matmat_multirho", "matern_multirho.cu",
+                      f"{PALLAS}:356", launches_2, measured_2),
         kernel_record("matern_matmat_blocksparse", "matern_blocksparse.cu",
-                      487, launches_3, measured_3),
+                      f"{PALLAS}:487", launches_3, measured_3),
         # the tile-dot modes (pallas_kernels._tile_dot, :64) and the Gram
         # form (_matmat_kernel_gram, :128), each on the path that runs it
         kernel_record("matern_matmat_mma[bf16x3]", "matern_matmat_mma.cu",
-                      64, launches_mma["bf16x3"], measured["bf16x3"]),
-        kernel_record("matern_matmat_mma[bf16]", "matern_matmat_mma.cu", 64,
-                      launches_mma["bf16"], measured["bf16"]),
-        kernel_record("matern_matmat[gram]", "matern_matmat.cu", 128,
-                      launches_gram, measured["gram"]),
+                      f"{PALLAS}:64", launches_mma["bf16x3"],
+                      measured["bf16x3"]),
+        kernel_record("matern_matmat_mma[bf16]", "matern_matmat_mma.cu",
+                      f"{PALLAS}:64", launches_mma["bf16"], measured["bf16"]),
+        kernel_record("matern_matmat_mma[gram]", "matern_matmat_mma.cu",
+                      f"{PALLAS}:128", launches_gram, measured["gram"]),
         kernel_record("matern_matmat_multirho_mma[bf16x3]",
-                      "matern_multirho_mma.cu", 64,
+                      "matern_multirho_mma.cu", f"{PALLAS}:64",
                       launches_default["matern_matmat_multirho_mma"],
                       measured["multirho_bf16x3"]),
         kernel_record("matern_matmat_blocksparse_mma[bf16x3]",
-                      "matern_blocksparse_mma.cu", 64,
+                      "matern_blocksparse_mma.cu", f"{PALLAS}:64",
                       launches_default["matern_matmat_blocksparse_mma"],
                       measured["blocksparse_bf16x3"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -103,22 +103,28 @@ def _check_nvcc(cmd, returncode, output):
                            f"{' '.join(cmd)}\n{output}")
 
 
-def load():
-    """The loaded kernel library, built first if needed."""
+def load(path=None):
+    """The loaded kernel library, built first if needed. ``path`` loads an
+    already built library of the same C interface instead, uncached (a
+    copy of the package with one change; ``chip_profile.py variants``)."""
     global _lib
-    if _lib is not None:
-        return _lib
-    path = library_path()
-    if not path.is_file():
-        _build(path)
+    if path is None:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.is_file():
+            _build(path)
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gppe_matern_matmat.restype = i32
-    lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                       i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                       i32, i32, i32, i32, ptr]
     lib.gppe_matern_matmat_mma.restype = i32
-    lib.gppe_matern_matmat_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+    lib.gppe_matern_matmat_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                            i32, i32, i32, i32, i32, i32, ptr]
+    lib.gppe_matern_matmat_mma_scratch_bytes.restype = ctypes.c_int64
+    lib.gppe_matern_matmat_mma_scratch_bytes.argtypes = [i32, i32, i32, i32,
+                                                         i32]
     lib.gppe_matern_multirho.restype = i32
     lib.gppe_matern_multirho.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, ptr]
@@ -135,5 +141,6 @@ def load():
                                                 ctypes.c_float, i32, i32, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
-    _lib = lib
+    if path == library_path():
+        _lib = lib
     return lib

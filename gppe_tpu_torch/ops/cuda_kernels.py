@@ -8,14 +8,15 @@ the other.
 ``matern_matmat`` replaces the TPU kernels ``pallas_kernels._matmat_kernel``
 and ``_matmat_kernel_gram``: K @ V with K the Matern correlation of the
 scaled points, never stored, plus an optional trace(K^2) output that
-replaces the XLA pass ``operators._matern_frobenius2_blocked``. Its exact
-mode (``dot_mode='highest'``, IEEE float32 FMAs) and every trace(K^2) pass
-run ``csrc/matern_matmat.cu``; the ``'bf16x3'`` and ``'bf16'`` tile-dot
-modes of ``pallas_kernels._tile_dot`` run ``csrc/matern_matmat_mma.cu``,
-which issues the products on the tensor cores (bf16 operands, float32
-sums). ``dist_mode='gram'`` takes d^2 = |x|^2 + |y|^2 - 2 x.y on points
-centred on the column mean instead of the exact difference form, in either
-kernel.
+replaces the XLA pass ``operators._matern_frobenius2_blocked``. Its
+products run ``csrc/matern_matmat_mma.cu`` in every tile-dot mode of
+``pallas_kernels._tile_dot``, on the tensor cores with float32 sums: the
+exact mode ``'highest'`` as 3xTF32 (tf32 high and residual parts, IEEE
+sqrt and exp; :func:`_tf32x3_dot_plain` is its plain version), ``'bf16x3'``
+and ``'bf16'`` with bf16 operands. Every trace(K^2) pass runs
+``csrc/matern_matmat.cu`` (IEEE float32 k^2, float64 row sums).
+``dist_mode='gram'`` takes d^2 = |x|^2 + |y|^2 - 2 x.y on points centred
+on the column mean instead of the exact difference form, in both.
 
 ``matern_matmat_multirho`` replaces ``pallas_kernels._multirho_kernel``:
 K(rho_b) @ V_b for a batch of isotropic scales over one set of raw points,
@@ -26,12 +27,12 @@ with per-rho trace(K_b^2).
 of active tile pairs, plus an optional trace(K^2) output that replaces the
 XLA scan of ``taper.TaperedMaternOperator.trace_pow``.
 
-Both take the same three dot modes, split the same way: 'highest' and
-every trace run the FP32-FMA kernels (``csrc/matern_multirho.cu``,
+Both take the same three dot modes: 'highest' and every trace run the
+FP32-FMA kernels (``csrc/matern_multirho.cu``,
 ``csrc/matern_blocksparse.cu``), the 'bf16x3' and 'bf16' products run
 tensor-core kernels of their own (``csrc/matern_multirho_mma.cu``,
-``csrc/matern_blocksparse_mma.cu``); :func:`_launch_plan` is the routing
-table.
+``csrc/matern_blocksparse_mma.cu``). :func:`_launch_plan` is the routing
+table of all three products.
 
 The tile-dot modes round the operands only: a trace(K^2) output always
 sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
@@ -63,9 +64,10 @@ launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
 # nu -> template code of csrc/matern_common.cuh (kNuHalf ... kNuGauss)
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
 _GAUSS_CODE = 3
-# reduced dot mode -> code of csrc/matern_common.cuh (kDotBf16x3, kDotBf16);
-# 'highest' has kernels of its own that take no code
-_DOT_CODES = {"bf16x3": 1, "bf16": 2}
+# dot mode -> code of csrc/matern_common.cuh (kDotHighest, kDotBf16x3,
+# kDotBf16), as the tensor-core kernels take it; the exact multi-rho and
+# block-sparse kernels take none
+_DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
 _MAX_D = 8
 
 
@@ -109,6 +111,37 @@ def tile_dot_plain(K, V, dot_mode):
         return k_hi @ v_hi
     k_lo, v_lo = _bf16_round(K - k_hi), _bf16_round(V - v_hi)
     return k_hi @ v_hi + k_lo @ v_hi + k_hi @ v_lo
+
+
+def _tf32_round(x):
+    """float32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 stored mantissa bits, ties away from zero, the low 13 bits zero
+    (adding half a tf32 unit to the magnitude bits and truncating). A value
+    that rounds past the largest float32 becomes inf; inf and NaN pass
+    unchanged. Module-private: the plain version of the split that
+    ``csrc/matern_matmat_mma.cu`` takes under 'highest'."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
+
+
+def _tf32x3_dot_plain(K, V):
+    """K @ V as ``csrc/matern_matmat_mma.cu`` computes it under 'highest',
+    in float32: each operand split into hi = tf32(x) and lo = tf32(x - hi)
+    (:func:`_tf32_round`), hi.hi + lo.hi + hi.lo (lo.lo dropped) summed
+    over 128 columns of K at a time (the kernel's column tile), and those
+    partial products added in float32, the kernel's two-level sum. Not a
+    dot mode: the plain 'highest' product stays K @ V."""
+    K, V = K.float(), V.float()
+    k_hi, v_hi = _tf32_round(K), _tf32_round(V)
+    k_lo, v_lo = _tf32_round(K - k_hi), _tf32_round(V - v_hi)
+    out = torch.zeros((K.shape[0], V.shape[1]), dtype=torch.float32,
+                      device=K.device)
+    for j in range(0, K.shape[1], 128):
+        cols = slice(j, j + 128)
+        out += (k_hi[:, cols] @ v_hi[cols]
+                + (k_lo[:, cols] @ v_hi[cols] + k_hi[:, cols] @ v_lo[cols]))
+    return out
 
 
 def _gram_operands(rows_s, cols_s):
@@ -184,11 +217,10 @@ def matern_matmat(points, scale, V, nu, points_cols=None, dot_mode=None,
     the sum is a 0-d tensor of the unrounded k^2, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_plain` (in their own dtype,
-    ``block_rows`` rows at a time); CUDA tensors launch a float32 kernel
-    and must be float32 and contiguous: the FP32-FMA kernel for 'highest'
-    and for the sum K^2, the tensor-core kernel for the product in the two
-    bf16 modes (so a call that asks for both in such a mode launches
-    both)."""
+    ``block_rows`` rows at a time); CUDA tensors launch float32 kernels
+    and must be float32 and contiguous: the tensor-core kernel for the
+    product in every mode, the FP32-FMA kernel for the sum K^2 (so a call
+    that asks for both launches both)."""
     dot_mode = resolve_dot_mode(dot_mode)
     _check_dist_mode(dist_mode)
     nu = kernels.check_static_nu(nu)
@@ -248,28 +280,30 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
 
     lib = _build.load()
     code = _NU_CODES.get(nu, _GAUSS_CODE)
-    # the tensor-core kernel multiplies; every sum K^2 is the FP32 kernel's
-    on_mma = dot_mode != "highest" and r > 0
     geometry = (rows_s.data_ptr(), cols_s.data_ptr(),
                 None if rows_norm is None else rows_norm.data_ptr(),
                 None if cols_norm is None else cols_norm.data_ptr())
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if on_mma:
-            err = lib.gppe_matern_matmat_mma(
-                *geometry, V.data_ptr(), out.data_ptr(), nr, nc, d, r, code,
-                _DOT_CODES[dot_mode], stream)
-            _raise_on_cuda_error(lib, err, "matern_matmat_mma")
-            launch_counts["matern_matmat_mma"] += 1
-        if frobenius or not on_mma:
-            product = not on_mma and V is not None
-            err = lib.gppe_matern_matmat(
-                *geometry, V.data_ptr() if product else None,
-                out.data_ptr() if product else None,
-                None if fro_rows is None else fro_rows.data_ptr(),
-                nr, nc, d, r if product else 0, code, stream)
-            _raise_on_cuda_error(lib, err, "matern_matmat")
-            launch_counts["matern_matmat"] += 1
+        for entry, counter, _, _ in _launch_plan("matmat", dot_mode, r,
+                                                 frobenius):
+            if entry == "gppe_matern_matmat_mma":
+                # V's split images, written once per launch by the kernel's
+                # pre-pass; freed after the launch in stream order
+                scratch = torch.empty(
+                    lib.gppe_matern_matmat_mma_scratch_bytes(
+                        nc, d, r, _DOT_CODES[dot_mode],
+                        int(rows_norm is not None)),
+                    dtype=torch.uint8, device=points.device)
+                err = lib.gppe_matern_matmat_mma(
+                    *geometry, V.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), nr, nc, d, r, code,
+                    _DOT_CODES[dot_mode], stream)
+            else:
+                err = lib.gppe_matern_matmat(*geometry, fro_rows.data_ptr(),
+                                             nr, nc, d, code, stream)
+            _raise_on_cuda_error(lib, err, counter)
+            launch_counts[counter] += 1
     if frobenius:
         return out, fro_rows.sum()
     return out
@@ -377,17 +411,21 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
 
 
 def _launch_plan(kernel, dot_mode, r, frobenius):
-    """The launches of one ``matern_matmat_<kernel>`` call on the card
-    (``kernel``: 'multirho' or 'blocksparse'), as (C entry, launch counter,
-    with product, with k^2 sums) tuples. 'highest', and a call without V,
-    is one launch of the FP32-FMA kernel. The product under 'bf16x3' or
-    'bf16' is one launch of the tensor-core kernel, which sums no k^2:
-    the sums, where asked for, are a second, trace-only launch of the
-    FP32-FMA kernel (they never round)."""
-    exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
-    if dot_mode == "highest" or r == 0:
-        return [(*exact, r > 0, frobenius)]
-    plan = [(f"{exact[0]}_mma", f"{exact[1]}_mma", True, False)]
+    """The launches of one ``matern_matmat`` call on the card (``kernel``
+    'matmat') or of one ``matern_matmat_<kernel>`` call ('multirho',
+    'blocksparse'), as (C entry, launch counter, with product, with k^2
+    sums) tuples, in launch order. The product (r > 0) is one launch of
+    the tensor-core kernel in every mode for 'matmat' and under 'bf16x3'
+    or 'bf16' for the other two; it sums no k^2, so the sums, where asked
+    for, are a second, trace-only launch of the FP32-FMA kernel (they
+    never round). The exact multi-rho and block-sparse kernels multiply
+    under 'highest' and sum k^2 in the same launch."""
+    exact = ("gppe_matern_matmat", "matern_matmat") if kernel == "matmat" \
+        else (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
+    mma = (f"{exact[0]}_mma", f"{exact[1]}_mma")
+    if kernel != "matmat" and dot_mode == "highest" and r > 0:
+        return [(*exact, True, frobenius)]
+    plan = [(*mma, True, False)] if r > 0 else []
     if frobenius:
         plan.append((*exact, False, True))
     return plan

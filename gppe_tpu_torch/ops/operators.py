@@ -2,10 +2,9 @@
 
 Counterpart of ``gppe_tpu.ops.operators.MaternOperator``. On a CUDA
 device ``matmat`` and ``trace_pow(2)`` launch the fused CUDA kernels
-(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`: the FP32-FMA
-kernel at ``dot_mode='highest'`` and for the trace, the tensor-core kernel
-at 'bf16x3' and 'bf16'); on the CPU they run the plain row-blocked PyTorch
-version. The points live on the device
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`: the tensor-core
+kernel for the products in every dot mode, the FP32 kernel for the
+trace); on the CPU they run the plain row-blocked PyTorch version. The points live on the device
 (0.8 MB at n = 10^5); K (40 GB at n = 10^5) never exists.
 """
 

@@ -13,15 +13,19 @@ rtol 1e-5; u.Kv vs v.Ku to 1e-6 of |u| |Kv|. The tapered product is
 compared at a threshold that no pair comes within 1e-5 (relative) of, so
 that float32 and float64 taper the same entries.
 
+matern_matmat's products run on the tensor-core kernel
+matern_matmat_mma in every mode, 'highest' as 3xTF32 (held to the bounds
+above), and its trace(K^2) on the FP32 kernel matern_matmat.
+
 The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
 Frobenius bound and must sit closer to its own plain version (same
 rounding) than the rounding is large; 'bf16' must show its rounding
 (1e-4 < error < 5e-3); the Gram form has the reference's envelope (1e-3,
-max-abs 2e-2; tests/test_kernels.py::test_gram_dist_mode_accuracy). In
-the multi-rho and the block-sparse product the two bf16 modes are
-tensor-core kernels of their own (matern_matmat_multirho_mma,
-matern_matmat_blocksparse_mma) that take sqrt and exp2 as the bare
-hardware approximations (2^-22 relative): far inside the same bounds.
+max-abs 2e-2; tests/test_kernels.py::test_gram_dist_mode_accuracy). The
+bf16 modes of all three tensor-core kernels (matern_matmat_mma,
+matern_matmat_multirho_mma, matern_matmat_blocksparse_mma) take sqrt and
+exp2 as the bare hardware approximations (2^-22 relative): far inside the
+same bounds.
 """
 
 import numpy as np
@@ -110,18 +114,22 @@ def test_kernel_symmetry(dev):
 
 
 def test_wrapper_counts_launches_and_checks_inputs(dev):
+    """'highest': the product on the tensor-core kernel, the trace on the
+    FP32 kernel; a refused call launches nothing."""
     pts = torch.rand(300, 2, device=dev)
     V = torch.rand(300, 3, device=dev)
     cuda_kernels.reset_launch_counts()
     op = MaternOperator(pts, 0.1, device=dev)
     op.matmat(V)
     op.trace_pow(2)
-    assert cuda_kernels.launch_counts["matern_matmat"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1
     with pytest.raises(TypeError, match="float32"):
         cuda_kernels.matern_matmat(pts.double(), 0.1, V.double(), 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.matern_matmat(pts, 0.1, V.T.contiguous().T, 0.5)
-    assert cuda_kernels.launch_counts["matern_matmat"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 1
 
 
 def test_engine_n1024_cuda_matches_cpu(dev):
@@ -442,9 +450,8 @@ def _check_mode(dev, dot_mode, dist_mode, n, r, nu, d=2, scale=0.1,
     cuda_kernels.reset_launch_counts()
     got = cuda_kernels.matern_matmat(pts, scale, V, nu, **kw)
     torch.cuda.synchronize()
-    mma = 0 if dot_mode == "highest" else 1
-    assert cuda_kernels.launch_counts["matern_matmat_mma"] == mma
-    assert cuda_kernels.launch_counts["matern_matmat"] == 1 - mma
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 0
     own = cuda_kernels.matern_matmat_plain(
         pts, kernels.broadcast_scale(scale, d, dtype=F32, device=dev), V, nu,
         block_rows=n, **kw)
@@ -505,8 +512,9 @@ def test_bf16x3_skew_is_bounded(dev):
 
 
 def test_mma_wrapper_counts_launches(dev):
-    """The tensor-core kernel multiplies, the FP32 kernel sums k^2: a mode
-    asked for both launches both, and the trace is the exact one."""
+    """The tensor-core kernel multiplies, the FP32 kernel sums k^2: a call
+    that asks for both launches both, in every mode, and the trace is the
+    exact one."""
     pts = torch.rand(300, 2, device=dev)
     V = torch.rand(300, 3, device=dev)
     cuda_kernels.reset_launch_counts()
@@ -516,6 +524,12 @@ def test_mma_wrapper_counts_launches(dev):
     assert cuda_kernels.launch_counts["matern_matmat"] == 1
     _, exact = cuda_kernels.matern_matmat(pts, 0.1, None, 0.5,
                                           frobenius=True)
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat"] == 2
+    assert float(fro) == float(exact)
+    _, fro = cuda_kernels.matern_matmat(pts, 0.1, V, 0.5, frobenius=True)
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat"] == 3
     assert float(fro) == float(exact)
     op = MaternOperator(pts, 0.1, device=dev, dot_mode="bf16")
     cuda_kernels.reset_launch_counts()
@@ -529,6 +543,31 @@ def test_mma_wrapper_counts_launches(dev):
     with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat(pts, 0.1, V, 0.5, dot_mode="tf32")
     assert cuda_kernels.launch_counts["matern_matmat_mma"] == 1
+
+
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3", "bf16"])
+@pytest.mark.parametrize("r", [7, 24])
+def test_mma_d2_instance_matches_any_d(dev, dot_mode, r):
+    """The d = 2 instance (row coordinates in registers) against the any-d
+    instance (staged coordinates, a run-time loop) on the same points with
+    a zero third coordinate: the squared distances are summed in the same
+    order and a zero term adds nothing, so the two give the same bits; and
+    the pair is within the mode's bounds."""
+    rng = np.random.RandomState(r)
+    pts = torch.as_tensor(rng.rand(3001, 2), dtype=F32, device=dev)
+    V = torch.as_tensor(rng.standard_normal((3001, r)), dtype=F32,
+                        device=dev)
+    flat = torch.cat([pts, torch.zeros_like(pts[:, :1])], dim=1)
+    got2 = cuda_kernels.matern_matmat(pts, 0.1, V, 1.5, dot_mode=dot_mode)
+    got3 = cuda_kernels.matern_matmat(flat, 0.1, V, 1.5, dot_mode=dot_mode)
+    assert torch.equal(got2, got3)
+    own = cuda_kernels.matern_matmat_plain(
+        pts, kernels.broadcast_scale(0.1, 2, dtype=F32, device=dev), V, 1.5,
+        dot_mode=dot_mode)
+    want = cuda_kernels.matern_matmat_plain(
+        pts.double(), kernels.broadcast_scale(0.1, 2, dtype=F64, device=dev),
+        V.double(), 1.5)
+    _assert_mode_bounds(got3, own, want, dot_mode)
 
 
 def _skew(u, v, Ku, Kv):
@@ -730,6 +769,5 @@ def test_entry_points_on_the_card(dev):
     for row in out["rows"]:
         assert 0 <= row["pct_f32_peak"] <= 100
         assert 0 <= row["pct_bf16_peak"] <= 100
-        kernel = ("matern_matmat" if row["dot_mode"] == "highest"
-                  else "matern_matmat_mma")
-        assert row["launches"] == {kernel: 4}
+        assert 0 <= row["pct_tf32_peak"] <= 100
+        assert row["launches"] == {"matern_matmat_mma": 4}

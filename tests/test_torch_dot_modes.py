@@ -12,6 +12,8 @@ within the band the rounding must produce.
 """
 
 import os
+from contextlib import nullcontext
+from types import SimpleNamespace
 
 import ml_dtypes
 import numpy as np
@@ -297,28 +299,31 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "gppe_tpu_torch", "csrc")
 
 
-@pytest.mark.parametrize("kernel", ["multirho", "blocksparse"])
+@pytest.mark.parametrize("kernel", ["multirho", "blocksparse", "matmat"])
 @pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
 @pytest.mark.parametrize("r, frobenius", [(0, True), (1, False), (1, True),
                                           (16, False), (24, True),
                                           (40, False)])
 def test_launch_plan_routes_modes_to_kernels(kernel, dot_mode, r, frobenius):
-    """The routing table of the multi-rho and the block-sparse wrapper on
-    the card: 'highest', and any call without V, is one launch of the
-    FP32-FMA kernel with whatever was asked for; a 'bf16x3' or 'bf16'
-    product is one launch of the tensor-core kernel, counted under its own
-    name, and the k^2 sums (never rounded) are then a trace-only launch of
-    the FP32-FMA kernel."""
-    exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
-    mma = (f"gppe_matern_{kernel}_mma", f"matern_matmat_{kernel}_mma")
-    plan = cuda_kernels._launch_plan(kernel, dot_mode, r, frobenius)
-    if dot_mode == "highest" or r == 0:
-        assert plan == [(*exact, r > 0, frobenius)]
-        assert not any("mma" in name for launch in plan
-                       for name in launch[:2])
+    """The routing table of the three wrappers on the card. matern_matmat:
+    every product is one launch of the tensor-core kernel, in every mode
+    ('highest' as 3xTF32). The multi-rho and the block-sparse wrapper:
+    'highest' is one launch of the FP32-FMA kernel with whatever was asked
+    for, a 'bf16x3' or 'bf16' product one launch of the tensor-core kernel,
+    counted under its own name. A tensor-core launch sums no k^2 (they are
+    never rounded): the sums are then a trace-only launch of the FP32-FMA
+    kernel, and so is a call without V."""
+    if kernel == "matmat":
+        exact = ("gppe_matern_matmat", "matern_matmat")
     else:
-        assert plan[0] == (*mma, True, False)
-        assert plan[1:] == ([(*exact, False, True)] if frobenius else [])
+        exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
+    mma = (f"{exact[0]}_mma", f"{exact[1]}_mma")
+    plan = cuda_kernels._launch_plan(kernel, dot_mode, r, frobenius)
+    if kernel != "matmat" and dot_mode == "highest" and r > 0:
+        assert plan == [(*exact, True, frobenius)]
+    else:
+        assert plan == ([(*mma, True, False)] if r else []) + (
+            [(*exact, False, True)] if frobenius else [])
     # one launch multiplies (if there is a V), one sums k^2 (if asked)
     assert sum(launch[2] for launch in plan) == (r > 0)
     assert sum(launch[3] for launch in plan) == frobenius
@@ -329,6 +334,71 @@ def test_launch_plan_routes_modes_to_kernels(kernel, dot_mode, r, frobenius):
         assert source in _build.SOURCES
         with open(os.path.join(CSRC, source)) as f:
             assert f'extern "C" int {entry}(' in f.read()
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each C entry called, with
+    the arguments the routing decides (norm pointers, V, widths, codes)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def gppe_matern_matmat_mma_scratch_bytes(self, nc, d, r, dot_code,
+                                             gram):
+        return 16 * nc
+
+    def gppe_matern_matmat_mma(self, rows, cols, rows_norm, cols_norm, V,
+                               out, scratch, nr, nc, d, r, nu_code, dot_code,
+                               stream):
+        self.calls.append(("gppe_matern_matmat_mma", rows_norm is not None,
+                           cols_norm is not None, r, dot_code))
+        return 0
+
+    def gppe_matern_matmat(self, rows, cols, rows_norm, cols_norm, fro_rows,
+                           nr, nc, d, nu_code, stream):
+        self.calls.append(("gppe_matern_matmat", rows_norm is not None,
+                           cols_norm is not None, 0, None))
+        return 0
+
+
+@pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
+@pytest.mark.parametrize("dist_mode", cuda_kernels.DIST_MODES)
+@pytest.mark.parametrize("r", [0, 24])
+@pytest.mark.parametrize("frobenius", [False, True])
+def test_matmat_wrapper_launches_what_the_plan_says(
+        dot_mode, dist_mode, r, frobenius, monkeypatch):
+    """The card path of matern_matmat, driven on CPU tensors against a
+    stand-in library: every product goes to matern_matmat_mma with the
+    mode's code, in both distance forms; every sum of k^2 is a second,
+    trace-only launch of matern_matmat; the Gram form hands both kernels
+    the norms; each launch adds one to its own counter and to no other."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    rng = np.random.RandomState(r)
+    pts = _t(rng.rand(40, 2), F32)
+    V = _t(rng.standard_normal((40, r)), F32) if r else None
+    cuda_kernels.reset_launch_counts()
+    out = cuda_kernels._matern_matmat_cuda(
+        pts, _t([0.1, 0.1], F32), V, 0.5, None, frobenius, dot_mode,
+        dist_mode)
+    gram = dist_mode == "gram"
+    want = [("gppe_matern_matmat_mma", gram, gram, r,
+             cuda_kernels._DOT_CODES[dot_mode])] if r else []
+    if frobenius:
+        want.append(("gppe_matern_matmat", gram, gram, 0, None))
+    assert lib.calls == want
+    assert [entry for entry, *_ in cuda_kernels._launch_plan(
+        "matmat", dot_mode, r, frobenius)] == [call[0] for call in want]
+    if frobenius:
+        out, fro = out
+        assert fro.dtype == F64
+    assert (out is None) == (r == 0)
+    assert cuda_kernels.launch_counts == {
+        **dict.fromkeys(cuda_kernels.launch_counts, 0),
+        "matern_matmat_mma": int(r > 0), "matern_matmat": int(frobenius)}
 
 
 # -- the operator and the engines ---------------------------------------------

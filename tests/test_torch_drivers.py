@@ -27,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(n=512, device="cpu", lanczos_steps=16, num_probes=4,
              chain_warm=1, chain_reps=2, check_n=256)
 SHARE_KEYS = ("cuda_core_tflops", "pct_f32_peak", "tensor_core_tflops",
-              "pct_bf16_peak")
+              "pct_bf16_peak", "pct_tf32_peak")
 
 
 @pytest.fixture(scope="module")
@@ -105,12 +105,14 @@ def test_roofline_rows(sweep):
         (r, dist, dot) for r in (23, 151, 279) for dist in ("diff", "gram")
         for dot in ("highest", "bf16x3")}
     assert out["n"] == 512 and out["device"] == "cpu"
-    # both denominators are named, and they are this card's
+    # every denominator is named, and they are this card's
     assert out["peak_denominators_tflops"] == {"pct_f32_peak": 67.0,
-                                               "pct_bf16_peak": 989.0}
+                                               "pct_bf16_peak": 989.0,
+                                               "pct_tf32_peak": 495.0}
     for row in rows:
         assert row["seconds"] > 0
-        assert (row["tensor_core_ops"] > 0) == (row["dot_mode"] == "bf16x3")
+        # every mode multiplies on the tensor cores ('highest' as 3xTF32)
+        assert row["tensor_core_ops"] == 512 * 512 * 6 * row["r"]
         # a CPU time is no share of the card's peak: none is stated
         assert all(row[k] is None or 0 <= row[k] <= 100 for k in SHARE_KEYS)
         assert all(row[k] is None for k in SHARE_KEYS)
@@ -130,23 +132,32 @@ def test_roofline_writes_no_file_unless_asked(sweep, tmp_path):
 
 def test_operation_counts_and_peak_shares():
     n, r = 1000, 23
+    # 'highest' is three tf32 products on the tensor cores, not 2 r FP32
+    # FMAs per pair on the CUDA cores
     assert roofline_matvec.operation_counts(n, r, "diff", "highest") == (
-        n * n * (6 + 3 + 2 * r), 0)
+        n * n * (6 + 3), n * n * 6 * r)
     assert roofline_matvec.operation_counts(n, r, "gram", "bf16x3") == (
         n * n * (7 + 3), n * n * 6 * r)
-    # B1's record on the card: 28.4 ms at n = 100k, r = 24
-    core, tensor = roofline_matvec.operation_counts(100_000, 24, "diff",
+    assert roofline_matvec.operation_counts(n, r, "diff", "bf16") == (
+        n * n * (6 + 3), n * n * 2 * r)
+    # a 'highest' time the FP32-FMA product could never reach (under its
+    # 8 ms bound at n = 100k) is a share of the tf32 peak, not above 100%
+    core, tensor = roofline_matvec.operation_counts(100_000, 23, "diff",
                                                     "highest")
-    shares = roofline_matvec.peak_shares(core, tensor, 28.4e-3)
+    shares = roofline_matvec.peak_shares(core, tensor, 6e-3, "highest")
     assert 0 < shares["pct_f32_peak"] <= 100
+    assert 0 < shares["pct_tf32_peak"] <= 100
     assert shares["pct_bf16_peak"] == 0
     core, tensor = roofline_matvec.operation_counts(100_000, 24, "diff",
                                                     "bf16x3")
-    shares = roofline_matvec.peak_shares(core, tensor, 22e-3)
+    shares = roofline_matvec.peak_shares(core, tensor, 22e-3, "bf16x3")
     assert 0 < shares["pct_bf16_peak"] <= 100
+    assert shares["pct_tf32_peak"] == 0
     # a time below the card's bound is a timing fault, not a result
     with pytest.raises(RuntimeError, match="above 100%"):
-        roofline_matvec.peak_shares(core, tensor, 1e-4)
+        roofline_matvec.peak_shares(core, tensor, 1e-4, "bf16x3")
+    with pytest.raises(RuntimeError, match="above 100%"):
+        roofline_matvec.peak_shares(core, tensor, 2e-3, "highest")
 
 
 def test_entry_points_import_without_jax():

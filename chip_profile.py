@@ -5,8 +5,12 @@
     python3 chip_profile.py main grid taper # torch.profiler, one setup each
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
-    python3 chip_profile.py eta             # eta* under other products
-    python3 chip_profile.py variants DIR... # matern_matmat per kernel variant
+    python3 chip_profile.py --parent DIR modes eta  # beside another commit
+    python3 chip_profile.py --parent DIR --float64 eta  # and float64 products
+    python3 chip_profile.py --parent DIR sass       # kernels compiled alike
+    python3 chip_profile.py eta             # eta* of every path
+    python3 chip_profile.py eta-main        # main eta* under other products
+    python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -19,31 +23,60 @@ time by kernel name, and the device's idle share of the window (one minus
 the union of the kernel intervals over the window). ``--dot-mode`` makes
 that tile-dot mode the module default for the profiled setups.
 
+``--parent DIR`` loads a second copy of the package, ``DIR/gppe_tpu_torch``
+(the parent commit, unpacked under the git-ignored ``build/``), beside this
+one, under another name, with its own kernel library (built into
+``DIR/build`` in parallel with this one's). ``modes`` and ``eta`` then run
+each measurement through both packages' public entry points, in turns in
+this one process: two commits on one card in one call is the comparison
+that counts.
+
 ``modes`` times the three products through their public wrappers at the
 paths' shapes (matern_matmat n = 100,000, r = 24; matern_matmat_multirho
 B = 8, r = 16; matern_matmat_blocksparse n = 2^20, r = 24) under every
 tile-dot mode, 'highest' included, and each wrapper's trace-only call, in
-turns, median of 7. It uses nothing but the wrappers, so the same file run
-from a checkout of another commit times that commit's kernels: two commits
-in one call on one card is the comparison that counts.
+turns, median of 7; with ``--parent`` each call of the change next to the
+same call of the parent, and the largest absolute difference of each
+output from the parent's.
 
-``eta`` fits the main path's engine (chip_smoke.py phase 5) with its
-products computed other ways, the trace(K^2) launch kept: the kernel in
-each dot mode, the plain float32 version, the float64 product rounded once
-to float32, and the 'highest' kernel's product times (1 + eps N(0, 1)) for
-a few eps and seeds, or times 1 -+ 1e-6. It measures how far eta* moves
-under changes of the products at float32 level, random or coherent.
+``eta`` fits the main path (chip_smoke.py phase 5), the grid path (phase
+10: each grid point) and the tapered path (phase 12) under the module
+default mode and prints every eta*, sigma0 and the setup seconds; with
+``--parent`` the same fits through the parent's package beside them, from
+the same data and random blocks; with ``--float64`` also the grid path
+with its products computed in float64 (the plain version, rounded once to
+float32; the traces from the kernel), the yardstick both are held to.
+
+``sass`` (with ``--parent``) compiles every kernel source of this package
+and of the parent's copy to machine code (``nvcc -cubin``, ``cuobjdump
+-sass``) and prints, per source, how many of this package's kernel
+functions have a twin in the parent's, instruction for instruction (branch
+targets and kernel-parameter offsets aside), and the names of those that
+have none: which instances a change left as they were, whatever their
+names now.
+
+``eta-main`` fits the main path's engine with its products computed other
+ways, the trace(K^2) launch kept: the kernel in each dot mode, the plain
+float32 version, the float64 product rounded once to float32, and the
+'highest' kernel's product times (1 + eps N(0, 1)) for a few eps and
+seeds, or times 1 -+ 1e-6. It measures how far eta* moves under changes of
+the products at float32 level, random or coherent.
 
 ``variants`` takes directories that each hold a copy of the package
 (``DIR/gppe_tpu_torch``) with one change to its kernel sources, builds
-their libraries in parallel, and times matern_matmat at n = 100,000,
-r = 24 under every tile-dot mode with each library in turns, in this one
-process, with each library's error against plain float64: how the design
-choices of ``matern_matmat_mma.cu`` were made.
+their libraries in parallel, and times one wrapper (``--kernel``, before
+``variants``: matmat, the default, at n = 100,000, r = 24; multirho at
+B = 8, r = 16; or blocksparse at n = 2^20, r = 24) under every tile-dot
+mode with each
+library in turns, in this one process, with each library's error against
+plain float64 (multirho: the largest over the rhos): how the design
+choices of the tensor-core kernels were made.
 
 Exits non-zero without a CUDA device.
 """
 
+import importlib
+import importlib.util
 import json
 import re
 import subprocess
@@ -104,6 +137,58 @@ def ptxas_report():
         print(json.dumps(r))
 
 
+def sass_functions(path):
+    """{function name: its instructions} of a ``cuobjdump -sass`` listing,
+    with branch targets and kernel-parameter offsets masked."""
+    out, name = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\s+Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                out[name] = []
+                continue
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+            if m and name is not None:
+                ins = re.sub(r"((?:BRA|BSSY|CALL)\S*\s+(?:\S+\s+)?)0x[0-9a-f]+",
+                             r"\1T", m.group(1))
+                out[name].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]",
+                                        "c[0x0][P]", ins))
+    return out
+
+
+def sass_twins(root):
+    """Per kernel source: this package's kernel functions with and without
+    an instruction-for-instruction twin in the copy at ``root``."""
+    nvcc = _build.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    trees = {"change": _build.CSRC_DIR,
+             "parent": Path(root).resolve() / "gppe_tpu_torch" / "csrc"}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {(tree, src): Path(tmp) / f"{tree}_{Path(src).stem}.cubin"
+                for tree in trees for src in _build.SOURCES}
+        procs = [subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", str(out),
+             str(trees[tree] / src)]) for (tree, src), out in jobs.items()]
+        if any(p.wait() for p in procs):
+            raise RuntimeError("a kernel source did not compile")
+        for out in jobs.values():
+            with open(out.with_suffix(".sass"), "w") as f:
+                subprocess.run([cuobjdump, "-sass", str(out)], stdout=f,
+                               check=True)
+        for src in _build.SOURCES:
+            change, parent = (sass_functions(
+                jobs[(tree, src)].with_suffix(".sass"))
+                for tree in ("change", "parent"))
+            bodies = {tuple(b) for b in parent.values()}
+            alone = [k for k, b in change.items() if tuple(b) not in bodies]
+            print(json.dumps({"phase": "sass", "source": src,
+                              "functions": len(change),
+                              "parent_functions": len(parent),
+                              "with_twin": len(change) - len(alone),
+                              "without_twin": alone}), flush=True)
+
+
 def profile_setup(name, build):
     """``build()`` constructs the engine; profile its second run."""
     from torch.autograd import DeviceType
@@ -153,8 +238,53 @@ def profile_setup(name, build):
         - sum(t for _, (_, t) in top)}), flush=True)
 
 
-def mode_times(dev):
-    """Median ms of each product at its path's shape under each dot mode."""
+def load_package(root):
+    """``root/gppe_tpu_torch`` imported beside this package as
+    ``gppe_tpu_torch_<n>``, with a kernel library of its own (its
+    ``_build`` builds into ``root/build``)."""
+    name = f"gppe_tpu_torch_{len(PACKAGES)}"
+    pkg = Path(root).resolve() / "gppe_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    PACKAGES[name] = root
+    return name
+
+
+PACKAGES = {}
+
+
+def build_libraries(roots):
+    """Build the kernel libraries of this package and of the package
+    copies under ``roots``, all at once: one process per copy."""
+    load = "from gppe_tpu_torch.ops import _build; _build.load()"
+    procs = [subprocess.Popen([sys.executable, "-c", load], cwd=root)
+             for root in roots]
+    _build.load()
+    for proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError("a package copy's kernels did not build")
+
+
+def packages(argv):
+    """{label: (cuda_kernels, package name)} of this package ('change')
+    and, with ``--parent DIR``, the parent's copy ('parent')."""
+    out = {"change": (cuda_kernels, "gppe_tpu_torch")}
+    if "--parent" in argv:
+        root = argv[argv.index("--parent") + 1]
+        build_libraries([root])
+        name = load_package(root)
+        out["parent"] = (importlib.import_module(f"{name}.ops.cuda_kernels"),
+                         name)
+    return out
+
+
+def mode_times(dev, pkgs):
+    """Median ms of each product at its path's shape under each dot mode,
+    and of each trace-only call, for each package in ``pkgs``, in turns;
+    each output's largest absolute difference from the parent's."""
     pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
     P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -167,100 +297,160 @@ def mode_times(dev):
                                density=cs.TAPER_DENSITY, device=dev)
     VT = torch.randn((op.n_pad, 24), generator=g, device=dev)
     VT[op.shape[0]:] = 0
-    fns = {}
-    for mode in cuda_kernels.DOT_MODES:
-        fns[f"matern_matmat[{mode}]"] = lambda mode=mode: \
-            cuda_kernels.matern_matmat(P, cs.RHO, V, cs.NU, dot_mode=mode)
-        fns[f"matern_matmat_multirho[{mode}]"] = lambda mode=mode: \
-            cuda_kernels.matern_matmat_multirho(P, rhos, VB, cs.NU,
-                                                dot_mode=mode)
-        fns[f"matern_matmat_blocksparse[{mode}]"] = lambda mode=mode: \
-            cuda_kernels.matern_matmat_blocksparse(
-                op.points_sorted, VT, op.nu, op.threshold, op.pair_i,
-                op._pair_j, op.tile, n=op.shape[0], row_ptr=op._row_ptr,
-                dot_mode=mode)
-    # the trace-only calls: the exact kernels in every mode
-    fns["matern_matmat[trace]"] = lambda: cuda_kernels.matern_matmat(
-        P, cs.RHO, None, cs.NU, frobenius=True)
-    fns["matern_matmat_multirho[trace]"] = lambda: \
-        cuda_kernels.matern_matmat_multirho(P, rhos, None, cs.NU,
-                                            return_frobenius=True)
-    fns["matern_matmat_blocksparse[trace]"] = lambda: \
-        cuda_kernels.matern_matmat_blocksparse(
-            op.points_sorted, None, op.nu, op.threshold, op.pair_i,
-            op._pair_j, op.tile, n=op.shape[0], row_ptr=op._row_ptr,
-            frobenius=True)
+    geometry = (op.points_sorted, op.nu, op.threshold, op.pair_i,
+                op._pair_j, op.tile)
+    kw = dict(n=op.shape[0], row_ptr=op._row_ptr)
+    per_package = {}
+    for label, (ck, _) in pkgs.items():
+        fns = per_package[label] = {}
+        for mode in ck.DOT_MODES:
+            fns[f"{label}:matern_matmat[{mode}]"] = \
+                lambda ck=ck, mode=mode: ck.matern_matmat(
+                    P, cs.RHO, V, cs.NU, dot_mode=mode)
+            fns[f"{label}:matern_matmat_multirho[{mode}]"] = \
+                lambda ck=ck, mode=mode: ck.matern_matmat_multirho(
+                    P, rhos, VB, cs.NU, dot_mode=mode)
+            fns[f"{label}:matern_matmat_blocksparse[{mode}]"] = \
+                lambda ck=ck, mode=mode: ck.matern_matmat_blocksparse(
+                    geometry[0], VT, *geometry[1:], dot_mode=mode, **kw)
+        # the trace-only calls: the FP32 kernels in every mode
+        fns[f"{label}:matern_matmat[trace]"] = lambda ck=ck: \
+            ck.matern_matmat(P, cs.RHO, None, cs.NU, frobenius=True)[1]
+        fns[f"{label}:matern_matmat_multirho[trace]"] = lambda ck=ck: \
+            ck.matern_matmat_multirho(P, rhos, None, cs.NU,
+                                      return_frobenius=True)[1]
+        fns[f"{label}:matern_matmat_blocksparse[trace]"] = lambda ck=ck: \
+            ck.matern_matmat_blocksparse(geometry[0], None, *geometry[1:],
+                                         frobenius=True, **kw)[1]
+    # each kernel's turns side by side, the packages in turns within them
+    fns = {k: f for group in zip(*(d.items() for d in per_package.values()))
+           for k, f in group}
+    diff = {}
+    if "parent" in pkgs:
+        for key, f in fns.items():
+            if key.startswith("change:"):
+                other = fns["parent:" + key.split(":", 1)[1]]
+                diff[key.split(":", 1)[1]] = float(torch.max(torch.abs(
+                    f().double() - other().double())))
     med, times = cs.median_in_turns(fns)
     print(json.dumps({"phase": "mode_times", "nvidia_smi": cs.nvidia_smi(),
                       "n": cs.N_MAIN, "n_tapered": op.shape[0], "reps": 7,
-                      "ms_median": med, "ms_all": times}), flush=True)
+                      "packages": {k: v[1] for k, v in pkgs.items()},
+                      "ms_median": med,
+                      "max_abs_diff_change_vs_parent": diff,
+                      "ms_all": times}), flush=True)
 
 
-def eta_sensitivity(dev):
-    """eta* of the main path under other products (see the docstring)."""
+def grid_float64(dev, pts, X, z, probes, v_defl):
+    """The grid path's fit with its products in float64, rounded once to
+    float32 (the traces from the kernel)."""
+    kernel = cuda_kernels.matern_matmat_multirho
+
+    def products(points, rhos, V, nu, **kw):
+        if V is None:
+            return kernel(points, rhos, V, nu, **kw)
+        inv = (1.0 / rhos).double()         # the kernel's float32 1/rho
+        return cuda_kernels.matern_matmat_multirho_plain(
+            points.double(), 1.0 / inv, V.double(), nu).float()
+
+    cuda_kernels.matern_matmat_multirho = products
+    try:
+        B = len(cs.GRID_RHOS)
+        grid = GridKrylovProfileLikelihood(
+            pts, X, z, cs.GRID_RHOS, np.full(B, cs.NU), nu_static=cs.NU,
+            lanczos_steps=cs.GRID_STEPS, num_probes=cs.GRID_PROBES,
+            matrix_free=True, chunk=B, device=dev, probes=probes,
+            v_defl=v_defl)
+        return {"points": [{k: r[k] for k in ("rho", "eta", "sigma0", "lp",
+                                              "success")}
+                           for r in grid.fit_all()]}
+    finally:
+        cuda_kernels.matern_matmat_multirho = kernel
+
+
+def path_etas(dev, pkgs, float64=False):
+    """eta*, sigma0 and setup seconds of the main, grid and tapered paths
+    under each package in ``pkgs``, from the same data and random blocks;
+    the packages take turns on each path. ``float64``: also the grid path
+    with float64 products (:func:`grid_float64`)."""
     pts, z, X = cs.make_problem(cs.N_MAIN, 7)
-    op = MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)
-    kernel = cuda_kernels.matern_matmat
-
-    def fit(product=None, mode="highest"):
-        def wrapper(points, scale, V, nu, **kw):
-            if V is None or product is None:        # the trace, or a mode
-                return kernel(points, scale, V, nu, **kw)
-            return product(points, scale, V, nu, **kw)
-
-        cuda_kernels.matern_matmat = wrapper
-        previous = cuda_kernels.DEFAULT_DOT_MODE
-        cuda_kernels.DEFAULT_DOT_MODE = mode
-        try:
-            return KrylovProfileLikelihood(
-                op, X, z, lanczos_steps=cs.STEPS, num_probes=cs.PROBES,
-                device=dev).fit()["eta"]
-        finally:
-            cuda_kernels.matern_matmat = kernel
-            cuda_kernels.DEFAULT_DOT_MODE = previous
-
-    def plain(dtype):
-        def product(points, scale, V, nu, **kw):
-            s = kernels.broadcast_scale(scale, points.shape[1], dtype=dtype,
-                                        device=points.device)
-            return cuda_kernels.matern_matmat_plain(
-                points.to(dtype), s, V.to(dtype), nu).float()
-        return product
-
-    def scaled(factor):
-        def product(points, scale, V, nu, **kw):
-            return kernel(points, scale, V, nu, **kw) * factor
-        return product
-
-    def noisy(eps, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-
-        def product(points, scale, V, nu, **kw):
-            out = kernel(points, scale, V, nu, **kw)
-            return out * (1.0 + eps * torch.randn(out.shape, generator=g,
-                                                  device=dev))
-        return product
-
-    ref = fit(plain(torch.float64))
-    etas = {"float64_product": ref, "plain_float32": fit(plain(F32))}
-    for mode in cuda_kernels.DOT_MODES:
-        etas[f"kernel[{mode}]"] = fit(mode=mode)
-    for eps in (3e-7, 1e-6, 3e-6):
-        for seed in range(3):
-            etas[f"kernel[highest]*(1+{eps:g}N)#{seed}"] = fit(
-                noisy(eps, seed))
-    for factor in (1.0 - 1e-6, 1.0 + 1e-6):
-        etas[f"kernel[highest]*{factor:.6f}"] = fit(scaled(factor))
-    print(json.dumps({"phase": "eta_sensitivity",
-                      "nvidia_smi": cs.nvidia_smi(), "n": cs.N_MAIN,
-                      "eta_star": etas, "rel_gap_to_float64_product": {
-                          k: abs(v - ref) / ref for k, v in etas.items()}}),
+    B = len(cs.GRID_RHOS)
+    probes, v_defl = cs.random_block(cs.N_MAIN, cs.GRID_PROBES, 2)
+    tpts, tz, tX = cs.tapered_problem(cs.TAPER_SIDE)
+    out = {}
+    for label, (_, name) in pkgs.items():
+        models = importlib.import_module(f"{name}.models.large_scale")
+        grid_mod = importlib.import_module(f"{name}.models.grid_krylov")
+        ops = importlib.import_module(f"{name}.ops.operators")
+        taper = importlib.import_module(f"{name}.ops.taper")
+        rec = {}
+        op = ops.MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)
+        t0 = time.perf_counter()
+        eng = models.KrylovProfileLikelihood(
+            op, X, z, lanczos_steps=cs.STEPS, num_probes=cs.PROBES,
+            device=dev)
+        torch.cuda.synchronize()
+        res = eng.fit()
+        rec["main"] = {"setup_seconds": time.perf_counter() - t0,
+                       "eta_star": res["eta"], "sigma0": res["sigma0"],
+                       "success": bool(res["success"])}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = grid_mod.GridKrylovProfileLikelihood(
+            pts, X, z, cs.GRID_RHOS, np.full(B, cs.NU), nu_static=cs.NU,
+            lanczos_steps=cs.GRID_STEPS, num_probes=cs.GRID_PROBES,
+            matrix_free=True, chunk=B, device=dev, probes=probes,
+            v_defl=v_defl)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rec["grid"] = {"setup_seconds": setup_s, "points": [
+            {k: r[k] for k in ("rho", "eta", "sigma0", "lp", "success")}
+            for r in grid.fit_all()]}
+        top = taper.TaperedMaternOperator(tpts, cs.TAPER_SCALE, nu=cs.NU,
+                                          density=cs.TAPER_DENSITY,
+                                          device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = models.KrylovProfileLikelihood(
+            top, tX, tz, lanczos_steps=cs.STEPS, num_probes=cs.PROBES,
+            device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = eng.fit()
+        rec["tapered"] = {"setup_seconds": setup_s, "eta_star": res["eta"],
+                          "sigma0": res["sigma0"],
+                          "success": bool(res["success"])}
+        out[label] = rec
+        del grid, eng, top, op
+    if float64:
+        out["float64_products"] = {"grid": grid_float64(dev, pts, X, z,
+                                                        probes, v_defl)}
+    # eta* gaps: each fit of the grid path against the parent's and the
+    # float64 products', and the change against the parent on every path
+    gaps = {}
+    for ref in ("parent", "float64_products"):
+        if ref in out:
+            gaps[f"grid_vs_{ref}"] = {
+                k: [cs.rel_gap(p["eta"], q["eta"]) for p, q in zip(
+                    out[k]["grid"]["points"], out[ref]["grid"]["points"])]
+                for k in out if k != ref}
+    if "parent" in out:
+        a, b = out["change"], out["parent"]
+        gaps["main_change_vs_parent"] = cs.rel_gap(a["main"]["eta_star"],
+                                                   b["main"]["eta_star"])
+        gaps["tapered_change_vs_parent"] = cs.rel_gap(
+            a["tapered"]["eta_star"], b["tapered"]["eta_star"])
+    print(json.dumps({"phase": "path_etas", "nvidia_smi": cs.nvidia_smi(),
+                      "dot_mode": cuda_kernels.DEFAULT_DOT_MODE,
+                      "packages": {k: v[1] for k, v in pkgs.items()},
+                      "fits": out, "eta_rel_gaps": gaps}),
           flush=True)
 
 
-def variant_times(dev, dirs):
-    """Median ms and errors of matern_matmat under each dot mode with the
-    kernel library of each package copy in ``dirs``."""
+def variant_times(dev, dirs, kernel):
+    """Median ms and errors of one wrapper (``kernel``: 'matmat',
+    'multirho' or 'blocksparse') at its path's shape under each dot mode
+    with the kernel library of each package copy in ``dirs``."""
     load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
             "print(_build.library_path())")
     procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
@@ -271,22 +461,49 @@ def variant_times(dev, dirs):
     pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
     P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(11)
-    V = torch.randn((cs.N_MAIN, 24), generator=g, device=dev)
-    scale = torch.tensor([cs.RHO, cs.RHO], device=dev)
-    want = cuda_kernels.matern_matmat_plain(P.double(), scale.double(),
-                                            V.double(), cs.NU)
+    if kernel == "matmat":
+        V = torch.randn((cs.N_MAIN, 24), generator=g, device=dev)
+        scale = torch.tensor([cs.RHO, cs.RHO], device=dev)
+        want = [cuda_kernels.matern_matmat_plain(
+            P.double(), scale.double(), V.double(), cs.NU)]
+        run = lambda mode: [cuda_kernels.matern_matmat(  # noqa: E731
+            P, scale, V, cs.NU, dot_mode=mode)]
+    elif kernel == "multirho":
+        rhos = torch.as_tensor(cs.GRID_RHOS, dtype=torch.float32, device=dev)
+        V = torch.randn((len(rhos), cs.N_MAIN, 16), generator=g, device=dev)
+        want = list(cuda_kernels.matern_matmat_multirho_plain(
+            P.double(), 1.0 / (1.0 / rhos).double(), V.double(), cs.NU))
+        run = lambda mode: list(cuda_kernels.matern_matmat_multirho(  # noqa
+            P, rhos, V, cs.NU, dot_mode=mode))
+    else:
+        tpts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
+        op = TaperedMaternOperator(tpts, cs.TAPER_SCALE, nu=cs.NU,
+                                   density=cs.TAPER_DENSITY, device=dev)
+        V = torch.randn((op.n_pad, 24), generator=g, device=dev)
+        V[op.shape[0]:] = 0
+        tau = cs.clear_threshold(op)
+        args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
+        kw = dict(n=op.shape[0], row_ptr=op._row_ptr)
+        want = [cuda_kernels.matern_matmat_blocksparse_plain(
+            op.points_sorted.double(), V.double(), *args, **kw)]
+        run = lambda mode: [cuda_kernels.matern_matmat_blocksparse(  # noqa
+            op.points_sorted, V, *args, dot_mode=mode, **kw)]
 
     def product(d, mode):
         _build._lib = libs[d]       # the wrappers launch this library's
-        return cuda_kernels.matern_matmat(P, scale, V, cs.NU, dot_mode=mode)
+        return run(mode)
 
     fns = {f"{d}[{m}]": (lambda d=d, m=m: product(d, m))
            for d in dirs for m in cuda_kernels.DOT_MODES}
-    errors = {k: cs.compare(f(), want) for k, f in fns.items()}
+    errors = {}
+    for k, f in fns.items():
+        per = [cs.compare(got, w) for got, w in zip(f(), want)]
+        errors[k] = [max(e[0] for e in per), max(e[1] for e in per)]
     med, times = cs.median_in_turns(fns)
     _build._lib = None
-    print(json.dumps({"phase": "variant_times", "nvidia_smi": cs.nvidia_smi(),
-                      "n": cs.N_MAIN, "r": 24, "reps": 7, "ms_median": med,
+    print(json.dumps({"phase": "variant_times", "kernel": kernel,
+                      "nvidia_smi": cs.nvidia_smi(), "n": cs.N_MAIN,
+                      "reps": 7, "ms_median": med,
                       "frob_and_max_abs_vs_f64": errors, "ms_all": times}),
           flush=True)
 
@@ -300,12 +517,19 @@ def main(argv):
             argv[argv.index("--dot-mode") + 1])
     if "ptxas" in argv:
         ptxas_report()
+    pkgs = packages(argv) if ("modes" in argv or "eta" in argv) else None
     if "modes" in argv:
-        mode_times(dev)
+        mode_times(dev, pkgs)
     if "eta" in argv:
+        path_etas(dev, pkgs, float64="--float64" in argv)
+    if "sass" in argv:
+        sass_twins(argv[argv.index("--parent") + 1])
+    if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:
-        variant_times(dev, argv[argv.index("variants") + 1:])
+        kernel = (argv[argv.index("--kernel") + 1] if "--kernel" in argv
+                  else "matmat")
+        variant_times(dev, argv[argv.index("variants") + 1:], kernel)
     if "main" in argv:
         pts, z, X = cs.make_problem(cs.N_MAIN, 7)
         op = MaternOperator(pts, cs.RHO, nu=cs.NU, device=dev)

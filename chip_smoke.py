@@ -11,13 +11,13 @@ each against its plain PyTorch version on the card:
     matern_matmat_mma, 'highest' as 3xTF32, and trace(K^2) on
     matern_matmat);
   * the grid-batched MLE over 8 rhos at n = 100,000
-    (GridKrylovProfileLikelihood -> fit_all; kernel
-    matern_matmat_multirho, and under 'bf16x3' the tensor-core kernel
-    matern_matmat_multirho_mma);
+    (GridKrylovProfileLikelihood -> fit_all; the products on the
+    tensor-core kernel matern_matmat_multirho_mma, 'highest' as 3xTF32,
+    and the traces on matern_matmat_multirho), also under 'bf16x3';
   * the tapered-sparse MLE at n = 2^20 grid points (TaperedMaternOperator
-    -> KrylovProfileLikelihood -> fit; kernel matern_matmat_blocksparse,
-    and under 'bf16x3' the tensor-core kernel
-    matern_matmat_blocksparse_mma);
+    -> KrylovProfileLikelihood -> fit; the products on the tensor-core
+    kernel matern_matmat_blocksparse_mma, 'highest' as 3xTF32, and the
+    trace on matern_matmat_blocksparse), also under 'bf16x3';
   * the precision-matrix path: the n = 100,000 MLE under each tile-dot
     mode (drivers.profile_kernel_matrix.run_one -> fit; every mode on the
     tensor-core kernel matern_matmat_mma), and the roofline sweep
@@ -38,17 +38,21 @@ Phases, each raising on failure:
   5. the main path at n = 100,000, with launch counts;
   6. kernel and plain time (and error) at the main path's shape: the
      'highest' product and the trace(K^2) launch;
-  7. matern_matmat_multirho vs plain float64 on the card, and at B = 1
-     vs matern_matmat;
+  7. matern_matmat_multirho vs plain float64 on the card, with each
+     product's gap to its plain 3xTF32 version logged; at B = 1 vs
+     matern_matmat; at n = 100,000, B = 1, rho = 0.3, where the sums are
+     longest;
   8. matern_matmat_blocksparse vs plain float64 on the card, at taper
-     thresholds that no pair comes within 1e-5 (relative) of;
+     thresholds that no pair comes within 1e-5 (relative) of, with the gap
+     to the plain 3xTF32 version logged;
   9. the n = 1024 grid engine on cuda vs fresh single-operator engines and
      vs the same grid engine on cpu float64;
  10. the grid path at n = 100,000, 8 rhos, with launch counts;
  11. the n = 16384 tapered engine on cuda vs cpu float64;
  12. the tapered path at n = 2^20, with launch counts;
- 13. kernel and plain time (and error) of the multi-rho and block-sparse
-     kernels at their paths' shapes;
+ 13. kernel and plain time (and error, the multi-rho one rho by rho) of
+     the multi-rho and block-sparse kernels at their paths' shapes: the
+     'highest' product and the trace launch;
  14. the tile-dot modes and the Gram form vs their own plain versions
      (float32, same rounding) and vs plain float64 'highest': the three
      tensor-core kernels and the Gram flag;
@@ -60,7 +64,8 @@ Phases, each raising on failure:
      engine fitted, with launch counts;
  17. the roofline sweep at n = 100,000, 12 rows;
  18. kernel and plain time (and error) of the mode and Gram kernels at
-     their paths' shapes, the multi-rho one rho by rho.
+     their paths' shapes, the multi-rho one rho by rho, 'highest' held
+     beside the bf16 modes.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device.
@@ -460,10 +465,52 @@ def multirho_case(dev, n, B, r, nu, d=2, seed=0):
         rec["frob_rel_err"], rec["max_abs_err"] = compare(got, want)
         ok = (ok and rec["frob_rel_err"] < FROB_TOL
               and rec["max_abs_err"] < MAXABS_TOL)
+        rec["frob_vs_tf32x3_plain"] = multirho_tf32x3_gap(got, pts, rhos, V,
+                                                          nu)
     log(phase="parity_multirho", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"matern_matmat_multirho disagrees with the "
                              f"plain version: {rec}")
+
+
+def multirho_tf32x3_gap(got, pts, rhos, V, nu, rows=None):
+    """Frobenius gap of the multi-rho kernel's 'highest' product ``got``
+    (B, n, r) to its plain 3xTF32 version on the same float32 K(rho_b),
+    over the first ``rows`` rows (default all): logged beside the bounds,
+    which hold the kernel to float64."""
+    m = got.shape[1] if rows is None else rows
+    inv = 1.0 / rhos
+    r0 = kernels.pairwise_scaled_distance(pts[:m], pts, 1.0)
+    emu = torch.stack([cuda_kernels._tf32x3_dot_plain(
+        kernels.matern(r0 * inv[b], nu), V[b]) for b in range(len(rhos))])
+    return compare(got[:, :m], emu.double())[0]
+
+
+def multirho_largest_rho_case(dev):
+    """n = 100,000, B = 1 at the grid path's largest rho, 0.3: K is nearly
+    dense there, the row sums reach a few hundred and each is the sum of
+    782 tile sums (a plain float32 running sum carried 5.0e-4 of max-abs
+    error in the FP32 kernel)."""
+    pts, _, _ = make_problem(N_MAIN, 7)
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    rhos = torch.tensor([float(GRID_RHOS[-1])], device=dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    V = torch.randn((1, N_MAIN, 16), generator=g, device=dev)
+    got = cuda_kernels.matern_matmat_multirho(P, rhos, V, NU)
+    want = cuda_kernels.matern_matmat_multirho_plain(
+        P.double(), 1.0 / (1.0 / rhos).double(), V.double(), NU,
+        block_rows=4096)
+    frob, max_abs = compare(got, want)
+    ok = (bool(torch.isfinite(got).all()) and frob < FROB_TOL
+          and max_abs < MAXABS_TOL)
+    log(phase="parity_multirho_largest_rho", ok=ok, n=N_MAIN, B=1,
+        rho=float(rhos[0]), r=16, frob_rel_err=frob, max_abs_err=max_abs,
+        largest_abs_sum=float(torch.max(torch.abs(want))),
+        frob_vs_tf32x3_plain_first_2048_rows=multirho_tf32x3_gap(
+            got, P, rhos, V, NU, rows=2048))
+    if not ok:
+        raise AssertionError("multirho at rho = 0.3, n = 100,000 is out of "
+                             "its bounds")
 
 
 def phase_parity_multirho(dev):
@@ -475,9 +522,10 @@ def phase_parity_multirho(dev):
     for c in cases:
         multirho_case(dev, **c)
 
-    # B = 1 against matern_matmat at the same rho: the two kernels order
-    # their arithmetic differently (scaled points vs scaled distance), so
-    # they agree within the parity bounds, not bit for bit
+    # B = 1 against matern_matmat at the same rho, both 3xTF32: the two
+    # kernels order their arithmetic differently (scaled points vs scaled
+    # distance, a plain vs a compensated sum of tile sums), so they agree
+    # within the parity bounds, not bit for bit
     g = torch.Generator(device=dev).manual_seed(5)
     pts = torch.rand((3001, 2), generator=g, device=dev)
     V = torch.randn((3001, 16), generator=g, device=dev)
@@ -492,6 +540,7 @@ def phase_parity_multirho(dev):
         max_abs_err=max_abs, trace_rel_err=trace_rel)
     if not ok:
         raise AssertionError("multirho at B = 1 disagrees with matern_matmat")
+    multirho_largest_rho_case(dev)
 
 
 # -- kernel 3: block-sparse ---------------------------------------------------
@@ -507,8 +556,8 @@ def clear_threshold(op):
 
 
 def blocksparse_products(op, tau, V, frobenius=True):
-    """The kernel through its wrapper, and the plain version in float64 on
-    the same sorted float32 points, at threshold ``tau``."""
+    """The kernel through its wrapper ('highest'), and the plain version in
+    float64 on the same sorted float32 points, at threshold ``tau``."""
     args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=op.shape[0], frobenius=frobenius, row_ptr=op._row_ptr)
     got = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, V, *args,
@@ -518,6 +567,17 @@ def blocksparse_products(op, tau, V, frobenius=True):
         op.points_sorted.double(), None if V is None else V.double(), *args,
         **kw)
     return got, want
+
+
+def blocksparse_tf32x3_gap(op, tau, V, got):
+    """Frobenius gap of the block-sparse kernel's 'highest' product ``got``
+    to its plain 3xTF32 version on the same float32 tapered K: logged
+    beside the bounds, which hold the kernel to float64."""
+    emu = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted, V, op.nu, tau, op.pair_i, op._pair_j, op.tile,
+        n=op.shape[0], row_ptr=op._row_ptr,
+        _product=cuda_kernels._tf32x3_dot_plain)
+    return compare(got, emu.double())[0]
 
 
 def blocksparse_case(dev, n, r, nu, tile, grid=False, scale=0.05,
@@ -548,6 +608,7 @@ def blocksparse_case(dev, n, r, nu, tile, grid=False, scale=0.05,
         rec["frob_rel_err"], rec["max_abs_err"] = compare(got, want)
         ok = (ok and rec["frob_rel_err"] < FROB_TOL
               and rec["max_abs_err"] < MAXABS_TOL)
+        rec["frob_vs_tf32x3_plain"] = blocksparse_tf32x3_gap(op, tau, V, got)
     if r == 1:
         u = torch.zeros_like(V)
         u[:n] = torch.randn((n, 1), generator=g, device=dev)
@@ -597,11 +658,13 @@ def phase_grid_engine_1024(dev):
     cuda_kernels.reset_launch_counts()
     got = GridKrylovProfileLikelihood(pts, X, z, rhos, np.full(3, NU),
                                       device=dev, **kw).fit_all()
-    launches = cuda_kernels.launch_counts["matern_matmat_multirho"]
+    launches = {k: cuda_kernels.launch_counts[k] for k in (
+        "matern_matmat_multirho_mma", "matern_matmat_multirho")}
     cpu = GridKrylovProfileLikelihood(pts, X, z, rhos, np.full(3, NU),
                                       device="cpu", dtype=F64,
                                       **kw).fit_all()
-    ok = launches == 33
+    ok = launches == {"matern_matmat_multirho_mma": 32,
+                      "matern_matmat_multirho": 1}
     recs = []
     for g, c, rho in zip(got, cpu, rhos):
         op = MaternOperator(pts, float(rho), nu=NU, device=dev)
@@ -657,14 +720,18 @@ def phase_grid_path(dev):
     sigma0_gap = rel_gap(results[i]["sigma0"], ref["sigma0"])
     finite = all(r["success"] and all(np.isfinite(r[k]) for k in (
         "eta", "sigma", "sigma0", "lp")) for r in results)
-    ok = (finite and launches["matern_matmat_multirho"] == GRID_STEPS + 1
-          and launches["matern_matmat"] == 0
-          and eta_gap < 0.1 and sigma0_gap < 1e-2)
+    # a construction: GRID_STEPS products on the tensor-core kernel
+    # ('highest' as 3xTF32), one trace launch of the FP32 kernel
+    ok = (finite and launches == {
+        **dict.fromkeys(launches, 0),
+        "matern_matmat_multirho_mma": GRID_STEPS,
+        "matern_matmat_multirho": 1}
+        and eta_gap < 0.1 and sigma0_gap < 1e-2)
     log(phase="grid_path", ok=ok, n=N_MAIN, rhos=list(GRID_RHOS), nu=NU,
         lanczos_steps=GRID_STEPS, num_probes=GRID_PROBES, chunk=grid.chunk,
         setup_seconds=setup_s, setup_seconds_per_point=setup_s / B,
         fit_all_seconds_host_numpy=fit_s, best_rho=best["rho"],
-        multirho_launches=launches["matern_matmat_multirho"],
+        launches=launches,
         peak_device_memory_bytes=peak,
         fits=[{k: r[k] for k in ("rho", "eta", "sigma", "sigma0", "lp")}
               for r in results],
@@ -674,7 +741,7 @@ def phase_grid_path(dev):
                                "sigma0_rel_gap": sigma0_gap})
     if not ok:
         raise AssertionError(f"grid path failed: launches {launches}")
-    return launches["matern_matmat_multirho"], results, setup_s
+    return launches, results, setup_s
 
 
 # -- the tapered path ---------------------------------------------------------
@@ -744,7 +811,9 @@ def phase_tapered_path(dev):
     # tapered kernel takes some of the noise for signal), so the band is
     # 10% either side of 0.2
     ok = (res["success"] and finite and 0.18 < res["sigma0"] < 0.22
-          and launches["matern_matmat_blocksparse"] == STEPS + 1)
+          and launches == {**dict.fromkeys(launches, 0),
+                           "matern_matmat_blocksparse_mma": STEPS,
+                           "matern_matmat_blocksparse": 1})
     log(phase="tapered_path", ok=ok, n=n, scale=TAPER_SCALE, nu=NU,
         density=TAPER_DENSITY, tile=op.tile, lanczos_steps=STEPS,
         num_probes=PROBES, active_tile_pairs=len(op.pair_i),
@@ -753,18 +822,36 @@ def phase_tapered_path(dev):
         sort_and_pair_geometry_seconds_host=geometry_s,
         setup_seconds=setup_s, fit_seconds_host_numpy=fit_s,
         eta_star=res["eta"], sigma0=res["sigma0"], sigma=res["sigma"],
-        blocksparse_launches=launches["matern_matmat_blocksparse"],
-        peak_device_memory_bytes=peak)
+        launches=launches, peak_device_memory_bytes=peak)
     if not ok:
         raise AssertionError(f"tapered path failed: {res}, {launches}")
-    return launches["matern_matmat_blocksparse"], op, res, setup_s
+    return launches, op, res, setup_s
 
 
-# -- times of the two new kernels at their paths' shapes ----------------------
+# -- times of the multi-rho and block-sparse kernels at their paths' shapes --
+
+def multirho_bounds(n, B, r, d, nu):
+    """(bound_ms, bound_by) of the multi-rho 'highest' product as 3xTF32,
+    the same function's bound as FP32 FMAs on the CUDA cores, and
+    (bound_ms, bound_by) of the trace launch. Per pair the distance and
+    the sqrt (3d + 1); per pair and rho the scale, k and the split of k
+    (1 + nu_ops + 3) on the CUDA cores and three tf32 products of 2r
+    operations on the tensor cores; as FP32 FMAs the 2r on the CUDA
+    cores; the trace one FMA for k^2 per pair and rho."""
+    pairs = n * n
+    nbytes = 4 * (n * d + B + 2 * B * n * r)
+    cores = pairs * (3 * d + 1 + B * (1 + nu_ops(nu) + 3))
+    product = bound(nbytes, cores, tf32_ops=pairs * B * 2 * r * 3)
+    as_fp32 = bound(nbytes, pairs * (3 * d + 1 + B * (nu_ops(nu) + 2 * r)))
+    trace = bound(4 * (n * d + B) + 8 * B * n,
+                  pairs * (3 * d + 1 + B * (nu_ops(nu) + 2)))
+    return product, as_fp32[0], trace
+
 
 def phase_multirho_time(dev):
-    """n = 100,000, B = 8, r = 16 (the grid engine's block), and the
-    r = 0 trace launch."""
+    """n = 100,000, B = 8, r = 16 (the grid engine's block) under
+    'highest' (the tensor-core kernel, 3xTF32), held to the bounds one rho
+    at a time, and the r = 0 trace launch (the FP32 kernel)."""
     pts, _, _ = make_problem(N_MAIN, 7)
     B, r, d = len(GRID_RHOS), 16, 2
     P = torch.as_tensor(pts, dtype=F32, device=dev)
@@ -777,11 +864,14 @@ def phase_multirho_time(dev):
     want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
         P.double(), 1.0 / (1.0 / rhos).double(), V.double(), NU,
         return_frobenius=True)
-    frob, max_abs = compare(got, want)
+    per_rho = [compare(got[b], want[b]) for b in range(B)]
+    frob, max_abs = ([e[0] for e in per_rho], [e[1] for e in per_rho])
     trace_rel = float(torch.max(torch.abs(tk2 - tk2_want) / tk2_want))
-    ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
+    ok = (max(frob) < FROB_TOL and max(max_abs) < MAXABS_TOL
           and trace_rel < TRACE_RTOL)
     del want
+    # the first 2048 rows against the plain 3xTF32 version (logged)
+    tf32x3 = multirho_tf32x3_gap(got, P, rhos, V, NU, rows=2048)
 
     med, times = median_in_turns({
         "kernel": lambda: cuda_kernels.matern_matmat_multirho(P, rhos, V,
@@ -792,29 +882,61 @@ def phase_multirho_time(dev):
             P, rhos, None, NU, return_frobenius=True),
         "plain_trace": lambda: cuda_kernels.matern_matmat_multirho_plain(
             P, rhos, None, NU, return_frobenius=True)})
-    pairs = N_MAIN * N_MAIN
-    bound_ms, bound_by = bound(
-        4 * (N_MAIN * d + B + 2 * B * N_MAIN * r),
-        pairs * (3 * d + 1 + B * (nu_ops(NU) + 2 * r)))
+    (bound_ms, bound_by), bound_fp32_ms, (trace_bound_ms, trace_bound_by) = \
+        multirho_bounds(N_MAIN, B, r, d, NU)
     log(phase="multirho_time", ok=ok, n=N_MAIN, B=B, r=r, reps=7,
-        frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        rhos=list(GRID_RHOS), frob_rel_err=frob, max_abs_err=max_abs,
+        trace_rel_err=trace_rel, frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
         bound_ms=bound_ms, bound_by=bound_by,
-        kernel_ms_all=times["kernel"])
+        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        kernel_ms_all=times["kernel"],
+        kernel_trace_ms_all=times["kernel_trace"])
     if not ok:
         raise AssertionError("multirho disagrees with the plain version at "
                              "the grid path's shape")
-    return {"max_abs_err": max_abs, "ms": med["kernel"],
-            "plain_ms": med["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return ({"max_abs_err": max(max_abs), "ms": med["kernel"],
+             "plain_ms": med["plain"], "bound_ms": bound_ms,
+             "bound_by": bound_by},
+            {"max_abs_err": float(torch.max(torch.abs(tk2 - tk2_want))),
+             "ms": med["kernel_trace"], "plain_ms": med["plain_trace"],
+             "bound_ms": trace_bound_ms, "bound_by": trace_bound_by})
+
+
+def tile_pairs(op):
+    """The point pairs the operator's pair list really holds: real rows of
+    tile i times real columns of tile j, summed over the active tile
+    pairs."""
+    n = op.shape[0]
+    real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
+    return int(np.sum(real[op.pair_i].astype(np.int64) * real[op.pair_j]))
+
+
+def blocksparse_bounds(op, r, d):
+    """As :func:`multirho_bounds`, for the block-sparse kernel over the
+    operator's pair list: per pair the distance, k, the compare-select and
+    the split of k (3d + nu_ops + 1 + 3) and three tf32 products of 2r
+    operations; as FP32 FMAs the 2r on the CUDA cores; the trace one FMA
+    for k^2 per pair."""
+    pairs = tile_pairs(op)
+    geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
+    nbytes = 4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry
+    k_ops = 3 * d + nu_ops(op.nu) + 1
+    product = bound(nbytes, pairs * (k_ops + 3),
+                    tf32_ops=pairs * 2 * r * 3)
+    as_fp32 = bound(nbytes, pairs * (k_ops + 2 * r))
+    trace = bound(4 * op.n_pad * d + 8 * op.n_pad + geometry,
+                  pairs * (k_ops + 2))
+    return pairs, product, as_fp32[0], trace
 
 
 def phase_blocksparse_time(dev, op):
-    """The full-size pair list of the tapered path, r = 24, and the trace
-    launch; the error against the plain float64 version is taken at a
-    threshold clear of every pair (see clear_threshold)."""
+    """The full-size pair list of the tapered path, r = 24, under
+    'highest' (the tensor-core kernel, 3xTF32), and the trace launch (the
+    FP32 kernel); the error against the plain float64 version is taken at
+    a threshold clear of every pair (see clear_threshold)."""
     n, r, d = op.shape[0], 24, 2
     g = torch.Generator(device=dev).manual_seed(13)
     V = torch.randn((op.n_pad, r), generator=g, device=dev)
@@ -826,6 +948,7 @@ def phase_blocksparse_time(dev, op):
     ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
           and trace_rel < TRACE_RTOL)
     del want
+    tf32x3 = blocksparse_tf32x3_gap(op, tau, V, got)
 
     args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=n, row_ptr=op._row_ptr)
@@ -838,29 +961,29 @@ def phase_blocksparse_time(dev, op):
             op.points_sorted, None, *args, frobenius=True, **kw),
         "plain_trace": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
             op.points_sorted, None, *args, frobenius=True, **kw)})
-    # pairs this pair list really holds: real rows of tile i times real
-    # columns of tile j, summed over the active tile pairs
-    real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
-    pairs = int(np.sum(real[op.pair_i].astype(np.int64) * real[op.pair_j]))
-    bound_ms, bound_by = bound(
-        4 * (op.n_pad * d + 2 * op.n_pad * r + op.num_tiles + 1
-             + len(op.pair_j)),
-        pairs * (3 * d + nu_ops(op.nu) + 1 + 2 * r))
+    pairs, (bound_ms, bound_by), bound_fp32_ms, (trace_bound_ms,
+                                                 trace_bound_by) = \
+        blocksparse_bounds(op, r, d)
     log(phase="blocksparse_time", ok=ok, n=n, r=r, reps=7, pairs=pairs,
         tau=tau, tau_over_operator_threshold=tau / op.threshold,
-        frob_rel_err=frob, max_abs_err=max_abs,
-        trace_rel_err=trace_rel, kernel_ms_median=med["kernel"],
+        frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        frob_vs_tf32x3_plain=tf32x3, kernel_ms_median=med["kernel"],
         plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
         bound_ms=bound_ms, bound_by=bound_by,
-        kernel_ms_all=times["kernel"])
+        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        kernel_ms_all=times["kernel"],
+        kernel_trace_ms_all=times["kernel_trace"])
     if not ok:
         raise AssertionError("blocksparse disagrees with the plain version "
                              "at the tapered path's shape")
-    return {"max_abs_err": max_abs, "ms": med["kernel"],
-            "plain_ms": med["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    return ({"max_abs_err": max_abs, "ms": med["kernel"],
+             "plain_ms": med["plain"], "bound_ms": bound_ms,
+             "bound_by": bound_by},
+            {"max_abs_err": abs(float(fro) - float(fro_want)),
+             "ms": med["kernel_trace"], "plain_ms": med["plain_trace"],
+             "bound_ms": trace_bound_ms, "bound_by": trace_bound_by})
 
 
 # -- the tile-dot modes and the Gram form -------------------------------------
@@ -1344,10 +1467,9 @@ def phase_mode_time(dev, taper_op):
     """Kernel, plain and error at the paths' shapes: matern_matmat at
     n = 100,000, r = 24 under diff/bf16x3, diff/bf16 and gram/highest, with
     diff/highest timed in the same turns (all four on the tensor-core
-    kernel); the tensor-core multirho kernel
-    (B = 8, r = 16) and blocksparse kernel (the full-size pair list,
-    r = 24) under both bf16 modes, their 'highest' kernels in the same
-    turns."""
+    kernel); the tensor-core multirho kernel (B = 8, r = 16) and
+    blocksparse kernel (the full-size pair list, r = 24) under all three
+    modes, each beside its plain version."""
     pts, _, _ = make_problem(N_MAIN, 7)
     r, d = 24, 2
     P = torch.as_tensor(pts, dtype=F32, device=dev)
@@ -1404,16 +1526,16 @@ def phase_mode_time(dev, taper_op):
         raise AssertionError("a mode kernel is out of its bounds at the "
                              "main path's shape")
 
-    # the tensor-core multirho kernel at the grid path's shape, held to its
-    # bounds one rho at a time: K is nearly dense at the largest rho, where
-    # the sums are longest
+    # the tensor-core multirho kernel at the grid path's shape in every
+    # mode, held to its bounds one rho at a time: K is nearly dense at the
+    # largest rho, where the sums are longest. Under 'highest' its own plain
+    # version is plain float32 (the 3xTF32 one is phase 13's gap)
     B, r2 = len(GRID_RHOS), 16
     rhos = torch.as_tensor(GRID_RHOS, dtype=F32, device=dev)
     g = torch.Generator(device=dev).manual_seed(12)
     V2 = torch.randn((B, N_MAIN, r2), generator=g, device=dev)
-    fns = {"kernel_highest": lambda: cuda_kernels.matern_matmat_multirho(
-        P, rhos, V2, NU)}
-    for mode in NEW_MODES:
+    fns = {}
+    for mode in cuda_kernels.DOT_MODES:
         fns[f"kernel_{mode}"] = lambda mode=mode: \
             cuda_kernels.matern_matmat_multirho(P, rhos, V2, NU,
                                                 dot_mode=mode)
@@ -1423,7 +1545,7 @@ def phase_mode_time(dev, taper_op):
     med, times = median_in_turns(fns)
     want = cuda_kernels.matern_matmat_multirho_plain(
         P.double(), 1.0 / (1.0 / rhos).double(), V2.double(), NU)
-    for mode in NEW_MODES:
+    for mode in cuda_kernels.DOT_MODES:
         got, own = fns[f"kernel_{mode}"](), fns[f"plain_{mode}"]()
         per_rho = [mode_errors(got[b], own[b], want[b]) for b in range(B)]
         ok = all(mode_verdict(e, mode) for e in per_rho)
@@ -1431,14 +1553,18 @@ def phase_mode_time(dev, taper_op):
                "rhos": list(GRID_RHOS),
                **{k: [e[k] for e in per_rho] for k in per_rho[0]}}
         del got, own
-        # the bound is the function's: the products are bf16 operands with
-        # float32 sums, charged to the tensor cores' peak; the distance, the
-        # closed form and the rounding of k per rho are CUDA-core operations
-        products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
-        bound_ms, bound_by = bound(
-            4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
-            pairs * (3 * d + 1 + B * (nu_ops(NU) + rounding)),
-            pairs * B * 2 * r2 * products)
+        if mode == "highest":
+            (bound_ms, bound_by), _, _ = multirho_bounds(N_MAIN, B, r2, d,
+                                                         NU)
+        else:
+            # the products are bf16 operands with float32 sums, charged to
+            # the tensor cores' peak; the distance, the closed form and the
+            # rounding of k per rho are CUDA-core operations
+            products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
+            bound_ms, bound_by = bound(
+                4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
+                pairs * (3 * d + 1 + B * (nu_ops(NU) + rounding)),
+                pairs * B * 2 * r2 * products)
         out[f"multirho_{mode}"] = {
             "max_abs_err": max(rec["max_abs_err"]),
             "ms": med[f"kernel_{mode}"], "plain_ms": med[f"plain_{mode}"],
@@ -1446,7 +1572,6 @@ def phase_mode_time(dev, taper_op):
         log(phase="mode_time", ok=ok, n=N_MAIN, B=B, r=r2, reps=7, **rec,
             kernel_ms_median=med[f"kernel_{mode}"],
             plain_f32_ms_median=med[f"plain_{mode}"],
-            kernel_highest_ms_median=med["kernel_highest"],
             bound_ms=bound_ms, bound_by=bound_by,
             kernel_ms_all=times[f"kernel_{mode}"])
         if not ok:
@@ -1454,9 +1579,9 @@ def phase_mode_time(dev, taper_op):
                                  f"bounds at the grid path's shape")
     del want, V2
 
-    # the tensor-core blocksparse kernel on the tapered path's pair list;
-    # the errors at a threshold clear of every pair, the times at the
-    # operator's own
+    # the tensor-core blocksparse kernel on the tapered path's pair list in
+    # every mode; the errors at a threshold clear of every pair, the times
+    # at the operator's own
     op = taper_op
     n, r3 = op.shape[0], 24
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1466,9 +1591,8 @@ def phase_mode_time(dev, taper_op):
     kw = dict(n=n, row_ptr=op._row_ptr)
     geometry = (op.pair_i, op._pair_j, op.tile)
     args = (op.nu, op.threshold, *geometry)
-    fns = {"kernel_highest": lambda: cuda_kernels.matern_matmat_blocksparse(
-        op.points_sorted, V3, *args, **kw)}
-    for mode in NEW_MODES:
+    fns = {}
+    for mode in cuda_kernels.DOT_MODES:
         fns[f"kernel_{mode}"] = lambda mode=mode: \
             cuda_kernels.matern_matmat_blocksparse(
                 op.points_sorted, V3, *args, dot_mode=mode, **kw)
@@ -1478,10 +1602,8 @@ def phase_mode_time(dev, taper_op):
     med, times = median_in_turns(fns)
     want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), V3.double(), op.nu, tau, *geometry, **kw)
-    real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
-    tile_pairs = int(np.sum(real[op.pair_i].astype(np.int64)
-                            * real[op.pair_j]))
-    for mode in NEW_MODES:
+    pairs3 = tile_pairs(op)
+    for mode in cuda_kernels.DOT_MODES:
         got = cuda_kernels.matern_matmat_blocksparse(
             op.points_sorted, V3, op.nu, tau, *geometry, dot_mode=mode, **kw)
         again = cuda_kernels.matern_matmat_blocksparse(
@@ -1493,20 +1615,22 @@ def phase_mode_time(dev, taper_op):
         rec.update(mode_errors(got, own, want))
         del got, again, own
         ok = mode_verdict(rec, mode) and rec["same_bits_run_to_run"]
-        products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
-        bound_ms, bound_by = bound(
-            4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
-                 + len(op.pair_j)),
-            tile_pairs * (3 * d + nu_ops(op.nu) + 1 + rounding),
-            tile_pairs * 2 * r3 * products)
+        if mode == "highest":
+            _, (bound_ms, bound_by), _, _ = blocksparse_bounds(op, r3, d)
+        else:
+            products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
+            bound_ms, bound_by = bound(
+                4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
+                     + len(op.pair_j)),
+                pairs3 * (3 * d + nu_ops(op.nu) + 1 + rounding),
+                pairs3 * 2 * r3 * products)
         out[f"blocksparse_{mode}"] = {
             "max_abs_err": rec["max_abs_err"], "ms": med[f"kernel_{mode}"],
             "plain_ms": med[f"plain_{mode}"], "bound_ms": bound_ms,
             "bound_by": bound_by}
-        log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=tile_pairs,
+        log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=pairs3,
             **rec, kernel_ms_median=med[f"kernel_{mode}"],
             plain_f32_ms_median=med[f"plain_{mode}"],
-            kernel_highest_ms_median=med["kernel_highest"],
             bound_ms=bound_ms, bound_by=bound_by,
             kernel_ms_all=times[f"kernel_{mode}"])
         if not ok:
@@ -1540,8 +1664,8 @@ def main():
     launches_2, grid_fits, grid_setup_s = phase_grid_path(dev)
     phase_tapered_engine_16384(dev)
     launches_3, op, taper_fit, taper_setup_s = phase_tapered_path(dev)
-    measured_2 = phase_multirho_time(dev)
-    measured_3 = phase_blocksparse_time(dev, op)
+    measured_2, measured_2_trace = phase_multirho_time(dev)
+    measured_3, measured_3_trace = phase_blocksparse_time(dev, op)
     phase_parity_modes(dev)
     phase_engines_bf16x3(dev)
     launches_default = phase_paths_bf16x3(dev, grid_fits, op, taper_fit,
@@ -1550,8 +1674,11 @@ def main():
     launches_gram = phase_roofline(dev)
     measured = phase_mode_time(dev, op)
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
-                launches_2, launches_3, launches_mma["bf16x3"],
-                launches_mma["bf16"], launches_gram,
+                launches_2["matern_matmat_multirho_mma"],
+                launches_2["matern_matmat_multirho"],
+                launches_3["matern_matmat_blocksparse_mma"],
+                launches_3["matern_matmat_blocksparse"],
+                launches_mma["bf16x3"], launches_mma["bf16"], launches_gram,
                 launches_default["matern_matmat_multirho_mma"],
                 launches_default["matern_matmat_blocksparse_mma"])):
         raise AssertionError("a kernel of a path was never launched on it")
@@ -1565,10 +1692,22 @@ def main():
         kernel_record("matern_matmat", "matern_matmat.cu",
                       "gppe_tpu/ops/operators.py:42",
                       launches_1["matern_matmat"], measured_trace),
+        # the grid and the tapered path, the same split: products on the
+        # tensor-core kernels, traces on the FP32 ones
+        kernel_record("matern_matmat_multirho_mma[highest]",
+                      "matern_multirho_mma.cu", f"{PALLAS}:356",
+                      launches_2["matern_matmat_multirho_mma"], measured_2),
         kernel_record("matern_matmat_multirho", "matern_multirho.cu",
-                      f"{PALLAS}:356", launches_2, measured_2),
+                      f"{PALLAS}:356", launches_2["matern_matmat_multirho"],
+                      measured_2_trace),
+        kernel_record("matern_matmat_blocksparse_mma[highest]",
+                      "matern_blocksparse_mma.cu", f"{PALLAS}:487",
+                      launches_3["matern_matmat_blocksparse_mma"],
+                      measured_3),
         kernel_record("matern_matmat_blocksparse", "matern_blocksparse.cu",
-                      f"{PALLAS}:487", launches_3, measured_3),
+                      "gppe_tpu/ops/taper.py:303",
+                      launches_3["matern_matmat_blocksparse"],
+                      measured_3_trace),
         # the tile-dot modes (pallas_kernels._tile_dot, :64) and the Gram
         # form (_matmat_kernel_gram, :128), each on the path that runs it
         kernel_record("matern_matmat_mma[bf16x3]", "matern_matmat_mma.cu",

@@ -3,7 +3,8 @@
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
 counterpart sits at the same path. Ported so far are four paths, each
-on hand-written CUDA kernels of ``ops.cuda_kernels``:
+on hand-written CUDA kernels behind the wrappers of ``ops.cuda_kernels``
+(each product on a tensor-core kernel, in every tile-dot mode):
 
 * the matrix-free profile-likelihood MLE:
   utils.data -> ops.operators.MaternOperator (kernel ``matern_matmat``)
@@ -15,8 +16,7 @@ on hand-written CUDA kernels of ``ops.cuda_kernels``:
 * the tapered-sparse MLE: ops.taper.TaperedMaternOperator (kernel
   ``matern_matmat_blocksparse``) -> KrylovProfileLikelihood.fit;
 * the precision-matrix and roofline measurements:
-  drivers.profile_kernel_matrix (the first path under each tile-dot mode;
-  'bf16x3' and 'bf16' run the tensor-core kernel ``matern_matmat_mma``)
+  drivers.profile_kernel_matrix (the first path under each tile-dot mode)
   and drivers.roofline_matvec (widths x distance forms x dot modes).
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):

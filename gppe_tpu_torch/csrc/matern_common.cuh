@@ -3,8 +3,8 @@
 // rounded and expf is the full-accuracy routine), and the tile-dot mode
 // codes.
 // matern_mma.cuh's matern_exact_d2 is matern_from_d2 without the branch
-// around sqrtf, the same bits: the 'highest' products and the trace(K^2)
-// pass see the same k.
+// around sqrtf, and its sqrt_rn_nonneg the same bits as sqrtf: the
+// 'highest' products and the trace(K^2) passes see the same k.
 #pragma once
 
 namespace gppe {
@@ -19,10 +19,10 @@ constexpr int kNuGauss = 3;      // nu >= 100, the Gaussian limit
 
 // tile-dot mode codes, shared with ops/cuda_kernels.py::_DOT_CODES: the
 // precision of the K-tile times V product, after
-// gppe_tpu/ops/pallas_kernels.py::_tile_dot. The multi-rho and the
-// block-sparse product have exact kernels of their own for 'highest' that
-// take no code; matern_matmat_mma.cu runs all three modes on the tensor
-// cores (matern_mma.cuh), 'highest' as 3xTF32
+// gppe_tpu/ops/pallas_kernels.py::_tile_dot. The three product kernels
+// (matern_matmat_mma.cu, matern_multirho_mma.cu, matern_blocksparse_mma.cu)
+// run all three modes on the tensor cores (matern_mma.cuh), 'highest' as
+// 3xTF32
 constexpr int kDotHighest = 0;  // tf32 high + residual parts, lo*lo dropped
 constexpr int kDotBf16x3 = 1;   // bf16 high + residual parts, lo*lo dropped
 constexpr int kDotBf16 = 2;     // both operands rounded to bf16

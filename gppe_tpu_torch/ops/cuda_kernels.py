@@ -27,12 +27,12 @@ with per-rho trace(K_b^2).
 of active tile pairs, plus an optional trace(K^2) output that replaces the
 XLA scan of ``taper.TaperedMaternOperator.trace_pow``.
 
-Both take the same three dot modes: 'highest' and every trace run the
-FP32-FMA kernels (``csrc/matern_multirho.cu``,
-``csrc/matern_blocksparse.cu``), the 'bf16x3' and 'bf16' products run
-tensor-core kernels of their own (``csrc/matern_multirho_mma.cu``,
-``csrc/matern_blocksparse_mma.cu``). :func:`_launch_plan` is the routing
-table of all three products.
+Both take the same three dot modes as ``matern_matmat``, the same way: every
+product runs a tensor-core kernel (``csrc/matern_multirho_mma.cu``,
+``csrc/matern_blocksparse_mma.cu``), 'highest' as 3xTF32 with IEEE k, and
+every trace an FP32 kernel that holds nothing else
+(``csrc/matern_multirho.cu``, ``csrc/matern_blocksparse.cu``).
+:func:`_launch_plan` is the routing table of all three wrappers.
 
 The tile-dot modes round the operands only: a trace(K^2) output always
 sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
@@ -65,8 +65,7 @@ launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
 _GAUSS_CODE = 3
 # dot mode -> code of csrc/matern_common.cuh (kDotHighest, kDotBf16x3,
-# kDotBf16), as the tensor-core kernels take it; the exact multi-rho and
-# block-sparse kernels take none
+# kDotBf16), as the tensor-core kernels take it
 _DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
 _MAX_D = 8
 
@@ -118,20 +117,23 @@ def _tf32_round(x):
     10 stored mantissa bits, ties away from zero, the low 13 bits zero
     (adding half a tf32 unit to the magnitude bits and truncating). A value
     that rounds past the largest float32 becomes inf; inf and NaN pass
-    unchanged. Module-private: the plain version of the split that
-    ``csrc/matern_matmat_mma.cu`` takes under 'highest'."""
+    unchanged. Module-private: the plain version of the split that the
+    tensor-core kernels take under 'highest'."""
     bits = x.contiguous().view(torch.int32)
     rounded = (bits + 0x1000) & ~0x1FFF
     return torch.where(torch.isfinite(x), rounded, bits).view(torch.float32)
 
 
 def _tf32x3_dot_plain(K, V):
-    """K @ V as ``csrc/matern_matmat_mma.cu`` computes it under 'highest',
-    in float32: each operand split into hi = tf32(x) and lo = tf32(x - hi)
+    """K @ V as the tensor-core kernels compute it under 'highest', in
+    float32: each operand split into hi = tf32(x) and lo = tf32(x - hi)
     (:func:`_tf32_round`), hi.hi + lo.hi + hi.lo (lo.lo dropped) summed
-    over 128 columns of K at a time (the kernel's column tile), and those
-    partial products added in float32, the kernel's two-level sum. Not a
-    dot mode: the plain 'highest' product stays K @ V."""
+    over 128 columns of K at a time (the kernels' column tile), and those
+    partial products added in float32, the two-level sum of
+    ``csrc/matern_matmat_mma.cu`` (``csrc/matern_multirho_mma.cu``
+    compensates that last sum). Not a dot mode: the plain 'highest' product
+    stays K @ V; the plain multi-rho and block-sparse versions take this
+    one through their module-private ``_product``."""
     K, V = K.float(), V.float()
     k_hi, v_hi = _tf32_round(K), _tf32_round(V)
     k_lo, v_lo = _tf32_round(K - k_hi), _tf32_round(V - v_hi)
@@ -285,8 +287,7 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
                 None if cols_norm is None else cols_norm.data_ptr())
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for entry, counter, _, _ in _launch_plan("matmat", dot_mode, r,
-                                                 frobenius):
+        for entry, counter in _launch_plan("matmat", r, frobenius):
             if entry == "gppe_matern_matmat_mma":
                 # V's split images, written once per launch by the kernel's
                 # pre-pass; freed after the launch in stream order
@@ -333,7 +334,8 @@ def _raise_on_cuda_error(lib, err, what):
 # -- multi-rho -------------------------------------------------------------
 
 def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
-                                 block_rows=1024, dot_mode=None):
+                                 block_rows=1024, dot_mode=None,
+                                 _product=None):
     """Plain PyTorch K(rho_b) @ V_b by row blocks, in the inputs' dtype.
 
     One distance block serves the whole rho batch, in the kernel's
@@ -341,9 +343,13 @@ def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
     per rho a multiply by 1/rho_b and the closed form; the product is
     :func:`tile_dot_plain` at ``dot_mode``, the traces sum the unrounded
     k^2. ``V`` (B, n, r) in any strides, or None when only the traces are
-    wanted."""
+    wanted. ``_product`` (module-private): a function (K block, V) -> the
+    product, in place of the tile dot; :func:`_tf32x3_dot_plain` makes this
+    the plain version of the 'highest' kernel."""
     setup()
     dot_mode = resolve_dot_mode(dot_mode)
+    if _product is None:
+        _product = lambda K, W: tile_dot_plain(K, W, dot_mode)  # noqa: E731
     n = points.shape[0]
     inv = 1.0 / rhos
     B = rhos.shape[0]
@@ -356,8 +362,7 @@ def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
         for b in range(B):
             Kblk = kernels.matern(r0 * inv[b], nu)
             if out is not None:
-                out[b, i:i + block_rows] = tile_dot_plain(Kblk, V[b],
-                                                          dot_mode)
+                out[b, i:i + block_rows] = _product(Kblk, V[b])
             if return_frobenius:
                 fro[b] += torch.sum(Kblk * Kblk)
     return (out, fro) if return_frobenius else out
@@ -376,11 +381,10 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
 
     CPU tensors take :func:`matern_matmat_multirho_plain` (in their own
     dtype, ``block_rows`` rows at a time); CUDA tensors must be float32
-    and contiguous and launch a float32 kernel: 'highest' and the traces
-    the FP32-FMA kernel (``csrc/matern_multirho.cu``), the product under
-    'bf16x3' or 'bf16' the tensor-core kernel
-    (``csrc/matern_multirho_mma.cu``), which carries no trace output, so
-    such a call that asks for the product and the traces launches both."""
+    and contiguous and launch float32 kernels: the product the tensor-core
+    kernel (``csrc/matern_multirho_mma.cu``) in every mode, 'highest' as
+    3xTF32, the traces the FP32 kernel (``csrc/matern_multirho.cu``), so a
+    call that asks for both launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not return_frobenius:
@@ -410,24 +414,19 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
                                         return_frobenius, dot_mode)
 
 
-def _launch_plan(kernel, dot_mode, r, frobenius):
+def _launch_plan(kernel, r, frobenius):
     """The launches of one ``matern_matmat`` call on the card (``kernel``
     'matmat') or of one ``matern_matmat_<kernel>`` call ('multirho',
-    'blocksparse'), as (C entry, launch counter, with product, with k^2
-    sums) tuples, in launch order. The product (r > 0) is one launch of
-    the tensor-core kernel in every mode for 'matmat' and under 'bf16x3'
-    or 'bf16' for the other two; it sums no k^2, so the sums, where asked
-    for, are a second, trace-only launch of the FP32-FMA kernel (they
-    never round). The exact multi-rho and block-sparse kernels multiply
-    under 'highest' and sum k^2 in the same launch."""
-    exact = ("gppe_matern_matmat", "matern_matmat") if kernel == "matmat" \
+    'blocksparse'), as (C entry, launch counter) pairs, in launch order,
+    the same in every dot mode: the product (r > 0) is one launch of the
+    tensor-core kernel, which takes the mode's code; it sums no k^2, so the
+    sums, where asked for, are a trace-only launch of the FP32 kernel (they
+    never round)."""
+    trace = ("gppe_matern_matmat", "matern_matmat") if kernel == "matmat" \
         else (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
-    mma = (f"{exact[0]}_mma", f"{exact[1]}_mma")
-    if kernel != "matmat" and dot_mode == "highest" and r > 0:
-        return [(*exact, True, frobenius)]
-    plan = [(*mma, True, False)] if r > 0 else []
+    plan = [(f"{trace[0]}_mma", f"{trace[1]}_mma")] if r > 0 else []
     if frobenius:
-        plan.append((*exact, False, True))
+        plan.append(trace)
     return plan
 
 
@@ -452,20 +451,24 @@ def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius,
         code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(points.device):
             stream = torch.cuda.current_stream().cuda_stream
-            for entry, counter, product, sums in _launch_plan(
-                    "multirho", dot_mode, r, return_frobenius):
+            for entry, counter in _launch_plan("multirho", r,
+                                               return_frobenius):
                 if entry == "gppe_matern_multirho_mma":
+                    # under 'highest' V's split images, written once per
+                    # launch by the kernel's pre-pass; freed after the
+                    # launch in stream order
+                    nbytes = lib.gppe_matern_multirho_mma_scratch_bytes(
+                        n, d, B, r, _DOT_CODES[dot_mode])
+                    scratch = torch.empty(nbytes, dtype=torch.uint8,
+                                          device=points.device)
                     err = lib.gppe_matern_multirho_mma(
                         points.data_ptr(), inv_rho.data_ptr(), V.data_ptr(),
-                        out.data_ptr(), n, d, B, r, code,
-                        _DOT_CODES[dot_mode], stream)
+                        out.data_ptr(), scratch.data_ptr() if nbytes else None,
+                        n, d, B, r, code, _DOT_CODES[dot_mode], stream)
                 else:
                     err = lib.gppe_matern_multirho(
                         points.data_ptr(), inv_rho.data_ptr(),
-                        V.data_ptr() if product else None,
-                        out.data_ptr() if product else None,
-                        fro_rows.data_ptr() if sums else None,
-                        n, d, B, r if product else 0, code, stream)
+                        fro_rows.data_ptr(), n, d, B, code, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
     return (out, fro_rows.sum(dim=1)) if return_frobenius else out
@@ -525,14 +528,18 @@ def _blocksparse_geometry(points_sorted, pair_i, pair_j, tile, n, row_ptr):
 
 def matern_matmat_blocksparse_plain(points_sorted, V, nu, tau, pair_i,
                                     pair_j, tile, n=None, frobenius=False,
-                                    row_ptr=None, dot_mode=None):
+                                    row_ptr=None, dot_mode=None,
+                                    _product=None):
     """Plain PyTorch tapered K @ V, one row tile at a time against that
     tile's active column tiles, in the inputs' dtype; the hard taper
     ``k >= tau ? k : 0`` is taken in that dtype too, on the unrounded k,
-    and the product is :func:`tile_dot_plain` at ``dot_mode``. Arguments
-    as :func:`matern_matmat_blocksparse`."""
+    and the product is :func:`tile_dot_plain` at ``dot_mode``, or
+    ``_product`` as in :func:`matern_matmat_multirho_plain`. Arguments as
+    :func:`matern_matmat_blocksparse`."""
     setup()
     dot_mode = resolve_dot_mode(dot_mode)
+    if _product is None:
+        _product = lambda K, W: tile_dot_plain(K, W, dot_mode)  # noqa: E731
     tile, n, num_tiles, row_ptr, pair_j = _blocksparse_geometry(
         points_sorted, pair_i, pair_j, tile, n, row_ptr)
     out = None if V is None else torch.zeros(
@@ -548,7 +555,7 @@ def matern_matmat_blocksparse_plain(points_sorted, V, nu, tau, pair_i,
         Kblk = kernels.matern(dist, nu)
         Kblk = torch.where(Kblk >= tau, Kblk, torch.zeros_like(Kblk))
         if out is not None:
-            out[rows] = tile_dot_plain(Kblk, V[cols], dot_mode)
+            out[rows] = _product(Kblk, V[cols])
         if frobenius:
             fro = fro + torch.sum(Kblk * Kblk)
     return (out, fro) if frobenius else out
@@ -617,11 +624,11 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     sum is a 0-d tensor, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_blocksparse_plain`; CUDA tensors
-    must be float32 and contiguous and launch a float32 kernel: 'highest'
-    and the trace the FP32-FMA kernel (``csrc/matern_blocksparse.cu``),
-    the product under 'bf16x3' or 'bf16' the tensor-core kernel
-    (``csrc/matern_blocksparse_mma.cu``); a call in such a mode that asks
-    for the product and the trace launches both."""
+    must be float32 and contiguous and launch float32 kernels: the product
+    the tensor-core kernel (``csrc/matern_blocksparse_mma.cu``) in every
+    mode, 'highest' as 3xTF32 with the taper on the IEEE float32 k, the
+    trace the FP32 kernel (``csrc/matern_blocksparse.cu``), so a call that
+    asks for both launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not frobenius:
@@ -679,8 +686,7 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
         with torch.cuda.device(points_sorted.device):
             stream = torch.cuda.current_stream().cuda_stream
             geometry = (row_ptr.data_ptr(), pair_j.data_ptr())
-            for entry, counter, product, sums in _launch_plan(
-                    "blocksparse", dot_mode, r, frobenius):
+            for entry, counter in _launch_plan("blocksparse", r, frobenius):
                 if entry == "gppe_matern_blocksparse_mma":
                     err = lib.gppe_matern_blocksparse_mma(
                         points_sorted.data_ptr(), V.data_ptr(),
@@ -688,12 +694,9 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                         float(tau), code, _DOT_CODES[dot_mode], stream)
                 else:
                     err = lib.gppe_matern_blocksparse(
-                        points_sorted.data_ptr(),
-                        V.data_ptr() if product else None,
-                        out.data_ptr() if product else None,
-                        fro_rows.data_ptr() if sums else None,
-                        *geometry, n, d, r if product else 0, tile,
-                        num_tiles, float(tau), code, stream)
+                        points_sorted.data_ptr(), fro_rows.data_ptr(),
+                        *geometry, n, d, tile, num_tiles, float(tau), code,
+                        stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
     return (out, fro_rows.sum()) if frobenius else out

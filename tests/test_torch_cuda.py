@@ -13,9 +13,11 @@ rtol 1e-5; u.Kv vs v.Ku to 1e-6 of |u| |Kv|. The tapered product is
 compared at a threshold that no pair comes within 1e-5 (relative) of, so
 that float32 and float64 taper the same entries.
 
-matern_matmat's products run on the tensor-core kernel
-matern_matmat_mma in every mode, 'highest' as 3xTF32 (held to the bounds
-above), and its trace(K^2) on the FP32 kernel matern_matmat.
+The products of all three wrappers run on their tensor-core kernels
+(matern_matmat_mma, matern_matmat_multirho_mma,
+matern_matmat_blocksparse_mma) in every mode, 'highest' as 3xTF32 (held to
+the bounds above), and every trace(K^2) on the FP32 kernels
+(matern_matmat, matern_matmat_multirho, matern_matmat_blocksparse).
 
 The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
 Frobenius bound and must sit closer to its own plain version (same
@@ -199,8 +201,10 @@ def test_multirho_branches_and_dims(dev, nu, d):
 
 
 def test_multirho_single_rho_vs_matern_matmat(dev):
-    """B = 1 against the single-scale kernel at the same rho: the two order
-    their arithmetic differently, so within the bounds, not bit for bit."""
+    """B = 1 against the single-scale kernel at the same rho, both 3xTF32
+    under 'highest': the two order their arithmetic differently (scaled
+    distance vs scaled points, a compensated vs a plain sum of tile sums),
+    so within the bounds, not bit for bit."""
     rng = np.random.RandomState(4)
     pts = torch.as_tensor(rng.rand(3001, 2), dtype=F32, device=dev)
     V = torch.as_tensor(rng.standard_normal((3001, 16)), dtype=F32,
@@ -212,6 +216,8 @@ def test_multirho_single_rho_vs_matern_matmat(dev):
 
 
 def test_multirho_counts_launches_and_checks_inputs(dev):
+    """'highest': the product on the tensor-core kernel, the traces on the
+    FP32 kernel; a refused call launches nothing."""
     pts = torch.rand(300, 2, device=dev)
     rhos = torch.tensor([0.1, 0.2], device=dev)
     V = torch.rand(2, 300, 3, device=dev)
@@ -219,7 +225,8 @@ def test_multirho_counts_launches_and_checks_inputs(dev):
     cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5)
     cuda_kernels.matern_matmat_multirho(pts, rhos, None, 0.5,
                                         return_frobenius=True)
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
     with pytest.raises(TypeError, match="float32"):
         cuda_kernels.matern_matmat_multirho(pts.double(), rhos.double(),
                                             V.double(), 0.5)
@@ -232,17 +239,18 @@ def test_multirho_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError, match="dot_mode must be one of"):
         cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5,
                                             dot_mode="bf16x2")
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
-    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 0
-    # a bf16 mode asked for the product and the traces launches both
-    # kernels: the tensor-core one multiplies, the exact one sums k^2
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
+    # a call that asks for the product and the traces launches both
+    # kernels, in every mode: the tensor-core one multiplies, the FP32 one
+    # sums k^2
     cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16x3",
                                         return_frobenius=True)
-    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 3
-    cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16")
     assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 2
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
+    cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5, dot_mode="bf16")
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 2
     assert cuda_kernels.launch_counts["matern_matmat"] == 0
     assert cuda_kernels.launch_counts["matern_matmat_mma"] == 0
 
@@ -265,7 +273,8 @@ def test_grid_engine_n1024_cuda_matches_cpu_and_single_operator(dev):
     cuda_kernels.reset_launch_counts()
     got = GridKrylovProfileLikelihood(pts, X, z, rhos, np.full(3, 0.5),
                                       device=dev, **kw).fit_all()
-    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 33
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 32
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
     want = GridKrylovProfileLikelihood(pts, X, z, rhos, np.full(3, 0.5),
                                        device="cpu", dtype=F64,
                                        **kw).fit_all()
@@ -356,7 +365,8 @@ def test_blocksparse_counts_launches_and_checks_inputs(dev):
     cuda_kernels.reset_launch_counts()
     op.matmat(V[:n])
     op.trace_pow(2)
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 1
     pts = op.points_sorted
     with pytest.raises(TypeError, match="float32"):
         cuda_kernels.matern_matmat_blocksparse(pts.double(), V.double(),
@@ -373,17 +383,18 @@ def test_blocksparse_counts_launches_and_checks_inputs(dev):
     with pytest.raises(ValueError, match="int32"):
         cuda_kernels.matern_matmat_blocksparse(
             pts, V, *args, n=n, row_ptr=op._row_ptr.long())
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 2
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 0
-    # a bf16 mode asked for the product and the trace launches both kernels
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 1
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
+    # a call that asks for the product and the trace launches both kernels,
+    # in every mode
     _, fro = cuda_kernels.matern_matmat_blocksparse(
         pts, V, *args, dot_mode="bf16x3", frobenius=True, **kw)
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 2
     cuda_kernels.matern_matmat_blocksparse(pts, V, *args, dot_mode="bf16",
                                            **kw)
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 2
-    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 2
     _, exact = cuda_kernels.matern_matmat_blocksparse(pts, None, *args,
                                                       frobenius=True, **kw)
     assert float(fro) == float(exact)       # the trace never rounds
@@ -423,12 +434,16 @@ def _frob(got, want):
 
 def _assert_mode_bounds(got, own, want, dot_mode, dist_mode="diff"):
     """``got``: the kernel; ``own``: its plain version in float32 with the
-    same rounding; ``want``: plain float64 'highest'."""
+    same rounding (under 'highest' plain float32, or its 3xTF32 version);
+    ``want``: plain float64 'highest'."""
     err, signature = _frob(got, want), _frob(own, want)
     if dot_mode == "bf16":
         assert 1e-4 < err < 5e-3
     else:
         assert err < (1e-3 if dist_mode == "gram" else 2e-5)
+    if dot_mode == "highest" and dist_mode == "diff":
+        assert float(torch.max(torch.abs(got.double() - want))) < 5e-4
+        assert _frob(got, own) < 2e-5
     if dist_mode == "gram":
         assert _frob(got, own) < 1e-3
         if dot_mode != "bf16":
@@ -599,7 +614,11 @@ def _multirho_problem(dev, n, B, r, d, seed):
     return pts, rhos, V
 
 
-@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+# under 'highest', the kernel's own plain version: the 3xTF32 product
+TF32X3 = dict(_product=cuda_kernels._tf32x3_dot_plain)
+
+
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3", "bf16"])
 @pytest.mark.parametrize("n, B, r, nu, d", MULTIRHO_MODE_CASES)
 def test_multirho_modes(dev, dot_mode, n, B, r, nu, d):
     pts, rhos, V = _multirho_problem(dev, n, B, r, d, seed=r + d)
@@ -609,8 +628,9 @@ def test_multirho_modes(dev, dot_mode, n, B, r, nu, d):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 1
     assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
-    own = cuda_kernels.matern_matmat_multirho_plain(pts, rhos, V, nu,
-                                                    dot_mode=dot_mode)
+    own = cuda_kernels.matern_matmat_multirho_plain(
+        pts, rhos, V, nu, dot_mode=dot_mode,
+        **(TF32X3 if dot_mode == "highest" else {}))
     want, tk2_want = cuda_kernels.matern_matmat_multirho_plain(
         pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), nu,
         return_frobenius=True, dot_mode="highest")
@@ -640,6 +660,25 @@ def test_multirho_mma_single_rho_vs_matern_matmat_mma(dev, dot_mode):
         V.double(), 0.5)
     signature = _frob(ref, want)
     assert _frob(got, ref) < 0.25 * signature
+
+
+def test_multirho_highest_at_the_largest_rho(dev):
+    """'highest' at the grid path's largest rho and full n: K(0.3) is
+    nearly dense, the row sums reach a few hundred and each is the sum of
+    782 tile sums, where a plain float32 running sum carried 5.0e-4 of
+    max-abs error. The kernel compensates that sum: max-abs < 5e-4,
+    Frobenius < 2e-5 against float64."""
+    n = 100_000
+    rng = np.random.RandomState(7)
+    pts = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
+    rhos = torch.tensor([0.3], device=dev)
+    V = torch.as_tensor(rng.standard_normal((1, n, 16)), dtype=F32,
+                        device=dev)
+    got = cuda_kernels.matern_matmat_multirho(pts, rhos, V, 0.5)
+    want = cuda_kernels.matern_matmat_multirho_plain(
+        pts.double(), 1.0 / (1.0 / rhos).double(), V.double(), 0.5,
+        block_rows=4096)
+    _assert_within_bounds(got, want)
 
 
 # as MULTIRHO_MODE_CASES, for the block-sparse tensor-core kernel: every
@@ -678,7 +717,7 @@ def _padded_normal(op, n, r, rng, dev):
     return V
 
 
-@pytest.mark.parametrize("dot_mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3", "bf16"])
 @pytest.mark.parametrize("n, r, nu, tile, d, scale, seed",
                          BLOCKSPARSE_MODE_CASES)
 def test_blocksparse_modes(dev, dot_mode, n, r, nu, tile, d, scale, seed):
@@ -691,7 +730,8 @@ def test_blocksparse_modes(dev, dot_mode, n, r, nu, tile, d, scale, seed):
     assert cuda_kernels.launch_counts["matern_matmat_blocksparse_mma"] == 1
     assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 1
     own = cuda_kernels.matern_matmat_blocksparse_plain(
-        op.points_sorted, V, *args, dot_mode=dot_mode, **kw)
+        op.points_sorted, V, *args, dot_mode=dot_mode,
+        **(TF32X3 if dot_mode == "highest" else {}), **kw)
     want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), V.double(), *args, frobenius=True,
         dot_mode="highest", **kw)
@@ -701,12 +741,15 @@ def test_blocksparse_modes(dev, dot_mode, n, r, nu, tile, d, scale, seed):
     assert not bool(got[n:].any())
 
 
+@pytest.mark.parametrize("dot_mode", ["highest", "bf16x3"])
 @pytest.mark.parametrize("kernel", ["multirho", "blocksparse"])
-def test_mma_kernels_skew_and_determinism(dev, kernel):
-    """Both tensor-core kernels under 'bf16x3': u.Kv vs v.Ku within 1e-4
-    of |u| |Kv| (V is rounded, so the map is not exactly linear; 'highest'
-    keeps 1e-6), and two launches give the same bits (a block owns its
-    rows and walks its columns in a fixed order; no atomics)."""
+def test_mma_kernels_skew_and_determinism(dev, kernel, dot_mode):
+    """Both tensor-core kernels: u.Kv vs v.Ku within 1e-6 of |u| |Kv| under
+    'highest' (V split into tf32 parts drops only lo*lo) and 1e-4 under
+    'bf16x3' (V is rounded, so the map is not exactly linear), and two
+    launches give the same bits (a block owns its rows and walks its
+    columns in a fixed order; no atomics)."""
+    skew = 1e-6 if dot_mode == "highest" else 1e-4
     n = 3001
     rng = np.random.RandomState(6)
     if kernel == "multirho":
@@ -714,17 +757,17 @@ def test_mma_kernels_skew_and_determinism(dev, kernel):
         u, v = (torch.as_tensor(rng.standard_normal((3, n, 1)), dtype=F32,
                                 device=dev) for _ in range(2))
         product = lambda w: cuda_kernels.matern_matmat_multirho(  # noqa: E731
-            pts, rhos, w, 0.5, dot_mode="bf16x3")
+            pts, rhos, w, 0.5, dot_mode=dot_mode)
         Ku, Kv = product(u), product(v)
         for b in range(3):
-            assert _skew(u[b], v[b], Ku[b], Kv[b]) < 1e-4
+            assert _skew(u[b], v[b], Ku[b], Kv[b]) < skew
     else:
         op, args, kw = _tapered(dev, n, 0.5, 128, seed=2)
         u, v = (_padded_normal(op, n, 1, rng, dev) for _ in range(2))
         product = lambda w: cuda_kernels.matern_matmat_blocksparse(  # noqa: E731
-            op.points_sorted, w, *args, dot_mode="bf16x3", **kw)
+            op.points_sorted, w, *args, dot_mode=dot_mode, **kw)
         Ku, Kv = product(u), product(v)
-        assert _skew(u, v, Ku, Kv) < 1e-4
+        assert _skew(u, v, Ku, Kv) < skew
     assert torch.equal(product(v), Kv)
     wide = torch.cat([v] * 24, dim=-1).contiguous()
     assert torch.equal(product(wide), product(wide))

@@ -12,6 +12,7 @@ within the band the rounding must produce.
 """
 
 import os
+import re
 from contextlib import nullcontext
 from types import SimpleNamespace
 
@@ -305,35 +306,51 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                           (16, False), (24, True),
                                           (40, False)])
 def test_launch_plan_routes_modes_to_kernels(kernel, dot_mode, r, frobenius):
-    """The routing table of the three wrappers on the card. matern_matmat:
-    every product is one launch of the tensor-core kernel, in every mode
-    ('highest' as 3xTF32). The multi-rho and the block-sparse wrapper:
-    'highest' is one launch of the FP32-FMA kernel with whatever was asked
-    for, a 'bf16x3' or 'bf16' product one launch of the tensor-core kernel,
-    counted under its own name. A tensor-core launch sums no k^2 (they are
-    never rounded): the sums are then a trace-only launch of the FP32-FMA
-    kernel, and so is a call without V."""
+    """The routing table of the three wrappers on the card, the same for
+    all three: in every mode the product is one launch of the tensor-core
+    kernel ('highest' as 3xTF32), counted under its own name, which takes
+    the mode's code; it sums no k^2 (they are never rounded), so the sums
+    are a trace-only launch of the FP32 kernel, and so is a call without
+    V. No mode reaches an FP32-FMA product: the FP32 sources hold only
+    their trace kernels."""
     if kernel == "matmat":
-        exact = ("gppe_matern_matmat", "matern_matmat")
+        trace = ("gppe_matern_matmat", "matern_matmat")
     else:
-        exact = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
-    mma = (f"{exact[0]}_mma", f"{exact[1]}_mma")
-    plan = cuda_kernels._launch_plan(kernel, dot_mode, r, frobenius)
-    if kernel != "matmat" and dot_mode == "highest" and r > 0:
-        assert plan == [(*exact, True, frobenius)]
-    else:
-        assert plan == ([(*mma, True, False)] if r else []) + (
-            [(*exact, False, True)] if frobenius else [])
-    # one launch multiplies (if there is a V), one sums k^2 (if asked)
-    assert sum(launch[2] for launch in plan) == (r > 0)
-    assert sum(launch[3] for launch in plan) == frobenius
-    for entry, counter, _, _ in plan:
+        trace = (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
+    mma = (f"{trace[0]}_mma", f"{trace[1]}_mma")
+    plan = cuda_kernels._launch_plan(kernel, r, frobenius)
+    assert plan == ([mma] if r else []) + ([trace] if frobenius else [])
+    for entry, counter in plan:
         assert counter in cuda_kernels.launch_counts
         source = f"matern_{kernel}_mma.cu" if entry.endswith("_mma") \
             else f"matern_{kernel}.cu"
         assert source in _build.SOURCES
         with open(os.path.join(CSRC, source)) as f:
-            assert f'extern "C" int {entry}(' in f.read()
+            text = f.read()
+        entry_args = text[text.index(f'extern "C" int {entry}('):]
+        entry_args = entry_args[:entry_args.index(")")]
+        if entry.endswith("_mma"):
+            # the tensor-core entry takes the mode's code and accepts it
+            assert "dot_code" in entry_args
+            assert re.search(
+                rf"dot_code [!=]= {_MODE_CONSTANTS[dot_mode]}\b", text)
+        else:
+            # the FP32 entry takes neither V nor a width nor a mode
+            assert "V" not in entry_args.split(",")
+            assert "int r" not in entry_args and "dot_code" not in entry_args
+
+
+# cuda_kernels._DOT_CODES, by their names in csrc/matern_common.cuh
+_MODE_CONSTANTS = {"highest": "kDotHighest", "bf16x3": "kDotBf16x3",
+                   "bf16": "kDotBf16"}
+
+
+def test_dot_codes_match_the_sources():
+    with open(os.path.join(CSRC, "matern_common.cuh")) as f:
+        text = f.read()
+    for mode, name in _MODE_CONSTANTS.items():
+        assert f"constexpr int {name} = {cuda_kernels._DOT_CODES[mode]};" \
+            in text
 
 
 class _FakeLibrary:
@@ -360,27 +377,62 @@ class _FakeLibrary:
                            cols_norm is not None, 0, None))
         return 0
 
+    def gppe_matern_multirho_mma_scratch_bytes(self, n, d, B, r, dot_code):
+        return 16 * n * B if dot_code == 0 else 0
+
+    def gppe_matern_multirho_mma(self, pts, inv_rho, V, out, scratch, n, d,
+                                 B, r, nu_code, dot_code, stream):
+        # 'highest' alone takes scratch
+        assert (scratch is not None) == (dot_code == 0)
+        self.calls.append(("gppe_matern_multirho_mma", B, r, dot_code))
+        return 0
+
+    def gppe_matern_multirho(self, pts, inv_rho, fro_rows, n, d, B, nu_code,
+                             stream):
+        self.calls.append(("gppe_matern_multirho", B, 0, None))
+        return 0
+
+    def gppe_matern_blocksparse_mma(self, pts, V, out, row_ptr, col_tiles,
+                                    n, d, r, tile, num_tiles, tau, nu_code,
+                                    dot_code, stream):
+        self.calls.append(("gppe_matern_blocksparse_mma", num_tiles, r,
+                           dot_code))
+        return 0
+
+    def gppe_matern_blocksparse(self, pts, fro_rows, row_ptr, col_tiles, n,
+                                d, tile, num_tiles, tau, nu_code, stream):
+        self.calls.append(("gppe_matern_blocksparse", num_tiles, 0, None))
+        return 0
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The card path of the wrappers, driven on CPU tensors against a
+    stand-in library."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    cuda_kernels.reset_launch_counts()
+    return lib
+
 
 @pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
 @pytest.mark.parametrize("dist_mode", cuda_kernels.DIST_MODES)
 @pytest.mark.parametrize("r", [0, 24])
 @pytest.mark.parametrize("frobenius", [False, True])
 def test_matmat_wrapper_launches_what_the_plan_says(
-        dot_mode, dist_mode, r, frobenius, monkeypatch):
+        dot_mode, dist_mode, r, frobenius, fake_library):
     """The card path of matern_matmat, driven on CPU tensors against a
     stand-in library: every product goes to matern_matmat_mma with the
     mode's code, in both distance forms; every sum of k^2 is a second,
     trace-only launch of matern_matmat; the Gram form hands both kernels
     the norms; each launch adds one to its own counter and to no other."""
-    lib = _FakeLibrary()
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: SimpleNamespace(cuda_stream=0))
+    lib = fake_library
     rng = np.random.RandomState(r)
     pts = _t(rng.rand(40, 2), F32)
     V = _t(rng.standard_normal((40, r)), F32) if r else None
-    cuda_kernels.reset_launch_counts()
     out = cuda_kernels._matern_matmat_cuda(
         pts, _t([0.1, 0.1], F32), V, 0.5, None, frobenius, dot_mode,
         dist_mode)
@@ -390,8 +442,8 @@ def test_matmat_wrapper_launches_what_the_plan_says(
     if frobenius:
         want.append(("gppe_matern_matmat", gram, gram, 0, None))
     assert lib.calls == want
-    assert [entry for entry, *_ in cuda_kernels._launch_plan(
-        "matmat", dot_mode, r, frobenius)] == [call[0] for call in want]
+    assert [entry for entry, _ in cuda_kernels._launch_plan(
+        "matmat", r, frobenius)] == [call[0] for call in want]
     if frobenius:
         out, fro = out
         assert fro.dtype == F64
@@ -399,6 +451,69 @@ def test_matmat_wrapper_launches_what_the_plan_says(
     assert cuda_kernels.launch_counts == {
         **dict.fromkeys(cuda_kernels.launch_counts, 0),
         "matern_matmat_mma": int(r > 0), "matern_matmat": int(frobenius)}
+
+
+@pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
+@pytest.mark.parametrize("r", [0, 16])
+@pytest.mark.parametrize("frobenius", [False, True])
+def test_multirho_wrapper_launches_what_the_plan_says(
+        dot_mode, r, frobenius, fake_library):
+    """matern_matmat_multirho's card path against the stand-in library:
+    the product, in every mode 'highest' included, goes to
+    matern_multirho_mma with the mode's code and the batch; the traces are
+    a trace-only launch of matern_multirho (no V, no width, no mode)."""
+    rng = np.random.RandomState(r)
+    B, n = 3, 40
+    pts = _t(rng.rand(n, 2), F32)
+    V = _t(rng.standard_normal((B, n, r)), F32) if r else None
+    out = cuda_kernels._matern_matmat_multirho_cuda(
+        pts, _t([0.05, 0.1, 0.3], F32), V, 0.5, frobenius, dot_mode)
+    want = [("gppe_matern_multirho_mma", B, r,
+             cuda_kernels._DOT_CODES[dot_mode])] if r else []
+    if frobenius:
+        want.append(("gppe_matern_multirho", B, 0, None))
+    assert fake_library.calls == want
+    if frobenius:
+        out, tk2 = out
+        assert tk2.shape == (B,) and tk2.dtype == F64
+    assert (out is None) == (r == 0)
+    assert cuda_kernels.launch_counts == {
+        **dict.fromkeys(cuda_kernels.launch_counts, 0),
+        "matern_matmat_multirho_mma": int(r > 0),
+        "matern_matmat_multirho": int(frobenius)}
+
+
+@pytest.mark.parametrize("dot_mode", cuda_kernels.DOT_MODES)
+@pytest.mark.parametrize("r", [0, 24])
+@pytest.mark.parametrize("frobenius", [False, True])
+def test_blocksparse_wrapper_launches_what_the_plan_says(
+        dot_mode, r, frobenius, fake_library):
+    """matern_matmat_blocksparse's card path against the stand-in library:
+    the product, in every mode 'highest' included, goes to
+    matern_blocksparse_mma with the mode's code; the trace is a trace-only
+    launch of matern_blocksparse (no V, no width, no mode)."""
+    rng = np.random.RandomState(r)
+    tile, num_tiles, n = 32, 3, 80
+    pts = _t(rng.rand(tile * num_tiles, 2), F32)
+    V = _t(rng.standard_normal((tile * num_tiles, r)), F32) if r else None
+    pair_i = np.asarray([0, 0, 1, 1, 1, 2, 2], np.int32)
+    pair_j = np.asarray([0, 1, 0, 1, 2, 1, 2], np.int32)
+    out = cuda_kernels._matern_matmat_blocksparse_cuda(
+        pts, V, 0.5, 0.1, pair_i, pair_j, tile, n, frobenius, None,
+        dot_mode)
+    want = [("gppe_matern_blocksparse_mma", num_tiles, r,
+             cuda_kernels._DOT_CODES[dot_mode])] if r else []
+    if frobenius:
+        want.append(("gppe_matern_blocksparse", num_tiles, 0, None))
+    assert fake_library.calls == want
+    if frobenius:
+        out, fro = out
+        assert fro.dtype == F64
+    assert (out is None) == (r == 0)
+    assert cuda_kernels.launch_counts == {
+        **dict.fromkeys(cuda_kernels.launch_counts, 0),
+        "matern_matmat_blocksparse_mma": int(r > 0),
+        "matern_matmat_blocksparse": int(frobenius)}
 
 
 # -- the operator and the engines ---------------------------------------------

@@ -1,16 +1,20 @@
 """The exact tile-dot mode 'highest' as 3xTF32, emulated on the CPU.
 
-On the card, ``matern_matmat``'s 'highest' product is three tf32 products
-on the tensor cores (``csrc/matern_matmat_mma.cu``): K and V each split
-into hi = tf32(x) and lo = tf32(x - hi), rounded as ``cvt.rna.tf32.f32``
-rounds, and hi.hi + lo.hi + hi.lo summed in float32 (lo.lo dropped).
+On the card, the 'highest' product of all three product kernels
+(``matern_matmat``, ``matern_matmat_multirho``,
+``matern_matmat_blocksparse``) is three tf32 products on the tensor cores
+(``csrc/*_mma.cu``): K and V each split into hi = tf32(x) and
+lo = tf32(x - hi), rounded as ``cvt.rna.tf32.f32`` rounds, and
+hi.hi + lo.hi + hi.lo summed in float32 (lo.lo dropped).
 ``cuda_kernels._tf32_round`` and ``_tf32x3_dot_plain`` are the plain
-versions of that rounding and that product. These tests hold them to an
-independent integer-bit reference and show, before any run on the card,
-that the scheme is 'highest'-grade: within the exact mode's bounds
-(Frobenius 2e-5, max-abs 5e-4; tests_tpu/test_onchip.py) of the float64
-product and of the reference's Pallas kernel at 'highest' in interpret
-mode, and as symmetric as the exact mode (u.Kv vs v.Ku to 1e-6).
+versions of that rounding and that product; the plain multi-rho and
+block-sparse versions take the latter through their module-private
+``_product``. These tests hold them to an independent integer-bit
+reference and show, before any run on the card, that the scheme is
+'highest'-grade: within the exact mode's bounds (Frobenius 2e-5, max-abs
+5e-4; tests_tpu/test_onchip.py) of the float64 product and of the
+reference's Pallas kernels at 'highest' in interpret mode, and as
+symmetric as the exact mode (u.Kv vs v.Ku to 1e-6).
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gppe_tpu.ops import pallas_kernels as jpk  # noqa: E402
+from gppe_tpu.ops import taper as jtaper  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels, kernels  # noqa: E402
 from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
 
@@ -128,3 +133,72 @@ def test_tf32x3_symmetry():
     skew = abs(float((u.double() * Kv).sum() - (v.double() * Ku).sum()))
     assert skew / float(torch.linalg.norm(u.double())
                         * torch.linalg.norm(Kv)) < SYM_TOL
+
+
+@pytest.mark.parametrize("rho", [0.05, 0.3])
+def test_tf32x3_multirho_is_highest_grade(rho):
+    """The multi-rho K at the smallest and the largest rho of the grid
+    path (at 0.3 K is nearly dense and the sums longest): the plain
+    version with the 3xTF32 product, in float32, against the float64 plain
+    version on the same float32 1/rho and against the reference's Pallas
+    kernel at 'highest' in interpret mode, each within the exact mode's
+    bounds; and it is not plain float32 K @ V."""
+    rng = np.random.RandomState(2)
+    pts = rng.rand(N, 2).astype(np.float32)
+    rhos = np.asarray([rho], np.float32)
+    V = rng.standard_normal((1, N, 16)).astype(np.float32)
+    P, R = torch.from_numpy(pts), torch.from_numpy(rhos)
+    got = cuda_kernels.matern_matmat_multirho_plain(
+        P, R, torch.from_numpy(V), 0.5,
+        _product=cuda_kernels._tf32x3_dot_plain)
+    assert got.dtype == F32
+    exact = cuda_kernels.matern_matmat_multirho_plain(
+        P.double(), 1.0 / (1.0 / R).double(),
+        torch.from_numpy(V).double(), 0.5)
+    frob, max_abs = _errors(got.numpy(), exact.numpy())
+    assert frob < FROB_TOL and max_abs < MAXABS_TOL
+    plain = cuda_kernels.matern_matmat_multirho_plain(
+        P, R, torch.from_numpy(V), 0.5)
+    assert not torch.equal(got, plain)
+    jax_highest = np.asarray(jpk.matern_matmat_multirho(
+        pts, rhos, V, 0.5, tile=256, dot_mode="highest", interpret=True))
+    frob, max_abs = _errors(got.numpy(), jax_highest)
+    assert frob < FROB_TOL and max_abs < MAXABS_TOL
+
+
+def test_tf32x3_blocksparse_is_highest_grade():
+    """The tapered K (the geometry of tests/test_torch_taper.py, n = 600,
+    tile 128), at a threshold no pair comes within 1e-5 of, so that
+    float32 and float64 taper the same entries: the plain version with the
+    3xTF32 product against the float64 plain version on the same sorted
+    float32 points and against the reference's Pallas kernel at 'highest'
+    in interpret mode, within the exact mode's bounds; pad rows stay
+    zero."""
+    rng = np.random.RandomState(11)
+    n = 600
+    jop = jtaper.TaperedMaternOperator(rng.rand(n, 2), 0.05, nu=0.5,
+                                       density=0.02, tile=128,
+                                       use_pallas=False)
+    pts = torch.as_tensor(np.array(jop.points_sorted), dtype=F32)
+    geometry = (jop.pair_i, jop.pair_j, jop.tile)
+    tau = cuda_kernels.blocksparse_clear_threshold(
+        pts.double(), 0.5, jop.threshold, *geometry, n=n)
+    V = np.zeros((jop.n_pad, R), np.float32)
+    V[:n] = rng.standard_normal((n, R))
+    Vt = torch.from_numpy(V)
+    got = cuda_kernels.matern_matmat_blocksparse_plain(
+        pts, Vt, 0.5, tau, *geometry, n=n,
+        _product=cuda_kernels._tf32x3_dot_plain)
+    assert got.dtype == F32 and not got[n:].any()
+    exact = cuda_kernels.matern_matmat_blocksparse_plain(
+        pts.double(), Vt.double(), 0.5, tau, *geometry, n=n)
+    frob, max_abs = _errors(got.numpy(), exact.numpy())
+    assert frob < FROB_TOL and max_abs < MAXABS_TOL
+    plain = cuda_kernels.matern_matmat_blocksparse_plain(
+        pts, Vt, 0.5, tau, *geometry, n=n)
+    assert not torch.equal(got, plain)
+    jax_highest = np.asarray(jpk.matern_matmat_blocksparse(
+        jop.points_sorted, V, 0.5, tau, *geometry, dot_mode="highest",
+        interpret=True))
+    frob, max_abs = _errors(got.numpy()[:n], jax_highest[:n])
+    assert frob < FROB_TOL and max_abs < MAXABS_TOL

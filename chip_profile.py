@@ -6,8 +6,10 @@
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
     python3 chip_profile.py --parent DIR modes eta  # beside another commit
+    python3 chip_profile.py --parent DIR traces     # the two dense traces
     python3 chip_profile.py --parent DIR --float64 eta  # and float64 products
     python3 chip_profile.py --parent DIR sass       # kernels compiled alike
+    python3 chip_profile.py sass-mix        # the dense traces' machine code
     python3 chip_profile.py eta             # eta* of every path
     python3 chip_profile.py eta-main        # main eta* under other products
     python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
@@ -39,6 +41,13 @@ turns, median of 7; with ``--parent`` each call of the change next to the
 same call of the parent, and the largest absolute difference of each
 output from the parent's.
 
+``traces`` times the two dense trace(K^2) kernels through their public
+wrappers at the paths' shapes (matern_matmat's at n = 100,000;
+matern_matmat_multirho's at n = 100,000 over the grid path's 8 rhos),
+median of 7, with ``--parent`` each call next to the same call of the
+parent's, in turns, and prints each package's results and the largest
+relative difference of the change's from the parent's.
+
 ``eta`` fits the main path (chip_smoke.py phase 5), the grid path (phase
 10: each grid point) and the tapered path (phase 12) under the module
 default mode and prints every eta*, sigma0 and the setup seconds; with
@@ -55,6 +64,11 @@ targets and kernel-parameter offsets aside), and the names of those that
 have none: which instances a change left as they were, whatever their
 names now.
 
+``sass-mix`` compiles the two dense trace sources to machine code and
+prints, for their instances at nu = 1/2, d = 2, the instructions, the MUFU
+operations and the opcode counts: the static mix that the issue rate
+works through.
+
 ``eta-main`` fits the main path's engine with its products computed other
 ways, the trace(K^2) launch kept: the kernel in each dot mode, the plain
 float32 version, the float64 product rounded once to float32, and the
@@ -67,10 +81,10 @@ the products at float32 level, random or coherent.
 their libraries in parallel, and times one wrapper (``--kernel``, before
 ``variants``: matmat, the default, at n = 100,000, r = 24; multirho at
 B = 8, r = 16; or blocksparse at n = 2^20, r = 24) under every tile-dot
-mode with each
-library in turns, in this one process, with each library's error against
-plain float64 (multirho: the largest over the rhos): how the design
-choices of the tensor-core kernels were made.
+mode, or one dense trace (matmat_trace at n = 100,000; multirho_trace
+over the grid path's 8 rhos), with each library in turns, in this one
+process, with each library's error against plain float64 (multirho: the
+largest over the rhos): how the design choices of the kernels were made.
 
 Exits non-zero without a CUDA device.
 """
@@ -83,6 +97,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -187,6 +202,37 @@ def sass_twins(root):
                               "parent_functions": len(parent),
                               "with_twin": len(change) - len(alone),
                               "without_twin": alone}), flush=True)
+
+
+def sass_mix():
+    """The machine code of the dense trace kernels' instances at nu = 1/2,
+    d = 2 (the paths'): instructions and MUFU operations, and the opcode
+    counts. A static count of the code, unrolled loop and all, so its
+    instructions per MUFU estimate the issue cost of one k."""
+    nvcc = _build.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("matern_matmat.cu", "matern_multirho.cu"):
+            cubin = Path(tmp) / f"{Path(src).stem}.cubin"
+            subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o",
+                            str(cubin), str(_build.CSRC_DIR / src)],
+                           check=True)
+            with open(cubin.with_suffix(".sass"), "w") as f:
+                subprocess.run([cuobjdump, "-sass", str(cubin)], stdout=f,
+                               check=True)
+            for name, body in sass_functions(
+                    cubin.with_suffix(".sass")).items():
+                if "ILi0ELi2E" not in name:
+                    continue
+                ops = Counter(ins.split()[1] if ins.startswith("@")
+                              else ins.split()[0] for ins in body)
+                mufu = sum(v for k, v in ops.items()
+                           if k.startswith("MUFU"))
+                print(json.dumps({
+                    "phase": "sass_mix", "source": src, "function": name,
+                    "instructions": len(body), "mufu": mufu,
+                    "instructions_per_mufu": len(body) / max(mufu, 1),
+                    "opcodes": dict(ops.most_common(24))}), flush=True)
 
 
 def profile_setup(name, build):
@@ -341,6 +387,56 @@ def mode_times(dev, pkgs):
                       "ms_all": times}), flush=True)
 
 
+def trace_times(dev, pkgs):
+    """Median ms and results of the two dense trace kernels at the paths'
+    shapes for each package in ``pkgs``, in turns; the change's largest
+    relative difference from the parent's."""
+    pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    rhos = torch.as_tensor(cs.GRID_RHOS, dtype=F32, device=dev)
+    fns = {}
+    for label, (ck, _) in pkgs.items():
+        fns[f"{label}:matern_matmat[trace]"] = lambda ck=ck: \
+            ck.matern_matmat(P, cs.RHO, None, cs.NU, frobenius=True)[1]
+        fns[f"{label}:matern_matmat_multirho[trace]"] = lambda ck=ck: \
+            ck.matern_matmat_multirho(P, rhos, None, cs.NU,
+                                      return_frobenius=True)[1]
+    # each kernel's calls side by side, the packages in turns within them
+    fns = dict(sorted(fns.items(), key=lambda kv: kv[0].split(":")[1]))
+    values = {k: f().double().reshape(-1) for k, f in fns.items()}
+    rel = {}
+    if "parent" in pkgs:
+        for key, got in values.items():
+            if key.startswith("change:"):
+                want = values["parent:" + key.split(":", 1)[1]]
+                rel[key.split(":", 1)[1]] = float(torch.max(
+                    torch.abs(got - want) / torch.abs(want)))
+    med, times = cs.median_in_turns(fns)
+    print(json.dumps({"phase": "trace_times", "nvidia_smi": cs.nvidia_smi(),
+                      "n": cs.N_MAIN, "rhos": list(cs.GRID_RHOS), "reps": 7,
+                      "packages": {k: v[1] for k, v in pkgs.items()},
+                      "ms_median": med,
+                      "traces": {k: v.tolist() for k, v in values.items()},
+                      "max_rel_diff_change_vs_parent": rel,
+                      "ms_all": times}), flush=True)
+    # this package's traces with fewer, longer blocks: a cap on the blocks
+    # of the walk gives each block per_block consecutive tile pairs
+    ck = pkgs["change"][0]
+    default, sweep = ck._TRACE_MAX_BLOCKS, {}
+    try:
+        for cap in (default, 1 << 17, 1 << 15, 1 << 13):
+            ck._TRACE_MAX_BLOCKS = cap
+            per_block = ck.trace_schedule(cs.N_MAIN, cs.N_MAIN, True)[3]
+            sweep[f"per_block={per_block}"] = cs.median_in_turns({
+                k.split(":", 1)[1]: f for k, f in fns.items()
+                if k.startswith("change:")})[0]
+    finally:
+        ck._TRACE_MAX_BLOCKS = default
+    print(json.dumps({"phase": "trace_block_sweep",
+                      "nvidia_smi": cs.nvidia_smi(), "ms_median": sweep}),
+          flush=True)
+
+
 def grid_float64(dev, pts, X, z, probes, v_defl):
     """The grid path's fit with its products in float64, rounded once to
     float32 (the traces from the kernel)."""
@@ -449,8 +545,9 @@ def path_etas(dev, pkgs, float64=False):
 
 def variant_times(dev, dirs, kernel):
     """Median ms and errors of one wrapper (``kernel``: 'matmat',
-    'multirho' or 'blocksparse') at its path's shape under each dot mode
-    with the kernel library of each package copy in ``dirs``."""
+    'multirho' or 'blocksparse') at its path's shape under each dot mode,
+    or of one dense trace ('matmat_trace', 'multirho_trace'), with the
+    kernel library of each package copy in ``dirs``."""
     load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
             "print(_build.library_path())")
     procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
@@ -468,6 +565,18 @@ def variant_times(dev, dirs, kernel):
             P.double(), scale.double(), V.double(), cs.NU)]
         run = lambda mode: [cuda_kernels.matern_matmat(  # noqa: E731
             P, scale, V, cs.NU, dot_mode=mode)]
+    elif kernel == "matmat_trace":
+        want = [cuda_kernels.matern_matmat_plain(
+            P.double(), cs.RHO, None, cs.NU, frobenius=True)[1].reshape(1)]
+        run = lambda mode: [cuda_kernels.matern_matmat(  # noqa: E731
+            P, cs.RHO, None, cs.NU, frobenius=True)[1].reshape(1)]
+    elif kernel == "multirho_trace":
+        rhos = torch.as_tensor(cs.GRID_RHOS, dtype=torch.float32, device=dev)
+        want = [cuda_kernels.matern_matmat_multirho_plain(
+            P.double(), 1.0 / (1.0 / rhos).double(), None, cs.NU,
+            return_frobenius=True)[1]]
+        run = lambda mode: [cuda_kernels.matern_matmat_multirho(  # noqa
+            P, rhos, None, cs.NU, return_frobenius=True)[1]]
     elif kernel == "multirho":
         rhos = torch.as_tensor(cs.GRID_RHOS, dtype=torch.float32, device=dev)
         V = torch.randn((len(rhos), cs.N_MAIN, 16), generator=g, device=dev)
@@ -493,8 +602,11 @@ def variant_times(dev, dirs, kernel):
         _build._lib = libs[d]       # the wrappers launch this library's
         return run(mode)
 
+    # a trace never rounds: one mode
+    modes = (("highest",) if kernel.endswith("_trace")
+             else cuda_kernels.DOT_MODES)
     fns = {f"{d}[{m}]": (lambda d=d, m=m: product(d, m))
-           for d in dirs for m in cuda_kernels.DOT_MODES}
+           for d in dirs for m in modes}
     errors = {}
     for k, f in fns.items():
         per = [cs.compare(got, w) for got, w in zip(f(), want)]
@@ -517,13 +629,18 @@ def main(argv):
             argv[argv.index("--dot-mode") + 1])
     if "ptxas" in argv:
         ptxas_report()
-    pkgs = packages(argv) if ("modes" in argv or "eta" in argv) else None
+    pkgs = (packages(argv) if {"modes", "eta", "traces"} & set(argv)
+            else None)
     if "modes" in argv:
         mode_times(dev, pkgs)
+    if "traces" in argv:
+        trace_times(dev, pkgs)
     if "eta" in argv:
         path_etas(dev, pkgs, float64="--float64" in argv)
     if "sass" in argv:
         sass_twins(argv[argv.index("--parent") + 1])
+    if "sass-mix" in argv:
+        sass_mix()
     if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:

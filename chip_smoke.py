@@ -37,7 +37,8 @@ Phases, each raising on failure:
      plain path) from the same numpy data and random block;
   5. the main path at n = 100,000, with launch counts;
   6. kernel and plain time (and error) at the main path's shape: the
-     'highest' product and the trace(K^2) launch;
+     'highest' product and the trace(K^2) launch, whose bits must be the
+     same run to run and in every dot mode;
   7. matern_matmat_multirho vs plain float64 on the card, with each
      product's gap to its plain 3xTF32 version logged; at B = 1 vs
      matern_matmat; at n = 100,000, B = 1, rho = 0.3, where the sums are
@@ -52,7 +53,8 @@ Phases, each raising on failure:
  12. the tapered path at n = 2^20, with launch counts;
  13. kernel and plain time (and error, the multi-rho one rho by rho) of
      the multi-rho and block-sparse kernels at their paths' shapes: the
-     'highest' product and the trace launch;
+     'highest' product and the trace launch (the multi-rho traces the same
+     bits run to run and in every dot mode);
  14. the tile-dot modes and the Gram form vs their own plain versions
      (float32, same rounding) and vs plain float64 'highest': the three
      tensor-core kernels and the Gram flag;
@@ -68,7 +70,9 @@ Phases, each raising on failure:
      beside the bf16 modes.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
-CUDA device.
+CUDA device. Each bound counts what the inputs need: the dense traces the
+n (n + 1) / 2 pairs of a symmetric K, and every k its MUFU operations on
+the SFU beside its bytes, CUDA-core and tensor-core operations.
 """
 
 import json
@@ -103,6 +107,12 @@ TAPER_SIDE, TAPER_SCALE, TAPER_DENSITY = 1024, 0.005, 1e-3
 # its operations over that class's own peak
 PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
 PEAK_BF16_OPS_PER_S, PEAK_TF32_OPS_PER_S = 989e12, 495e12
+# the SFU: 16 MUFU operations (RSQ, SQRT, EX2) per clock and SM on sm_90
+# (the throughput table of NVIDIA's CUDA C++ Programming Guide), times the
+# SM count and the card's maximum SM clock, which phase_device reads; until
+# then those of an H100 SXM (132 SMs, 1980 MHz)
+MUFU_PER_CLOCK_AND_SM = 16
+PEAK_MUFU_PER_S = MUFU_PER_CLOCK_AND_SM * 132 * 1980e6
 # operations per pair beyond the distance: scale/sqrt/exp and the closed
 # form's polynomial, by nu
 NU_OPS = {0.5: 3, 1.5: 7, 2.5: 10}
@@ -130,15 +140,28 @@ def nvidia_smi():
     return out.strip().splitlines()[0]
 
 
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def phase_device():
+    global PEAK_MUFU_PER_S
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
     config.setup()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    PEAK_MUFU_PER_S = MUFU_PER_CLOCK_AND_SM * sms * clock
     log(phase="device", nvidia_smi=nvidia_smi(),
         name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, precision=config.precision_state())
+        cuda=torch.version.cuda, precision=config.precision_state(),
+        sms=sms, max_sm_clock_hz=clock, peak_mufu_per_s=PEAK_MUFU_PER_S)
     return torch.device("cuda", 0)
 
 
@@ -364,6 +387,11 @@ def phase_kernel_time(dev):
         block_rows=1024)
     frob, max_abs = compare(got, want)
     trace_rel = abs(float(fro) - float(fro_want)) / float(fro_want)
+    # the trace again, and under each dot mode: the same bits
+    trace_same_bits = all(
+        float(cuda_kernels.matern_matmat(P, scale, None, NU, dot_mode=m,
+                                         frobenius=True)[1]) == float(fro)
+        for m in cuda_kernels.DOT_MODES)
     # u.Kv vs v.Ku at the full shape, one column each
     u, v = V[:, :1].contiguous(), V[:, 1:2].contiguous()
     sym = symmetry(u, v, cuda_kernels.matern_matmat(P, scale, u, NU),
@@ -371,7 +399,8 @@ def phase_kernel_time(dev):
     # the first 2048 rows against the plain 3xTF32 version (logged)
     tf32x3 = tf32x3_gap(got[:2048], P, None, RHO, V, NU)
     ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
-          and trace_rel < TRACE_RTOL and sym["symmetry_rel_err"] < SYM_TOL)
+          and trace_rel < TRACE_RTOL and sym["symmetry_rel_err"] < SYM_TOL
+          and trace_same_bits)
 
     med, times = median_in_turns({"kernel": kern, "plain": plain,
                                   "kernel_fro": kern_fro,
@@ -379,24 +408,32 @@ def phase_kernel_time(dev):
     r, d = 24, 2
     pairs = N_MAIN * N_MAIN
     # the product as 3xTF32: three tf32 products on the tensor cores, and
-    # per pair on the CUDA cores the distance, k and the split of k (3)
-    bound_ms, bound_by = bound(
+    # per pair on the CUDA cores the distance, k and the split of k (3),
+    # on the SFU the sqrt and the exp of k
+    bound_ms, bound_by, bound_term = bound(
         4 * (N_MAIN * d + 2 * N_MAIN * r),
-        pairs * (3 * d + nu_ops(NU) + 3), tf32_ops=pairs * 2 * r * 3)
+        pairs * (3 * d + nu_ops(NU) + 3), tf32_ops=pairs * 2 * r * 3,
+        mufu_ops=pairs * nu_mufu(NU))
     # what the same product would need as float32 FMAs on the CUDA cores
-    bound_fp32_ms, _ = bound(4 * (N_MAIN * d + 2 * N_MAIN * r),
-                             pairs * (3 * d + nu_ops(NU) + 2 * r))
-    # the trace: per pair the distance, k and one FMA for k^2
-    trace_bound_ms, trace_bound_by = bound(
-        4 * N_MAIN * d + 8, pairs * (3 * d + nu_ops(NU) + 2))
+    bound_fp32_ms, _, _ = bound(4 * (N_MAIN * d + 2 * N_MAIN * r),
+                                pairs * (3 * d + nu_ops(NU) + 2 * r),
+                                mufu_ops=pairs * nu_mufu(NU))
+    # the trace: K is symmetric, so n (n + 1) / 2 pairs, each the
+    # distance, k and one FMA for k^2
+    half = N_MAIN * (N_MAIN + 1) // 2
+    trace_bound_ms, trace_bound_by, trace_bound_term = bound(
+        4 * N_MAIN * d + 8, half * (3 * d + nu_ops(NU) + 2),
+        mufu_ops=half * nu_mufu(NU))
     log(phase="kernel_time", ok=ok, n=N_MAIN, r=r, reps=7,
         frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        trace_same_bits_run_to_run_and_in_every_mode=trace_same_bits,
         **sym, frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_fro"],
         plain_f32_trace_ms_median=med["plain_fro"],
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
         bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        trace_bound_term=trace_bound_term,
         kernel_ms_all=times["kernel"], plain_ms_all=times["plain"],
         kernel_trace_ms_all=times["kernel_fro"])
     if not ok:
@@ -410,19 +447,32 @@ def phase_kernel_time(dev):
              "bound_ms": trace_bound_ms, "bound_by": trace_bound_by})
 
 
-def bound(nbytes, ops, tensor_ops=0, tf32_ops=0):
+def bound(nbytes, ops, tensor_ops=0, tf32_ops=0, mufu_ops=0):
     """The least time (ms) the card could take: bytes over its memory
     rate, CUDA-core operations over its float32 rate, tensor-core
     operations on bf16 operands over its dense bf16 rate, or on tf32
-    operands over its dense tf32 rate, whichever is largest."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_F32_OPS_PER_S, tensor_ops / PEAK_BF16_OPS_PER_S,
-                tf32_ops / PEAK_TF32_OPS_PER_S) * 1e3
-    return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
+    operands over its dense tf32 rate, MUFU operations over the SFU's
+    rate, whichever is largest. Returns (ms, 'bytes' or 'operations', the
+    term that binds: 'bytes', 'fp32', 'bf16', 'tf32' or 'sfu')."""
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "fp32": ops / PEAK_F32_OPS_PER_S,
+             "bf16": tensor_ops / PEAK_BF16_OPS_PER_S,
+             "tf32": tf32_ops / PEAK_TF32_OPS_PER_S,
+             "sfu": mufu_ops / PEAK_MUFU_PER_S}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def nu_ops(nu):
     return NU_OPS.get(nu, NU_OPS_GAUSS)
+
+
+def nu_mufu(nu):
+    """MUFU operations of one k from the squared distance: the sqrt and
+    the exp, or the exp alone in the Gaussian limit; the same for IEEE k
+    (MUFU.RSQ, MUFU.EX2) and for the bf16 modes' approximate one."""
+    return 2 if nu in NU_OPS else 1
 
 
 def median_in_turns(fns, reps=7):
@@ -831,20 +881,24 @@ def phase_tapered_path(dev):
 # -- times of the multi-rho and block-sparse kernels at their paths' shapes --
 
 def multirho_bounds(n, B, r, d, nu):
-    """(bound_ms, bound_by) of the multi-rho 'highest' product as 3xTF32,
-    the same function's bound as FP32 FMAs on the CUDA cores, and
-    (bound_ms, bound_by) of the trace launch. Per pair the distance and
-    the sqrt (3d + 1); per pair and rho the scale, k and the split of k
-    (1 + nu_ops + 3) on the CUDA cores and three tf32 products of 2r
-    operations on the tensor cores; as FP32 FMAs the 2r on the CUDA
-    cores; the trace one FMA for k^2 per pair and rho."""
-    pairs = n * n
+    """bound() of the multi-rho 'highest' product as 3xTF32, the same
+    function's bound_ms as FP32 FMAs on the CUDA cores, and bound() of the
+    trace launch. Per pair the distance and the sqrt (3d + 1); per pair
+    and rho the scale, k and the split of k (1 + nu_ops + 3) on the CUDA
+    cores and three tf32 products of 2r operations on the tensor cores; as
+    FP32 FMAs the 2r on the CUDA cores; on the SFU one sqrt per pair and
+    one exp per pair and rho. The trace: one FMA for k^2 per pair and rho,
+    over the n (n + 1) / 2 pairs of the symmetric K."""
+    pairs, half = n * n, n * (n + 1) // 2
     nbytes = 4 * (n * d + B + 2 * B * n * r)
     cores = pairs * (3 * d + 1 + B * (1 + nu_ops(nu) + 3))
-    product = bound(nbytes, cores, tf32_ops=pairs * B * 2 * r * 3)
-    as_fp32 = bound(nbytes, pairs * (3 * d + 1 + B * (nu_ops(nu) + 2 * r)))
-    trace = bound(4 * (n * d + B) + 8 * B * n,
-                  pairs * (3 * d + 1 + B * (nu_ops(nu) + 2)))
+    product = bound(nbytes, cores, tf32_ops=pairs * B * 2 * r * 3,
+                    mufu_ops=pairs * (1 + B))
+    as_fp32 = bound(nbytes, pairs * (3 * d + 1 + B * (nu_ops(nu) + 2 * r)),
+                    mufu_ops=pairs * (1 + B))
+    trace = bound(4 * (n * d + B) + 8 * B,
+                  half * (3 * d + 1 + B * (nu_ops(nu) + 2)),
+                  mufu_ops=half * (1 + B))
     return product, as_fp32[0], trace
 
 
@@ -866,9 +920,15 @@ def phase_multirho_time(dev):
         return_frobenius=True)
     per_rho = [compare(got[b], want[b]) for b in range(B)]
     frob, max_abs = ([e[0] for e in per_rho], [e[1] for e in per_rho])
-    trace_rel = float(torch.max(torch.abs(tk2 - tk2_want) / tk2_want))
+    trace_rel_per_rho = (torch.abs(tk2 - tk2_want) / tk2_want).tolist()
+    trace_rel = max(trace_rel_per_rho)
+    # the traces again, and under each dot mode: the same bits
+    trace_same_bits = all(
+        torch.equal(cuda_kernels.matern_matmat_multirho(
+            P, rhos, None, NU, dot_mode=m, return_frobenius=True)[1], tk2)
+        for m in cuda_kernels.DOT_MODES)
     ok = (max(frob) < FROB_TOL and max(max_abs) < MAXABS_TOL
-          and trace_rel < TRACE_RTOL)
+          and trace_rel < TRACE_RTOL and trace_same_bits)
     del want
     # the first 2048 rows against the plain 3xTF32 version (logged)
     tf32x3 = multirho_tf32x3_gap(got, P, rhos, V, NU, rows=2048)
@@ -882,16 +942,20 @@ def phase_multirho_time(dev):
             P, rhos, None, NU, return_frobenius=True),
         "plain_trace": lambda: cuda_kernels.matern_matmat_multirho_plain(
             P, rhos, None, NU, return_frobenius=True)})
-    (bound_ms, bound_by), bound_fp32_ms, (trace_bound_ms, trace_bound_by) = \
+    ((bound_ms, bound_by, bound_term), bound_fp32_ms,
+     (trace_bound_ms, trace_bound_by, trace_bound_term)) = \
         multirho_bounds(N_MAIN, B, r, d, NU)
     log(phase="multirho_time", ok=ok, n=N_MAIN, B=B, r=r, reps=7,
         rhos=list(GRID_RHOS), frob_rel_err=frob, max_abs_err=max_abs,
-        trace_rel_err=trace_rel, frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
+        trace_rel_err=trace_rel, trace_rel_err_per_rho=trace_rel_per_rho,
+        trace_same_bits_run_to_run_and_in_every_mode=trace_same_bits,
+        frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
         bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        trace_bound_term=trace_bound_term,
         kernel_ms_all=times["kernel"],
         kernel_trace_ms_all=times["kernel_trace"])
     if not ok:
@@ -917,18 +981,20 @@ def tile_pairs(op):
 def blocksparse_bounds(op, r, d):
     """As :func:`multirho_bounds`, for the block-sparse kernel over the
     operator's pair list: per pair the distance, k, the compare-select and
-    the split of k (3d + nu_ops + 1 + 3) and three tf32 products of 2r
-    operations; as FP32 FMAs the 2r on the CUDA cores; the trace one FMA
-    for k^2 per pair."""
+    the split of k (3d + nu_ops + 1 + 3), the sqrt and the exp of k on the
+    SFU and three tf32 products of 2r operations; as FP32 FMAs the 2r on
+    the CUDA cores; the trace one FMA for k^2 per pair, over every pair of
+    the list (its kernel walks them all)."""
     pairs = tile_pairs(op)
     geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
     nbytes = 4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry
     k_ops = 3 * d + nu_ops(op.nu) + 1
+    mufu = pairs * nu_mufu(op.nu)
     product = bound(nbytes, pairs * (k_ops + 3),
-                    tf32_ops=pairs * 2 * r * 3)
-    as_fp32 = bound(nbytes, pairs * (k_ops + 2 * r))
-    trace = bound(4 * op.n_pad * d + 8 * op.n_pad + geometry,
-                  pairs * (k_ops + 2))
+                    tf32_ops=pairs * 2 * r * 3, mufu_ops=mufu)
+    as_fp32 = bound(nbytes, pairs * (k_ops + 2 * r), mufu_ops=mufu)
+    trace = bound(4 * op.n_pad * d + 8 + geometry, pairs * (k_ops + 2),
+                  mufu_ops=mufu)
     return pairs, product, as_fp32[0], trace
 
 
@@ -961,8 +1027,8 @@ def phase_blocksparse_time(dev, op):
             op.points_sorted, None, *args, frobenius=True, **kw),
         "plain_trace": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
             op.points_sorted, None, *args, frobenius=True, **kw)})
-    pairs, (bound_ms, bound_by), bound_fp32_ms, (trace_bound_ms,
-                                                 trace_bound_by) = \
+    (pairs, (bound_ms, bound_by, bound_term), bound_fp32_ms,
+     (trace_bound_ms, trace_bound_by, trace_bound_term)) = \
         blocksparse_bounds(op, r, d)
     log(phase="blocksparse_time", ok=ok, n=n, r=r, reps=7, pairs=pairs,
         tau=tau, tau_over_operator_threshold=tau / op.threshold,
@@ -971,8 +1037,9 @@ def phase_blocksparse_time(dev, op):
         plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
         bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
+        trace_bound_term=trace_bound_term,
         kernel_ms_all=times["kernel"],
         kernel_trace_ms_all=times["kernel_trace"])
     if not ok:
@@ -1501,16 +1568,18 @@ def phase_mode_time(dev, taper_op):
         ok = mode_verdict(rec, dot_mode, dist_mode) and ok
         # per pair on the CUDA cores: the distance (3d, or the Gram form's
         # 2d + 3), scale/sqrt/exp, and the split or rounding of k (3 for
-        # two tf32 values, 5 for two bf16 values, 2 for one); on the tensor
+        # two tf32 values, 5 for two bf16 values, 2 for one); on the SFU
+        # the sqrt and the exp of k, IEEE or approximate; on the tensor
         # cores 2r per product, three products but under 'bf16', tf32
         # operands under 'highest'
         core = (2 * d + 3 if dist_mode == "gram" else 3 * d) + nu_ops(NU)
         core += {"highest": 3, "bf16x3": 5, "bf16": 2}[dot_mode]
         tensor = pairs * 2 * r * (1 if dot_mode == "bf16" else 3)
-        bound_ms, bound_by = (
-            bound(nbytes, pairs * core, tf32_ops=tensor)
+        mufu = pairs * nu_mufu(NU)
+        bound_ms, bound_by, bound_term = (
+            bound(nbytes, pairs * core, tf32_ops=tensor, mufu_ops=mufu)
             if dot_mode == "highest" else
-            bound(nbytes, pairs * core, tensor))
+            bound(nbytes, pairs * core, tensor, mufu_ops=mufu))
         out[name] = {"max_abs_err": rec["max_abs_err"],
                      "ms": med[f"kernel_{name}"],
                      "plain_ms": med[f"plain_{name}"], "bound_ms": bound_ms,
@@ -1519,7 +1588,7 @@ def phase_mode_time(dev, taper_op):
             kernel_ms_median=med[f"kernel_{name}"],
             plain_f32_ms_median=med[f"plain_{name}"],
             kernel_highest_diff_ms_median=med["kernel_highest"],
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
             kernel_ms_all=times[f"kernel_{name}"])
     del want
     if not ok:
@@ -1554,17 +1623,18 @@ def phase_mode_time(dev, taper_op):
                **{k: [e[k] for e in per_rho] for k in per_rho[0]}}
         del got, own
         if mode == "highest":
-            (bound_ms, bound_by), _, _ = multirho_bounds(N_MAIN, B, r2, d,
-                                                         NU)
+            (bound_ms, bound_by, bound_term), _, _ = multirho_bounds(
+                N_MAIN, B, r2, d, NU)
         else:
             # the products are bf16 operands with float32 sums, charged to
             # the tensor cores' peak; the distance, the closed form and the
-            # rounding of k per rho are CUDA-core operations
+            # rounding of k per rho are CUDA-core operations; one sqrt per
+            # pair and one exp per pair and rho on the SFU
             products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
-            bound_ms, bound_by = bound(
+            bound_ms, bound_by, bound_term = bound(
                 4 * (N_MAIN * d + B + 2 * B * N_MAIN * r2),
                 pairs * (3 * d + 1 + B * (nu_ops(NU) + rounding)),
-                pairs * B * 2 * r2 * products)
+                pairs * B * 2 * r2 * products, mufu_ops=pairs * (1 + B))
         out[f"multirho_{mode}"] = {
             "max_abs_err": max(rec["max_abs_err"]),
             "ms": med[f"kernel_{mode}"], "plain_ms": med[f"plain_{mode}"],
@@ -1572,7 +1642,7 @@ def phase_mode_time(dev, taper_op):
         log(phase="mode_time", ok=ok, n=N_MAIN, B=B, r=r2, reps=7, **rec,
             kernel_ms_median=med[f"kernel_{mode}"],
             plain_f32_ms_median=med[f"plain_{mode}"],
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
             kernel_ms_all=times[f"kernel_{mode}"])
         if not ok:
             raise AssertionError(f"multirho under {mode} is out of its "
@@ -1616,14 +1686,16 @@ def phase_mode_time(dev, taper_op):
         del got, again, own
         ok = mode_verdict(rec, mode) and rec["same_bits_run_to_run"]
         if mode == "highest":
-            _, (bound_ms, bound_by), _, _ = blocksparse_bounds(op, r3, d)
+            _, (bound_ms, bound_by, bound_term), _, _ = blocksparse_bounds(
+                op, r3, d)
         else:
             products, rounding = (3, 5) if mode == "bf16x3" else (1, 2)
-            bound_ms, bound_by = bound(
+            bound_ms, bound_by, bound_term = bound(
                 4 * (op.n_pad * d + 2 * op.n_pad * r3 + op.num_tiles + 1
                      + len(op.pair_j)),
                 pairs3 * (3 * d + nu_ops(op.nu) + 1 + rounding),
-                pairs3 * 2 * r3 * products)
+                pairs3 * 2 * r3 * products,
+                mufu_ops=pairs3 * nu_mufu(op.nu))
         out[f"blocksparse_{mode}"] = {
             "max_abs_err": rec["max_abs_err"], "ms": med[f"kernel_{mode}"],
             "plain_ms": med[f"plain_{mode}"], "bound_ms": bound_ms,
@@ -1631,7 +1703,7 @@ def phase_mode_time(dev, taper_op):
         log(phase="mode_time", ok=ok, n=n, r=r3, reps=7, pairs=pairs3,
             **rec, kernel_ms_median=med[f"kernel_{mode}"],
             plain_f32_ms_median=med[f"plain_{mode}"],
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
             kernel_ms_all=times[f"kernel_{mode}"])
         if not ok:
             raise AssertionError(f"blocksparse under {mode} is out of its "

@@ -1,11 +1,12 @@
 // Fused Matern trace(K^2) for Hopper (sm_90a):
 //
-//     fro_rows[i] = sum_j K[i, j]^2,   K[i, j] = k_nu(|x_i - y_j|),
+//     partials[b] = sum over block b's tile pairs of weight * sum K[i, j]^2,
+//     K[i, j] = k_nu(|x_i - y_j|),
 //
 // with x (nr, d) and y (nc, d) the row and column points already divided by
 // the correlation scale (the Python wrapper does that, so anisotropic scales
-// work), fro_rows (nr) float64; sum fro_rows = trace(K^2) = ||K||_F^2 for
-// square K. K is never stored.
+// work), partials float64; the caller sums them, and that sum is
+// sum K^2 = trace(K^2) = ||K||_F^2 for square K. K is never stored.
 //
 // Replaces the XLA trace(K^2) pass
 // gppe_tpu/ops/operators.py::_matern_frobenius2_blocked. It serves every
@@ -18,106 +19,171 @@
 // ::_matmat_kernel_gram.
 //
 // What bounds it on this card. Each pair (i, j) costs d subtract/FMAs for the
-// squared distance, one sqrtf and one expf (the SFU's MUFU.RSQ / MUFU.EX2 plus
-// the IEEE fix-up instructions around them) and one FMA for k^2. Device-memory
-// traffic is O(n d) words against O(n^2 (3 d + ~20)) instructions, so the
-// kernel is bound by the SFU rate and instruction issue, never by HBM.
+// squared distance, one correctly rounded sqrt (MUFU.RSQ and four FP32
+// operations), one IEEE expf (MUFU.EX2 and seven FP32 operations) and one
+// FMA for k^2: two MUFU operations against about twenty issued
+// instructions. Device-memory traffic is O(n d) words against O(n^2)
+// instructions, so the kernel is bound by instruction issue, with the SFU
+// (16 MUFU operations per clock and SM) close behind, never by HBM.
 //
 // What the design does about it:
-//   * one thread per output row, kRows = 128 rows per block; the block walks
-//     the columns in tiles of kCols = 128 points, staging each tile's points
-//     in shared memory once; every thread then reads them as warp-wide
-//     broadcasts (no bank conflicts);
-//   * each thread evaluates k(x_i, y_j) exactly once per pair - one sqrt and
-//     one exp, the minimum;
-//   * nu (four closed forms) and d = 2 are template parameters, other d <= 8
-//     run an unrolled loop over zero-padded coordinates (exact: a zero pad
-//     adds 0 to the squared distance); the Gram form has the any-d
-//     instances only;
+//   * a square K in the difference form is symmetric bit for bit, so the
+//     walk takes only the tile pairs tj >= ti and counts each off the
+//     diagonal twice: half the pairs (matern_trace.cuh). The Gram form and
+//     a rectangular K walk every pair;
+//   * one tile pair of 128 x 128 points per block, balanced over the
+//     triangle by the fold of row ti with row T - 1 - ti; each block writes
+//     one float64 partial, no atomics, the same bits run to run;
+//   * k from matern_exact_d2 (matern_mma.cuh): the same bits as sqrtf and
+//     expf, without the branch nvcc puts around sqrtf, which cost a third
+//     of the 'highest' product kernel;
+//   * each thread owns kR = 4 rows and a quarter of the tile's columns, so
+//     every column point read from shared memory (a warp-wide broadcast)
+//     serves four pairs, and four independent sqrt/exp chains interleave;
+//   * nu (four closed forms) and d = 2 are template parameters, other
+//     d <= 8 run over zero-padded coordinates (exact: a zero pad adds 0 to
+//     the squared distance); the Gram form has the any-d instances only;
 //   * ragged row and column edges are masked, not padded with far points.
-// Precision: built WITHOUT --use_fast_math, so sqrtf is correctly rounded and
-// expf is the full-accuracy routine (matern_from_d2, as the 'highest'
-// products take it). The k^2 row sums take float32 partials per column tile
-// and add them in float64.
+// Precision: built WITHOUT --use_fast_math. Each thread sums the k^2 of a
+// row over its 32 columns of the tile in float32, then in float64.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "matern_common.cuh"
+#include "matern_mma.cuh"
+#include "matern_trace.cuh"
 
 using namespace gppe;
 
 namespace {
 
-constexpr int kRows = 128;  // output rows per block, one per thread
-constexpr int kCols = 128;  // column points per shared-memory tile
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kR = 4;  // rows per thread: lane + 32 r of its row set
+constexpr int kRowSets = kTraceTile / (32 * kR);
+constexpr int kColGroups = kWarps / kRowSets;
+constexpr int kColsPerThread = kTraceTile / kColGroups;
+static_assert(kRowSets * 32 * kR == kTraceTile && kColGroups >= 1 &&
+                  kColGroups * kRowSets == kWarps,
+              "the threads must tile the 128 x 128 pair exactly");
+
+// k^2 of one column point y (coordinates, and its norm for the Gram form)
+// with the thread's kR rows, added into their float32 sums
+template <int NU, int KD, bool GRAM>
+__device__ __forceinline__ void trace_column(const float (&x)[kR][KD],
+                                             const float (&xn)[kR],
+                                             const float* y_smem, float yn,
+                                             float (&part)[kR]) {
+  float y[KD];
+#pragma unroll
+  for (int k = 0; k < KD; ++k) y[k] = y_smem[k];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    float d2 = 0.0f;
+    if constexpr (GRAM) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int k = 0; k < KD; ++k) dot = fmaf(x[r][k], y[k], dot);
+      d2 = fmaxf(fmaf(-2.0f, dot, xn[r] + yn), 0.0f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < KD; ++k) {
+        const float diff = x[r][k] - y[k];
+        d2 = fmaf(diff, diff, d2);
+      }
+    }
+    const float kv = matern_exact_d2<NU>(d2);
+    part[r] = fmaf(kv, kv, part[r]);
+  }
+}
 
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded coordinates).
 // GRAM: the Gram-form distance from centred points and their norms.
 template <int NU, int D, bool GRAM>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
     matern_frobenius_kernel(const float* __restrict__ rows,
                             const float* __restrict__ cols,
                             const float* __restrict__ rows_norm,
                             const float* __restrict__ cols_norm,
-                            double* __restrict__ fro_rows, int nr, int nc,
-                            int d) {
+                            double* __restrict__ partials, int nr, int nc,
+                            int d, int tiles_r, int tiles_c, int64_t pairs,
+                            int per_block, bool symmetric) {
   constexpr int kD = D > 0 ? D : kMaxD;
-  __shared__ float s_pts[kD][kCols];
-  __shared__ float s_norm[GRAM ? kCols : 1];
+  __shared__ __align__(16) float s_pts[kTraceTile][kD];
+  __shared__ float s_norm[GRAM ? kTraceTile : 1];
+  __shared__ double s_warp[kWarps];
 
   const int dim = D > 0 ? D : d;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < nr;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp % kRowSets) * 32 * kR + lane;
+  const int col0 = (warp / kRowSets) * kColsPerThread;
 
-  float x[kD];
-#pragma unroll
-  for (int k = 0; k < kD; ++k) {
-    x[k] = (live && k < dim) ? rows[static_cast<int64_t>(row) * dim + k] : 0.0f;
-  }
-  float x_norm = 0.0f;
-  if constexpr (GRAM) x_norm = live ? rows_norm[row] : 0.0f;
-  double fro = 0.0;
-
-  for (int j0 = 0; j0 < nc; j0 += kCols) {
-    const int tc = min(kCols, nc - j0);
+  double acc = 0.0;
+  const int64_t p_begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t p_end =
+      p_begin + per_block < pairs ? p_begin + per_block : pairs;
+  for (int64_t p = p_begin; p < p_end; ++p) {
+    const TilePair tp = trace_tile_pair(p, tiles_r, tiles_c, symmetric);
+    const int j0 = tp.tj * kTraceTile;
+    const int tc = min(kTraceTile, nc - j0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kD * kCols; e += kRows) {
-      const int k = e / kCols;
-      const int j = e % kCols;
-      s_pts[k][j] = (j < tc && k < dim)
+    for (int e = threadIdx.x; e < kTraceTile * kD; e += kThreads) {
+      const int j = e / kD;
+      const int k = e % kD;
+      s_pts[j][k] = (j < tc && k < dim)
                         ? cols[static_cast<int64_t>(j0 + j) * dim + k]
                         : 0.0f;
     }
-    if constexpr (GRAM) {  // kRows == kCols: one norm per thread
-      s_norm[threadIdx.x] =
-          threadIdx.x < tc ? cols_norm[j0 + threadIdx.x] : 0.0f;
+    if constexpr (GRAM) {
+      for (int j = threadIdx.x; j < kTraceTile; j += kThreads) {
+        s_norm[j] = j < tc ? cols_norm[j0 + j] : 0.0f;
+      }
+    }
+    float x[kR][kD];
+    float xn[kR];
+    bool live[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int row = tp.ti * kTraceTile + row0 + 32 * r;
+      live[r] = row < nr;
+#pragma unroll
+      for (int k = 0; k < kD; ++k) {
+        x[r][k] = (live[r] && k < dim)
+                      ? rows[static_cast<int64_t>(row) * dim + k]
+                      : 0.0f;
+      }
+      xn[r] = (GRAM && live[r]) ? rows_norm[row] : 0.0f;
     }
     __syncthreads();
 
-    // this tile's k^2 in float32, then into the float64 row sum
-    float fro_tile = 0.0f;
-    for (int j = 0; j < tc; ++j) {
-      float d2 = 0.0f;
-      if constexpr (GRAM) {
-        float dot = 0.0f;
+    float part[kR];
 #pragma unroll
-        for (int k = 0; k < kD; ++k) dot = fmaf(x[k], s_pts[k][j], dot);
-        d2 = fmaxf(fmaf(-2.0f, dot, x_norm + s_norm[j]), 0.0f);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kD; ++k) {
-          const float diff = x[k] - s_pts[k][j];
-          d2 = fmaf(diff, diff, d2);
-        }
+    for (int r = 0; r < kR; ++r) part[r] = 0.0f;
+    const int jn = min(kColsPerThread, tc - col0);
+    if (jn == kColsPerThread) {
+#pragma unroll 8
+      for (int j = col0; j < col0 + kColsPerThread; ++j) {
+        trace_column<NU, kD, GRAM>(x, xn, s_pts[j], GRAM ? s_norm[j] : 0.0f,
+                                   part);
       }
-      const float kv = matern_from_d2<NU>(d2);
-      fro_tile = fmaf(kv, kv, fro_tile);
+    } else {
+      for (int j = col0; j < col0 + jn; ++j) {
+        trace_column<NU, kD, GRAM>(x, xn, s_pts[j], GRAM ? s_norm[j] : 0.0f,
+                                   part);
+      }
     }
-    fro += static_cast<double>(fro_tile);
+    double tile = 0.0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (live[r]) tile += static_cast<double>(part[r]);
+    }
+    acc += tp.weight * tile;
   }
-  if (live) fro_rows[row] = fro;
+  const double total = block_sum<kWarps>(acc, s_warp);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
 struct Args {
@@ -125,19 +191,19 @@ struct Args {
   const float* cols;
   const float* rows_norm;  // both norms null: the difference form
   const float* cols_norm;
-  double* fro_rows;
-  int nr, nc, d;
+  double* partials;
+  int nr, nc, d, tiles_r, tiles_c;
+  int64_t pairs;
+  int per_block, blocks;
+  bool symmetric;
   cudaStream_t stream;
 };
 
-static_assert(kRows == kCols, "the column norms are staged one per thread");
-
 template <int NU, int D, bool GRAM>
 cudaError_t launch(const Args& a) {
-  matern_frobenius_kernel<NU, D, GRAM>
-      <<<(a.nr + kRows - 1) / kRows, kRows, 0, a.stream>>>(
-          a.rows, a.cols, a.rows_norm, a.cols_norm, a.fro_rows, a.nr, a.nc,
-          a.d);
+  matern_frobenius_kernel<NU, D, GRAM><<<a.blocks, kThreads, 0, a.stream>>>(
+      a.rows, a.cols, a.rows_norm, a.cols_norm, a.partials, a.nr, a.nc, a.d,
+      a.tiles_r, a.tiles_c, a.pairs, a.per_block, a.symmetric);
   return cudaGetLastError();
 }
 
@@ -154,25 +220,42 @@ cudaError_t launch_d(const Args& a) {
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Does
 // not synchronise and allocates nothing. `rows_norm` (nr) and `cols_norm`
 // (nc) are both null for the difference form, or hold the squared norms of
-// the (centred) rows and cols for the Gram form. `fro_rows` (nr float64)
-// receives the k^2 row sums.
+// the (centred) rows and cols for the Gram form. `symmetric` (the rows are
+// the columns, nr == nc) walks the tile pairs tj >= ti only. `partials`
+// (`blocks` float64) receives one weighted k^2 sum per block of `per_block`
+// tile pairs; the blocks must cover the walk's pairs exactly
+// (cuda_kernels.trace_schedule).
 extern "C" int gppe_matern_matmat(const void* rows, const void* cols,
                                   const void* rows_norm,
-                                  const void* cols_norm, void* fro_rows,
+                                  const void* cols_norm, void* partials,
                                   int nr, int nc, int d, int nu_code,
+                                  int symmetric, int per_block, int blocks,
                                   void* stream) {
-  if (nr <= 0 || nc < 0 || d < 1 || d > kMaxD || fro_rows == nullptr ||
-      (rows_norm == nullptr) != (cols_norm == nullptr)) {
+  if (nr <= 0 || nc <= 0 || d < 1 || d > kMaxD || partials == nullptr ||
+      (rows_norm == nullptr) != (cols_norm == nullptr) ||
+      (symmetric && nr != nc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_r = (nr + kTraceTile - 1) / kTraceTile;
+  const int tiles_c = (nc + kTraceTile - 1) / kTraceTile;
+  const int64_t pairs = trace_pairs(tiles_r, tiles_c, symmetric != 0);
+  if (!trace_grid_ok(pairs, per_block, blocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(rows),
                static_cast<const float*>(cols),
                static_cast<const float*>(rows_norm),
                static_cast<const float*>(cols_norm),
-               static_cast<double*>(fro_rows),
+               static_cast<double*>(partials),
                nr,
                nc,
                d,
+               tiles_r,
+               tiles_c,
+               pairs,
+               per_block,
+               blocks,
+               symmetric != 0,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (nu_code) {

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("matern_matmat.cu", "matern_matmat_mma.cu", "matern_multirho.cu",
            "matern_multirho_mma.cu", "matern_blocksparse.cu",
            "matern_blocksparse_mma.cu")
-HEADERS = ("matern_common.cuh", "matern_mma.cuh")
+HEADERS = ("matern_common.cuh", "matern_mma.cuh", "matern_trace.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -118,7 +118,8 @@ def load(path=None):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gppe_matern_matmat.restype = i32
     lib.gppe_matern_matmat.argtypes = [ptr, ptr, ptr, ptr, ptr,
-                                       i32, i32, i32, i32, ptr]
+                                       i32, i32, i32, i32, i32, i32, i32,
+                                       ptr]
     lib.gppe_matern_matmat_mma.restype = i32
     lib.gppe_matern_matmat_mma.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                            i32, i32, i32, i32, i32, i32, ptr]
@@ -127,7 +128,7 @@ def load(path=None):
                                                          i32]
     lib.gppe_matern_multirho.restype = i32
     lib.gppe_matern_multirho.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
-                                         ptr]
+                                         i32, i32, ptr]
     lib.gppe_matern_multirho_mma.restype = i32
     lib.gppe_matern_multirho_mma.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                              i32, i32, i32, i32, i32, i32, ptr]

@@ -14,7 +14,7 @@ products run ``csrc/matern_matmat_mma.cu`` in every tile-dot mode of
 exact mode ``'highest'`` as 3xTF32 (tf32 high and residual parts, IEEE
 sqrt and exp; :func:`_tf32x3_dot_plain` is its plain version), ``'bf16x3'``
 and ``'bf16'`` with bf16 operands. Every trace(K^2) pass runs
-``csrc/matern_matmat.cu`` (IEEE float32 k^2, float64 row sums).
+``csrc/matern_matmat.cu`` (IEEE float32 k^2, float64 block partials).
 ``dist_mode='gram'`` takes d^2 = |x|^2 + |y|^2 - 2 x.y on points centred
 on the column mean instead of the exact difference form, in both.
 
@@ -36,7 +36,10 @@ every trace an FP32 kernel that holds nothing else
 
 The tile-dot modes round the operands only: a trace(K^2) output always
 sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
-in every mode).
+in every mode). The dense trace kernels walk tile pairs of 128 x 128
+points, only those with tj >= ti where K is symmetric bit for bit, and
+write one float64 partial per block (and rho) that the wrapper sums:
+:func:`trace_schedule` and :func:`trace_tile_pair` mirror that walk.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -68,6 +71,11 @@ _GAUSS_CODE = 3
 # kDotBf16), as the tensor-core kernels take it
 _DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
 _MAX_D = 8
+# the dense trace kernels' walk (csrc/matern_trace.cuh): tile pairs of
+# _TRACE_TILE x _TRACE_TILE points, at most _TRACE_MAX_BLOCKS blocks of
+# consecutive pairs, each writing one float64 partial (per rho); the
+# multi-rho one holds _TRACE_RHOS rhos per thread, more over grid.y
+_TRACE_TILE, _TRACE_MAX_BLOCKS, _TRACE_RHOS = 128, 1 << 19, 8
 
 
 def reset_launch_counts():
@@ -275,10 +283,14 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
         rows_s, cols_s, rows_norm, cols_norm = _gram_operands(rows_s, cols_s)
     out = None if V is None else torch.empty(
         (nr, r), dtype=torch.float32, device=points.device)
-    fro_rows = (torch.zeros(nr, dtype=torch.float64, device=points.device)
-                if frobenius else None)
+    # the trace walks half the tile pairs where K is symmetric bit for bit:
+    # square, and the difference form (the Gram form walks them all)
+    symmetric = points_cols is None and dist_mode == "diff"
+    _, _, _, per_block, blocks = trace_schedule(nr, nc, symmetric)
+    partials = (torch.zeros(blocks, dtype=torch.float64,
+                            device=points.device) if frobenius else None)
     if nr == 0 or (r == 0 and not frobenius):
-        return (out, fro_rows.sum()) if frobenius else out
+        return (out, partials.sum()) if frobenius else out
 
     lib = _build.load()
     code = _NU_CODES.get(nu, _GAUSS_CODE)
@@ -300,14 +312,55 @@ def _matern_matmat_cuda(points, scale, V, nu, points_cols, frobenius,
                     *geometry, V.data_ptr(), out.data_ptr(),
                     scratch.data_ptr(), nr, nc, d, r, code,
                     _DOT_CODES[dot_mode], stream)
+            elif blocks == 0:
+                continue  # no columns: nothing to sum
             else:
-                err = lib.gppe_matern_matmat(*geometry, fro_rows.data_ptr(),
-                                             nr, nc, d, code, stream)
+                err = lib.gppe_matern_matmat(
+                    *geometry, partials.data_ptr(), nr, nc, d, code,
+                    int(symmetric), per_block, blocks, stream)
             _raise_on_cuda_error(lib, err, counter)
             launch_counts[counter] += 1
     if frobenius:
-        return out, fro_rows.sum()
+        return out, partials.sum()
     return out
+
+
+def trace_schedule(nr, nc, symmetric):
+    """The walk of the dense trace kernels over an nr x nc K:
+    ``(tiles_r, tiles_c, pairs, per_block, blocks)``. ``symmetric`` (the
+    rows are the columns) walks the ``pairs`` = T (T + 1) / 2 tile pairs
+    with tj >= ti, else all tiles_r * tiles_c; ``blocks`` blocks take
+    ``per_block`` consecutive pairs each (the last perhaps fewer), so the
+    partials buffer has ``blocks`` entries per rho."""
+    tiles_r, tiles_c = -(-nr // _TRACE_TILE), -(-nc // _TRACE_TILE)
+    pairs = (tiles_r * (tiles_r + 1) // 2 if symmetric
+             else tiles_r * tiles_c)
+    per_block = max(1, -(-pairs // _TRACE_MAX_BLOCKS))
+    return tiles_r, tiles_c, pairs, per_block, -(-pairs // per_block)
+
+
+def trace_tile_pair(p, tiles_r, tiles_c, symmetric):
+    """Tile pair ``p`` of the walk as ``(ti, tj, weight)``, the integer
+    arithmetic of ``csrc/matern_trace.cuh::trace_tile_pair``; ``p`` is an
+    int or an integer array (numpy or torch). Symmetric: rows q and
+    T - 1 - q of the triangle tj >= ti hold T + 1 pairs together,
+    q = p // (T + 1), row q first; weight 2 off the diagonal. Otherwise
+    row-major over all pairs, weight 1."""
+    if not symmetric:
+        return p // tiles_c, p % tiles_c, 1 + 0 * p
+    q, c = p // (tiles_r + 1), p % (tiles_r + 1)
+    folded = c >= tiles_r - q   # in row T - 1 - q, at column c - 1
+    ti = q + folded * (tiles_r - 1 - 2 * q)
+    tj = q + c - folded * (q + 1)
+    return ti, tj, 1 + (ti != tj)
+
+
+def trace_rho_groups(B):
+    """The rhos each grid.y group of the multi-rho trace kernel holds, as
+    ranges; a thread of group y runs _TRACE_RHOS rhos, those past B with
+    1/rho = 0, and writes only the real ones."""
+    return [range(b0, min(b0 + _TRACE_RHOS, B))
+            for b0 in range(0, B, _TRACE_RHOS)]
 
 
 def _check_cuda_operands(d, tensors):
@@ -444,7 +497,10 @@ def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius,
     inv_rho = (1.0 / rhos).contiguous()
     out = None if V is None else torch.empty(
         (B, n, r), dtype=torch.float32, device=points.device)
-    fro_rows = (torch.zeros((B, n), dtype=torch.float64, device=points.device)
+    # K(rho_b) is symmetric bit for bit: the traces walk half the tile pairs
+    _, _, _, per_block, blocks = trace_schedule(n, n, True)
+    partials = (torch.zeros((B, blocks), dtype=torch.float64,
+                            device=points.device)
                 if return_frobenius else None)
     if n > 0 and B > 0 and (r > 0 or return_frobenius):
         lib = _build.load()
@@ -468,10 +524,11 @@ def _matern_matmat_multirho_cuda(points, rhos, V, nu, return_frobenius,
                 else:
                     err = lib.gppe_matern_multirho(
                         points.data_ptr(), inv_rho.data_ptr(),
-                        fro_rows.data_ptr(), n, d, B, code, stream)
+                        partials.data_ptr(), n, d, B, code, per_block,
+                        blocks, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
-    return (out, fro_rows.sum(dim=1)) if return_frobenius else out
+    return (out, partials.sum(dim=1)) if return_frobenius else out
 
 
 # -- block-sparse (tapered) --------------------------------------------------

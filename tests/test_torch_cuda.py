@@ -17,7 +17,10 @@ The products of all three wrappers run on their tensor-core kernels
 (matern_matmat_mma, matern_matmat_multirho_mma,
 matern_matmat_blocksparse_mma) in every mode, 'highest' as 3xTF32 (held to
 the bounds above), and every trace(K^2) on the FP32 kernels
-(matern_matmat, matern_matmat_multirho, matern_matmat_blocksparse).
+(matern_matmat, matern_matmat_multirho, matern_matmat_blocksparse). The
+first two walk only the tile pairs tj >= ti of a square K in the
+difference form and sum float64 block partials: their traces must give
+the same bits run to run and in every mode.
 
 The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
 Frobenius bound and must sit closer to its own plain version (same
@@ -814,3 +817,89 @@ def test_entry_points_on_the_card(dev):
         assert 0 <= row["pct_bf16_peak"] <= 100
         assert 0 <= row["pct_tf32_peak"] <= 100
         assert row["launches"] == {"matern_matmat_mma": 4}
+
+
+# -- the dense trace(K^2) kernels ---------------------------------------------
+
+TRACE_NS = [1, 127, 129, 1000, 4097]
+
+
+@pytest.mark.parametrize("n", TRACE_NS)
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 150.0])
+def test_trace_kernel_square_rectangular_gram(dev, n, nu):
+    """matern_matmat's trace-only launch against the plain float64 sum at
+    ragged n, d in {1, 2, 3}: the square call (the symmetric walk, half the
+    tile pairs), the rectangular one (every pair) and the Gram form (every
+    pair: its trace equals that of the rectangular Gram call on a copy of
+    the points, bit for bit). Each twice, with the same bits. Bounds:
+    rtol 1e-5 in the difference form; 2e-3 in the Gram form, whose
+    entries carry the reference's 1e-3 Frobenius envelope and
+    |sum K~^2 - sum K^2| <= (2 eps + eps^2) sum K^2."""
+    for d in (1, 2, 3):
+        rng = np.random.RandomState(n + d)
+        pts = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev)
+        cols = torch.as_tensor(rng.rand(777, d), dtype=F32, device=dev)
+        scale = 0.1 * np.sqrt(d / 2)
+        for kw, rtol in (({}, 1e-5), ({"points_cols": cols}, 1e-5),
+                         ({"dist_mode": "gram"}, 2e-3)):
+            cuda_kernels.reset_launch_counts()
+            _, got = cuda_kernels.matern_matmat(pts, scale, None, nu,
+                                                frobenius=True, **kw)
+            _, again = cuda_kernels.matern_matmat(pts, scale, None, nu,
+                                                  frobenius=True, **kw)
+            assert cuda_kernels.launch_counts["matern_matmat"] == 2
+            assert float(got) == float(again)
+            c = kw.get("points_cols")
+            _, want = cuda_kernels.matern_matmat_plain(
+                pts.double(), kernels.broadcast_scale(scale, d, dtype=F64,
+                                                      device=dev),
+                None, nu, frobenius=True,
+                points_cols=None if c is None else c.double())
+            np.testing.assert_allclose(float(got), float(want), rtol=rtol)
+        _, rect = cuda_kernels.matern_matmat(
+            pts, scale, None, nu, frobenius=True, points_cols=pts.clone(),
+            dist_mode="gram")
+        assert float(rect) == float(got)
+
+
+@pytest.mark.parametrize("n", TRACE_NS)
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 17])
+def test_multirho_trace_kernel(dev, n, B):
+    """matern_matmat_multirho's trace-only launch (the symmetric walk, one
+    to three groups of 8 rhos) against the plain float64 traces, rho by
+    rho, rtol 1e-5, for every nu and d in {1, 2, 3}; twice, with the same
+    bits."""
+    for nu in (0.5, 1.5, 2.5, 150.0):
+        for d in (1, 2, 3):
+            pts, rhos, _ = _multirho_problem(dev, n, B, 0, d, seed=n + d)
+            _, got = cuda_kernels.matern_matmat_multirho(
+                pts, rhos, None, nu, return_frobenius=True)
+            _, again = cuda_kernels.matern_matmat_multirho(
+                pts, rhos, None, nu, return_frobenius=True)
+            assert got.shape == (B,) and torch.equal(got, again)
+            _, want = cuda_kernels.matern_matmat_multirho_plain(
+                pts.double(), 1.0 / (1.0 / rhos).double(), None, nu,
+                return_frobenius=True)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=1e-5)
+
+
+def test_traces_one_launch_each_and_the_same_in_every_mode(dev):
+    """trace_pow(2) and the grid engine's trace call launch the trace
+    kernel once and nothing else, and give the same bits under every dot
+    mode (the traces never round)."""
+    rng = np.random.RandomState(9)
+    pts = torch.as_tensor(rng.rand(3001, 2), dtype=F32, device=dev)
+    rhos = torch.as_tensor(np.linspace(0.05, 0.3, 8), dtype=F32, device=dev)
+    fro, tk2 = {}, {}
+    for mode in cuda_kernels.DOT_MODES:
+        cuda_kernels.reset_launch_counts()
+        fro[mode] = float(MaternOperator(pts, 0.1, device=dev,
+                                         dot_mode=mode).trace_pow(2))
+        tk2[mode] = cuda_kernels.matern_matmat_multirho(
+            pts, rhos, None, 0.5, dot_mode=mode, return_frobenius=True)[1]
+        assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} \
+            == {"matern_matmat": 1, "matern_matmat_multirho": 1}
+    assert fro["bf16x3"] == fro["highest"] == fro["bf16"]
+    assert torch.equal(tk2["bf16x3"], tk2["highest"])
+    assert torch.equal(tk2["bf16"], tk2["highest"])

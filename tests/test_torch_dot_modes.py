@@ -371,8 +371,14 @@ class _FakeLibrary:
                            cols_norm is not None, r, dot_code))
         return 0
 
-    def gppe_matern_matmat(self, rows, cols, rows_norm, cols_norm, fro_rows,
-                           nr, nc, d, nu_code, stream):
+    def gppe_matern_matmat(self, rows, cols, rows_norm, cols_norm, partials,
+                           nr, nc, d, nu_code, symmetric, per_block, blocks,
+                           stream):
+        # the symmetric walk exactly where the rows are the columns in the
+        # difference form, over the blocks of the mirrored schedule
+        assert symmetric == int(rows == cols and rows_norm is None)
+        assert (per_block, blocks) == cuda_kernels.trace_schedule(
+            nr, nc, symmetric)[3:]
         self.calls.append(("gppe_matern_matmat", rows_norm is not None,
                            cols_norm is not None, 0, None))
         return 0
@@ -387,8 +393,10 @@ class _FakeLibrary:
         self.calls.append(("gppe_matern_multirho_mma", B, r, dot_code))
         return 0
 
-    def gppe_matern_multirho(self, pts, inv_rho, fro_rows, n, d, B, nu_code,
-                             stream):
+    def gppe_matern_multirho(self, pts, inv_rho, partials, n, d, B, nu_code,
+                             per_block, blocks, stream):
+        assert (per_block, blocks) == cuda_kernels.trace_schedule(
+            n, n, True)[3:]
         self.calls.append(("gppe_matern_multirho", B, 0, None))
         return 0
 

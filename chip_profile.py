@@ -67,7 +67,12 @@ names now.
 ``sass-mix`` compiles the two dense trace sources to machine code and
 prints, for their instances at nu = 1/2, d = 2, the instructions, the MUFU
 operations and the opcode counts: the static mix that the issue rate
-works through.
+works through. It then compiles a polynomial exp2 on the FP32 pipe (a
+Cody-Waite reduction and a degree-5 Chebyshev interpolant of 2^f on
+[-1/2, 1/2], its error over [-126, 0] printed from a float32 emulation
+on the host) and prints its FP32 operations per call as chip_smoke.py's
+bound counts them: EMULATED_MUFU_FP32_OPS, the price of taking one MUFU
+operation off the SFU.
 
 ``eta-main`` fits the main path's engine with its products computed other
 ways, the trace(K^2) launch kept: the kernel in each dot mode, the plain
@@ -233,6 +238,81 @@ def sass_mix():
                     "instructions": len(body), "mufu": mufu,
                     "instructions_per_mufu": len(body) / max(mufu, 1),
                     "opcodes": dict(ops.most_common(24))}), flush=True)
+        emulated_exp2_ops(nvcc, cuobjdump, tmp)
+
+
+EXP2_DEGREE = 5
+EXP2_SOURCE = r"""
+__device__ __forceinline__ float exp2_poly(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = x + 12582912.f;  // 1.5 * 2^23: round x to j in t's bits
+  const float f = x - (t - 12582912.f);  // in [-1/2, 1/2]
+  float p = %s;
+%s
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+extern "C" __global__ void exp2_poly_kernel(const float* x, float* y,
+                                            int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = exp2_poly(x[i]);
+}
+"""
+
+
+def exp2_coefficients():
+    """float32 power-series coefficients of the degree-5 Chebyshev
+    interpolant of 2^f on [-1/2, 1/2], lowest first."""
+    from numpy.polynomial import chebyshev, polynomial
+    cheb = chebyshev.Chebyshev.interpolate(np.exp2, EXP2_DEGREE,
+                                           domain=[-0.5, 0.5])
+    return cheb.convert(kind=polynomial.Polynomial, domain=[-0.5, 0.5],
+                        window=[-0.5, 0.5]).coef.astype(np.float32)
+
+
+def exp2_poly_error(coef):
+    """Largest relative error of the polynomial exp2 over [-126, 0] in
+    float32 on the host (separate multiply and add: no better than the
+    card's FFMA)."""
+    x = np.linspace(-126, 0, 2_000_001, dtype=np.float32)
+    magic = np.float32(12582912.0)
+    t = x + magic
+    f = x - (t - magic)
+    p = np.full_like(f, coef[-1])
+    for c in coef[-2::-1]:
+        p = p * f + c
+    y = (p.view(np.int32) + (t.view(np.int32) << 23)).view(np.float32)
+    ref = np.exp2(x.astype(np.float64))
+    return float(np.max(np.abs(y - ref) / ref))
+
+
+def emulated_exp2_ops(nvcc, cuobjdump, tmp):
+    """FP32 operations of one polynomial exp2 in its machine code: FFMA
+    as 2, FADD and FMUL as 1 (chip_smoke.bound()'s count); the integer
+    and min/max work is left out, so the count is a floor."""
+    coef = exp2_coefficients()
+    horner = "\n".join(f"  p = fmaf(p, f, {float(c)!r}f);"
+                        for c in coef[-2::-1])
+    src = Path(tmp) / "exp2_poly.cu"
+    src.write_text(EXP2_SOURCE % (f"{float(coef[-1])!r}f", horner))
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", str(cubin),
+                    str(src)], check=True)
+    with open(cubin.with_suffix(".sass"), "w") as f:
+        subprocess.run([cuobjdump, "-sass", str(cubin)], stdout=f,
+                       check=True)
+    (body,) = sass_functions(cubin.with_suffix(".sass")).values()
+    ops = Counter((ins.split()[1] if ins.startswith("@")
+                   else ins.split()[0]).split(".")[0] for ins in body)
+    fp32_ops = 2 * ops["FFMA"] + ops["FADD"] + ops["FMUL"]
+    print(json.dumps({
+        "phase": "sass_mix", "function": "exp2_poly",
+        "degree": EXP2_DEGREE, "coefficients": [float(c) for c in coef],
+        "max_rel_err_host_float32": exp2_poly_error(coef),
+        "emulated_mufu_fp32_ops": fp32_ops,
+        "mufu": sum(v for k, v in ops.items() if k == "MUFU"),
+        "chip_smoke_value": cs.EMULATED_MUFU_FP32_OPS,
+        "opcodes": dict(ops.most_common())}), flush=True)
+    return fp32_ops
 
 
 def profile_setup(name, build):

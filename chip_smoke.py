@@ -70,9 +70,11 @@ Phases, each raising on failure:
      beside the bf16 modes.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
-CUDA device. Each bound counts what the inputs need: the dense traces the
-n (n + 1) / 2 pairs of a symmetric K, and every k its MUFU operations on
-the SFU beside its bytes, CUDA-core and tensor-core operations.
+CUDA device. Each bound counts what the inputs need: the traces the pairs
+of a symmetric K once (n (n + 1) / 2 dense; the tapered list's tile pairs
+i < j and the diagonal tiles' triangles), and every k its sqrt and exp,
+split at best between the SFU and the FP32 pipe (see bound()), beside its
+bytes, CUDA-core and tensor-core operations.
 """
 
 import json
@@ -113,6 +115,13 @@ PEAK_BF16_OPS_PER_S, PEAK_TF32_OPS_PER_S = 989e12, 495e12
 # then those of an H100 SXM (132 SMs, 1980 MHz)
 MUFU_PER_CLOCK_AND_SM = 16
 PEAK_MUFU_PER_S = MUFU_PER_CLOCK_AND_SM * 132 * 1980e6
+# a sqrt or exp taken off the SFU onto the FP32 pipe: the FP32 operations
+# of a polynomial exp2 (a Cody-Waite reduction, a degree-5 polynomial, the
+# exponent added as an integer) in its sm_90a machine code, counted as the
+# FP32 term counts them (FFMA 2, FADD and FMUL 1; integer work free), as
+# `chip_profile.py sass-mix` prints it. A Newton sqrt costs more, so the
+# count is a floor for both
+EMULATED_MUFU_FP32_OPS = 13
 # operations per pair beyond the distance: scale/sqrt/exp and the closed
 # form's polynomial, by nu
 NU_OPS = {0.5: 3, 1.5: 7, 2.5: 10}
@@ -126,6 +135,11 @@ ETA_STAR_FP32_FMA = 88.6670
 
 # reference on-chip bounds (tests_tpu/test_onchip.py)
 FROB_TOL, MAXABS_TOL, TRACE_RTOL, SYM_TOL = 2e-5, 5e-4, 1e-5, 1e-6
+# the dense traces at n = 100,000 (phases 6 and 13): 1.4-1.8e-8 from
+# float64 in the runs on an H100, while one tile pair of 128 x 128 points
+# dropped or counted twice moves them by ~3e-6 of the 306,153 pairs' sum;
+# 1e-6 sits between, so a fault of the walk cannot pass
+DENSE_TRACE_RTOL = 1e-6
 
 
 def log(**kv):
@@ -161,7 +175,8 @@ def phase_device():
         name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, precision=config.precision_state(),
-        sms=sms, max_sm_clock_hz=clock, peak_mufu_per_s=PEAK_MUFU_PER_S)
+        sms=sms, max_sm_clock_hz=clock, peak_mufu_per_s=PEAK_MUFU_PER_S,
+        emulated_mufu_fp32_ops=EMULATED_MUFU_FP32_OPS)
     return torch.device("cuda", 0)
 
 
@@ -399,8 +414,8 @@ def phase_kernel_time(dev):
     # the first 2048 rows against the plain 3xTF32 version (logged)
     tf32x3 = tf32x3_gap(got[:2048], P, None, RHO, V, NU)
     ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
-          and trace_rel < TRACE_RTOL and sym["symmetry_rel_err"] < SYM_TOL
-          and trace_same_bits)
+          and trace_rel < DENSE_TRACE_RTOL
+          and sym["symmetry_rel_err"] < SYM_TOL and trace_same_bits)
 
     med, times = median_in_turns({"kernel": kern, "plain": plain,
                                   "kernel_fro": kern_fro,
@@ -426,14 +441,17 @@ def phase_kernel_time(dev):
         mufu_ops=half * nu_mufu(NU))
     log(phase="kernel_time", ok=ok, n=N_MAIN, r=r, reps=7,
         frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        trace_rtol=DENSE_TRACE_RTOL,
         trace_same_bits_run_to_run_and_in_every_mode=trace_same_bits,
         **sym, frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_fro"],
         plain_f32_trace_ms_median=med["plain_fro"],
         bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
-        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
-        trace_bound_term=trace_bound_term,
+        bound_ms_as_fp32_fma=bound_fp32_ms,
+        bound_mufu_only_ms=mufu_only_ms(pairs * nu_mufu(NU)),
+        trace_bound_ms=trace_bound_ms, trace_bound_term=trace_bound_term,
+        trace_bound_mufu_only_ms=mufu_only_ms(half * nu_mufu(NU)),
         kernel_ms_all=times["kernel"], plain_ms_all=times["plain"],
         kernel_trace_ms_all=times["kernel_fro"])
     if not ok:
@@ -449,19 +467,35 @@ def phase_kernel_time(dev):
 
 def bound(nbytes, ops, tensor_ops=0, tf32_ops=0, mufu_ops=0):
     """The least time (ms) the card could take: bytes over its memory
-    rate, CUDA-core operations over its float32 rate, tensor-core
-    operations on bf16 operands over its dense bf16 rate, or on tf32
-    operands over its dense tf32 rate, MUFU operations over the SFU's
-    rate, whichever is largest. Returns (ms, 'bytes' or 'operations', the
-    term that binds: 'bytes', 'fp32', 'bf16', 'tf32' or 'sfu')."""
-    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
-             "fp32": ops / PEAK_F32_OPS_PER_S,
+    rate, tensor-core operations on bf16 operands over its dense bf16
+    rate, or on tf32 operands over its dense tf32 rate, or the CUDA cores'
+    time, whichever is largest. The CUDA cores' time is the float32
+    operations over their rate, with the MUFU operations (the sqrt and exp
+    of each k) split at best between the SFU and the FP32 pipe: a kernel
+    may take any share f of them off the SFU as polynomials of
+    c = EMULATED_MUFU_FP32_OPS operations, so the term is the least over f of
+    max(mufu (1 - f) / SFU rate, (ops + c mufu f) / float32 rate). Returns
+    (ms, 'bytes' or 'operations', the term that binds: 'bytes', 'fp32',
+    'sfu+fp32' (the split), 'bf16' or 'tf32')."""
+    sfu = mufu_only_ms(mufu_ops) / 1e3
+    fp32 = ops / PEAK_F32_OPS_PER_S
+    moved = EMULATED_MUFU_FP32_OPS * mufu_ops / PEAK_F32_OPS_PER_S
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S, "fp32": fp32,
              "bf16": tensor_ops / PEAK_BF16_OPS_PER_S,
-             "tf32": tf32_ops / PEAK_TF32_OPS_PER_S,
-             "sfu": mufu_ops / PEAK_MUFU_PER_S}
+             "tf32": tf32_ops / PEAK_TF32_OPS_PER_S}
+    if sfu > fp32:
+        # the two times meet at f = (sfu - fp32) / (sfu + moved)
+        terms["sfu+fp32"] = sfu * (fp32 + moved) / (sfu + moved)
     term = max(terms, key=terms.get)
     return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
             term)
+
+
+def mufu_only_ms(mufu_ops):
+    """The MUFU operations over the SFU's rate (ms): the floor of a design
+    that leaves every sqrt and exp on the SFU, as the kernels do; logged
+    beside bound_ms, which lets a design move some to the FP32 pipe."""
+    return mufu_ops / PEAK_MUFU_PER_S * 1e3
 
 
 def nu_ops(nu):
@@ -928,7 +962,7 @@ def phase_multirho_time(dev):
             P, rhos, None, NU, dot_mode=m, return_frobenius=True)[1], tk2)
         for m in cuda_kernels.DOT_MODES)
     ok = (max(frob) < FROB_TOL and max(max_abs) < MAXABS_TOL
-          and trace_rel < TRACE_RTOL and trace_same_bits)
+          and trace_rel < DENSE_TRACE_RTOL and trace_same_bits)
     del want
     # the first 2048 rows against the plain 3xTF32 version (logged)
     tf32x3 = multirho_tf32x3_gap(got, P, rhos, V, NU, rows=2048)
@@ -948,14 +982,18 @@ def phase_multirho_time(dev):
     log(phase="multirho_time", ok=ok, n=N_MAIN, B=B, r=r, reps=7,
         rhos=list(GRID_RHOS), frob_rel_err=frob, max_abs_err=max_abs,
         trace_rel_err=trace_rel, trace_rel_err_per_rho=trace_rel_per_rho,
+        trace_rtol=DENSE_TRACE_RTOL,
         trace_same_bits_run_to_run_and_in_every_mode=trace_same_bits,
         frob_vs_tf32x3_plain_first_2048_rows=tf32x3,
         kernel_ms_median=med["kernel"], plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
         bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
-        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
-        trace_bound_term=trace_bound_term,
+        bound_ms_as_fp32_fma=bound_fp32_ms,
+        bound_mufu_only_ms=mufu_only_ms(N_MAIN * N_MAIN * (1 + B)),
+        trace_bound_ms=trace_bound_ms, trace_bound_term=trace_bound_term,
+        trace_bound_mufu_only_ms=mufu_only_ms(
+            N_MAIN * (N_MAIN + 1) // 2 * (1 + B)),
         kernel_ms_all=times["kernel"],
         kernel_trace_ms_all=times["kernel_trace"])
     if not ok:
@@ -969,13 +1007,26 @@ def phase_multirho_time(dev):
              "bound_ms": trace_bound_ms, "bound_by": trace_bound_by})
 
 
-def tile_pairs(op):
+def tile_pairs(op, symmetric=False):
     """The point pairs the operator's pair list really holds: real rows of
     tile i times real columns of tile j, summed over the active tile
-    pairs."""
+    pairs. ``symmetric``: those a sum over the symmetric K needs, each
+    off-diagonal tile pair of the list once and the triangle i <= j of
+    each diagonal tile; the list holds (j, i) with every (i, j), since the
+    operator builds it from a symmetric tile gap (checked here)."""
     n = op.shape[0]
     real = np.minimum(op.tile, n - op.tile * np.arange(op.num_tiles))
-    return int(np.sum(real[op.pair_i].astype(np.int64) * real[op.pair_j]))
+    rows = real[op.pair_i].astype(np.int64)
+    cols = real[op.pair_j].astype(np.int64)
+    if not symmetric:
+        return int(np.sum(rows * cols))
+    T = np.int64(op.num_tiles)
+    if not np.array_equal(np.sort(op.pair_i * T + op.pair_j),
+                          np.sort(op.pair_j * T + op.pair_i)):
+        raise AssertionError("the tapered pair list is not symmetric")
+    upper, diag = op.pair_i < op.pair_j, op.pair_i == op.pair_j
+    return int(np.sum(rows[upper] * cols[upper])
+               + np.sum(rows[diag] * (rows[diag] + 1) // 2))
 
 
 def blocksparse_bounds(op, r, d):
@@ -983,9 +1034,10 @@ def blocksparse_bounds(op, r, d):
     operator's pair list: per pair the distance, k, the compare-select and
     the split of k (3d + nu_ops + 1 + 3), the sqrt and the exp of k on the
     SFU and three tf32 products of 2r operations; as FP32 FMAs the 2r on
-    the CUDA cores; the trace one FMA for k^2 per pair, over every pair of
-    the list (its kernel walks them all)."""
-    pairs = tile_pairs(op)
+    the CUDA cores; the trace one FMA for k^2 per pair, over the pairs the
+    symmetric K needs (tile_pairs(op, symmetric=True)), as the dense traces
+    count; its kernel still walks every pair of the list (ROADMAP R7b)."""
+    pairs, half = tile_pairs(op), tile_pairs(op, symmetric=True)
     geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
     nbytes = 4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry
     k_ops = 3 * d + nu_ops(op.nu) + 1
@@ -993,8 +1045,8 @@ def blocksparse_bounds(op, r, d):
     product = bound(nbytes, pairs * (k_ops + 3),
                     tf32_ops=pairs * 2 * r * 3, mufu_ops=mufu)
     as_fp32 = bound(nbytes, pairs * (k_ops + 2 * r), mufu_ops=mufu)
-    trace = bound(4 * op.n_pad * d + 8 + geometry, pairs * (k_ops + 2),
-                  mufu_ops=mufu)
+    trace = bound(4 * op.n_pad * d + 8 + geometry, half * (k_ops + 2),
+                  mufu_ops=half * nu_mufu(op.nu))
     return pairs, product, as_fp32[0], trace
 
 
@@ -1038,8 +1090,11 @@ def phase_blocksparse_time(dev, op):
         kernel_trace_ms_median=med["kernel_trace"],
         plain_f32_trace_ms_median=med["plain_trace"],
         bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
-        bound_ms_as_fp32_fma=bound_fp32_ms, trace_bound_ms=trace_bound_ms,
-        trace_bound_term=trace_bound_term,
+        bound_ms_as_fp32_fma=bound_fp32_ms,
+        trace_pairs_needed=tile_pairs(op, symmetric=True),
+        trace_bound_ms=trace_bound_ms, trace_bound_term=trace_bound_term,
+        trace_bound_mufu_only_ms=mufu_only_ms(
+            tile_pairs(op, symmetric=True) * nu_mufu(op.nu)),
         kernel_ms_all=times["kernel"],
         kernel_trace_ms_all=times["kernel_trace"])
     if not ok:

@@ -355,14 +355,6 @@ def trace_tile_pair(p, tiles_r, tiles_c, symmetric):
     return ti, tj, 1 + (ti != tj)
 
 
-def trace_rho_groups(B):
-    """The rhos each grid.y group of the multi-rho trace kernel holds, as
-    ranges; a thread of group y runs _TRACE_RHOS rhos, those past B with
-    1/rho = 0, and writes only the real ones."""
-    return [range(b0, min(b0 + _TRACE_RHOS, B))
-            for b0 in range(0, B, _TRACE_RHOS)]
-
-
 def _check_cuda_operands(d, tensors):
     """What every kernel asks of its tensors: 1 <= d <= 8, float32,
     contiguous. ``tensors``: (name, tensor or None) pairs."""

@@ -884,6 +884,56 @@ def test_multirho_trace_kernel(dev, n, B):
                                        want.cpu().numpy(), rtol=1e-5)
 
 
+def test_traces_with_several_tile_pairs_per_block(dev, monkeypatch):
+    """Both dense traces at n = 4097 with the partials buffer capped at 7
+    blocks, so every block walks many tile pairs in its loop, the route of
+    every n above ~131,000 (81 of the square walk's 561 pairs, 33 of the
+    rectangular 4097 x 777 walk's 231, 156 of the Gram form's 1089):
+    against the plain float64 sums (rtol 1e-5; 2e-3 in the Gram form, as
+    in test_trace_kernel_square_rectangular_gram) and against the same
+    calls at one tile pair per block, to 1e-12 relative, since only the
+    float64 order of the partials changes."""
+    rng = np.random.RandomState(41)
+    n, nu, scale = 4097, 1.5, 0.1
+    pts = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
+    cols = torch.as_tensor(rng.rand(777, 2), dtype=F32, device=dev)
+    rhos = torch.as_tensor(np.linspace(0.05, 0.3, 9), dtype=F32, device=dev)
+    calls = {"square": {}, "rectangular": {"points_cols": cols},
+             "gram": {"dist_mode": "gram"}}
+
+    def traces():
+        out = {k: float(cuda_kernels.matern_matmat(
+            pts, scale, None, nu, frobenius=True, **kw)[1])
+            for k, kw in calls.items()}
+        out["multirho"] = cuda_kernels.matern_matmat_multirho(
+            pts, rhos, None, nu, return_frobenius=True)[1].double().cpu()
+        return out
+
+    one = traces()
+    monkeypatch.setattr(cuda_kernels, "_TRACE_MAX_BLOCKS", 7)
+    for nc, symmetric, per_block in ((n, True, 81), (777, False, 33),
+                                     (n, False, 156)):
+        assert cuda_kernels.trace_schedule(n, nc, symmetric)[3:] == (
+            per_block, 7)
+    many = traces()
+    S = kernels.broadcast_scale(scale, 2, dtype=F64, device=dev)
+    for name, kw in calls.items():
+        c = kw.get("points_cols")
+        want = float(cuda_kernels.matern_matmat_plain(
+            pts.double(), S, None, nu, frobenius=True,
+            points_cols=None if c is None else c.double())[1])
+        np.testing.assert_allclose(many[name], want,
+                                   rtol=2e-3 if name == "gram" else 1e-5)
+        np.testing.assert_allclose(many[name], one[name], rtol=1e-12)
+    want = cuda_kernels.matern_matmat_multirho_plain(
+        pts.double(), 1.0 / (1.0 / rhos).double(), None, nu,
+        return_frobenius=True)[1].cpu()
+    np.testing.assert_allclose(many["multirho"].numpy(), want.numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(many["multirho"].numpy(),
+                               one["multirho"].numpy(), rtol=1e-12)
+
+
 def test_traces_one_launch_each_and_the_same_in_every_mode(dev):
     """trace_pow(2) and the grid engine's trace call launch the trace
     kernel once and nothing else, and give the same bits under every dot

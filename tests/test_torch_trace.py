@@ -98,16 +98,6 @@ def test_schedule_blocks_cover_the_pairs(nr, nc, symmetric):
         assert per_block == 1
 
 
-@pytest.mark.parametrize("B", [1, 7, 8, 9, 17])
-def test_rho_groups_cover_the_batch(B):
-    """Each rho of the batch in exactly one grid.y group of at most
-    _TRACE_RHOS; with the tile walk, every (tile pair, rho) once."""
-    groups = cuda_kernels.trace_rho_groups(B)
-    assert len(groups) == -(-B // cuda_kernels._TRACE_RHOS)
-    assert all(0 < len(g) <= cuda_kernels._TRACE_RHOS for g in groups)
-    assert [b for g in groups for b in g] == list(range(B))
-
-
 def _walk_trace(k_tile, n, nr=None, nc=None, symmetric=True):
     """sum k^2 over the walk in float64: ``k_tile(rows, cols)`` gives the
     K tile of two slices (a (..., rows, cols) tensor), weighted as the
@@ -162,22 +152,25 @@ def test_walk_equals_plain_and_reference_trace(nu, d):
 
 def _multirho_walk(pts, rhos, nu):
     """The multi-rho traces over the symmetric walk, in float64 and in the
-    kernel's order: the raw distance, then times 1/rho_b, for the rhos of
-    each grid.y group."""
+    kernel's order: the raw distance, then times 1/rho_b, for each grid.y
+    group of _TRACE_RHOS rhos (the last perhaps fewer)."""
     P, inv = torch.as_tensor(pts), 1.0 / torch.as_tensor(rhos)
     walk = torch.zeros(len(rhos), dtype=F64)
-    for g in cuda_kernels.trace_rho_groups(len(rhos)):
-        walk[g.start:g.stop] = _walk_trace(lambda i, j: kernels.matern(
+    for b0 in range(0, len(rhos), cuda_kernels._TRACE_RHOS):
+        g = slice(b0, b0 + cuda_kernels._TRACE_RHOS)
+        walk[g] = _walk_trace(lambda i, j: kernels.matern(
             kernels.pairwise_scaled_distance(P[i], P[j], 1.0)[None]
-            * inv[g.start:g.stop, None, None], nu), len(pts))
+            * inv[g, None, None], nu), len(pts))
     return walk
 
 
-@pytest.mark.parametrize("B, nu, d", [(1, 0.5, 2), (9, 1.5, 1),
+@pytest.mark.parametrize("B, nu, d", [(1, 0.5, 2), (7, 2.5, 2),
+                                      (8, 0.5, 3), (9, 1.5, 1),
                                       (17, 150.0, 3)])
 def test_multirho_walk_equals_plain_traces(B, nu, d):
     """Per rho, against the plain float64 version at n = 300 over one to
-    three rho groups: rtol 1e-12."""
+    three rho groups, a full and a short last group among them: every rho
+    of the batch in one group. rtol 1e-12."""
     rng = np.random.RandomState(B)
     pts = rng.rand(300, d)
     rhos = np.linspace(0.05, 0.3, B)

@@ -6,7 +6,7 @@
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
     python3 chip_profile.py --parent DIR modes eta  # beside another commit
-    python3 chip_profile.py --parent DIR traces     # the two dense traces
+    python3 chip_profile.py --parent DIR traces     # the three traces
     python3 chip_profile.py --parent DIR --float64 eta  # and float64 products
     python3 chip_profile.py --parent DIR sass       # kernels compiled alike
     python3 chip_profile.py sass-mix        # the dense traces' machine code
@@ -37,16 +37,18 @@ that counts.
 paths' shapes (matern_matmat n = 100,000, r = 24; matern_matmat_multirho
 B = 8, r = 16; matern_matmat_blocksparse n = 2^20, r = 24) under every
 tile-dot mode, 'highest' included, and each wrapper's trace-only call, in
-turns, median of 7; with ``--parent`` each call of the change next to the
+turns, median of 8; with ``--parent`` each call of the change next to the
 same call of the parent, and the largest absolute difference of each
 output from the parent's.
 
-``traces`` times the two dense trace(K^2) kernels through their public
-wrappers at the paths' shapes (matern_matmat's at n = 100,000;
-matern_matmat_multirho's at n = 100,000 over the grid path's 8 rhos),
-median of 7, with ``--parent`` each call next to the same call of the
-parent's, in turns, and prints each package's results and the largest
-relative difference of the change's from the parent's.
+``traces`` times the three trace(K^2) kernels through their public entry
+points at the paths' shapes (matern_matmat's at n = 100,000;
+matern_matmat_multirho's at n = 100,000 over the grid path's 8 rhos; the
+tapered one through each package's own TaperedMaternOperator.trace_pow(2)
+at n = 2^20), median of 8, with ``--parent`` each call next to the same
+call of the parent's, in turns, and prints each package's results and the
+largest relative difference of the change's from the parent's; then this
+package's traces with the partials capped at fewer blocks.
 
 ``eta`` fits the main path (chip_smoke.py phase 5), the grid path (phase
 10: each grid point) and the tapered path (phase 12) under the module
@@ -86,8 +88,9 @@ the products at float32 level, random or coherent.
 their libraries in parallel, and times one wrapper (``--kernel``, before
 ``variants``: matmat, the default, at n = 100,000, r = 24; multirho at
 B = 8, r = 16; or blocksparse at n = 2^20, r = 24) under every tile-dot
-mode, or one dense trace (matmat_trace at n = 100,000; multirho_trace
-over the grid path's 8 rhos), with each library in turns, in this one
+mode, or one trace (matmat_trace at n = 100,000; multirho_trace over the
+grid path's 8 rhos; blocksparse_trace over the tapered path's walk at
+n = 2^20), with each library in turns, in this one
 process, with each library's error against plain float64 (multirho: the
 largest over the rhos): how the design choices of the kernels were made.
 
@@ -111,6 +114,11 @@ import torch
 F32 = torch.float32
 
 import chip_smoke as cs
+
+# turns per comparison: even, so that with the order reversed every other
+# turn (chip_smoke.median_in_turns) each package and library runs first in
+# half of them
+REPS = 8
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
@@ -407,6 +415,18 @@ def packages(argv):
     return out
 
 
+def tapered_operators(dev, pkgs, pts):
+    """{label: the tapered path's operator built by that package}: each
+    package's trace_pow(2) then runs its own trace walk."""
+    out = {}
+    for label, (_, name) in pkgs.items():
+        taper = importlib.import_module(f"{name}.ops.taper")
+        out[label] = taper.TaperedMaternOperator(
+            pts, cs.TAPER_SCALE, nu=cs.NU, density=cs.TAPER_DENSITY,
+            device=dev)
+    return out
+
+
 def mode_times(dev, pkgs):
     """Median ms of each product at its path's shape under each dot mode,
     and of each trace-only call, for each package in ``pkgs``, in turns;
@@ -419,8 +439,8 @@ def mode_times(dev, pkgs):
     rhos = torch.as_tensor(cs.GRID_RHOS, dtype=torch.float32, device=dev)
     VB = torch.randn((B, cs.N_MAIN, 16), generator=g, device=dev)
     tpts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
-    op = TaperedMaternOperator(tpts, cs.TAPER_SCALE, nu=cs.NU,
-                               density=cs.TAPER_DENSITY, device=dev)
+    ops = tapered_operators(dev, pkgs, tpts)
+    op = ops["change"]
     VT = torch.randn((op.n_pad, 24), generator=g, device=dev)
     VT[op.shape[0]:] = 0
     geometry = (op.points_sorted, op.nu, op.threshold, op.pair_i,
@@ -445,9 +465,8 @@ def mode_times(dev, pkgs):
         fns[f"{label}:matern_matmat_multirho[trace]"] = lambda ck=ck: \
             ck.matern_matmat_multirho(P, rhos, None, cs.NU,
                                       return_frobenius=True)[1]
-        fns[f"{label}:matern_matmat_blocksparse[trace]"] = lambda ck=ck: \
-            ck.matern_matmat_blocksparse(geometry[0], None, *geometry[1:],
-                                         frobenius=True, **kw)[1]
+        fns[f"{label}:matern_matmat_blocksparse[trace]"] = \
+            lambda top=ops[label]: top.trace_pow(2)
     # each kernel's turns side by side, the packages in turns within them
     fns = {k: f for group in zip(*(d.items() for d in per_package.values()))
            for k, f in group}
@@ -458,9 +477,9 @@ def mode_times(dev, pkgs):
                 other = fns["parent:" + key.split(":", 1)[1]]
                 diff[key.split(":", 1)[1]] = float(torch.max(torch.abs(
                     f().double() - other().double())))
-    med, times = cs.median_in_turns(fns)
+    med, times = cs.median_in_turns(fns, REPS)
     print(json.dumps({"phase": "mode_times", "nvidia_smi": cs.nvidia_smi(),
-                      "n": cs.N_MAIN, "n_tapered": op.shape[0], "reps": 7,
+                      "n": cs.N_MAIN, "n_tapered": op.shape[0], "reps": REPS,
                       "packages": {k: v[1] for k, v in pkgs.items()},
                       "ms_median": med,
                       "max_abs_diff_change_vs_parent": diff,
@@ -468,12 +487,14 @@ def mode_times(dev, pkgs):
 
 
 def trace_times(dev, pkgs):
-    """Median ms and results of the two dense trace kernels at the paths'
+    """Median ms and results of the three trace kernels at the paths'
     shapes for each package in ``pkgs``, in turns; the change's largest
     relative difference from the parent's."""
     pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
     P = torch.as_tensor(pts, dtype=F32, device=dev)
     rhos = torch.as_tensor(cs.GRID_RHOS, dtype=F32, device=dev)
+    tpts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
+    ops = tapered_operators(dev, pkgs, tpts)
     fns = {}
     for label, (ck, _) in pkgs.items():
         fns[f"{label}:matern_matmat[trace]"] = lambda ck=ck: \
@@ -481,6 +502,8 @@ def trace_times(dev, pkgs):
         fns[f"{label}:matern_matmat_multirho[trace]"] = lambda ck=ck: \
             ck.matern_matmat_multirho(P, rhos, None, cs.NU,
                                       return_frobenius=True)[1]
+        fns[f"{label}:matern_matmat_blocksparse[trace]"] = \
+            lambda top=ops[label]: top.trace_pow(2)
     # each kernel's calls side by side, the packages in turns within them
     fns = dict(sorted(fns.items(), key=lambda kv: kv[0].split(":")[1]))
     values = {k: f().double().reshape(-1) for k, f in fns.items()}
@@ -491,25 +514,26 @@ def trace_times(dev, pkgs):
                 want = values["parent:" + key.split(":", 1)[1]]
                 rel[key.split(":", 1)[1]] = float(torch.max(
                     torch.abs(got - want) / torch.abs(want)))
-    med, times = cs.median_in_turns(fns)
+    med, times = cs.median_in_turns(fns, REPS)
     print(json.dumps({"phase": "trace_times", "nvidia_smi": cs.nvidia_smi(),
-                      "n": cs.N_MAIN, "rhos": list(cs.GRID_RHOS), "reps": 7,
+                      "n": cs.N_MAIN, "rhos": list(cs.GRID_RHOS), "reps": REPS,
                       "packages": {k: v[1] for k, v in pkgs.items()},
                       "ms_median": med,
                       "traces": {k: v.tolist() for k, v in values.items()},
                       "max_rel_diff_change_vs_parent": rel,
                       "ms_all": times}), flush=True)
     # this package's traces with fewer, longer blocks: a cap on the blocks
-    # of the walk gives each block per_block consecutive tile pairs
+    # of a walk gives each block per_block consecutive tile pairs (units;
+    # at n = 100,000 per_block is 1, 3, 10, 38 for the dense walks and 1,
+    # 2, 5, 19 for the tapered one)
     ck = pkgs["change"][0]
     default, sweep = ck._TRACE_MAX_BLOCKS, {}
     try:
         for cap in (default, 1 << 17, 1 << 15, 1 << 13):
             ck._TRACE_MAX_BLOCKS = cap
-            per_block = ck.trace_schedule(cs.N_MAIN, cs.N_MAIN, True)[3]
-            sweep[f"per_block={per_block}"] = cs.median_in_turns({
+            sweep[f"max_blocks={cap}"] = cs.median_in_turns({
                 k.split(":", 1)[1]: f for k, f in fns.items()
-                if k.startswith("change:")})[0]
+                if k.startswith("change:")}, REPS)[0]
     finally:
         ck._TRACE_MAX_BLOCKS = default
     print(json.dumps({"phase": "trace_block_sweep",
@@ -626,8 +650,9 @@ def path_etas(dev, pkgs, float64=False):
 def variant_times(dev, dirs, kernel):
     """Median ms and errors of one wrapper (``kernel``: 'matmat',
     'multirho' or 'blocksparse') at its path's shape under each dot mode,
-    or of one dense trace ('matmat_trace', 'multirho_trace'), with the
-    kernel library of each package copy in ``dirs``."""
+    or of one trace ('matmat_trace', 'multirho_trace',
+    'blocksparse_trace'), with the kernel library of each package copy in
+    ``dirs``."""
     load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
             "print(_build.library_path())")
     procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
@@ -668,15 +693,23 @@ def variant_times(dev, dirs, kernel):
         tpts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
         op = TaperedMaternOperator(tpts, cs.TAPER_SCALE, nu=cs.NU,
                                    density=cs.TAPER_DENSITY, device=dev)
-        V = torch.randn((op.n_pad, 24), generator=g, device=dev)
-        V[op.shape[0]:] = 0
         tau = cs.clear_threshold(op)
         args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
         kw = dict(n=op.shape[0], row_ptr=op._row_ptr)
-        want = [cuda_kernels.matern_matmat_blocksparse_plain(
-            op.points_sorted.double(), V.double(), *args, **kw)]
-        run = lambda mode: [cuda_kernels.matern_matmat_blocksparse(  # noqa
-            op.points_sorted, V, *args, dot_mode=mode, **kw)]
+        if kernel == "blocksparse_trace":
+            want = [cuda_kernels.matern_matmat_blocksparse_plain(
+                op.points_sorted.double(), None, *args, frobenius=True,
+                **kw)[1].reshape(1)]
+            run = lambda mode: [cuda_kernels.matern_matmat_blocksparse(  # noqa
+                op.points_sorted, None, *args, frobenius=True,
+                trace_walk=op._trace_walk, **kw)[1].reshape(1)]
+        else:
+            V = torch.randn((op.n_pad, 24), generator=g, device=dev)
+            V[op.shape[0]:] = 0
+            want = [cuda_kernels.matern_matmat_blocksparse_plain(
+                op.points_sorted.double(), V.double(), *args, **kw)]
+            run = lambda mode: [cuda_kernels.matern_matmat_blocksparse(  # noqa
+                op.points_sorted, V, *args, dot_mode=mode, **kw)]
 
     def product(d, mode):
         _build._lib = libs[d]       # the wrappers launch this library's
@@ -691,11 +724,11 @@ def variant_times(dev, dirs, kernel):
     for k, f in fns.items():
         per = [cs.compare(got, w) for got, w in zip(f(), want)]
         errors[k] = [max(e[0] for e in per), max(e[1] for e in per)]
-    med, times = cs.median_in_turns(fns)
+    med, times = cs.median_in_turns(fns, REPS)
     _build._lib = None
     print(json.dumps({"phase": "variant_times", "kernel": kernel,
                       "nvidia_smi": cs.nvidia_smi(), "n": cs.N_MAIN,
-                      "reps": 7, "ms_median": med,
+                      "reps": REPS, "ms_median": med,
                       "frob_and_max_abs_vs_f64": errors, "ms_all": times}),
           flush=True)
 

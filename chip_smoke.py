@@ -53,8 +53,9 @@ Phases, each raising on failure:
  12. the tapered path at n = 2^20, with launch counts;
  13. kernel and plain time (and error, the multi-rho one rho by rho) of
      the multi-rho and block-sparse kernels at their paths' shapes: the
-     'highest' product and the trace launch (the multi-rho traces the same
-     bits run to run and in every dot mode);
+     'highest' product and the trace launch (both traces the same bits
+     run to run and in every dot mode; the block-sparse one beside its
+     full walk of the same list);
  14. the tile-dot modes and the Gram form vs their own plain versions
      (float32, same rounding) and vs plain float64 'highest': the three
      tensor-core kernels and the Gram flag;
@@ -138,7 +139,11 @@ FROB_TOL, MAXABS_TOL, TRACE_RTOL, SYM_TOL = 2e-5, 5e-4, 1e-5, 1e-6
 # the dense traces at n = 100,000 (phases 6 and 13): 1.4-1.8e-8 from
 # float64 in the runs on an H100, while one tile pair of 128 x 128 points
 # dropped or counted twice moves them by ~3e-6 of the 306,153 pairs' sum;
-# 1e-6 sits between, so a fault of the walk cannot pass
+# 1e-6 sits between, so a fault of the walk cannot pass. The tapered
+# traces (phases 8, 13, 14) are held to it too: at n = 2^20 a diagonal one
+# of the walk's 153,312 units of 128 x 128 points alone holds 128 entries
+# k = 1, a share of the trace that phase 13 logs (3.0e-6 on an H100, where
+# the tapered traces read at most 5.8e-8 from float64 at every n)
 DENSE_TRACE_RTOL = 1e-6
 
 
@@ -510,13 +515,18 @@ def nu_mufu(nu):
 
 
 def median_in_turns(fns, reps=7):
-    """Median ms of each function, timed in turns after one warm-up."""
+    """Median ms of each function, timed in turns after one warm-up; every
+    other turn runs them in reverse order (a, b, b, a), so that no function
+    always runs right after a call of another kernel, nor always right
+    after a call of its own (two copies of one kernel timed in a fixed
+    order have read 3-7% apart on an H100)."""
     for f in fns.values():
         f()
     times = {k: [] for k in fns}
-    for _ in range(reps):
-        for k, f in fns.items():
-            times[k] += timed(f, 1)
+    order = list(fns)
+    for rep in range(reps):
+        for k in order if rep % 2 == 0 else order[::-1]:
+            times[k] += timed(fns[k], 1)
     return {k: statistics.median(v) for k, v in times.items()}, times
 
 
@@ -640,12 +650,13 @@ def clear_threshold(op):
 
 
 def blocksparse_products(op, tau, V, frobenius=True):
-    """The kernel through its wrapper ('highest'), and the plain version in
-    float64 on the same sorted float32 points, at threshold ``tau``."""
+    """The kernel through its wrapper ('highest'; the trace over the
+    operator's walk), and the plain version in float64 on the same sorted
+    float32 points, at threshold ``tau``."""
     args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=op.shape[0], frobenius=frobenius, row_ptr=op._row_ptr)
-    got = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, V, *args,
-                                                 **kw)
+    got = cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, V, *args, trace_walk=op._trace_walk, **kw)
     torch.cuda.synchronize()
     want = cuda_kernels.matern_matmat_blocksparse_plain(
         op.points_sorted.double(), None if V is None else V.double(), *args,
@@ -684,7 +695,7 @@ def blocksparse_case(dev, n, r, nu, tile, grid=False, scale=0.05,
            "tau": tau, "tau_over_operator_threshold": tau / op.threshold,
            "trace_rel_err": abs(float(fro) - float(fro_want))
            / float(fro_want)}
-    ok = rec["trace_rel_err"] < TRACE_RTOL
+    ok = rec["trace_rel_err"] < DENSE_TRACE_RTOL
     if r:
         assert got.shape == (op.n_pad, r)
         assert bool(torch.isfinite(got).all())
@@ -1036,7 +1047,9 @@ def blocksparse_bounds(op, r, d):
     SFU and three tf32 products of 2r operations; as FP32 FMAs the 2r on
     the CUDA cores; the trace one FMA for k^2 per pair, over the pairs the
     symmetric K needs (tile_pairs(op, symmetric=True)), as the dense traces
-    count; its kernel still walks every pair of the list (ROADMAP R7b)."""
+    count. Its kernel walks a little more (walked_pairs: the diagonal
+    tiles' sub-tile triangles, each diagonal unit of 128 x 128 points
+    whole)."""
     pairs, half = tile_pairs(op), tile_pairs(op, symmetric=True)
     geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
     nbytes = 4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry
@@ -1050,11 +1063,23 @@ def blocksparse_bounds(op, r, d):
     return pairs, product, as_fp32[0], trace
 
 
+def walked_pairs(op, walk):
+    """The point pairs the trace kernel evaluates over ``walk``: the real
+    rows times the real columns of each unit."""
+    units = walk.units.cpu().numpy()
+    rows, cols = (cuda_kernels.blocksparse_sub_tile_points(
+        units[:, k], op.tile, op.shape[0]) for k in (0, 1))
+    return int(np.sum(rows * cols))
+
+
 def phase_blocksparse_time(dev, op):
     """The full-size pair list of the tapered path, r = 24, under
     'highest' (the tensor-core kernel, 3xTF32), and the trace launch (the
-    FP32 kernel); the error against the plain float64 version is taken at
-    a threshold clear of every pair (see clear_threshold)."""
+    FP32 kernel) over the operator's symmetric walk, beside the same
+    kernel's full walk of the list; the error against the plain float64
+    version is taken at a threshold clear of every pair (see
+    clear_threshold). The trace must give the same bits run to run and in
+    every dot mode."""
     n, r, d = op.shape[0], 24, 2
     g = torch.Generator(device=dev).manual_seed(13)
     V = torch.randn((op.n_pad, r), generator=g, device=dev)
@@ -1063,20 +1088,36 @@ def phase_blocksparse_time(dev, op):
     (got, fro), (want, fro_want) = blocksparse_products(op, tau, V)
     frob, max_abs = compare(got, want)
     trace_rel = abs(float(fro) - float(fro_want)) / float(fro_want)
-    ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
-          and trace_rel < TRACE_RTOL)
     del want
     tf32x3 = blocksparse_tf32x3_gap(op, tau, V, got)
 
     args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=n, row_ptr=op._row_ptr)
+    full_walk = cuda_kernels.blocksparse_trace_schedule(
+        op.pair_i, op.pair_j, op.tile, n, symmetric=False)
+    full_walk = full_walk._replace(
+        units=torch.as_tensor(full_walk.units, device=dev))
+
+    def kernel_trace(walk=op._trace_walk, dot_mode=None):
+        return cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, *args, frobenius=True, trace_walk=walk,
+            dot_mode=dot_mode, **kw)[1]
+
+    # the trace again, and under each dot mode: the same bits
+    trace = kernel_trace()
+    trace_same_bits = all(float(kernel_trace(dot_mode=m)) == float(trace)
+                          for m in cuda_kernels.DOT_MODES)
+    trace_walks_gap = abs(float(kernel_trace(full_walk)) - float(trace)) \
+        / float(trace)
+    ok = (frob < FROB_TOL and max_abs < MAXABS_TOL
+          and trace_rel < DENSE_TRACE_RTOL and trace_same_bits)
     med, times = median_in_turns({
         "kernel": lambda: cuda_kernels.matern_matmat_blocksparse(
             op.points_sorted, V, *args, **kw),
         "plain": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
             op.points_sorted, V, *args, **kw),
-        "kernel_trace": lambda: cuda_kernels.matern_matmat_blocksparse(
-            op.points_sorted, None, *args, frobenius=True, **kw),
+        "kernel_trace": kernel_trace,
+        "kernel_trace_full_walk": lambda: kernel_trace(full_walk),
         "plain_trace": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
             op.points_sorted, None, *args, frobenius=True, **kw)})
     (pairs, (bound_ms, bound_by, bound_term), bound_fp32_ms,
@@ -1085,18 +1126,27 @@ def phase_blocksparse_time(dev, op):
     log(phase="blocksparse_time", ok=ok, n=n, r=r, reps=7, pairs=pairs,
         tau=tau, tau_over_operator_threshold=tau / op.threshold,
         frob_rel_err=frob, max_abs_err=max_abs, trace_rel_err=trace_rel,
+        trace_rtol=DENSE_TRACE_RTOL,
+        trace_same_bits_run_to_run_and_in_every_mode=trace_same_bits,
+        trace_rel_gap_to_full_walk=trace_walks_gap,
+        one_diagonal_unit_share_of_trace_at_least=128 / float(fro_want),
         frob_vs_tf32x3_plain=tf32x3, kernel_ms_median=med["kernel"],
         plain_f32_ms_median=med["plain"],
         kernel_trace_ms_median=med["kernel_trace"],
+        kernel_trace_full_walk_ms_median=med["kernel_trace_full_walk"],
         plain_f32_trace_ms_median=med["plain_trace"],
         bound_ms=bound_ms, bound_by=bound_by, bound_term=bound_term,
         bound_ms_as_fp32_fma=bound_fp32_ms,
+        trace_units=len(op._trace_walk.units),
+        trace_pairs_walked=walked_pairs(op, op._trace_walk),
+        trace_pairs_walked_full=walked_pairs(op, full_walk),
         trace_pairs_needed=tile_pairs(op, symmetric=True),
         trace_bound_ms=trace_bound_ms, trace_bound_term=trace_bound_term,
         trace_bound_mufu_only_ms=mufu_only_ms(
             tile_pairs(op, symmetric=True) * nu_mufu(op.nu)),
         kernel_ms_all=times["kernel"],
-        kernel_trace_ms_all=times["kernel_trace"])
+        kernel_trace_ms_all=times["kernel_trace"],
+        kernel_trace_full_walk_ms_all=times["kernel_trace_full_walk"])
     if not ok:
         raise AssertionError("blocksparse disagrees with the plain version "
                              "at the tapered path's shape")
@@ -1309,7 +1359,8 @@ def blocksparse_mode_case(dev, dot_mode, n, r, nu, tile, d=2, scale=0.05,
         Ku = cuda_kernels.matern_matmat_blocksparse(
             op.points_sorted, u, *args, dot_mode=dot_mode, **kw)
         rec.update(symmetry(u, V, Ku, got))
-    ok = mode_verdict(rec, dot_mode) and rec["trace_rel_err"] < TRACE_RTOL
+    ok = (mode_verdict(rec, dot_mode)
+          and rec["trace_rel_err"] < DENSE_TRACE_RTOL)
     log(phase="parity_modes", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"matern_matmat_blocksparse in mode {dot_mode} "

@@ -1,38 +1,63 @@
 // Fused tapered (block-sparse) Matern trace(K^2) for Hopper (sm_90a):
 //
-//     fro_rows[i] = sum_j K_tau[i, j]^2,
+//     partials[b] = sum over block b's units of weight * sum K_tau[i, j]^2,
 //     K_tau[i, j] = k >= tau ? k : 0,  k = k_nu(|x_i - x_j|),
 //
-// over a list of active tile pairs only. x (n_pad, d) are spatially sorted
-// points already divided by the correlation scale and padded to a multiple
-// of `tile`, float32; fro_rows (n_pad) float64. Row tile ti sums over the
-// column tiles col_tiles[row_ptr[ti] .. row_ptr[ti + 1]). Only the first n
-// rows and columns are real: pad rows are left untouched and pad columns
-// are skipped, so nothing of the padding reaches a sum; the sum over i is
-// trace(K_tau^2).
+// over the sub-tile pairs of a list of active tile pairs only; the caller
+// sums the float64 partials, and that sum is trace(K_tau^2). x (n_pad, d)
+// are spatially sorted points already divided by the correlation scale and
+// padded to a multiple of `tile`, float32. Only the first n rows and
+// columns are real: sub-tiles end at min(their tile's end, n), so nothing
+// of the padding reaches a sum.
 //
 // Replaces the XLA scan of gppe_tpu/ops/taper.py::TaperedMaternOperator
 // .trace_pow. It serves every dot mode: the tile-dot modes round the
 // products' operands only, and the trace always sums the unrounded k^2.
 // The products K_tau @ V, the port of
 // gppe_tpu/ops/pallas_kernels.py::_blocksparse_kernel in all three modes,
-// are matern_blocksparse_mma.cu, whose 'highest' k is this kernel's, bit
-// for bit.
+// are matern_blocksparse_mma.cu, whose 'highest' k (and taper) is this
+// kernel's, bit for bit.
 //
-// The TPU kernel's grid is sequential: the first pair of a row tile
-// initialises the output tile and later pairs add to it. Blocks here run in
-// no order, so a block owns kRows = 128 rows of ONE row tile and loops over
-// that tile's column tiles itself (the caller turns the sorted pair list
-// into the row_ptr array once). No atomics, no cross-block sums: the result
-// is deterministic, run to run.
+// The walk. A unit is one pair of sub-tiles of at most kTraceTile = 128
+// points (matern_trace.cuh), named by the first row and the first column it
+// covers; a tile of `tile` points holds ceil(tile / 128) sub-tiles, the
+// last perhaps short. The units are a flat list the caller builds once per
+// pair list on the host (ops/cuda_kernels.py::blocksparse_trace_schedule,
+// the Python mirror, which also sizes the partials). The operator's list
+// holds (j, i) with every (i, j), and K_tau is then symmetric bit for bit:
+// the same sorted float32 points both ways, (a - b)^2 = (b - a)^2 and the
+// same FMA order over d. So its walk takes only the tile pairs ti <= tj,
+// and on a diagonal tile pair only the sub-tiles sj >= si: every unit whose
+// rows are not its columns counts twice, and half the work is gone. A list
+// without its mirror walks all its sub-tile pairs at weight 1, on this same
+// kernel (`symmetric` false).
 //
-// What bounds it on this card: per pair d subtract/FMAs, one sqrtf, one
-// expf, one compare-select and one FMA for k^2, against O(pairs / tile * d)
-// words of traffic that mostly hit the L2 cache - instruction issue, as in
-// matern_matmat.cu, whose inner loop this is (one thread per row, column
-// sub-tiles of kCols = 128 points staged in shared memory, float32 k^2 sums
-// per sub-tile added in float64). Every pair of an active tile pair is
-// evaluated, also those beyond the taper radius.
+// What bounds it on this card: per pair d subtract/FMAs, one correctly
+// rounded sqrt (MUFU.RSQ and four FP32 operations), one IEEE expf (MUFU.EX2
+// and seven FP32 operations), one compare-select and one FMA for k^2,
+// against O(units + n d) words of traffic that mostly hit the L2 cache -
+// instruction issue, with the SFU close behind, as in matern_matmat.cu.
+//
+// What the design does about it (the dense traces' design,
+// matern_matmat.cu):
+//   * the symmetric walk above: half the pairs of the list;
+//   * one unit of 128 x 128 points per block (more where the partials
+//     would outgrow their cap), each block writing one float64 partial, no
+//     atomics: the same bits run to run;
+//   * k from matern_exact_d2 (matern_mma.cuh): the bits of sqrtf and expf
+//     without the branch nvcc puts around sqrtf;
+//   * each thread owns kR = 4 rows and a quarter of the unit's columns, so
+//     each column point read from shared memory (a warp-wide broadcast)
+//     serves 4 pairs, and 4 independent sqrt/exp chains interleave (1 or 2
+//     rows time the same within 1%, but sum 64 or 128 columns per float32
+//     partial, 4-9x further from float64; 256 threads are 7% slower);
+//   * nu (four closed forms) and d = 2 are template parameters, other
+//     d <= 8 run over zero-padded coordinates;
+//   * ragged sub-tiles (a tile that is not a multiple of 128, the last
+//     tile's end at n) are masked, not padded.
+// Every pair of a unit is evaluated, also those beyond the taper radius.
+// Precision: built WITHOUT --use_fast_math. Each thread sums the k^2 of a
+// row over its at most 32 columns of the unit in float32, then in float64.
 //
 // The hard taper compares float32 k with float32 tau. A pair whose k lies
 // within rounding of tau can fall on the other side than in float64; the
@@ -44,93 +69,146 @@
 #include <cstdint>
 
 #include "matern_common.cuh"
+#include "matern_mma.cuh"
+#include "matern_trace.cuh"
 
 using namespace gppe;
 
 namespace {
 
-constexpr int kRows = 128;  // output rows per block, one per thread
-constexpr int kCols = 128;  // column points per shared-memory tile
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kR = 4;  // rows per thread: lane + 32 r of its row set
+constexpr int kRowSets = kTraceTile / (32 * kR);
+constexpr int kColGroups = kWarps / kRowSets;
+constexpr int kColsPerThread = kTraceTile / kColGroups;
+static_assert(kRowSets * 32 * kR == kTraceTile && kColGroups >= 1 &&
+                  kColGroups * kRowSets == kWarps,
+              "the threads must tile the 128 x 128 unit exactly");
+
+// the real points of the sub-tile that starts at point p0: at most
+// kTraceTile, none past the end of its tile of `tile` points or past n
+__device__ __forceinline__ int sub_tile_points(int p0, int tile, int n) {
+  const int tile_end = (p0 / tile + 1) * tile;
+  return min(kTraceTile, min(tile_end, n) - p0);
+}
+
+// tapered k^2 of one column point y with the thread's kR rows, added into
+// their float32 sums
+template <int NU, int KD>
+__device__ __forceinline__ void taper_column(const float (&x)[kR][KD],
+                                             const float* y_smem, float tau,
+                                             float (&part)[kR]) {
+  float y[KD];
+#pragma unroll
+  for (int k = 0; k < KD; ++k) y[k] = y_smem[k];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    float d2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KD; ++k) {
+      const float diff = x[r][k] - y[k];
+      d2 = fmaf(diff, diff, d2);
+    }
+    float kv = matern_exact_d2<NU>(d2);
+    kv = kv >= tau ? kv : 0.0f;  // the hard taper
+    part[r] = fmaf(kv, kv, part[r]);
+  }
+}
 
 // D: the point dimension, or 0 for any d <= kMaxD (zero-padded
-// coordinates). grid.x: row tile * blocks per tile + block within the tile.
+// coordinates). units[u] = (first row, first column) of unit u.
 template <int NU, int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
     blocksparse_trace_kernel(const float* __restrict__ pts,
-                             double* __restrict__ fro_rows,
-                             const int* __restrict__ row_ptr,
-                             const int* __restrict__ col_tiles, int n, int d,
-                             int tile, int blocks_per_tile, float tau) {
+                             const int2* __restrict__ units,
+                             double* __restrict__ partials, int n, int d,
+                             int tile, int64_t num_units, int per_block,
+                             bool symmetric, float tau) {
   constexpr int kD = D > 0 ? D : kMaxD;
-  __shared__ float s_pts[kD][kCols];
+  __shared__ __align__(16) float s_pts[kTraceTile][kD];
+  __shared__ double s_warp[kWarps];
 
   const int dim = D > 0 ? D : d;
-  const int ti = blockIdx.x / blocks_per_tile;
-  const int local = (blockIdx.x % blocks_per_tile) * kRows + threadIdx.x;
-  const int row = ti * tile + local;  // < n_pad whenever local < tile
-  const bool live = local < tile && row < n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp % kRowSets) * 32 * kR + lane;
+  const int col0 = (warp / kRowSets) * kColsPerThread;
 
-  float x[kD];
-#pragma unroll
-  for (int k = 0; k < kD; ++k) {
-    x[k] = (live && k < dim) ? pts[static_cast<int64_t>(row) * dim + k] : 0.0f;
-  }
-  double fro = 0.0;
-
-  const int p_end = row_ptr[ti + 1];
-  for (int p = row_ptr[ti]; p < p_end; ++p) {
-    const int col_begin = col_tiles[p] * tile;
-    const int col_end = min(col_begin + tile, n);  // pad columns skipped
-    for (int j0 = col_begin; j0 < col_end; j0 += kCols) {
-      const int tc = min(kCols, col_end - j0);
-      __syncthreads();  // every thread is done with the previous tile
-      for (int e = threadIdx.x; e < kD * kCols; e += kRows) {
-        const int k = e / kCols;
-        const int j = e % kCols;
-        s_pts[k][j] = (j < tc && k < dim)
-                          ? pts[static_cast<int64_t>(j0 + j) * dim + k]
-                          : 0.0f;
-      }
-      __syncthreads();
-
-      float fro_tile = 0.0f;
-      for (int j = 0; j < tc; ++j) {
-        float d2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kD; ++k) {
-          const float diff = x[k] - s_pts[k][j];
-          d2 = fmaf(diff, diff, d2);
-        }
-        float kv = matern_from_d2<NU>(d2);
-        kv = kv >= tau ? kv : 0.0f;  // the hard taper
-        fro_tile = fmaf(kv, kv, fro_tile);
-      }
-      fro += static_cast<double>(fro_tile);
+  double acc = 0.0;
+  const int64_t u_begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t u_end =
+      u_begin + per_block < num_units ? u_begin + per_block : num_units;
+  for (int64_t u = u_begin; u < u_end; ++u) {
+    const int2 unit = units[u];
+    const int rn = sub_tile_points(unit.x, tile, n);
+    const int cn = sub_tile_points(unit.y, tile, n);
+    __syncthreads();  // every thread is done with the previous unit
+    for (int e = threadIdx.x; e < kTraceTile * kD; e += kThreads) {
+      const int j = e / kD;
+      const int k = e % kD;
+      s_pts[j][k] = (j < cn && k < dim)
+                        ? pts[static_cast<int64_t>(unit.y + j) * dim + k]
+                        : 0.0f;
     }
-  }
+    float x[kR][kD];
+    bool live[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int row = row0 + 32 * r;
+      live[r] = row < rn;
+#pragma unroll
+      for (int k = 0; k < kD; ++k) {
+        x[r][k] = (live[r] && k < dim)
+                      ? pts[static_cast<int64_t>(unit.x + row) * dim + k]
+                      : 0.0f;
+      }
+    }
+    __syncthreads();
 
-  if (live) fro_rows[row] = fro;
+    float part[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) part[r] = 0.0f;
+    const int jn = min(kColsPerThread, cn - col0);
+    if (jn == kColsPerThread) {
+#pragma unroll 8
+      for (int j = col0; j < col0 + kColsPerThread; ++j) {
+        taper_column<NU, kD>(x, s_pts[j], tau, part);
+      }
+    } else {
+      for (int j = col0; j < col0 + jn; ++j) {
+        taper_column<NU, kD>(x, s_pts[j], tau, part);
+      }
+    }
+    double sum = 0.0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (live[r]) sum += static_cast<double>(part[r]);
+    }
+    // the mirror unit (columns, rows) has the same k^2, bit for bit
+    acc += (symmetric && unit.x != unit.y ? 2.0 : 1.0) * sum;
+  }
+  const double total = block_sum<kWarps>(acc, s_warp);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
 struct Args {
   const float* pts;
-  double* fro_rows;
-  const int* row_ptr;
-  const int* col_tiles;
-  int n, d, tile, num_tiles;
+  const int2* units;
+  double* partials;
+  int n, d, tile;
+  int64_t num_units;
+  int per_block, blocks;
+  bool symmetric;
   float tau;
   cudaStream_t stream;
 };
 
 template <int NU, int D>
 cudaError_t launch(const Args& a) {
-  const int blocks_per_tile = (a.tile + kRows - 1) / kRows;
-  const int64_t grid_x = static_cast<int64_t>(a.num_tiles) * blocks_per_tile;
-  if (grid_x > 2147483647LL) return cudaErrorInvalidValue;
-  blocksparse_trace_kernel<NU, D>
-      <<<static_cast<unsigned>(grid_x), kRows, 0, a.stream>>>(
-          a.pts, a.fro_rows, a.row_ptr, a.col_tiles, a.n, a.d, a.tile,
-          blocks_per_tile, a.tau);
+  blocksparse_trace_kernel<NU, D><<<a.blocks, kThreads, 0, a.stream>>>(
+      a.pts, a.units, a.partials, a.n, a.d, a.tile, a.num_units, a.per_block,
+      a.symmetric, a.tau);
   return cudaGetLastError();
 }
 
@@ -142,29 +220,33 @@ cudaError_t launch_d(const Args& a) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). Does
-// not synchronise and allocates nothing. `pts` holds num_tiles * tile
-// points, of which the first n are real; `row_ptr` has num_tiles + 1 int32
-// entries and `col_tiles` row_ptr[num_tiles] int32 tile indices;
-// `fro_rows` num_tiles * tile float64, pad rows left untouched.
-extern "C" int gppe_matern_blocksparse(const void* pts, void* fro_rows,
-                                       const void* row_ptr,
-                                       const void* col_tiles, int n, int d,
-                                       int tile, int num_tiles, float tau,
-                                       int nu_code, void* stream) {
-  if (n <= 0 || d < 1 || d > kMaxD || tile <= 0 || num_tiles <= 0 ||
-      fro_rows == nullptr ||
-      static_cast<int64_t>(num_tiles) * tile > 2147483647LL ||
-      static_cast<int64_t>(num_tiles) * tile < n) {
+// not synchronise and allocates nothing. `pts` holds at least n points;
+// `units` num_units (first row, first column) int32 pairs, each the start of
+// a sub-tile of a tile of `tile` points (cuda_kernels.
+// blocksparse_trace_schedule); `symmetric` counts every unit whose rows are
+// not its columns twice. `partials` (`blocks` float64) receives one
+// weighted k^2 sum per block of `per_block` units; the blocks must cover
+// the units exactly.
+extern "C" int gppe_matern_blocksparse(const void* pts, const void* units,
+                                       void* partials, int n, int d,
+                                       int tile, int num_units,
+                                       int symmetric, float tau,
+                                       int nu_code, int per_block,
+                                       int blocks, void* stream) {
+  if (n <= 0 || d < 1 || d > kMaxD || tile <= 0 || units == nullptr ||
+      partials == nullptr || !trace_grid_ok(num_units, per_block, blocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(pts),
-               static_cast<double*>(fro_rows),
-               static_cast<const int*>(row_ptr),
-               static_cast<const int*>(col_tiles),
+               static_cast<const int2*>(units),
+               static_cast<double*>(partials),
                n,
                d,
                tile,
-               num_tiles,
+               num_units,
+               per_block,
+               blocks,
+               symmetric != 0,
                tau,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;

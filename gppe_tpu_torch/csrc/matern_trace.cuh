@@ -1,5 +1,8 @@
-// Shared by the trace(K^2) kernels (matern_matmat.cu, matern_multirho.cu):
-// the walk over tile pairs and the block's float64 sum.
+// Shared by the trace(K^2) kernels (matern_matmat.cu, matern_multirho.cu,
+// matern_blocksparse.cu): the tile of the walk, the dense kernels' walk
+// over tile pairs, the check of a grid against its schedule and the
+// block's float64 sum. The tapered kernel walks a flat list of 128 x 128
+// units instead, built by the caller (see matern_blocksparse.cu).
 //
 // A trace kernel sums k^2 over tile pairs (ti, tj) of kTraceTile rows by
 // kTraceTile columns, one or more pairs per block, and each block writes

@@ -136,9 +136,10 @@ def load(path=None):
     lib.gppe_matern_multirho_mma_scratch_bytes.argtypes = [i32, i32, i32,
                                                            i32, i32]
     lib.gppe_matern_blocksparse.restype = i32
-    lib.gppe_matern_blocksparse.argtypes = [ptr, ptr, ptr, ptr,
-                                            i32, i32, i32, i32,
-                                            ctypes.c_float, i32, ptr]
+    lib.gppe_matern_blocksparse.argtypes = [ptr, ptr, ptr,
+                                            i32, i32, i32, i32, i32,
+                                            ctypes.c_float, i32, i32, i32,
+                                            ptr]
     lib.gppe_matern_blocksparse_mma.restype = i32
     lib.gppe_matern_blocksparse_mma.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                                 i32, i32, i32, i32, i32,

@@ -39,11 +39,17 @@ sums the unrounded k^2 (the reference's ``trace_pow(2)`` is the exact pass
 in every mode). The dense trace kernels walk tile pairs of 128 x 128
 points, only those with tj >= ti where K is symmetric bit for bit, and
 write one float64 partial per block (and rho) that the wrapper sums:
-:func:`trace_schedule` and :func:`trace_tile_pair` mirror that walk.
+:func:`trace_schedule` and :func:`trace_tile_pair` mirror that walk. The
+tapered trace kernel walks 128 x 128 units of the pair list's tiles in
+the same way, only those of the tile pairs ti <= tj (and of the sub-tile
+triangle on diagonal tiles) where the list holds its mirror:
+:func:`blocksparse_trace_schedule` builds that walk and mirrors it.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -71,10 +77,11 @@ _GAUSS_CODE = 3
 # kDotBf16), as the tensor-core kernels take it
 _DOT_CODES = {"highest": 0, "bf16x3": 1, "bf16": 2}
 _MAX_D = 8
-# the dense trace kernels' walk (csrc/matern_trace.cuh): tile pairs of
-# _TRACE_TILE x _TRACE_TILE points, at most _TRACE_MAX_BLOCKS blocks of
-# consecutive pairs, each writing one float64 partial (per rho); the
-# multi-rho one holds _TRACE_RHOS rhos per thread, more over grid.y
+# the trace kernels' walk (csrc/matern_trace.cuh): tile pairs (the
+# tapered kernel's units) of _TRACE_TILE x _TRACE_TILE points, at most
+# _TRACE_MAX_BLOCKS blocks of consecutive pairs, each writing one float64
+# partial (per rho); the multi-rho one holds _TRACE_RHOS rhos per thread,
+# more over grid.y
 _TRACE_TILE, _TRACE_MAX_BLOCKS, _TRACE_RHOS = 128, 1 << 19, 8
 
 
@@ -335,8 +342,16 @@ def trace_schedule(nr, nc, symmetric):
     tiles_r, tiles_c = -(-nr // _TRACE_TILE), -(-nc // _TRACE_TILE)
     pairs = (tiles_r * (tiles_r + 1) // 2 if symmetric
              else tiles_r * tiles_c)
+    return (tiles_r, tiles_c, pairs, *trace_blocks(pairs))
+
+
+def trace_blocks(pairs):
+    """``(per_block, blocks)``: the fewest consecutive pairs (or units) per
+    block that keep the blocks, and so the partials, at most
+    ``_TRACE_MAX_BLOCKS``; the last block perhaps takes fewer. Every trace
+    kernel's grid (``csrc/matern_trace.cuh::trace_grid_ok``)."""
     per_block = max(1, -(-pairs // _TRACE_MAX_BLOCKS))
-    return tiles_r, tiles_c, pairs, per_block, -(-pairs // per_block)
+    return per_block, -(-pairs // per_block)
 
 
 def trace_tile_pair(p, tiles_r, tiles_c, symmetric):
@@ -541,6 +556,68 @@ def blocksparse_row_ptr(pair_i, num_tiles):
     return row_ptr
 
 
+class BlocksparseTraceWalk(NamedTuple):
+    """The walk of the tapered trace kernel (``csrc/matern_blocksparse.cu``)
+    over a pair list: ``units`` (U, 2) int32, the first row and the first
+    column of each pair of sub-tiles of at most ``_TRACE_TILE`` points
+    (numpy, or a tensor on the points' device); ``weights`` (U,) the count
+    of each unit, 2 where the walk is ``symmetric`` and the unit's rows are
+    not its columns, else 1 (the kernel derives them the same way)."""
+    units: object
+    weights: np.ndarray
+    symmetric: bool
+
+
+def blocksparse_sub_tile_points(starts, tile, n):
+    """The real points of the sub-tiles that start at ``starts`` (numpy):
+    at most ``_TRACE_TILE``, none past the end of their tile of ``tile``
+    points or past ``n`` (``matern_blocksparse.cu::sub_tile_points``)."""
+    starts = np.asarray(starts, dtype=np.int64)
+    return np.minimum(_TRACE_TILE,
+                      np.minimum((starts // tile + 1) * tile, n) - starts)
+
+
+def blocksparse_trace_schedule(pair_i, pair_j, tile, n, symmetric=True):
+    """The tapered trace kernel's walk over the tile-pair list ``pair_i``,
+    ``pair_j`` (tiles of ``tile`` points, the first ``n`` real), as a
+    :class:`BlocksparseTraceWalk`, on the host.
+
+    Each tile holds ceil(real points / 128) sub-tiles, the last perhaps
+    short. The symmetric walk takes the list's pairs ti <= tj and, on a
+    diagonal tile pair, the sub-tiles sj >= si, each unit off the
+    sub-diagonal at weight 2: every ordered pair of points of the list once.
+    It needs the list to hold (j, i) with every (i, j), as the operator's
+    does, and is taken where ``symmetric`` and the list is mirrored; else
+    every sub-tile pair of the list is walked at weight 1. Units come in
+    the list's order, sub-tile pairs row-major within a tile pair."""
+    pair_i = np.asarray(pair_i, dtype=np.int64)
+    pair_j = np.asarray(pair_j, dtype=np.int64)
+    num_tiles = -(-n // tile)
+    symmetric = symmetric and np.array_equal(
+        np.sort(pair_i * num_tiles + pair_j),
+        np.sort(pair_j * num_tiles + pair_i))
+    if symmetric:
+        upper = pair_i <= pair_j
+        pair_i, pair_j = pair_i[upper], pair_j[upper]
+    starts = tile * np.arange(num_tiles)
+    subs = -(-np.minimum(tile, n - starts) // _TRACE_TILE)
+    side = -(-tile // _TRACE_TILE)
+    si, sj = np.divmod(np.arange(side * side), side)
+    take = ((si[None] < subs[pair_i][:, None])
+            & (sj[None] < subs[pair_j][:, None]))
+    if symmetric:
+        take &= (pair_i != pair_j)[:, None] | (sj >= si)[None]
+    rows = (pair_i[:, None] * tile + si[None] * _TRACE_TILE)[take]
+    cols = (pair_j[:, None] * tile + sj[None] * _TRACE_TILE)[take]
+    return BlocksparseTraceWalk(
+        np.stack([rows, cols], axis=1).astype(np.int32),
+        np.where(symmetric & (rows != cols), 2, 1), bool(symmetric))
+
+
+def _host(a):
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 def _blocksparse_tile_columns(pair_j, row_ptr, ti, tile, n):
     """Indices of the real columns that row tile ``ti`` multiplies."""
     tiles = pair_j[int(row_ptr[ti]):int(row_ptr[ti + 1])].to(torch.int64)
@@ -563,8 +640,7 @@ def _blocksparse_geometry(points_sorted, pair_i, pair_j, tile, n, row_ptr):
                              device=points_sorted.device)
     if row_ptr is None:
         # an unprepared pair list: check it here, on the host
-        if torch.is_tensor(pair_i):
-            pair_i = pair_i.cpu().numpy()
+        pair_i = _host(pair_i)
         row_ptr = torch.as_tensor(
             blocksparse_row_ptr(pair_i, n_pad // tile),
             device=points_sorted.device)
@@ -651,7 +727,7 @@ def blocksparse_clear_threshold(points_sorted, nu, tau, pair_i, pair_j, tile,
 
 def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
                               tile, n=None, dot_mode=None, frobenius=False,
-                              row_ptr=None):
+                              row_ptr=None, trace_walk=None):
     """Tapered (block-sparse) K @ V over active tile pairs only.
 
     ``points_sorted`` (n_pad, d): spatially sorted, *already scaled*
@@ -666,7 +742,13 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     pair list is checked, on the host (a caller that multiplies often
     passes it, and ``pair_j`` as an int32 tensor on the device, and
     answers for both). ``tau``: the taper threshold; entries with k < tau
-    are zero. ``dot_mode`` as in :func:`matern_matmat`.
+    are zero. ``dot_mode`` as in :func:`matern_matmat`. ``trace_walk``:
+    the trace kernel's :class:`BlocksparseTraceWalk` of this pair list,
+    its units an int32 tensor on the points' device; when absent (and
+    ``frobenius``) it is built here on the host by
+    :func:`blocksparse_trace_schedule`, symmetric where the list holds its
+    mirror (a caller that asks for traces often passes it, and answers
+    for it). The plain version sums the full list and takes no walk.
 
     Returns out (n_pad, r), and with ``frobenius=True`` the pair (out, sum
     of squared tapered entries = trace(K^2)), out None when V is None; the
@@ -676,8 +758,9 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     must be float32 and contiguous and launch float32 kernels: the product
     the tensor-core kernel (``csrc/matern_blocksparse_mma.cu``) in every
     mode, 'highest' as 3xTF32 with the taper on the IEEE float32 k, the
-    trace the FP32 kernel (``csrc/matern_blocksparse.cu``), so a call that
-    asks for both launches both."""
+    trace the FP32 kernel (``csrc/matern_blocksparse.cu``, over
+    ``trace_walk``, with the same k and taper), so a call that asks for
+    both launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = kernels.check_static_nu(nu)
     if V is None and not frobenius:
@@ -701,51 +784,73 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
                          f"not {device}")
     return _matern_matmat_blocksparse_cuda(
         points_sorted, V, nu, tau, pair_i, pair_j, tile, n, frobenius,
-        row_ptr, dot_mode)
+        row_ptr, dot_mode, trace_walk)
+
+
+def _trace_units(walk, device):
+    """The walk's units as the kernel takes them: a contiguous (U, 2)
+    int32 tensor on ``device``, 8-byte aligned (one int2 load a unit)."""
+    units = walk.units
+    if not torch.is_tensor(units):
+        units = torch.as_tensor(units, device=device)
+    if (units.dtype != torch.int32 or units.device != device
+            or not units.is_contiguous() or units.ndim != 2
+            or units.shape[1] != 2 or units.data_ptr() % 8
+            or units.shape[0] >= 2 ** 31):
+        raise ValueError(f"trace_walk.units must be a contiguous, aligned "
+                         f"(U, 2) int32 tensor on {device}")
+    return units
 
 
 def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                                     pair_j, tile, n, frobenius, row_ptr,
-                                    dot_mode):
+                                    dot_mode, trace_walk=None):
     from . import _build
 
     n_pad, d = points_sorted.shape
+    device = points_sorted.device
     _check_cuda_operands(d, (("points_sorted", points_sorted), ("V", V)))
     tile, n, num_tiles, row_ptr, pair_j = _blocksparse_geometry(
         points_sorted, pair_i, pair_j, tile, n, row_ptr)
     r = 0 if V is None else V.shape[1]
     for name, t, size in (("row_ptr", row_ptr, num_tiles + 1),
                           ("pair_j", pair_j, pair_j.numel())):
-        if (t.dtype != torch.int32 or t.device != points_sorted.device
+        if (t.dtype != torch.int32 or t.device != device
                 or not t.is_contiguous() or t.shape != (size,)):
             raise ValueError(f"{name} must be a contiguous int32 tensor of "
-                             f"{size} entries on {points_sorted.device}")
+                             f"{size} entries on {device}")
     # every product of sizes that becomes an offset in the kernel
     if n_pad >= 2 ** 31 or n_pad * max(r, d, 1) >= 2 ** 63:
         raise ValueError("sizes must fit in int32, offsets in int64")
 
     out = None if V is None else torch.empty(
-        (n_pad, r), dtype=torch.float32, device=points_sorted.device)
-    fro_rows = (torch.zeros(n_pad, dtype=torch.float64,
-                            device=points_sorted.device)
-                if frobenius else None)
+        (n_pad, r), dtype=torch.float32, device=device)
+    if frobenius:
+        if trace_walk is None:
+            # an unprepared walk: built here, on the host
+            trace_walk = blocksparse_trace_schedule(
+                _host(pair_i), _host(pair_j), tile, n)
+        units = _trace_units(trace_walk, device)
+        per_block, blocks = trace_blocks(units.shape[0])
+        partials = torch.zeros(blocks, dtype=torch.float64, device=device)
     if r > 0 or frobenius:
         lib = _build.load()
         code = _NU_CODES.get(nu, _GAUSS_CODE)
-        with torch.cuda.device(points_sorted.device):
+        with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
-            geometry = (row_ptr.data_ptr(), pair_j.data_ptr())
             for entry, counter in _launch_plan("blocksparse", r, frobenius):
                 if entry == "gppe_matern_blocksparse_mma":
                     err = lib.gppe_matern_blocksparse_mma(
                         points_sorted.data_ptr(), V.data_ptr(),
-                        out.data_ptr(), *geometry, n, d, r, tile, num_tiles,
+                        out.data_ptr(), row_ptr.data_ptr(),
+                        pair_j.data_ptr(), n, d, r, tile, num_tiles,
                         float(tau), code, _DOT_CODES[dot_mode], stream)
                 else:
                     err = lib.gppe_matern_blocksparse(
-                        points_sorted.data_ptr(), fro_rows.data_ptr(),
-                        *geometry, n, d, tile, num_tiles, float(tau), code,
-                        stream)
+                        points_sorted.data_ptr(), units.data_ptr(),
+                        partials.data_ptr(), n, d, tile, units.shape[0],
+                        int(trace_walk.symmetric), float(tau), code,
+                        per_block, blocks, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
-    return (out, fro_rows.sum()) if frobenius else out
+    return (out, partials.sum()) if frobenius else out

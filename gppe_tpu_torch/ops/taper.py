@@ -179,8 +179,10 @@ class TaperedMaternOperator:
         self.num_tiles = num_tiles
         self.tile_density = len(self.pair_i) / num_tiles ** 2
 
-        # on the device: the sorted points, the permutations, and the pair
-        # list as the row-tile pointer array the products walk
+        # on the device: the sorted points, the permutations, the pair list
+        # as the row-tile pointer array the products walk, and the trace's
+        # walk (the list is mirrored, so its sub-tile pairs of tiles
+        # ti <= tj, 128 x 128 points each)
         self.points_sorted = torch.as_tensor(pts_sorted, dtype=dtype,
                                              device=self.device)
         self._perm = torch.as_tensor(self.perm, device=self.device)
@@ -189,6 +191,10 @@ class TaperedMaternOperator:
             cuda_kernels.blocksparse_row_ptr(self.pair_i, num_tiles),
             device=self.device)
         self._pair_j = torch.as_tensor(self.pair_j, device=self.device)
+        walk = cuda_kernels.blocksparse_trace_schedule(
+            self.pair_i, self.pair_j, t, n)
+        self._trace_walk = walk._replace(
+            units=torch.as_tensor(walk.units, device=self.device))
 
     @property
     def shape(self):
@@ -198,7 +204,7 @@ class TaperedMaternOperator:
         return cuda_kernels.matern_matmat_blocksparse(
             self.points_sorted, Vs, self.nu, self.threshold, self.pair_i,
             self._pair_j, self.tile, n=self._n, frobenius=frobenius,
-            row_ptr=self._row_ptr)
+            row_ptr=self._row_ptr, trace_walk=self._trace_walk)
 
     def matmat(self, V):
         V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
@@ -218,8 +224,9 @@ class TaperedMaternOperator:
     def trace_pow(self, exponent):
         """Exact trace(K^p) of the tapered K for p in {0, 1, 2}: its
         diagonal is 1 (k(0) = 1 >= threshold); trace(K^2) is the sum of
-        squared tapered entries, from one trace-only pass. The products
-        mask the pad, so there is no padded diagonal to subtract."""
+        squared tapered entries, from one trace-only pass (on the card
+        over half the list, by symmetry). The products mask the pad, so
+        there is no padded diagonal to subtract."""
         if exponent in (0, 1):
             return torch.tensor(float(self._n), dtype=self.dtype,
                                 device=self.device)

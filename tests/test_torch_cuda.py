@@ -19,8 +19,10 @@ matern_matmat_blocksparse_mma) in every mode, 'highest' as 3xTF32 (held to
 the bounds above), and every trace(K^2) on the FP32 kernels
 (matern_matmat, matern_matmat_multirho, matern_matmat_blocksparse). The
 first two walk only the tile pairs tj >= ti of a square K in the
-difference form and sum float64 block partials: their traces must give
-the same bits run to run and in every mode.
+difference form, the third only the 128 x 128 units of the tile pairs
+ti <= tj of a mirrored pair list, and all three sum float64 block
+partials: their traces must give the same bits run to run and in every
+mode.
 
 The tile-dot modes and the Gram form: 'bf16x3' keeps the exact mode's
 Frobenius bound and must sit closer to its own plain version (same
@@ -401,6 +403,20 @@ def test_blocksparse_counts_launches_and_checks_inputs(dev):
     _, exact = cuda_kernels.matern_matmat_blocksparse(pts, None, *args,
                                                       frobenius=True, **kw)
     assert float(fro) == float(exact)       # the trace never rounds
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    # the trace's walk: int32 units on the points' device, or numpy
+    walk = op._trace_walk
+    for units in (walk.units.long(), walk.units.cpu(), walk.units[:, :1]):
+        with pytest.raises(ValueError, match="trace_walk"):
+            cuda_kernels.matern_matmat_blocksparse(
+                pts, None, *args, frobenius=True,
+                trace_walk=walk._replace(units=units), **kw)
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 3
+    _, own = cuda_kernels.matern_matmat_blocksparse(
+        pts, None, *args, frobenius=True,
+        trace_walk=walk._replace(units=walk.units.cpu().numpy()), **kw)
+    assert float(own) == float(exact)
+    assert cuda_kernels.launch_counts["matern_matmat_blocksparse"] == 4
 
 
 def test_tapered_engine_n16384_cuda_matches_cpu(dev):
@@ -953,3 +969,81 @@ def test_traces_one_launch_each_and_the_same_in_every_mode(dev):
     assert fro["bf16x3"] == fro["highest"] == fro["bf16"]
     assert torch.equal(tk2["bf16x3"], tk2["highest"])
     assert torch.equal(tk2["bf16"], tk2["highest"])
+
+
+# -- the tapered trace(K^2) kernel --------------------------------------------
+
+# the symmetric and the full walk of one list sum the same float32 k^2, but
+# in other float32 partials (a row's at most 32 columns of a unit; k^2 >= 0,
+# each added with an error <= 2^-24 of the partial): each walk lies within
+# 31 * 2^-24 = 1.85e-6 of the exact sum of those k^2, so the two within
+# 4e-6 of each other. One unit dropped or counted twice moves the trace at
+# these sizes by more than 1e-4
+WALKS_RTOL = 4e-6
+# correlation scales that put the taper radius (density 0.02) 1.6 to 3
+# scales out in d = 1, 2, 3: where it lies closer, k is so flat near tau
+# that no threshold is clear of every pair by 1e-5
+TAPER_SCALES = {1: 0.005, 2: 0.05, 3: 0.05 * np.sqrt(1.5)}
+
+
+@pytest.mark.parametrize("n, tile", [(1000, 128), (3001, 200), (2050, 512),
+                                     (100, 512)])
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 150.0])
+def test_blocksparse_trace_kernel(dev, n, tile, nu):
+    """matern_matmat_blocksparse's trace-only launch over the operator's
+    symmetric walk at ragged n, tile 128, 200 (units of 128 and 72 points),
+    512 and 100 (n < 128), every nu, d in {1, 2, 3}, at a threshold clear of
+    every pair: against the plain float64 full-list sum (rtol 1e-5); the
+    same bits twice, under every dot mode and from the walk the wrapper
+    builds itself; against the full walk of the same list passed without
+    its mirror flag (WALKS_RTOL). One launch of the trace kernel a call."""
+    for d in (1, 2, 3):
+        op, args, kw = _tapered_any_d(dev, n, nu, tile, d, TAPER_SCALES[d],
+                                      seed=n + d)
+
+        def trace(**extra):
+            return float(cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, None, *args, frobenius=True, **kw,
+                **extra)[1])
+
+        cuda_kernels.reset_launch_counts()
+        got = trace(trace_walk=op._trace_walk)
+        assert trace(trace_walk=op._trace_walk) == got
+        for mode in cuda_kernels.DOT_MODES:
+            assert trace(trace_walk=op._trace_walk, dot_mode=mode) == got
+        assert trace() == got
+        assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} \
+            == {"matern_matmat_blocksparse": 6}
+        _, want = cuda_kernels.matern_matmat_blocksparse_plain(
+            op.points_sorted.double(), None, *args, frobenius=True, **kw)
+        np.testing.assert_allclose(got, float(want), rtol=1e-5)
+        full = cuda_kernels.blocksparse_trace_schedule(
+            op.pair_i, op.pair_j, op.tile, n, symmetric=False)
+        np.testing.assert_allclose(got, trace(trace_walk=full),
+                                   rtol=WALKS_RTOL)
+
+
+def test_blocksparse_trace_with_several_units_per_block(dev, monkeypatch):
+    """The tapered trace at n = 3001, tile 200, with the partials buffer
+    capped at 7 blocks, so that every block walks many units in its loop:
+    against the plain float64 sum (rtol 1e-5) and against the same call at
+    one unit per block, to 1e-12 relative, since only the float64 order of
+    the partials changes."""
+    op, args, kw = _tapered_any_d(dev, 3001, 1.5, 200, 2, 0.05, seed=41)
+    units = len(op._trace_walk.units)
+
+    def trace():
+        return float(cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, *args, frobenius=True,
+            trace_walk=op._trace_walk, **kw)[1])
+
+    one = trace()
+    assert cuda_kernels.trace_blocks(units) == (1, units)
+    monkeypatch.setattr(cuda_kernels, "_TRACE_MAX_BLOCKS", 7)
+    per_block, blocks = cuda_kernels.trace_blocks(units)
+    assert blocks == 7 and per_block > 1
+    many = trace()
+    _, want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), None, *args, frobenius=True, **kw)
+    np.testing.assert_allclose(many, float(want), rtol=1e-5)
+    np.testing.assert_allclose(many, one, rtol=1e-12)

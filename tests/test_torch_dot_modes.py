@@ -407,9 +407,14 @@ class _FakeLibrary:
                            dot_code))
         return 0
 
-    def gppe_matern_blocksparse(self, pts, fro_rows, row_ptr, col_tiles, n,
-                                d, tile, num_tiles, tau, nu_code, stream):
-        self.calls.append(("gppe_matern_blocksparse", num_tiles, 0, None))
+    def gppe_matern_blocksparse(self, pts, units, partials, n, d, tile,
+                                num_units, symmetric, tau, nu_code,
+                                per_block, blocks, stream):
+        # the symmetric walk of a mirrored list, over the blocks its units
+        # need
+        assert symmetric == 1
+        assert (per_block, blocks) == cuda_kernels.trace_blocks(num_units)
+        self.calls.append(("gppe_matern_blocksparse", num_units, 0, None))
         return 0
 
 
@@ -499,7 +504,9 @@ def test_blocksparse_wrapper_launches_what_the_plan_says(
     """matern_matmat_blocksparse's card path against the stand-in library:
     the product, in every mode 'highest' included, goes to
     matern_blocksparse_mma with the mode's code; the trace is a trace-only
-    launch of matern_blocksparse (no V, no width, no mode)."""
+    launch of matern_blocksparse (no V, no width, no mode) over the
+    symmetric walk of the mirrored list: its 5 units of tile pairs
+    ti <= tj (one sub-tile a tile of 32 points)."""
     rng = np.random.RandomState(r)
     tile, num_tiles, n = 32, 3, 80
     pts = _t(rng.rand(tile * num_tiles, 2), F32)
@@ -512,7 +519,7 @@ def test_blocksparse_wrapper_launches_what_the_plan_says(
     want = [("gppe_matern_blocksparse_mma", num_tiles, r,
              cuda_kernels._DOT_CODES[dot_mode])] if r else []
     if frobenius:
-        want.append(("gppe_matern_blocksparse", num_tiles, 0, None))
+        want.append(("gppe_matern_blocksparse", 5, 0, None))
     assert fake_library.calls == want
     if frobenius:
         out, fro = out

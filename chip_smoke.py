@@ -21,7 +21,13 @@ each against its plain PyTorch version on the card:
   * the precision-matrix path: the n = 100,000 MLE under each tile-dot
     mode (drivers.profile_kernel_matrix.run_one -> fit; every mode on the
     tensor-core kernel matern_matmat_mma), and the roofline sweep
-    (drivers.roofline_matvec.main), the caller of the Gram form.
+    (drivers.roofline_matvec.main), the caller of the Gram form;
+  * the exact dense path and the public API: generate_correlation and
+    GaussianProcess(X, K, method).train(z) at the reference's dense
+    configuration (n = 4096; float64 eigendecomposition and Cholesky on
+    the card), then n = 8192; and GaussianProcess(X, MaternOperator)
+    at n = 100,000, whose fit and likelihood run matern_matmat_mma at
+    widths 1, 6, 16 and 32 and matern_matmat for trace(K^2).
 
     python3 chip_smoke.py
 
@@ -29,7 +35,8 @@ Phases, each raising on failure:
   1. device: require CUDA; print the card, power limit, torch and CUDA
      versions and the float32 precision settings after setup();
   2. build: compile (or load) the kernel library, print the seconds;
-  3. matern_matmat vs plain float64 on the card: ragged n, several widths,
+  3. matern_matmat vs plain float64 on the card: ragged n, several widths
+     (6 and 32 those of the public API's CG and Hutchinson probes),
      all four nu branches, d in {1, 2, 3}, an anisotropic scale and a
      rectangular K; bounds of the reference's on-chip tier; the product's
      gap to its plain 3xTF32 version logged beside them;
@@ -68,7 +75,22 @@ Phases, each raising on failure:
  17. the roofline sweep at n = 100,000, 12 rows;
  18. kernel and plain time (and error) of the mode and Gram kernels at
      their paths' shapes, the multi-rho one rho by rho, 'highest' held
-     beside the bf16 modes.
+     beside the bf16 modes;
+ 19. the dense public API at n = 4096 (a 64 x 64 grid, rho 0.1, nu 0.5,
+     degree-2 basis, noise 0.2): generate_correlation (symmetric, unit
+     diagonal, within 1e-6 of float64), GaussianProcess.train in 'direct'
+     and 'profiled' (within 1e-3 of each other, sigma0 in (0.18, 0.22)),
+     'profiled' under imate_method 'cholesky' (the Krylov route over the
+     dense K) and with interpolate=True (eta within 5e-2), likelihood at
+     the optimum on the spectral and the operator route; then both
+     methods at n = 8192 (a 128 x 64 grid); seconds of assembly,
+     eigendecomposition, rotation and fit (train twice: cold and again);
+ 20. GaussianProcess(X, MaternOperator, 'profiled') on phase 5's problem:
+     the fit equal to phase 5's bit for bit, likelihood at it through CG
+     (iterations per column) and SLQ, Hutchinson's traceinv at 32 probes,
+     with the path's launch counts; then matern_matmat at the route's
+     widths 1, 6, 16, 32 against plain float64, its plain version and
+     its bound.
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device. Each bound counts what the inputs need: the traces the pairs
@@ -87,10 +109,13 @@ import time
 import numpy as np
 import torch
 
+import gppe_tpu_torch
 from gppe_tpu_torch.drivers import profile_kernel_matrix, roofline_matvec
+from gppe_tpu_torch.models import direct_likelihood
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
-from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
+from gppe_tpu_torch.ops import _build, assembly, cuda_kernels, kernels, linalg
+from gppe_tpu_torch.ops import stochastic
 from gppe_tpu_torch.ops.operators import MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
 from gppe_tpu_torch.utils import config
@@ -272,8 +297,10 @@ def tf32x3_gap(got, rows, cols, scale, V, nu):
 
 
 def phase_parity(dev):
+    # r = 6 and 32: the public API's CG over the basis X and Hutchinson's
+    # probes (phase 20)
     cases = [dict(n=n, r=r, nu=0.5) for n in (1024, 3001)
-             for r in (0, 1, 7, 24, 33)]
+             for r in (0, 1, 6, 7, 24, 32, 33)]
     cases += [dict(n=3001, r=24, nu=nu) for nu in (1.5, 2.5, 150.0)]
     cases += [dict(n=3001, r=7, nu=nu, d=d, seed=d)
               for d in (1, 3) for nu in (0.5, 2.5)]
@@ -367,7 +394,7 @@ def phase_main_path(dev):
         peak_device_memory_bytes=torch.cuda.max_memory_allocated(dev))
     if not ok:
         raise AssertionError(f"main path failed: {res}, launches {launches}")
-    return total_launches
+    return total_launches, res
 
 
 def timed(fn, reps):
@@ -1817,13 +1844,317 @@ def phase_mode_time(dev, taper_op):
     return out
 
 
-def kernel_record(name, source, replaces, launches, measured):
+# -- the exact dense path and the public API (phases 19, 20) -----------------
+
+# the reference's dense benchmark configuration (bench.py:224-249,
+# SURVEY:371): a 64 x 64 grid, rho 0.1, nu 0.5, degree-2 basis, noise 0.2;
+# and the largest size of its dense sweep, 2^13 points (SURVEY:228), as a
+# 128 x 64 grid of the unit square
+DENSE_SIDE, DENSE_LARGE = 64, (128, 64)
+# phase 19's assembly against a plain float64 one: float32 points scaled by
+# 1/rho lose ~1e-7 of their ~10 to rounding, which the difference of two
+# near points keeps (6.9e-7 in a float32 assembly on the CPU)
+ASSEMBLY_ATOL = 1e-6
+
+
+def grid_points(nx, ny):
+    """An nx x ny grid of the unit square, x fastest."""
+    gx, gy = np.meshgrid(np.linspace(0, 1, nx), np.linspace(0, 1, ny))
+    return np.stack([gx.ravel(), gy.ravel()], axis=1)
+
+
+def dense_problem(pts):
+    return (data_utils.generate_data(pts, 0.2),
+            data_utils.generate_basis_functions(pts, 2))
+
+
+def sync_seconds(t0):
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dense_fit(dev, K, X, z, method, **kw):
+    """One GaussianProcess(X, K, method).train(z) on the card, timed: the
+    constructor (the float64 eigendecomposition, for 'eigenvalue'), the
+    rotation of X and z on its own, and train (which rotates again before
+    its host float64 fit) twice: the first call of a process carries the
+    one-time costs of torch.func and cuSOLVER, the second does not."""
+    t0 = time.perf_counter()
+    gp = gppe_tpu_torch.GaussianProcess(X, K, method, device=dev, **kw)
+    construct_s = sync_seconds(t0)
+    rotation_s = None
+    if not gp.likelihood.operator_mode:
+        t0 = time.perf_counter()
+        direct_likelihood.make_spectral_data(gp.likelihood.K_mixed, X, z)
+        rotation_s = sync_seconds(t0)
+    train_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = gp.train(z)
+        train_s.append(sync_seconds(t0))
+    finite = all(np.isfinite(res[k]) for k in ("eta", "sigma", "sigma0"))
+    rec = {"method": method, **kw, "eta": res["eta"], "sigma": res["sigma"],
+           "sigma0": res["sigma0"], "success": bool(res["success"]),
+           "finite": finite, "iterations": res["iterations"],
+           "constructor_s": construct_s, "rotation_s": rotation_s,
+           "train_s": train_s[0], "train_again_s": train_s[1]}
+    return gp, rec
+
+
+# the traceinv interpolant (8 knots, log-spaced over [1e-4, 1e3]) against
+# the exact traceinv: at a knot it returns the exact value it was built on;
+# between knots the log-log spline is within 1.3% at n = 1024 and 0.7% at
+# n = 2304 on a grid of the unit square (float64 on the CPU)
+INTERP_KNOT_RTOL, INTERP_RTOL = 1e-9, 5e-2
+
+
+def interpolant_gaps(K_mixed, eta_fit):
+    """Relative gaps of K_mixed.traceinv (the interpolant) to its exact
+    traceinv at each knot, and at the geometric midpoints of the knots and
+    the fit's eta."""
+    knots = K_mixed._traceinv_interp.points
+    between = list(np.sqrt(knots[1:] * knots[:-1])) + [eta_fit]
+
+    def gap(eta):
+        return rel_gap(float(K_mixed.traceinv(eta)),
+                       float(K_mixed._traceinv_exact(eta)))
+    return {"knots": {repr(float(e)): gap(e) for e in knots},
+            "between": {repr(float(e)): gap(e) for e in between}}
+
+
+def phase_dense_api(dev):
+    """Phase 19: generate_correlation and GaussianProcess(X, K, m).train(z)
+    at the reference's dense configuration, n = 4096, then n = 8192."""
+    pts = data_utils.generate_points(DENSE_SIDE, dimension=2)
+    z, X = dense_problem(pts)
+    t0 = time.perf_counter()
+    K = gppe_tpu_torch.generate_correlation(pts, RHO, nu=NU, device=dev)
+    assembly_s = sync_seconds(t0)
+    want = assembly.dense_correlation(pts, RHO, NU, dtype=F64, device=dev)
+    assembly_err = float(torch.max(torch.abs(K.double() - want)))
+    symmetric = float(torch.max(torch.abs(K - K.T)))
+    unit_diag = bool(torch.all(torch.diagonal(K) == 1.0))
+    del want
+    ok = (K.dtype == F32 and K.device.type == "cuda" and unit_diag
+          and symmetric == 0.0 and assembly_err < ASSEMBLY_ATOL)
+
+    fits, gps = {}, {}
+    for method in ("direct", "profiled"):
+        gps[method], fits[method] = dense_fit(dev, K, X, z, method)
+    d, p = fits["direct"], fits["profiled"]
+    agree = {k: rel_gap(d[k], p[k]) for k in ("eta", "sigma", "sigma0")}
+    ok = (ok and all(f["success"] and f["finite"]
+                     and 0.18 < f["sigma0"] < 0.22 for f in fits.values())
+          and agree["eta"] < 1e-3 and agree["sigma"] < 1e-3)
+
+    # the Krylov route over the dense K, and interpolate=True. The
+    # spectral fit reads no traceinv, so the interpolated route's eta
+    # equals the eigenvalue route's by construction; the interpolant is
+    # held against the exact traceinv instead: at its knots, between them
+    # and at the fit's eta
+    _, fits["cholesky"] = dense_fit(dev, K, X, z, "profiled",
+                                    imate_method="cholesky")
+    gp_interp, fits["interpolate"] = dense_fit(dev, K, X, z, "profiled",
+                                               interpolate=True)
+    route_gap = {k: rel_gap(fits[k]["eta"], p["eta"])
+                 for k in ("cholesky", "interpolate")}
+    ok = (ok and all(fits[k]["success"] and fits[k]["finite"]
+                     for k in route_gap)
+          and all(g < 5e-2 for g in route_gap.values()))
+    interp = interpolant_gaps(gp_interp.likelihood.K_mixed, p["eta"])
+    del gp_interp
+    ok = (ok and all(g < INTERP_KNOT_RTOL for g in interp["knots"].values())
+          and all(g < INTERP_RTOL for g in interp["between"].values()))
+
+    # lp at the optimum: spectral, and on the operator route (CG + SLQ on
+    # a MaternOperator of the same points)
+    hp = (p["sigma"], p["sigma0"])
+    lp_spectral = gps["profiled"].likelihood.likelihood(z, hp)
+    op = MaternOperator(pts, RHO, nu=NU, device=dev)
+    gp_op = gppe_tpu_torch.GaussianProcess(X, op, "profiled", device=dev)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lp_operator = gp_op.likelihood.likelihood(z, hp)
+    lp_operator_s = sync_seconds(t0)
+    lp_launches = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    ok = ok and np.isfinite(lp_operator) and np.isfinite(lp_spectral)
+    del gps, gp_op, op
+
+    # the largest size of the reference's dense sweep, both methods
+    pts8 = grid_points(*DENSE_LARGE)
+    z8, X8 = dense_problem(pts8)
+    t0 = time.perf_counter()
+    K8 = gppe_tpu_torch.generate_correlation(pts8, RHO, nu=NU, device=dev)
+    assembly8_s = sync_seconds(t0)
+    fit8 = {m: dense_fit(dev, K8, X8, z8, m)[1]
+            for m in ("profiled", "direct")}
+    del K8
+    agree8 = rel_gap(fit8["direct"]["eta"], fit8["profiled"]["eta"])
+    ok = (ok and all(f["success"] and f["finite"]
+                     and 0.18 < f["sigma0"] < 0.22 for f in fit8.values())
+          and agree8 < 1e-3)
+    log(phase="dense_api", ok=ok, n=len(pts), rho=RHO, nu=NU,
+        assembly_s=assembly_s, assembly_max_abs_err_vs_f64=assembly_err,
+        assembly_atol=ASSEMBLY_ATOL, symmetry_max_abs=symmetric,
+        unit_diagonal=unit_diag, fits=fits,
+        direct_vs_profiled_rel_gap=agree,
+        eta_rel_gap_to_eigenvalue_route=route_gap,
+        interpolant_rel_gap_to_exact_traceinv=interp,
+        interpolant_rtol={"knots": INTERP_KNOT_RTOL,
+                          "between": INTERP_RTOL},
+        lp_spectral=lp_spectral, lp_operator_route=lp_operator,
+        lp_gap=lp_operator - lp_spectral, lp_operator_s=lp_operator_s,
+        lp_operator_launches=lp_launches,
+        n_large=len(pts8), grid_large=list(DENSE_LARGE),
+        assembly_large_s=assembly8_s, fits_large=fit8,
+        direct_vs_profiled_eta_rel_gap_large=agree8,
+        peak_device_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    if not ok:
+        raise AssertionError(f"dense public API failed: {fits}, {fit8}")
+
+
+def matmat_bound(n, r, d, nu):
+    """bound() of one 'highest' product K @ V (n x n, V n x r) as 3xTF32:
+    three tf32 products on the tensor cores; per pair on the CUDA cores the
+    distance, k and the split of k (3), on the SFU the sqrt and the exp of
+    k."""
+    pairs = n * n
+    return bound(4 * (n * d + 2 * n * r), pairs * (3 * d + nu_ops(nu) + 3),
+                 tf32_ops=pairs * 2 * r * 3, mufu_ops=pairs * nu_mufu(nu))
+
+
+# the operator route's widths: CG over z and the deflation chain (1), CG
+# over the basis X (6), SLQ's probes (16); and Hutchinson's probes (32),
+# which phase 20 runs on its own: no path of the port calls it
+ROUTE_WIDTHS = (1, 6, 16, 32)
+
+
+def phase_public_operator_route(dev, main_fit):
+    """Phase 20: GaussianProcess(X, MaternOperator, 'profiled').train(z) on
+    phase 5's problem, then likelihood(z, hp) at that fit (CG and SLQ),
+    each in its own count window: the launch counts are set to 0 just
+    before the call and read just after it. Then, outside both windows,
+    the route's pieces on their own (its CG solves with their iterations
+    per column, a second build of its SLQ engine), Hutchinson's traceinv
+    at width 32 (no path of the port calls it), and B1 at the widths
+    against its plain version and its bound."""
+    pts, z, X = make_problem(N_MAIN, 7)
+    op = MaternOperator(pts, RHO, nu=NU, device=dev)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gp = gppe_tpu_torch.GaussianProcess(X, op, "profiled",
+                                        lanczos_steps=STEPS,
+                                        num_probes=PROBES, device=dev)
+    res = gp.train(z)
+    fit_s = sync_seconds(t0)
+    fit_launches = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    same_bits = all(res[k] == main_fit[k] for k in ("eta", "sigma",
+                                                    "sigma0"))
+
+    # likelihood(z, hp) at the fit: Kn^-1 X (CG at width 6), Kn^-1 z (CG
+    # at width 1) and the logdet from the SLQ engine the MixedCorrelation
+    # builds on first use (deflation chain at width 1, probes at width 16,
+    # trace(K^2) for M2)
+    eta, hp = res["eta"], (res["sigma"], res["sigma0"])
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lp = gp.likelihood.likelihood(z, hp)
+    lp_s = sync_seconds(t0)
+    lp_launches = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    path_launches = {k: fit_launches.get(k, 0) + lp_launches.get(k, 0)
+                     for k in set(fit_launches) | set(lp_launches)}
+
+    # outside the windows: the same CG solves for their iterations per
+    # column, and the SLQ engine built again for its seconds
+    X_dev = torch.as_tensor(X, dtype=F32, device=dev)
+    z_dev = torch.as_tensor(z, dtype=F32, device=dev)
+    cg = {}
+    for name, B in (("X", X_dev), ("z", z_dev[:, None])):
+        t0 = time.perf_counter()
+        _, its = linalg.cg_solve(op.matmat, B, shift=eta,
+                                 return_iterations=True)
+        cg[name] = {"seconds": sync_seconds(t0),
+                    "iterations_per_column": its.tolist()}
+    slq = gp.likelihood.K_mixed._get_stoch()
+    gp.likelihood.K_mixed._stoch = None
+    t0 = time.perf_counter()
+    slq_again = gp.likelihood.K_mixed._get_stoch()
+    slq_s = sync_seconds(t0)
+    del slq_again
+
+    # Hutchinson's traceinv at width 32 beside the SLQ engine's
+    t0 = time.perf_counter()
+    hutch = stochastic.hutchinson_traceinv(op, eta, num_probes=32)
+    hutch_s = sync_seconds(t0)
+    slq_traceinv = slq.traceinv(eta)
+    max_its = max(max(c["iterations_per_column"]) for c in cg.values())
+    ok = (same_bits and res["success"] and np.isfinite(lp)
+          and np.isfinite(hutch) and max_its < 1000
+          and all(w.get(k, 0) > 0 for w in (fit_launches, lp_launches)
+                  for k in ("matern_matmat_mma", "matern_matmat"))
+          and rel_gap(hutch, slq_traceinv) < 5e-2)
+    log(phase="public_operator_route", ok=ok, n=N_MAIN, rho=RHO, nu=NU,
+        lanczos_steps=STEPS, num_probes=PROBES, fit=res,
+        fit_equals_main_path_bits=same_bits, fit_seconds=fit_s,
+        fit_launches=fit_launches, lp=lp, lp_seconds=lp_s,
+        lp_launches=lp_launches, path_launches=path_launches, cg=cg,
+        slq_engine_seconds=slq_s, slq_deflated=slq.q,
+        slq_lanczos_steps=slq.lanczos_steps, slq_probes=slq.num_probes,
+        hutchinson_traceinv=hutch, hutchinson_seconds=hutch_s,
+        slq_traceinv=slq_traceinv,
+        hutchinson_rel_gap_to_slq=rel_gap(hutch, slq_traceinv))
+    if not ok:
+        raise AssertionError(f"public API operator route failed: {res}, "
+                             f"main path {main_fit}, launches "
+                             f"{fit_launches} / {lp_launches}")
+
+    # B1 at the route's widths, at n = 100,000: kernel, plain and bound
+    P = op.points
+    g = torch.Generator(device=dev).manual_seed(14)
+    widths = {}
+    for r in ROUTE_WIDTHS:
+        V = torch.randn((N_MAIN, r), generator=g, device=dev)
+        got = cuda_kernels.matern_matmat(P, op.scale, V, NU)
+        want = cuda_kernels.matern_matmat_plain(
+            P.double(), op.scale.double(), V.double(), NU, block_rows=1024)
+        frob, max_abs = compare(got, want)
+        med, times = median_in_turns({
+            "kernel": lambda V=V: cuda_kernels.matern_matmat(P, op.scale, V,
+                                                             NU),
+            "plain": lambda V=V: cuda_kernels.matern_matmat_plain(
+                P, op.scale, V, NU, block_rows=1024)}, reps=5)
+        bound_ms, bound_by, bound_term = matmat_bound(N_MAIN, r, 2, NU)
+        widths[r] = {"frob_rel_err": frob, "max_abs_err": max_abs,
+                     "kernel_ms_median": med["kernel"],
+                     "plain_f32_ms_median": med["plain"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_term": bound_term,
+                     "kernel_ms_all": times["kernel"]}
+    ok = all(w["frob_rel_err"] < FROB_TOL and w["max_abs_err"] < MAXABS_TOL
+             for w in widths.values())
+    log(phase="route_widths_time", ok=ok, n=N_MAIN, reps=5, widths=widths)
+    if not ok:
+        raise AssertionError("matern_matmat_mma is out of its bounds at the "
+                             "operator route's widths")
+    return fit_launches, lp_launches, path_launches
+
+
+def kernel_record(name, source, replaces, launches, measured,
+                  launches_public_api=None):
+    """``launches``: the kernel's count on its path's run (phase 5, 10, 12,
+    15, 16 or 17); ``launches_public_api``, for B1: its count in phase
+    20's two windows, the public API's operator-route fit and its
+    likelihood(z, hp)."""
     # library_ms: no single PyTorch call computes any of these products,
     # because K is never stored (40 GB at n = 10^5)
-    return {"name": name, "route": "cuda",
-            "source": f"gppe_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, **measured,
-            "library_ms": None}
+    rec = {"name": name, "route": "cuda",
+           "source": f"gppe_tpu_torch/csrc/{source}",
+           "replaces": replaces, "launches": launches, **measured,
+           "library_ms": None}
+    if launches_public_api is not None:
+        rec["launches_public_api"] = launches_public_api
+    return rec
 
 
 PALLAS = "gppe_tpu/ops/pallas_kernels.py"
@@ -1834,7 +2165,7 @@ def main():
     phase_build()
     phase_parity(dev)
     phase_engine_1024(dev)
-    launches_1 = phase_main_path(dev)
+    launches_1, main_fit = phase_main_path(dev)
     measured_1, measured_trace = phase_kernel_time(dev)
     phase_parity_multirho(dev)
     phase_parity_blocksparse(dev)
@@ -1851,7 +2182,12 @@ def main():
     launches_mma = phase_precision_matrix(dev)
     launches_gram = phase_roofline(dev)
     measured = phase_mode_time(dev, op)
+    phase_dense_api(dev)
+    launches_fit, launches_lp, launches_api = phase_public_operator_route(
+        dev, main_fit)
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
+                *(w.get(k, 0) for w in (launches_fit, launches_lp)
+                  for k in ("matern_matmat_mma", "matern_matmat")),
                 launches_2["matern_matmat_multirho_mma"],
                 launches_2["matern_matmat_multirho"],
                 launches_3["matern_matmat_blocksparse_mma"],
@@ -1866,10 +2202,11 @@ def main():
         # as 3xTF32), trace(K^2) on the FP32 kernel
         kernel_record("matern_matmat_mma[highest]", "matern_matmat_mma.cu",
                       f"{PALLAS}:103", launches_1["matern_matmat_mma"],
-                      measured_1),
+                      measured_1, launches_api["matern_matmat_mma"]),
         kernel_record("matern_matmat", "matern_matmat.cu",
                       "gppe_tpu/ops/operators.py:42",
-                      launches_1["matern_matmat"], measured_trace),
+                      launches_1["matern_matmat"], measured_trace,
+                      launches_api["matern_matmat"]),
         # the grid and the tapered path, the same split: products on the
         # tensor-core kernels, traces on the FP32 ones
         kernel_record("matern_matmat_multirho_mma[highest]",

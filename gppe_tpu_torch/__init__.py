@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are four paths, each
-on hand-written CUDA kernels behind the wrappers of ``ops.cuda_kernels``
-(each product on a tensor-core kernel, in every tile-dot mode):
+counterpart sits at the same path. Ported so far are five paths; the
+first four run hand-written CUDA kernels behind the wrappers of
+``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
+tile-dot mode), the fifth reaches them through a matrix-free K:
 
 * the matrix-free profile-likelihood MLE:
   utils.data -> ops.operators.MaternOperator (kernel ``matern_matmat``)
@@ -17,14 +18,26 @@ on hand-written CUDA kernels behind the wrappers of ``ops.cuda_kernels``
   ``matern_matmat_blocksparse``) -> KrylovProfileLikelihood.fit;
 * the precision-matrix and roofline measurements:
   drivers.profile_kernel_matrix (the first path under each tile-dot mode)
-  and drivers.roofline_matvec (widths x distance forms x dot modes).
+  and drivers.roofline_matvec (widths x distance forms x dot modes);
+* the exact dense path and the public API:
+  ops.assembly.generate_correlation -> models.gaussian_process
+  .GaussianProcess(X, K, method).train(z) -> models.likelihood, over
+  models.mixed_correlation (a float64 eigendecomposition or Cholesky on
+  the card; CG, MINRES and the stochastic engines of ops.linalg and
+  ops.stochastic) and the host float64 direct and profiled likelihoods;
+  a matrix-free K takes the operator route (KrylovProfileLikelihood for
+  the fit, CG and SLQ through ``matern_matmat`` for ``likelihood``).
+  drivers.maximize_likelihood_direct_method times it.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 
 * the device is explicit: public constructors take ``device=`` and default
   to ``"cuda"``; nothing falls back to the CPU when no GPU is present;
-* the dtype is explicit (``dtype=``, float32 on the card, float64 in the
-  CPU tests);
+* the dtype is explicit (``dtype=``): float32 for the kernels, the
+  Lanczos vectors and the assembly on the card; float64 for a dense K's
+  eigendecomposition, rotation, Cholesky and solves on the card (the H100
+  has native float64); float64 for everything in the CPU tests. The
+  O(n m) per-eta likelihood scalars are float64 on the host, by design;
 * random draws take an explicit ``torch.Generator`` or seed;
 * importing the package changes no global torch state; every entry point
   calls :func:`gppe_tpu_torch.utils.config.setup`.
@@ -32,12 +45,15 @@ Policy (see :mod:`gppe_tpu_torch.utils.config`):
 The package imports neither ``jax`` nor ``gppe_tpu``.
 """
 
+from .models.gaussian_process import GaussianProcess
 from .models.grid_krylov import GridKrylovProfileLikelihood
 from .models.large_scale import KrylovProfileLikelihood
+from .ops.assembly import generate_correlation
 from .ops.operators import MaternOperator
 from .ops.taper import TaperedMaternOperator
 
 __version__ = "0.1.0"
 
-__all__ = ["GridKrylovProfileLikelihood", "KrylovProfileLikelihood",
-           "MaternOperator", "TaperedMaternOperator", "__version__"]
+__all__ = ["GaussianProcess", "GridKrylovProfileLikelihood",
+           "KrylovProfileLikelihood", "MaternOperator",
+           "TaperedMaternOperator", "generate_correlation", "__version__"]

@@ -25,7 +25,7 @@ import torch
 
 from ..ops import cuda_kernels, kernels, stochastic
 from ..utils.config import resolve_device, setup
-from .large_scale import KrylovProfileLikelihood, random_block
+from .large_scale import KrylovProfileLikelihood
 
 
 def _factorize_chunk(points, rhos, nu, AB, k, s):
@@ -175,8 +175,8 @@ class GridKrylovProfileLikelihood:
         self.rhs_norms = np.linalg.norm(A, axis=0)
         AtA = A.T @ A       # exact eta->inf OLS boundary (shared by all
         # grid points: the data never changes, only the kernel)
-        probes, v_defl = random_block(self.n, num_probes, key, device, dtype,
-                                      generator, probes, v_defl)
+        probes, v_defl = stochastic.random_block(
+            self.n, num_probes, key, device, dtype, generator, probes, v_defl)
         # block layout: [z, X | deflation chain | probes]
         AB = torch.cat([torch.as_tensor(A, dtype=dtype, device=device),
                         v_defl, probes], dim=1)

@@ -25,7 +25,8 @@ def check_static_nu(nu):
     raise NotImplementedError(
         f"Matern nu = {nu}: only the closed forms nu in {{0.5, 1.5, 2.5}} "
         f"and nu >= {_GAUSSIAN_NU_CUTOFF:g} are ported; general nu (Bessel "
-        f"K_nu) comes with the general-nu slice of gppe_tpu_torch")
+        f"K_nu) comes with the general-nu slice of gppe_tpu_torch "
+        f"(ROADMAP A8)")
 
 
 def matern(x, nu):

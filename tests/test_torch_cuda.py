@@ -40,13 +40,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import gppe_tpu_torch  # noqa: E402
 from gppe_tpu_torch.drivers import (  # noqa: E402
     profile_kernel_matrix, roofline_matvec)
 from gppe_tpu_torch.models.grid_krylov import (  # noqa: E402
     GridKrylovProfileLikelihood)
 from gppe_tpu_torch.models.large_scale import (  # noqa: E402
     KrylovProfileLikelihood)
-from gppe_tpu_torch.ops import cuda_kernels, kernels  # noqa: E402
+from gppe_tpu_torch.ops import cuda_kernels, kernels, linalg  # noqa: E402
 from gppe_tpu_torch.ops.operators import MaternOperator  # noqa: E402
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator  # noqa: E402
 from gppe_tpu_torch.utils import data as data_utils  # noqa: E402
@@ -1047,3 +1048,61 @@ def test_blocksparse_trace_with_several_units_per_block(dev, monkeypatch):
         op.points_sorted.double(), None, *args, frobenius=True, **kw)
     np.testing.assert_allclose(many, float(want), rtol=1e-5)
     np.testing.assert_allclose(many, one, rtol=1e-12)
+
+
+# -- the exact dense path and the public API ---------------------------------
+
+@pytest.mark.parametrize("method", ["direct", "profiled"])
+def test_dense_facade_n1024_cuda_matches_cpu(dev, method):
+    """GaussianProcess(X, K, method).train(z) on the card (float32
+    assembly, float64 eigendecomposition and rotation there) against the
+    same facade on the CPU in float64, from the same points: eta rtol 1e-5
+    (a float32 assembly moves eta by ~1.5e-7 on the CPU), sigma0 rtol
+    1e-6."""
+    pts = data_utils.generate_points(32, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    fits = []
+    for device, dtype in ((dev, F32), ("cpu", F64)):
+        K = gppe_tpu_torch.generate_correlation(pts, 0.1, nu=0.5,
+                                                device=device, dtype=dtype)
+        assert K.device.type == torch.device(device).type
+        gp = gppe_tpu_torch.GaussianProcess(X, K, method, device=device)
+        assert gp.likelihood.K_mixed.eigenvalues.device == K.device
+        fits.append(gp.train(z))
+    got, want = fits
+    assert got["success"] and want["success"]
+    np.testing.assert_allclose(got["eta"], want["eta"], rtol=1e-5)
+    np.testing.assert_allclose(got["sigma0"], want["sigma0"], rtol=1e-6)
+    np.testing.assert_allclose(got["sigma"], want["sigma"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 6, 32])
+def test_cg_through_the_operator(dev, r):
+    """Batched CG on a cuda MaternOperator (every product on
+    matern_matmat_mma, 'highest') at the operator route's widths against a
+    plain float64 solve on the card: n = 4096, eta = 1, tol 1e-6; the
+    solution within 1e-4 (Frobenius-relative) of float64, each column's
+    iterations counted, one kernel launch per iteration."""
+    n, eta = 4096, 1.0
+    rng = np.random.RandomState(r)
+    pts = rng.rand(n, 2)
+    B = torch.as_tensor(rng.standard_normal((n, r)), dtype=F32, device=dev)
+    op = MaternOperator(pts, 0.1, nu=0.5, device=dev)
+    cuda_kernels.reset_launch_counts()
+    X, its = linalg.cg_solve(op.matmat, B, tol=1e-6, shift=eta,
+                             return_iterations=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.launch_counts)
+    K = cuda_kernels.matern_matmat_plain(
+        torch.as_tensor(pts, dtype=F64, device=dev),
+        kernels.broadcast_scale(0.1, 2, dtype=F64, device=dev),
+        torch.eye(n, dtype=F64, device=dev), 0.5, block_rows=1024)
+    want = torch.linalg.solve(K + eta * torch.eye(n, dtype=F64, device=dev),
+                              B.double())
+    err = float(torch.linalg.norm(X.double() - want)
+                / torch.linalg.norm(want))
+    assert err < 1e-4
+    assert its.shape == (r,) and int(its.min()) > 0
+    assert launches["matern_matmat_mma"] == int(its.max())
+    assert launches["matern_matmat"] == 0

@@ -3,6 +3,7 @@
 
     python3 chip_profile.py ptxas           # registers and spills per kernel
     python3 chip_profile.py main grid taper # torch.profiler, one setup each
+    python3 chip_profile.py search          # the (rho, nu) search's setup
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
     python3 chip_profile.py --parent DIR modes eta  # beside another commit
@@ -13,17 +14,20 @@
     python3 chip_profile.py eta             # eta* of every path
     python3 chip_profile.py eta-main        # main eta* under other products
     python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
+    python3 chip_profile.py general-slices  # G1's product, split or not
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
 compiler reports.
 
-``main``, ``grid`` and ``taper`` each build one engine of chip_smoke.py's
-full-size paths twice - a warm-up, then one construction under
-``torch.profiler`` - and print one JSON line: the host window, the device
-time by kernel name, and the device's idle share of the window (one minus
-the union of the kernel intervals over the window). ``--dot-mode`` makes
-that tile-dot mode the module default for the profiled setups.
+``main``, ``grid``, ``taper`` and ``search`` (the grid engine of
+``find_optimal_covariance.main_large``: n = 10^4, 8 x 8 general nus) each
+build one engine of chip_smoke.py's full-size paths twice - a warm-up,
+then one construction under ``torch.profiler`` - and print one JSON line:
+the host window, the device time by kernel name, and the device's idle
+share of the window (one minus the union of the kernel intervals over the
+window). ``--dot-mode`` makes that tile-dot mode the module default for
+the profiled setups.
 
 ``--parent DIR`` loads a second copy of the package, ``DIR/gppe_tpu_torch``
 (the parent commit, unpacked under the git-ignored ``build/``), beside this
@@ -69,12 +73,17 @@ names now.
 ``sass-mix`` compiles the two dense trace sources to machine code and
 prints, for their instances at nu = 1/2, d = 2, the instructions, the MUFU
 operations and the opcode counts: the static mix that the issue rate
-works through. It then compiles a polynomial exp2 on the FP32 pipe (a
-Cody-Waite reduction and a degree-5 Chebyshev interpolant of 2^f on
-[-1/2, 1/2], its error over [-126, 0] printed from a float32 emulation
-on the host) and prints its FP32 operations per call as chip_smoke.py's
-bound counts them: EMULATED_MUFU_FP32_OPS, the price of taking one MUFU
-operation off the SFU.
+works through. It prints, for each piece of the general-nu device function
+(``csrc/matern_bessel.cuh``: the entry, each branch's setup, step and
+finish, the recurrence's start and step, the end), its FP32 and MUFU
+operations (``general_piece_ops``), from which chip_smoke.py's bound of
+the general-nu kernel adds up each pair's work over the trips it takes.
+It then compiles a polynomial exp2 on the FP32 pipe (a Cody-Waite
+reduction and a degree-5 Chebyshev interpolant of 2^f on [-1/2, 1/2], its
+error over [-126, 0] printed from a float32 emulation on the host) and
+prints its FP32 operations per call as chip_smoke.py's bound counts them:
+EMULATED_MUFU_FP32_OPS, the price of taking one MUFU operation off the
+SFU.
 
 ``eta-main`` fits the main path's engine with its products computed other
 ways, the trace(K^2) launch kept: the kernel in each dot mode, the plain
@@ -93,6 +102,13 @@ grid path's 8 rhos; blocksparse_trace over the tapered path's walk at
 n = 2^20), with each library in turns, in this one
 process, with each library's error against plain float64 (multirho: the
 largest over the rhos): how the design choices of the kernels were made.
+
+``general-slices`` times the general-nu product (``matern_general_matmat``)
+at n = 10^4, rho 0.1, nu = 1.2, r = 16 (``main_large``'s width) and
+r = 24, with its columns split over grid.y as
+``cuda_kernels.general_product_slices`` chooses and with one slice, in
+turns, median of 8, and the largest absolute difference of the two
+outputs.
 
 Exits non-zero without a CUDA device.
 """
@@ -124,6 +140,7 @@ from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
 from gppe_tpu_torch.ops.operators import MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
+from gppe_tpu_torch.utils import data as data_utils
 
 
 def ptxas_report():
@@ -193,8 +210,11 @@ def sass_twins(root):
     trees = {"change": _build.CSRC_DIR,
              "parent": Path(root).resolve() / "gppe_tpu_torch" / "csrc"}
     with tempfile.TemporaryDirectory() as tmp:
+        # a source new in this tree has no parent to compile: all of its
+        # kernel functions are without a twin
         jobs = {(tree, src): Path(tmp) / f"{tree}_{Path(src).stem}.cubin"
-                for tree in trees for src in _build.SOURCES}
+                for tree in trees for src in _build.SOURCES
+                if (trees[tree] / src).is_file()}
         procs = [subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", str(out),
              str(trees[tree] / src)]) for (tree, src), out in jobs.items()]
@@ -207,6 +227,7 @@ def sass_twins(root):
         for src in _build.SOURCES:
             change, parent = (sass_functions(
                 jobs[(tree, src)].with_suffix(".sass"))
+                if (tree, src) in jobs else {}
                 for tree in ("change", "parent"))
             bodies = {tuple(b) for b in parent.values()}
             alone = [k for k, b in change.items() if tuple(b) not in bodies]
@@ -247,6 +268,115 @@ def sass_mix():
                     "instructions_per_mufu": len(body) / max(mufu, 1),
                     "opcodes": dict(ops.most_common(24))}), flush=True)
         emulated_exp2_ops(nvcc, cuobjdump, tmp)
+    for piece, ops in general_piece_ops().items():
+        print(json.dumps({"phase": "sass_mix", "source": "matern_bessel.cuh",
+                          "piece": piece, **ops}), flush=True)
+
+
+# One kernel per piece of csrc/matern_bessel.cuh's matern_general, each
+# running the piece once on loaded values: general_piece_ops counts their
+# machine code. end_large is bessel_end's path below z = 80 with no 2^e2
+# factor, which every pair with a correlation above ~1e-30 takes.
+GENERAL_PROBES = r"""
+#include "matern_bessel.cuh"
+using namespace gppe;
+#define IN(k) in[threadIdx.x + 32 * (k)]
+#define OUT(k, v) out[threadIdx.x + 32 * (k)] = (v)
+#define PROBE(name) extern "C" __global__ void name( \
+    const float* in, float* out, const MaternGeneralConsts c)
+PROBE(entry) {
+  const float z = fmaxf(c.sqrt2nu * IN(0), 1e-30f);
+  const float lz = logf(z);
+  OUT(0, z); OUT(1, lz); OUT(2, expf(c.mu * lz));
+}
+PROBE(temme_setup) {
+  const TemmeState t = bessel_temme_setup(IN(0), IN(1), c);
+  OUT(0, t.ff); OUT(1, t.p); OUT(2, t.q); OUT(3, t.cc); OUT(4, t.s);
+  OUT(5, t.s1); OUT(6, t.dd);
+}
+PROBE(temme_step) {
+  TemmeState t{IN(0), IN(1), IN(2), IN(3), IN(4), IN(5), IN(6)};
+  const bool done = bessel_temme_step(threadIdx.x & 15, t, c);
+  OUT(0, t.ff); OUT(1, t.p); OUT(2, t.q); OUT(3, t.cc); OUT(4, t.s);
+  OUT(5, t.s1); OUT(6, done ? 1.0f : 0.0f);
+}
+PROBE(temme_finish) {
+  const TemmeState t{IN(0), IN(1), IN(2), IN(3), IN(4), IN(5), IN(6)};
+  float a, b;
+  bessel_temme_finish(t, IN(7), a, b);
+  OUT(0, a); OUT(1, b);
+}
+PROBE(cf2_setup) {
+  const Cf2State t = bessel_cf2_setup(IN(0), c);
+  OUT(0, t.b); OUT(1, t.d); OUT(2, t.h); OUT(3, t.delh); OUT(4, t.q1);
+  OUT(5, t.q2); OUT(6, t.q); OUT(7, t.cc); OUT(8, t.s);
+}
+PROBE(cf2_step) {
+  Cf2State t{IN(0), IN(1), IN(2), IN(3), IN(4), IN(5), IN(6), IN(7), IN(8)};
+  const bool done = bessel_cf2_step(threadIdx.x & 15, t, c);
+  OUT(0, t.b); OUT(1, t.d); OUT(2, t.h); OUT(3, t.delh); OUT(4, t.q1);
+  OUT(5, t.q2); OUT(6, t.q); OUT(7, t.cc); OUT(8, t.s);
+  OUT(9, done ? 1.0f : 0.0f);
+}
+PROBE(cf2_finish) {
+  const Cf2State t{IN(0), IN(1), IN(2), IN(3), IN(4), IN(5), IN(6), IN(7),
+                   IN(8)};
+  float a, b;
+  bessel_cf2_finish(t, IN(9), c, a, b);
+  OUT(0, a); OUT(1, b);
+}
+PROBE(rec_start) {
+  float f, fp;
+  bessel_rec_start(IN(0), IN(1), IN(2), IN(3), c, f, fp);
+  OUT(0, f); OUT(1, fp);
+}
+PROBE(rec_step) {
+  float f = IN(0), fp = IN(1);
+  int e2 = 0;
+  bessel_rec_step(2 + (threadIdx.x & 15), IN(2), c, f, fp, e2);
+  OUT(0, f); OUT(1, fp); OUT(2, static_cast<float>(e2));
+}
+PROBE(end_small) { OUT(0, bessel_end(IN(0), IN(1), 0, true)); }
+PROBE(end_large) { OUT(0, fminf(IN(0) * expf(-IN(1)), 1.0f)); }
+"""
+
+
+def general_piece_ops():
+    """{piece: {"fp32": operations, "mufu": MUFU operations,
+    "instructions": n}} of each piece of the general-nu device function
+    (csrc/matern_bessel.cuh), from the machine code of GENERAL_PROBES as
+    this checkout's flags compile it: FFMA counted 2, FADD and FMUL 1,
+    integer, comparison and min/max work not at all (the count of
+    chip_smoke.bound()), over the piece's main path - the instructions
+    before the first EXIT, so the out-of-line slow paths of the IEEE
+    division and sqrt are left out, while both sides of a piece's inline
+    branches are in. A probe's own loads and stores are not FP32 work."""
+    nvcc = _build.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "general_probes.cu"
+        src.write_text(GENERAL_PROBES)
+        cubin = src.with_suffix(".cubin")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I",
+                        str(_build.CSRC_DIR), "-cubin", "-o", str(cubin),
+                        str(src)], check=True)
+        with open(cubin.with_suffix(".sass"), "w") as f:
+            subprocess.run([cuobjdump, "-sass", str(cubin)], stdout=f,
+                           check=True)
+        bodies = sass_functions(cubin.with_suffix(".sass"))
+    out = {}
+    for name, body in bodies.items():
+        main_path = []
+        for ins in body:
+            main_path.append(ins)
+            if ins.split()[0] == "EXIT":
+                break
+        ops = Counter((ins.split()[1] if ins.startswith("@")
+                       else ins.split()[0]).split(".")[0]
+                      for ins in main_path)
+        out[name] = {"fp32": 2 * ops["FFMA"] + ops["FADD"] + ops["FMUL"],
+                     "mufu": ops["MUFU"], "instructions": len(main_path)}
+    return out
 
 
 EXP2_DEGREE = 5
@@ -733,6 +863,39 @@ def variant_times(dev, dirs, kernel):
           flush=True)
 
 
+def general_slices(dev):
+    """Median ms of the general-nu product at n = 10^4, r = 16 and 24,
+    with the chosen column slices and with one slice, in turns."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    P = torch.rand((cs.GENERAL_N, 2), generator=g, device=dev)
+    chosen = cuda_kernels.general_product_slices
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = chosen(cs.GENERAL_N, cs.GENERAL_N, sms)
+
+    def product(V, split):
+        cuda_kernels.general_product_slices = (
+            chosen if split else lambda nr, nc, sms=0: 1)
+        try:
+            return cuda_kernels.matern_general_matmat(P, cs.RHO, V,
+                                                      cs.GENERAL_NU)
+        finally:
+            cuda_kernels.general_product_slices = chosen
+
+    fns, diff = {}, {}
+    for r in (16, 24):
+        V = torch.randn((cs.GENERAL_N, r), generator=g, device=dev)
+        fns[f"r{r}:slices{slices}"] = lambda V=V: product(V, True)
+        fns[f"r{r}:slices1"] = lambda V=V: product(V, False)
+        diff[r] = float((product(V, True) - product(V, False)).abs().max())
+    med, times = cs.median_in_turns(fns, REPS)
+    print(json.dumps({"phase": "general_slices",
+                      "nvidia_smi": cs.nvidia_smi(), "n": cs.GENERAL_N,
+                      "nu": cs.GENERAL_NU, "rho": cs.RHO, "slices": slices,
+                      "reps": REPS, "ms_median": med,
+                      "max_abs_diff_split_vs_one": diff, "ms_all": times}),
+          flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: needs an NVIDIA GPU")
@@ -754,6 +917,8 @@ def main(argv):
         sass_twins(argv[argv.index("--parent") + 1])
     if "sass-mix" in argv:
         sass_mix()
+    if "general-slices" in argv:
+        general_slices(dev)
     if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:
@@ -773,6 +938,17 @@ def main(argv):
             pts, X, z, cs.GRID_RHOS, np.full(B, cs.NU), nu_static=cs.NU,
             lanczos_steps=cs.GRID_STEPS, num_probes=cs.GRID_PROBES,
             matrix_free=True, chunk=B, device=dev))
+    if "search" in argv:
+        # find_optimal_covariance.main_large's engine at its defaults
+        rng = np.random.RandomState(31)
+        pts = rng.rand(cs.GENERAL_N, 2)
+        z = data_utils.generate_data(pts, 0.1)
+        X = data_utils.generate_basis_functions(pts, 2)
+        R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
+                           indexing="ij")
+        profile_setup("search", lambda: GridKrylovProfileLikelihood(
+            pts, X, z, R.ravel(), N.ravel(), lanczos_steps=40,
+            num_probes=8, device=dev))
     if "taper" in argv:
         pts, z, X = cs.tapered_problem(cs.TAPER_SIDE)
         op = TaperedMaternOperator(pts, cs.TAPER_SCALE, nu=cs.NU,

@@ -27,7 +27,13 @@ each against its plain PyTorch version on the card:
     configuration (n = 4096; float64 eigendecomposition and Cholesky on
     the card), then n = 8192; and GaussianProcess(X, MaternOperator)
     at n = 100,000, whose fit and likelihood run matern_matmat_mma at
-    widths 1, 6, 16 and 32 and matern_matmat for trace(K^2).
+    widths 1, 6, 16 and 32 and matern_matmat for trace(K^2);
+  * general Matern nu on the general-nu kernel matern_general.cu: the
+    dense API at nu = 1.2 and 3.7 (its elementwise entry), MaternOperator
+    at n = 10,000 through KrylovProfileLikelihood (its product and trace
+    entries), and the (rho, nu) search of
+    drivers.find_optimal_covariance (main_large: n = 10,000 over an 8 x 8
+    grid of general nus; main at a reduced size).
 
     python3 chip_smoke.py
 
@@ -90,7 +96,28 @@ Phases, each raising on failure:
      (iterations per column) and SLQ, Hutchinson's traceinv at 32 probes,
      with the path's launch counts; then matern_matmat at the route's
      widths 1, 6, 16, 32 against plain float64, its plain version and
-     its bound.
+     its bound;
+ 21. the general-nu kernel (matern_general.cu) against plain float64:
+     k over x in geomspace(1e-5, 40) at nu in {0.01, 0.3, 1.2, 3.7, 10,
+     24.9} (finite, in [0, 1], within 3e-5), the product at r in {1, 7,
+     16, 24} and the trace at n = 1000 and 4096 (2-D) and 1000 (3-D),
+     within 1e-5; at the closed forms the general kernel's branch, and
+     matern_matmat launching the closed-form kernels only;
+ 22. the dense API at general nu: generate_correlation on phase 19's grid
+     at nu = 1.2 and 3.7 (the elementwise entry), GaussianProcess.train
+     in 'direct' and 'profiled'; the elementwise entry timed;
+ 23. MaternOperator at n = 10,000, nu = 1.2, through
+     KrylovProfileLikelihood.fit (the product and trace entries, no
+     closed-form kernel) against the float64 eigh route on the same K;
+     the product timed at n = 10^4 and 10^5 (r = 24), the trace at 10^4;
+ 24. the (rho, nu) search: drivers.find_optimal_covariance.main_large at
+     its defaults (n = 10,000, an 8 x 8 grid of general nus, matrix-free)
+     and main cut to a 30 x 30 grid of points, a 6 x 6 (rho, nu) grid and
+     DE with popsize 10 for at most 6 generations.
+The general-nu bounds count each pair's work from the trips this run's
+pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
+of each piece of the device function in this checkout's machine code
+(chip_profile.py sass-mix).
 Then the card's name and power limit, one JSON line of kernel records, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero without a
 CUDA device. Each bound counts what the inputs need: the traces the pairs
@@ -110,7 +137,8 @@ import numpy as np
 import torch
 
 import gppe_tpu_torch
-from gppe_tpu_torch.drivers import profile_kernel_matrix, roofline_matvec
+from gppe_tpu_torch.drivers import (find_optimal_covariance,
+                                    profile_kernel_matrix, roofline_matvec)
 from gppe_tpu_torch.models import direct_likelihood
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
@@ -2140,11 +2168,531 @@ def phase_public_operator_route(dev, main_fit):
     return fit_launches, lp_launches, path_launches
 
 
+# -- general nu: the general-nu kernel and its paths (phases 21-24) -----------
+
+# phase 21's orders: near 0, below and above 1/2, between the closed forms,
+# and up to the edge of the (rho, nu) search's support (25)
+GENERAL_NUS = (0.01, 0.3, 1.2, 3.7, 10.0, 24.9)
+# k against float64: the reference's own float32 error at nu ~ 25
+# (gppe_tpu/ops/kernels.py:33-36); products (Frobenius) and traces
+GENERAL_K_ATOL, GENERAL_FROB_TOL, GENERAL_TRACE_RTOL = 3e-5, 1e-5, 1e-5
+# phases 23 and 24: the operator route at n = 10^4 and the (rho, nu) search
+GENERAL_N, GENERAL_NU, GENERAL_STEPS, GENERAL_PROBES = 10_000, 1.2, 64, 16
+GENERAL_BIG_N = 100_000
+# the pairs whose trips phase 21-24's bounds count, sampled per shape
+TRIP_SAMPLE = 1 << 21
+LN2, F32_EPS = 0.693147180559945, float(np.finfo(np.float32).eps)
+
+
+def general_trips(z, nu):
+    """The trips each lane of z (scaled sqrt(2 nu) x, float32, > 0) takes
+    in the general-nu kernel: (below z = 2, the Temme terms or CF2 steps
+    it runs), in float32 with the kernel's per-launch constants and its
+    convergence test, as the loops of csrc/matern_bessel.cuh run them."""
+    c = cuda_kernels._general_consts(nu)
+    mu, a1, fact, gam1, gam2, p0, q0 = (float(v) for v in c["scalars"][1:8])
+    dev = z.device
+    tem = torch.as_tensor(c["temme"], device=dev)
+    cf = torch.as_tensor(c["cf2"], device=dev)
+    small = z < 2.0
+    trips = torch.zeros(z.shape, dtype=torch.int32, device=dev)
+
+    def run(state, step, count):
+        live = torch.ones(state[0].shape, dtype=torch.bool, device=dev)
+        taken = torch.zeros(state[0].shape, dtype=torch.int32, device=dev)
+        for i in range(count):
+            state, converged = step(i, state)
+            taken += live.int()
+            live &= ~converged
+            if not bool(live.any()):
+                break
+        return taken
+
+    zs = z[small]
+    if zs.numel():
+        d = LN2 - torch.log(zs)
+        e = mu * d
+        fact2 = torch.where(e == 0, torch.ones_like(e),
+                            torch.sinh(e) / torch.where(e == 0,
+                                                        torch.ones_like(e),
+                                                        e))
+        ee, eei = torch.exp(e), torch.exp(-e)
+        ff = fact * (gam1 * (0.5 * (ee + eei)) + gam2 * fact2 * d)
+        dd = (0.5 * zs) ** 2
+
+        def temme(i, st):
+            ff, p, q, cc, s, s1 = st
+            fi = float(i + 1)
+            ff = (fi * ff + p + q) * tem[0, i]
+            cc = cc * dd * tem[3, i]
+            p, q = p * tem[1, i], q * tem[2, i]
+            dl, dl1 = cc * ff, cc * (p - fi * ff)
+            s, s1 = s + dl, s1 + dl1
+            return (ff, p, q, cc, s, s1), ((dl.abs() < s.abs() * F32_EPS)
+                                           & (dl1.abs() < s1.abs() * F32_EPS))
+        p = p0 * ee
+        trips[small] = run((ff, p, q0 * eei, torch.ones_like(ff), ff, p),
+                           temme, 30)
+    zl = z[~small]
+    if zl.numel():
+        b = 2.0 * (1.0 + zl)
+        d = 1.0 / b
+
+        def cf2(i, st):
+            b, d, h, delh, q1, q2, q, cc, s = st
+            cc = cc * cf[2, i]
+            qnew = (q1 - b * q2) * cf[1, i]
+            q1, q2 = q2, qnew
+            q = q + cc * qnew
+            b = b + 2.0
+            d = 1.0 / (b + cf[0, i] * d)
+            delh = (b * d - 1.0) * delh
+            h = h + delh
+            dels = q * delh
+            s = s + dels
+            return ((b, d, h, delh, q1, q2, q, cc, s),
+                    (dels.abs() < s.abs() * F32_EPS)
+                    & (delh.abs() < h.abs() * F32_EPS))
+        full = torch.full_like(zl, a1)
+        trips[~small] = run((b, d, d, d, torch.zeros_like(zl),
+                             torch.ones_like(zl), full, full,
+                             1.0 + a1 * d), cf2, 59)
+    return small, trips
+
+
+_GENERAL_PIECES = None
+
+
+def general_pieces():
+    """FP32 and MUFU operations of each piece of the general-nu device
+    function, counted from this checkout's machine code
+    (chip_profile.general_piece_ops, `chip_profile.py sass-mix`)."""
+    global _GENERAL_PIECES
+    if _GENERAL_PIECES is None:
+        import chip_profile
+        _GENERAL_PIECES = chip_profile.general_piece_ops()
+        log(phase="general_pieces", pieces=_GENERAL_PIECES)
+    return _GENERAL_PIECES
+
+
+def general_k_work(x, nu):
+    """Mean FP32 and MUFU operations of one k over the scaled distances x
+    (float32, a sample of the call's pairs): each nonzero x its entry, its
+    branch's setup, trips and finish, the recurrence and the end; x = 0
+    none (the kernel returns 1)."""
+    pc = general_pieces()
+    xs = x[x > 0]
+    z = torch.clamp(float(np.float32(np.sqrt(2.0 * nu))) * xs, min=1e-30)
+    small, trips = general_trips(z, nu)
+    nl = int(np.floor(nu + 0.5))
+    rec = ({"fp32": 1 + (nl - 2) * pc["rec_step"]["fp32"],
+            "mufu": (nl - 2) * pc["rec_step"]["mufu"]} if nl >= 2
+           else {"fp32": 0, "mufu": 0})
+    frac_small = float(small.float().mean())
+    out = {}
+    for key in ("fp32", "mufu"):
+        fixed = pc["entry"][key] + pc["rec_start"][key] + rec[key]
+        t = trips[small].double().mean() if frac_small > 0 else 0.0
+        c = trips[~small].double().mean() if frac_small < 1 else 0.0
+        per = (fixed
+               + frac_small * (pc["temme_setup"][key] + pc["temme_finish"][key]
+                               + pc["end_small"][key]
+                               + float(t) * pc["temme_step"][key])
+               + (1 - frac_small) * (pc["cf2_setup"][key]
+                                     + pc["cf2_finish"][key]
+                                     + pc["end_large"][key]
+                                     + float(c) * pc["cf2_step"][key]))
+        out[key] = per * xs.numel() / max(x.numel(), 1)
+    out["share_below_2"] = frac_small
+    out["mean_temme_terms"] = (float(trips[small].float().mean())
+                               if frac_small > 0 else None)
+    out["mean_cf2_steps"] = (float(trips[~small].float().mean())
+                             if frac_small < 1 else None)
+    return out
+
+
+def sample_pair_distances(P, rho, seed=0):
+    """Scaled distances of TRIP_SAMPLE random pairs i != j of the points P
+    (float32 on the card), as the kernels compute them."""
+    n = P.shape[0]
+    g = torch.Generator(device=P.device).manual_seed(seed)
+    i = torch.randint(0, n, (TRIP_SAMPLE,), generator=g, device=P.device)
+    j = torch.randint(0, n, (TRIP_SAMPLE,), generator=g, device=P.device)
+    keep = i != j
+    S = P / rho
+    return torch.sqrt(((S[i[keep]] - S[j[keep]]) ** 2).sum(dim=1))
+
+
+def general_bound(kind, n, d, r, nu, x_sample, elements=None):
+    """bound() of one general-nu launch over this run's data: the
+    elementwise entry over ``elements`` distances; the symmetric product
+    K @ V (n x n, V n x r) and the trace over the n (n + 1) / 2 pairs of
+    the symmetric walk (K is symmetric bit for bit), each pair its
+    distance (3 d and a sqrt) and, off the diagonal, one k; then the
+    product 2 r FMA operations on each of the n^2 ordered pairs (each k
+    serves K[i, j] and K[j, i]), the trace one FMA on each walk pair. k's
+    work is the mean over ``x_sample``, the call's own distances
+    (general_k_work). Returns (ms, by, term, work)."""
+    work = general_k_work(x_sample, nu)
+    if kind == "elementwise":
+        return (*bound(8 * elements, elements * work["fp32"],
+                       mufu_ops=elements * work["mufu"]), work)
+    off = n * (n - 1) // 2
+    pairs = off + n
+    ops = pairs * 3 * d + off * work["fp32"]
+    if kind == "product":
+        ops += n * n * 2 * r
+        nbytes = 4 * (n * d + 2 * n * r)
+    else:
+        ops += 2 * pairs
+        nbytes = 4 * n * d + 8
+    return (*bound(nbytes, ops, mufu_ops=pairs + off * work["mufu"]), work)
+
+
+def launched(counts, *names):
+    return {k: counts.get(k, 0) for k in names}
+
+
+GENERAL_COUNTERS = ("matern_general_elementwise", "matern_general_product",
+                    "matern_general_trace")
+CLOSED_FORM_COUNTERS = ("matern_matmat", "matern_matmat_mma",
+                        "matern_matmat_multirho",
+                        "matern_matmat_multirho_mma")
+
+
+def phase_general_parity(dev):
+    """Phase 21: the three entries of the general-nu kernel against plain
+    float64 on the card. (a) k over x in geomspace(1e-5, 40) and 0 at each
+    nu of GENERAL_NUS: finite, in [0, 1], within GENERAL_K_ATOL; (b) and
+    (c) at n = 1000 and 4096 random 2-D points and n = 1000 3-D points,
+    r in {1, 7, 16, 24}: products and traces within GENERAL_FROB_TOL and
+    GENERAL_TRACE_RTOL. Then the closed forms: the general kernel at
+    nu = 1/2, 3/2, 5/2 and 150 against their plain forms, and matern_matmat
+    there launching the closed-form kernels only."""
+    x = torch.cat([torch.zeros(1, device=dev),
+                   torch.logspace(-5, np.log10(40.0), 200_000,
+                                  device=dev)]).float()
+    elem = {}
+    for nu in GENERAL_NUS:
+        got = cuda_kernels.matern_general(x, nu)
+        want = kernels.matern(x.double(), nu)
+        # the reference's log form in float32 (the plain version), logged:
+        # the two logs it sums cancel to log k
+        plain = kernels.matern(x, nu)
+        elem[nu] = {"max_abs_err": float((got.double() - want).abs().max()),
+                    "plain_f32_max_abs_err": float(
+                        (plain.double() - want).abs().max()),
+                    "finite": bool(torch.isfinite(got).all()),
+                    "in_0_1": bool(((got >= 0) & (got <= 1)).all()),
+                    "at_zero": float(got[0])}
+    ok = all(e["finite"] and e["in_0_1"] and e["at_zero"] == 1.0
+             and e["max_abs_err"] < GENERAL_K_ATOL for e in elem.values())
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    products = []
+    for n, d in ((1000, 2), (4096, 2), (1000, 3)):
+        P = torch.rand((n, d), generator=g, device=dev)
+        V = torch.randn((n, 24), generator=g, device=dev)
+        scale = kernels.broadcast_scale(RHO, d, dtype=F64, device=dev)
+        for nu in GENERAL_NUS:
+            want, fro_want = cuda_kernels.matern_matmat_plain(
+                P.double(), scale, V.double(), nu, frobenius=True)
+            fro = cuda_kernels.matern_general_matmat(
+                P, RHO, None, nu, frobenius=True)[1]
+            rec = {"n": n, "d": d, "nu": nu,
+                   "trace_rel_err": rel_gap(float(fro), float(fro_want)),
+                   "frob_rel_err": {}}
+            for r in (1, 7, 16, 24):
+                got = cuda_kernels.matern_general_matmat(
+                    P, RHO, V[:, :r].contiguous(), nu)
+                rec["frob_rel_err"][r] = compare(got, want[:, :r])[0]
+            products.append(rec)
+    ok = ok and all(p["trace_rel_err"] < GENERAL_TRACE_RTOL
+                    and max(p["frob_rel_err"].values()) < GENERAL_FROB_TOL
+                    for p in products)
+
+    # the closed forms: the general kernel's own branch for them (the
+    # grid's mixed nus reach it), and the closed-form kernels unchanged:
+    # matern_matmat at those nus launches them, never the general kernel
+    closed = {}
+    P = torch.rand((2000, 2), generator=g, device=dev)
+    V = torch.randn((2000, 7), generator=g, device=dev)
+    for nu in (0.5, 1.5, 2.5, 150.0):
+        k_err = float((cuda_kernels.matern_general(x, nu).double()
+                       - kernels.matern(x.double(), nu)).abs().max())
+        cuda_kernels.reset_launch_counts()
+        got, fro = cuda_kernels.matern_matmat(P, RHO, V, nu, frobenius=True)
+        counts = dict(cuda_kernels.launch_counts)
+        want, fro_want = cuda_kernels.matern_matmat_plain(
+            P.double(), kernels.broadcast_scale(RHO, 2, dtype=F64,
+                                                device=dev),
+            V.double(), nu, frobenius=True)
+        closed[nu] = {"general_kernel_k_max_abs_err": k_err,
+                      "matern_matmat_frob_rel_err": compare(got, want)[0],
+                      "matern_matmat_trace_rel_err": rel_gap(
+                          float(fro), float(fro_want)),
+                      "launches": {k: v for k, v in counts.items() if v}}
+        ok = (ok and k_err < 1e-6
+              and closed[nu]["matern_matmat_frob_rel_err"] < FROB_TOL
+              and closed[nu]["matern_matmat_trace_rel_err"] < TRACE_RTOL
+              and counts["matern_matmat_mma"] == 1
+              and counts["matern_matmat"] == 1
+              and not any(counts[k] for k in GENERAL_COUNTERS))
+    log(phase="general_parity", ok=ok, nus=list(GENERAL_NUS),
+        k_atol=GENERAL_K_ATOL, frob_tol=GENERAL_FROB_TOL,
+        trace_rtol=GENERAL_TRACE_RTOL, elementwise=elem, products=products,
+        closed_forms=closed)
+    if not ok:
+        raise AssertionError("the general-nu kernel disagrees with float64")
+
+
+def phase_general_dense_api(dev):
+    """Phase 22: generate_correlation on the reference's 64 x 64 grid (rho
+    0.1, noise 0.2, degree-2 basis, as phase 19) at nu = 1.2 and 3.7, then
+    GaussianProcess(X, K).train(z) by both methods; the launch counts of
+    the two calls in one window per nu. Then the elementwise entry timed
+    at that shape (K of n = 4096: 16.8M distances) against its plain
+    version and its bound."""
+    pts = data_utils.generate_points(DENSE_SIDE, dimension=2)
+    z, X = dense_problem(pts)
+    P64 = torch.as_tensor(pts, dtype=F64, device=dev)
+    fits, window = {}, {}
+    ok = True
+    for nu in (1.2, 3.7):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        K = gppe_tpu_torch.generate_correlation(pts, RHO, nu=nu, device=dev)
+        assembly_s = sync_seconds(t0)
+        rec = {}
+        for method in ("direct", "profiled"):
+            _, rec[method] = dense_fit(dev, K, X, z, method)
+        window[nu] = {k: v for k, v in cuda_kernels.launch_counts.items()
+                      if v}
+        want = kernels.matern(
+            kernels.pairwise_scaled_distance(P64, P64, RHO), nu)
+        err = float((K.double() - want).abs().max())
+        del want
+        agree = rel_gap(rec["direct"]["eta"], rec["profiled"]["eta"])
+        fits[nu] = {"assembly_s": assembly_s,
+                    "assembly_max_abs_err_vs_f64": err,
+                    "symmetry_max_abs": float((K - K.T).abs().max()),
+                    "direct_vs_profiled_eta_rel_gap": agree, **rec}
+        ok = (ok and K.dtype == F32 and err < GENERAL_K_ATOL
+              and fits[nu]["symmetry_max_abs"] == 0.0
+              and bool(torch.all(torch.diagonal(K) == 1.0))
+              and all(f["success"] and f["finite"]
+                      and 0.18 < f["sigma0"] < 0.22 for f in rec.values())
+              and agree < 1e-3
+              and window[nu].get("matern_general_elementwise", 0) > 0)
+        del K
+
+    # the elementwise entry at this shape: kernel, plain float32, bound
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    dist = kernels.pairwise_scaled_distance(P, P, RHO).contiguous()
+    nu = 3.7
+    got = cuda_kernels.matern_general(dist, nu)
+    err = float((got.double() - kernels.matern(dist.double(), nu))
+                .abs().max())
+    med, times = median_in_turns({
+        "kernel": lambda: cuda_kernels.matern_general(dist, nu),
+        "plain": lambda: kernels.matern(dist, nu)}, reps=5)
+    flat = dist.reshape(-1)
+    sample = flat[torch.randint(0, flat.numel(), (TRIP_SAMPLE,),
+                                device=dev)]
+    bound_ms, bound_by, term, work = general_bound(
+        "elementwise", None, None, None, nu, sample, elements=flat.numel())
+    measured = {"max_abs_err": err, "ms": med["kernel"],
+                "plain_ms": med["plain"], "bound_ms": bound_ms,
+                "bound_by": bound_by}
+    log(phase="general_dense_api", ok=ok, n=len(pts), rho=RHO, fits=fits,
+        launches_per_nu=window, elementwise_nu=nu,
+        elementwise_elements=flat.numel(), elementwise=measured,
+        elementwise_bound_term=term, elementwise_work_per_k=work,
+        kernel_ms_all=times["kernel"])
+    if not ok:
+        raise AssertionError(f"dense public API at general nu failed: "
+                             f"{fits}")
+    return window, measured
+
+
+def phase_general_operator_route(dev):
+    """Phase 23: MaternOperator at n = 10^4 random points, nu = 1.2,
+    through KrylovProfileLikelihood.fit() (64 steps, 16 probes), in its
+    own launch window, against the float64 eigh route on the same K
+    assembled by the elementwise entry (GaussianProcess 'profiled'). Then
+    the product timed at n = 10^4 and 10^5, r = 24, and the trace at
+    n = 10^4, each against its plain version (float32, row-blocked) where
+    that runs in seconds, and its bound."""
+    pts, z, X = make_problem(GENERAL_N, 7)
+    op = MaternOperator(pts, RHO, nu=GENERAL_NU, device=dev)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = KrylovProfileLikelihood(op, X, z, lanczos_steps=GENERAL_STEPS,
+                                  num_probes=GENERAL_PROBES, device=dev)
+    setup_s = sync_seconds(t0)
+    t0 = time.perf_counter()
+    res = eng.fit()
+    fit_s = time.perf_counter() - t0
+    window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    del eng
+
+    t0 = time.perf_counter()
+    K = gppe_tpu_torch.generate_correlation(pts, RHO, nu=GENERAL_NU,
+                                            device=dev)
+    gp, exact = dense_fit(dev, K, X, z, "profiled")
+    exact_s = time.perf_counter() - t0
+    del gp, K
+    gap = rel_gap(res["eta"], exact["eta"])
+    ok = (res["success"] and exact["success"] and gap < 5e-2
+          and window.get("matern_general_product", 0) > 0
+          and window.get("matern_general_trace", 0) > 0
+          and not any(window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
+
+    P = op.points
+    g = torch.Generator(device=dev).manual_seed(23)
+    times = {}
+    V = torch.randn((GENERAL_N, 24), generator=g, device=dev)
+    got = cuda_kernels.matern_general_matmat(P, op.scale, V, GENERAL_NU)
+    want = cuda_kernels.matern_matmat_plain(P.double(), op.scale.double(),
+                                            V.double(), GENERAL_NU)
+    frob, max_abs = compare(got, want)
+    del want
+    med, all_ms = median_in_turns({
+        "product": lambda: cuda_kernels.matern_general_matmat(
+            P, op.scale, V, GENERAL_NU),
+        "plain_product": lambda: cuda_kernels.matern_matmat_plain(
+            P, op.scale, V, GENERAL_NU),
+        "trace": lambda: cuda_kernels.matern_general_matmat(
+            P, op.scale, None, GENERAL_NU, frobenius=True),
+        "plain_trace": lambda: cuda_kernels.matern_matmat_plain(
+            P, op.scale, None, GENERAL_NU, frobenius=True)}, reps=5)
+    fro = cuda_kernels.matern_general_matmat(P, op.scale, None, GENERAL_NU,
+                                             frobenius=True)[1]
+    fro_want = cuda_kernels.matern_matmat_plain(
+        P.double(), op.scale.double(), None, GENERAL_NU, frobenius=True)[1]
+    trace_err = abs(float(fro) - float(fro_want))
+    ok = (ok and frob < GENERAL_FROB_TOL
+          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL)
+    sample = sample_pair_distances(P, float(RHO), seed=23)
+    prod_bound = general_bound("product", GENERAL_N, 2, 24, GENERAL_NU,
+                               sample)
+    trace_bound = general_bound("trace", GENERAL_N, 2, 0, GENERAL_NU,
+                                sample)
+    # n = 10^5, r = 24: one launch each, median of 5 (the plain version
+    # would take minutes: not measured)
+    big = torch.rand((GENERAL_BIG_N, 2), generator=g, device=dev)
+    Vb = torch.randn((GENERAL_BIG_N, 24), generator=g, device=dev)
+    cuda_kernels.matern_general_matmat(big, RHO, Vb, GENERAL_NU)
+    big_ms = timed(lambda: cuda_kernels.matern_general_matmat(
+        big, RHO, Vb, GENERAL_NU), 5)
+    big_bound = general_bound("product", GENERAL_BIG_N, 2, 24, GENERAL_NU,
+                              sample_pair_distances(big, RHO, seed=24))
+    times = {"product_n1e4_r24": {
+                 "ms": med["product"], "plain_ms": med["plain_product"],
+                 "bound_ms": prod_bound[0], "bound_term": prod_bound[2],
+                 "frob_rel_err": frob, "max_abs_err": max_abs,
+                 "ms_all": all_ms["product"]},
+             "trace_n1e4": {
+                 "ms": med["trace"], "plain_ms": med["plain_trace"],
+                 "bound_ms": trace_bound[0], "bound_term": trace_bound[2],
+                 "abs_err": trace_err, "ms_all": all_ms["trace"]},
+             "product_n1e5_r24": {
+                 "ms": statistics.median(big_ms), "plain_ms": None,
+                 "bound_ms": big_bound[0], "bound_term": big_bound[2],
+                 "ms_all": big_ms}}
+    log(phase="general_operator_route", ok=ok, n=GENERAL_N, rho=RHO,
+        nu=GENERAL_NU, lanczos_steps=GENERAL_STEPS,
+        num_probes=GENERAL_PROBES, setup_seconds=setup_s, fit_seconds=fit_s,
+        fit=res, launches=window, eigh_route=exact,
+        eigh_route_seconds=exact_s, eta_rel_gap_to_eigh_route=gap,
+        times=times, work_per_k=prod_bound[3],
+        work_per_k_n1e5=big_bound[3])
+    if not ok:
+        raise AssertionError(f"general-nu operator route failed: {res}, "
+                             f"eigh route {exact}, launches {window}")
+    return window, (
+        {"max_abs_err": max_abs, "ms": med["product"],
+         "plain_ms": med["plain_product"], "bound_ms": prod_bound[0],
+         "bound_by": prod_bound[1]},
+        {"max_abs_err": trace_err, "ms": med["trace"],
+         "plain_ms": med["plain_trace"], "bound_ms": trace_bound[0],
+         "bound_by": trace_bound[1]})
+
+
+# phase 24's cuts: main_large at its own defaults unless it runs over
+# this many seconds (then a 4 x 4 grid); main at 30 x 30 points, a 6 x 6
+# grid, DE with popsize 10 for at most 6 generations (the reference: a
+# 61 x 60 grid, popsize 24, 40 generations)
+LARGE_GRID_LIMIT_S = 120.0
+MAIN_CUTS = {"num_points": 30, "grid_rho": 6, "grid_nu": 6, "popsize": 10,
+             "max_generations": 6}
+
+
+def phase_general_search(dev):
+    """Phase 24: the (rho, nu) search, each call in its own launch window:
+    the driver twin's main_large at its defaults (n = 10^4, 8 x 8 general
+    nus, 40 steps, 8 probes; the general-nu product and trace kernels for
+    every point), then main at MAIN_CUTS (the elementwise entry for every
+    lp)."""
+    cuda_kernels.reset_launch_counts()
+    large = find_optimal_covariance.main_large(verbose=False, device=dev)
+    large_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    grid = (8, 8)
+    if large["setup_seconds"] + large["fit_seconds"] > LARGE_GRID_LIMIT_S:
+        grid = (4, 4)
+        log(phase="general_search_cut", main_large_grid=grid,
+            reason=f"8 x 8 took over {LARGE_GRID_LIMIT_S} s")
+    ok = (bool(np.all(np.isfinite(large["Lp"])))
+          and all(r["success"] for r in large["results"])
+          and large["matrix_free"]
+          and large_window.get("matern_general_product", 0) > 0
+          and large_window.get("matern_general_trace", 0) > 0
+          and not any(large_window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
+
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    small = find_optimal_covariance.main(verbose=False, device=dev,
+                                         **MAIN_CUTS)
+    main_s = sync_seconds(t0)
+    main_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    ok = (ok and bool(np.all(np.isfinite(small["Lp"])))
+          and 0.1 <= small["de_rho"] <= 0.3
+          and 1.0 <= small["de_nu"] <= 25.0 and np.isfinite(small["de_lp"])
+          and main_window.get("matern_general_elementwise", 0) > 0
+          and not any(main_window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
+    log(phase="general_search", ok=ok,
+        main_large={"n": large["n"], "grid": [len(large["rhos"]),
+                                              len(large["nus"])],
+                    "lanczos_steps": 40, "num_probes": 8,
+                    "chunk": large["chunk"],
+                    "setup_seconds": large["setup_seconds"],
+                    "fit_seconds": large["fit_seconds"],
+                    "seconds_per_point": large["seconds_per_point"],
+                    "map_rho": large["optimal_rho"],
+                    "map_nu": large["optimal_nu"],
+                    "max_lp": large["max_lp"],
+                    "etas": [r["eta"] for r in large["results"]]},
+        main_large_launches=large_window,
+        main_cuts=MAIN_CUTS, main_seconds=main_s,
+        main={k: small[k] for k in ("max_lp", "optimal_rho", "optimal_nu",
+                                    "de_rho", "de_nu", "de_lp",
+                                    "de_generations")},
+        main_launches=main_window)
+    if not ok:
+        raise AssertionError(f"(rho, nu) search failed: main_large "
+                             f"{large['Lp']}, main {small}")
+    return large_window, main_window
+
+
 def kernel_record(name, source, replaces, launches, measured,
-                  launches_public_api=None):
+                  launches_public_api=None, launches_per_path=None):
     """``launches``: the kernel's count on its path's run (phase 5, 10, 12,
-    15, 16 or 17); ``launches_public_api``, for B1: its count in phase
-    20's two windows, the public API's operator-route fit and its
+    15, 16 or 17), or for the general-nu kernel the sum over the paths of
+    ``launches_per_path`` (phases 22-24, each path's count from its own
+    window); ``launches_public_api``, for B1: its count in phase 20's two
+    windows, the public API's operator-route fit and its
     likelihood(z, hp)."""
     # library_ms: no single PyTorch call computes any of these products,
     # because K is never stored (40 GB at n = 10^5)
@@ -2154,6 +2702,8 @@ def kernel_record(name, source, replaces, launches, measured,
            "library_ms": None}
     if launches_public_api is not None:
         rec["launches_public_api"] = launches_public_api
+    if launches_per_path is not None:
+        rec["launches_per_path"] = launches_per_path
     return rec
 
 
@@ -2185,6 +2735,32 @@ def main():
     phase_dense_api(dev)
     launches_fit, launches_lp, launches_api = phase_public_operator_route(
         dev, main_fit)
+    phase_general_parity(dev)
+    launches_22, measured_elem = phase_general_dense_api(dev)
+    launches_23, (measured_prod, measured_gtrace) = \
+        phase_general_operator_route(dev)
+    launches_large, launches_main = phase_general_search(dev)
+    # each path's window, reset just before it; the entries each launches
+    windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
+               "operator_route": launches_23, "main_large": launches_large,
+               "main": launches_main}
+    expected = {"matern_general_elementwise": ("dense_api_nu1.2",
+                                               "dense_api_nu3.7", "main"),
+                "matern_general_product": ("operator_route", "main_large"),
+                "matern_general_trace": ("operator_route", "main_large")}
+    per_path = {k: {path: w.get(k, 0) for path, w in windows.items()}
+                for k in GENERAL_COUNTERS}
+    missing = [(k, path) for k, paths in expected.items() for path in paths
+               if per_path[k][path] == 0]
+    if missing:
+        raise AssertionError(f"a general-nu kernel was never launched on a "
+                             f"path that runs it: {missing}, {per_path}")
+
+    def general_record(entry, replaces, measured):
+        counts = per_path[f"matern_general_{entry}"]
+        return kernel_record(f"matern_general[{entry}]", "matern_general.cu",
+                             replaces, sum(counts.values()), measured,
+                             launches_per_path=counts)
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
                   for k in ("matern_matmat_mma", "matern_matmat")),
@@ -2239,7 +2815,16 @@ def main():
         kernel_record("matern_matmat_blocksparse_mma[bf16x3]",
                       "matern_blocksparse_mma.cu", f"{PALLAS}:64",
                       launches_default["matern_matmat_blocksparse_mma"],
-                      measured["blocksparse_bf16x3"])]}))
+                      measured["blocksparse_bf16x3"]),
+        # general nu: no Pallas kernel; XLA-fused on the TPU at these sites
+        general_record("elementwise", "gppe_tpu/ops/assembly.py:22",
+                       measured_elem),
+        general_record("product", "gppe_tpu/ops/operators.py:22; "
+                       "gppe_tpu/models/grid_krylov.py:128-141",
+                       measured_prod),
+        general_record("trace", "gppe_tpu/ops/operators.py:42; "
+                       "gppe_tpu/models/grid_krylov.py:128-141",
+                       measured_gtrace)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

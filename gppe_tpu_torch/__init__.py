@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are five paths; the
+counterpart sits at the same path. Ported so far are six paths; the
 first four run hand-written CUDA kernels behind the wrappers of
 ``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
 tile-dot mode), the fifth reaches them through a matrix-free K:
@@ -27,7 +27,13 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   ops.stochastic) and the host float64 direct and profiled likelihoods;
   a matrix-free K takes the operator route (KrylovProfileLikelihood for
   the fit, CG and SLQ through ``matern_matmat`` for ``likelihood``).
-  drivers.maximize_likelihood_direct_method times it.
+  drivers.maximize_likelihood_direct_method times it;
+* general Matern nu (the Bessel K_nu of ops.special) on every dense path:
+  generate_correlation, MaternOperator and the grid engine over per-point
+  (rho, nu), on the general-nu kernel ``matern_general`` (elementwise
+  assembly, K @ V, trace(K^2)); drivers.find_optimal_covariance runs the
+  (rho, nu) search over it (ops.global_opt.differential_evolution,
+  models.priors).
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 
@@ -48,7 +54,9 @@ The package imports neither ``jax`` nor ``gppe_tpu``.
 from .models.gaussian_process import GaussianProcess
 from .models.grid_krylov import GridKrylovProfileLikelihood
 from .models.large_scale import KrylovProfileLikelihood
+from .ops import special
 from .ops.assembly import generate_correlation
+from .ops.global_opt import differential_evolution
 from .ops.operators import MaternOperator
 from .ops.taper import TaperedMaternOperator
 
@@ -56,4 +64,5 @@ __version__ = "0.1.0"
 
 __all__ = ["GaussianProcess", "GridKrylovProfileLikelihood",
            "KrylovProfileLikelihood", "MaternOperator",
-           "TaperedMaternOperator", "generate_correlation", "__version__"]
+           "TaperedMaternOperator", "differential_evolution",
+           "generate_correlation", "special", "__version__"]

@@ -16,28 +16,63 @@ eta-dependence of ONE kernel; this module amortizes the *grid*:
    (``KrylovProfileLikelihood.from_factorization``) whose per-eta math is
    O(k^2) float64: the root-find over eta costs microseconds per point.
 
-Every point of a grid shares one closed-form ``nu_static``; a general nu
-needs the Bessel K_nu of ``ops/special.py``, which is not ported yet.
+A grid whose points share one closed-form ``nu_static`` takes the
+multi-rho kernel (matrix-free) or one closed-form assembly per rho (dense).
+Any other grid - ``nu_static=None`` with per-point ``nus``, as the
+reference's (rho, nu) sweeps run it, or a general ``nu_static`` - takes
+the general-nu kernel ``csrc/matern_general.cu``, point by point, as the
+reference's general branch maps its row-blocked XLA matvec over the
+chunk's points: the matrix-free chunk calls the product and trace entries
+(:func:`cuda_kernels.matern_general_matmat`) for each point. The dense
+chunk of any grid assembles each K(rho, nu) once - a general nu with the
+elementwise entry (:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`)
+- and multiplies with ``torch.matmul``. On the CPU they run their plain
+versions.
 """
 
 import numpy as np
 import torch
 
-from ..ops import cuda_kernels, kernels, stochastic
+from ..ops import assembly, cuda_kernels, kernels, stochastic
 from ..utils.config import resolve_device, setup
 from .large_scale import KrylovProfileLikelihood
 
 
-def _factorize_chunk(points, rhos, nu, AB, k, s):
-    """Dense variant (small n): materializes a (b, n, n) kernel chunk
-    ONCE, then runs the shared batched factorization with plain batched
-    matmuls as the matvec."""
+def _factorize_chunk(points, rhos, nus, AB, k, s):
+    """Dense variant (small n): each K(rho, nu) of the chunk assembled
+    ONCE (a closed form in plain PyTorch, a general nu by the general-nu
+    elementwise kernel: ``assembly.correlation_of_distances``), then the
+    shared batched factorization with plain batched matmuls as the
+    matvec."""
     Ks = torch.stack([
-        kernels.matern(kernels.pairwise_scaled_distance(points, points, rho),
-                       nu) for rho in rhos])                # (B, n, n)
-    return _factorize_common(AB, rhos.shape[0], k, s,
+        assembly.correlation_of_distances(
+            kernels.pairwise_scaled_distance(points, points, rho), nu)
+        for rho, nu in zip(rhos, nus)])                     # (B, n, n)
+    return _factorize_common(AB, len(rhos), k, s,
                              lambda W: torch.matmul(Ks, W),
                              lambda: torch.sum(Ks * Ks, dim=(1, 2)))
+
+
+def _factorize_chunk_general_matrixfree(points, rhos, nus, AB, k, s,
+                                        block_rows):
+    """Matrix-free variant over per-point (rho, nu): each Lanczos step
+    runs the general-nu product kernel once per point, and one trace
+    launch per point follows; ``block_rows`` is the row blocking of their
+    plain version on the CPU."""
+    def bmv(W):                                             # (B, n, r)
+        return torch.stack([
+            cuda_kernels.matern_general_matmat(
+                points, rho, W[b].contiguous(), nu, block_rows=block_rows)
+            for b, (rho, nu) in enumerate(zip(rhos, nus))])
+
+    def tk2():
+        return torch.stack([
+            cuda_kernels.matern_general_matmat(
+                points, rho, None, nu, frobenius=True,
+                block_rows=block_rows)[1]
+            for rho, nu in zip(rhos, nus)])
+
+    return _factorize_common(AB, len(rhos), k, s, bmv, tk2)
 
 
 def _factorize_chunk_matrixfree(points, rhos, nu, AB, k, s, block_rows):
@@ -137,9 +172,10 @@ class GridKrylovProfileLikelihood:
                  verbose=False, *, device="cuda", dtype=torch.float32,
                  generator=None, probes=None, v_defl=None):
         """``rhos``/``nus``: flat arrays of equal length (one entry per
-        grid point). ``nu_static``: the one nu every point shares, in the
-        closed-form set {0.5, 1.5, 2.5, >= 100}; required, because a
-        general nu is not ported yet. ``chunk``: kernels per batch
+        grid point). ``nu_static``: the one nu every point shares (then
+        ``nus`` is not read); a closed form (0.5, 1.5, 2.5, >= 100) takes
+        the multi-rho kernel, None or a general nu the general-nu kernel
+        point by point. ``chunk``: kernels per batch
         (default sized so device memory per chunk stays under
         ``max_chunk_bytes``). ``matrix_free``: never materialize the
         (b, n, n) kernel chunk; default auto: dense below n=8192,
@@ -150,13 +186,9 @@ class GridKrylovProfileLikelihood:
         pass runs, and the random block, drawn from ``generator`` (else
         from a new one seeded with ``key``) unless given explicitly."""
         setup()
-        if nu_static is None:
-            raise NotImplementedError(
-                "nu_static=None: a grid over general (traced) nu needs the "
-                "Bessel K_nu of ops/special.py, which is not ported yet; "
-                "pass the closed-form nu_static that every grid point "
-                "shares")
-        nu_static = kernels.check_static_nu(nu_static)
+        if nu_static is not None:
+            nu_static = cuda_kernels.check_nu(nu_static)
+        general = nu_static is None or not kernels.is_closed_form(nu_static)
         device = resolve_device(device)
         points = np.asarray(points, dtype=np.float64)
         X = np.asarray(X, dtype=np.float64)
@@ -170,6 +202,10 @@ class GridKrylovProfileLikelihood:
             raise ValueError("rhos and nus must have equal length "
                              "(flat per-point arrays)")
         self.num_points = self.rhos.shape[0]
+        point_nus = (self.nus if nu_static is None
+                     else np.full(self.num_points, nu_static))
+        for nu in point_nus:
+            cuda_kernels.check_nu(nu)
 
         A = np.concatenate([z[:, None], X], axis=1)
         self.rhs_norms = np.linalg.norm(A, axis=0)
@@ -205,16 +241,23 @@ class GridKrylovProfileLikelihood:
                 print(f"grid-krylov: factorizing points "
                       f"{start}..{stop - 1} ({stop - start} kernels, "
                       f"n={self.n}, k={self.k}, "
-                      f"{'matrix-free' if self.matrix_free else 'dense'})")
+                      f"{'matrix-free' if self.matrix_free else 'dense'}"
+                      f"{', general nu' if general else ''})")
             rhos_dev = torch.as_tensor(self.rhos[start:stop], dtype=dtype,
                                        device=device)
-            if self.matrix_free:
+            rhos_chunk = self.rhos[start:stop].tolist()
+            nus_chunk = point_nus[start:stop].tolist()
+            if not self.matrix_free:
+                fact = _factorize_chunk(pts_dev, rhos_dev, nus_chunk, AB,
+                                        self.k, self.s)
+            elif general:
+                fact = _factorize_chunk_general_matrixfree(
+                    pts_dev, rhos_chunk, nus_chunk, AB, self.k, self.s,
+                    int(min(block_rows, self.n)))
+            else:
                 fact = _factorize_chunk_matrixfree(
                     pts_dev, rhos_dev, nu_static, AB, self.k, self.s,
                     int(min(block_rows, self.n)))
-            else:
-                fact = _factorize_chunk(pts_dev, rhos_dev, nu_static, AB,
-                                        self.k, self.s)
             self.engines += engines_from_factorization(
                 *(a.cpu().numpy() for a in fact), self.rhs_norms, self.n,
                 self.m, AtA=AtA)

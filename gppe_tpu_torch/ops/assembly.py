@@ -2,22 +2,34 @@
 
 Counterpart of :mod:`gppe_tpu.ops.assembly`. The reference assembles K
 with XLA (a fused pairwise distance and Matern evaluation, in no Pallas
-kernel), so the port assembles it in plain PyTorch on the device: the
-scaled distances of a block of rows against all points, then the closed
-form of nu. Assembly runs in the compute dtype, float32 on the card, as
-the reference's does on its accelerator; the likelihood layer promotes
-what it needs to float64.
+kernel). The port computes the scaled distances of a block of rows against
+all points in plain PyTorch on the device, then k(.; nu): a closed form in
+plain PyTorch, a general nu through the Bessel K_nu - on the card the
+elementwise entry of the hand-written kernel ``csrc/matern_general.cu``
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`, float32 only),
+on the CPU its plain version :func:`gppe_tpu_torch.ops.kernels.matern`.
+Assembly runs in the compute dtype, float32 on the card, as the
+reference's does on its accelerator; the likelihood layer promotes what it
+needs to float64.
 
 Not ported yet, and refused with the ROADMAP item that brings them: the
-tapered ("sparse") correlation (A9), general nu (A8, through
-:func:`gppe_tpu_torch.ops.kernels.check_static_nu`) and the plot (A15).
+tapered ("sparse") correlation (A9) and the plot (A15).
 """
 
 import numpy as np
 import torch
 
-from . import kernels
+from . import cuda_kernels, kernels
 from ..utils.config import resolve_device, setup
+
+
+def correlation_of_distances(dist, nu):
+    """k(dist; nu) of a tensor of scaled distances: a closed form in plain
+    PyTorch, a general nu through :func:`cuda_kernels.matern_general`
+    (the kernel on the card, its plain version on the CPU)."""
+    if kernels.is_closed_form(nu):
+        return kernels.matern(dist, nu)
+    return cuda_kernels.matern_general(dist.contiguous(), nu)
 
 # rows per block: at n = 8192 the distance intermediate stays 4096 x n
 BLOCK_ROWS = 4096
@@ -25,13 +37,13 @@ BLOCK_ROWS = 4096
 
 def dense_correlation(points, scale, nu, dtype=torch.float32, device="cuda"):
     """Dense Matern correlation matrix K (n x n) of ``points`` (n x d), in
-    ``dtype`` on ``device``. ``nu`` is a closed-form order."""
+    ``dtype`` on ``device``, for any positive ``nu``."""
     points = torch.as_tensor(points, dtype=dtype,
                              device=resolve_device(device))
     scale = kernels.broadcast_scale(scale, points.shape[1], dtype=dtype,
                                     device=points.device)
     dist = kernels.pairwise_scaled_distance(points, points, scale)
-    return kernels.matern(dist, nu)
+    return correlation_of_distances(dist, nu)
 
 
 def dense_correlation_blocked(points, scale, nu, block_size=BLOCK_ROWS,
@@ -50,7 +62,7 @@ def dense_correlation_blocked(points, scale, nu, block_size=BLOCK_ROWS,
     for start in range(0, n, block_size):
         rows = points[start:start + block_size]
         dist = kernels.pairwise_scaled_distance(rows, points, scale)
-        K[start:start + block_size] = kernels.matern(dist, nu)
+        K[start:start + block_size] = correlation_of_distances(dist, nu)
     return K
 
 
@@ -87,7 +99,6 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
         raise NotImplementedError(
             "generate_correlation(plot=True): plotting comes with "
             "ROADMAP A15")
-    kernels.check_static_nu(nu)
 
     matrix = dense_correlation_blocked(points, scale, nu, dtype=dtype,
                                        device=device)

@@ -45,9 +45,23 @@ the same way, only those of the tile pairs ti <= tj (and of the sub-tile
 triangle on diagonal tiles) where the list holds its mirror:
 :func:`blocksparse_trace_schedule` builds that walk and mirrors it.
 
+``matern_general`` (elementwise), ``matern_general_matmat`` (the product
+and trace(K^2)) run ``csrc/matern_general.cu``, the Matern correlation of
+a general nu (outside 1/2, 3/2, 5/2 and the Gaussian limit) through the
+Bessel K_nu in registers. It replaces no Pallas kernel: on the TPU the
+general-nu assembly, the row-blocked products and traces of
+``operators.MaternOperator`` and the general branch of the grid engine ran
+XLA-fused. ``matern_matmat`` hands a general nu to it, so
+``MaternOperator`` takes every nu; the multi-rho kernel takes the closed
+forms only (a general-nu grid maps ``matern_general_matmat`` over its
+points), and the tapered one refuses a general nu (ROADMAP A9).
+
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
 """
+
+import functools
+import math
 
 from typing import NamedTuple
 
@@ -68,7 +82,9 @@ launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
                  "matern_matmat_multirho": 0,
                  "matern_matmat_multirho_mma": 0,
                  "matern_matmat_blocksparse": 0,
-                 "matern_matmat_blocksparse_mma": 0}
+                 "matern_matmat_blocksparse_mma": 0,
+                 "matern_general_elementwise": 0,
+                 "matern_general_product": 0, "matern_general_trace": 0}
 
 # nu -> template code of csrc/matern_common.cuh (kNuHalf ... kNuGauss)
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
@@ -83,6 +99,12 @@ _MAX_D = 8
 # partial (per rho); the multi-rho one holds _TRACE_RHOS rhos per thread,
 # more over grid.y
 _TRACE_TILE, _TRACE_MAX_BLOCKS, _TRACE_RHOS = 128, 1 << 19, 8
+# the general-nu product kernel (csrc/matern_general.cu): 32 rows and 8
+# warps per block, at most 32 columns of V per launch; its grid.y splits the
+# columns into slices of at least _GENERAL_MIN_SLICE until about
+# _GENERAL_BLOCKS_PER_SM blocks per SM are in flight
+_GENERAL_ROWS, _GENERAL_MAX_COLS = 32, 32
+_GENERAL_MIN_SLICE, _GENERAL_BLOCKS_PER_SM = 64, 8
 
 
 def reset_launch_counts():
@@ -240,7 +262,13 @@ def matern_matmat(points, scale, V, nu, points_cols=None, dot_mode=None,
     that asks for both launches both)."""
     dot_mode = resolve_dot_mode(dot_mode)
     _check_dist_mode(dist_mode)
-    nu = kernels.check_static_nu(nu)
+    nu = check_nu(nu)
+    if not kernels.is_closed_form(nu):
+        if dist_mode != "diff":
+            raise ValueError("a general nu takes the difference form only "
+                             "(dist_mode='diff')")
+        return matern_general_matmat(points, scale, V, nu, points_cols,
+                                     frobenius, block_rows)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
     device = points.device
@@ -446,7 +474,13 @@ def matern_matmat_multirho(points, rhos, V, nu, dot_mode=None,
     3xTF32, the traces the FP32 kernel (``csrc/matern_multirho.cu``), so a
     call that asks for both launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
-    nu = kernels.check_static_nu(nu)
+    nu = check_nu(nu)
+    if not kernels.is_closed_form(nu):
+        raise NotImplementedError(
+            f"matern_matmat_multirho takes the closed forms of nu (1/2, "
+            f"3/2, 5/2, >= 100), as the reference's multi-rho kernel does; "
+            f"a grid over general nu = {nu} maps matern_general_matmat over "
+            f"its points (GridKrylovProfileLikelihood)")
     if V is None and not return_frobenius:
         raise ValueError("V=None is only meaningful with return_frobenius")
     if points.ndim != 2:
@@ -481,7 +515,15 @@ def _launch_plan(kernel, r, frobenius):
     the same in every dot mode: the product (r > 0) is one launch of the
     tensor-core kernel, which takes the mode's code; it sums no k^2, so the
     sums, where asked for, are a trace-only launch of the FP32 kernel (they
-    never round)."""
+    never round). ``kernel`` 'general' (a general nu, in
+    ``matern_general_matmat``): the product on ``matern_general.cu``, one
+    launch per 32 columns of V, then its trace entry."""
+    if kernel == "general":
+        plan = [("gppe_matern_general_product", "matern_general_product")
+                ] * -(-r // _GENERAL_MAX_COLS)
+        if frobenius:
+            plan.append(("gppe_matern_general_trace", "matern_general_trace"))
+        return plan
     trace = ("gppe_matern_matmat", "matern_matmat") if kernel == "matmat" \
         else (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
     plan = [(f"{trace[0]}_mma", f"{trace[1]}_mma")] if r > 0 else []
@@ -762,7 +804,7 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     ``trace_walk``, with the same k and taper), so a call that asks for
     both launches both."""
     dot_mode = resolve_dot_mode(dot_mode)
-    nu = kernels.check_static_nu(nu)
+    nu = check_tapered_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
     if points_sorted.ndim != 2:
@@ -853,4 +895,230 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                         per_block, blocks, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
+    return (out, partials.sum()) if frobenius else out
+
+
+# -- general nu ---------------------------------------------------------------
+
+def check_nu(nu):
+    """``nu`` as a float; raises unless it is a positive number (the Matern
+    class is defined for nu > 0)."""
+    try:
+        nu = float(nu)
+    except (TypeError, ValueError):
+        raise ValueError(f"nu must be a positive number, got {nu!r}") \
+            from None
+    if not nu > 0.0:
+        raise ValueError(f"nu must be a positive number, got {nu!r}")
+    return nu
+
+
+def check_tapered_nu(nu):
+    """``nu`` as a float if the tapered kernels take it (a closed form),
+    else raise: the tapered operator at general nu, which the reference
+    runs on its XLA path, comes with the rest of the tapered slice."""
+    nu = check_nu(nu)
+    if not kernels.is_closed_form(nu):
+        raise NotImplementedError(
+            f"the tapered operator at general nu = {nu}: only the closed "
+            f"forms nu in {{0.5, 1.5, 2.5}} and nu >= 100 are ported; "
+            f"general nu comes with the rest of the tapered slice of "
+            f"gppe_tpu_torch (ROADMAP A9)")
+    return nu
+
+
+# the layout of csrc/matern_bessel.cuh::MaternGeneralConsts
+_TEMME_TERMS, _CF2_STEPS, _MAX_ORDER = 30, 59, 128
+_GENERAL_CODE = 4
+_CONSTS_DTYPE = np.dtype([
+    ("mode", "<i4"), ("nl", "<i4"), ("scalars", "<f4", (11,)),
+    ("temme", "<f4", (4, _TEMME_TERMS)), ("cf2", "<f4", (3, _CF2_STEPS)),
+    ("rec_w", "<f4", (_MAX_ORDER,))])
+
+
+@functools.lru_cache(maxsize=256)
+def _general_consts(nu):
+    """The per-launch constants of ``csrc/matern_general.cu`` for ``nu``,
+    computed in float64 and stored as the kernel's float32 struct (a numpy
+    record): the mode (a closed form's code, else general), round(nu),
+    sqrt(2 nu), mu, Temme's constants and divisors, CF2's per-step
+    constants and the normalized recurrence's weights."""
+    c = np.zeros((), dtype=_CONSTS_DTYPE)
+    closed = {0.5: 0, 1.5: 1, 2.5: 2}
+    if nu in closed or nu >= kernels._GAUSSIAN_NU_CUTOFF:
+        c["mode"] = closed.get(nu, _GAUSS_CODE)
+        return c
+    nl = math.floor(nu + 0.5)
+    mu = nu - nl
+    pimu = math.pi * mu
+    fact = 1.0 if abs(pimu) < 1e-30 else pimu / math.sin(pimu)
+    rg_plus = math.exp(-math.lgamma(1.0 + mu))
+    rg_minus = math.exp(-math.lgamma(1.0 - mu))
+    gam2 = 0.5 * (rg_minus + rg_plus)
+    gam1 = (-0.57721566490153286 if abs(mu) < 1e-8
+            else (rg_minus - rg_plus) / (2.0 * mu))
+    a1 = 0.25 - mu * mu
+    c["mode"], c["nl"] = _GENERAL_CODE, nl
+    c["scalars"] = (
+        math.sqrt(2.0 * nu), mu, a1, fact, gam1, gam2,
+        0.5 * math.gamma(1.0 + mu), 0.5 * math.gamma(1.0 - mu),
+        2.0 ** (1.0 - mu) / math.gamma(mu) if nl == 0 else 0.0,
+        2.0 ** -mu / math.gamma(1.0 + mu),
+        2.0 ** -mu / (2.0 * math.gamma(2.0 + mu)))
+    i = np.arange(1, _TEMME_TERMS + 1, dtype=np.float64)
+    c["temme"] = (1.0 / (i * i - mu * mu), 1.0 / (i - mu), 1.0 / (i + mu),
+                  1.0 / i)
+    i = np.arange(2, _CF2_STEPS + 2, dtype=np.float64)
+    a = -a1 - i * (i - 1.0)
+    c["cf2"] = (a, 1.0 / a, -a / i)
+    v = mu + np.arange(2, _MAX_ORDER + 2, dtype=np.float64)
+    c["rec_w"] = 1.0 / (4.0 * v * (v - 1.0))
+    return c
+
+
+def _general_library():
+    """The kernel library, with the constants' layout checked against the
+    compiled struct's size."""
+    from . import _build
+
+    lib = _build.load()
+    size = lib.gppe_matern_general_consts_bytes()
+    if size != _CONSTS_DTYPE.itemsize:
+        raise RuntimeError(f"MaternGeneralConsts is {size} bytes in the "
+                           f"library, {_CONSTS_DTYPE.itemsize} here")
+    return lib
+
+
+def matern_general(x, nu):
+    """k(x; nu) elementwise over a tensor of scaled distances, for any
+    positive nu (closed forms included: the kernel takes their branch).
+
+    CPU tensors take the plain version :func:`kernels.matern` (the
+    reference's log-space form over ``special.log_kv``, in the tensor's
+    dtype); CUDA tensors must be float32 and contiguous and launch the
+    elementwise entry of ``csrc/matern_general.cu``."""
+    nu = check_nu(nu)
+    device = x.device
+    if device.type == "cpu":
+        return kernels.matern(x, nu)
+    if device.type != "cuda":
+        raise ValueError(f"matern_general runs on cpu or cuda, not {device}")
+    return _matern_general_cuda(x, nu)
+
+
+def _matern_general_cuda(x, nu):
+    _check_cuda_operands(1, (("x", x),))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _general_library()
+    consts = _general_consts(nu)
+    with torch.cuda.device(x.device):
+        err = lib.gppe_matern_general_elementwise(
+            x.data_ptr(), out.data_ptr(), x.numel(), consts.ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_cuda_error(lib, err, "matern_general_elementwise")
+    launch_counts["matern_general_elementwise"] += 1
+    return out
+
+
+def general_product_slices(nr, nc, sms=132):
+    """grid.y of the general-nu product kernel: the column slices that
+    bring the ceil(nr / 32) row blocks up to about ``_GENERAL_BLOCKS_PER_SM``
+    blocks per SM, each slice at least ``_GENERAL_MIN_SLICE`` columns."""
+    row_blocks = -(-nr // _GENERAL_ROWS)
+    want = -(-_GENERAL_BLOCKS_PER_SM * sms // row_blocks)
+    return max(1, min(want, nc // _GENERAL_MIN_SLICE, 65535))
+
+
+def matern_general_matmat(points, scale, V, nu, points_cols=None,
+                          frobenius=False, block_rows=1024):
+    """K @ V and (``frobenius``) sum K^2 for a Matern K of any positive nu,
+    K never stored: :func:`matern_matmat`'s arguments and returns, without
+    the dot and distance modes (the product is exact float32, the distance
+    the difference form, as on the reference's XLA path).
+
+    CPU tensors take :func:`matern_matmat_plain` ('highest', the inputs'
+    dtype, ``block_rows`` rows at a time); CUDA tensors must be float32 and
+    contiguous and launch ``csrc/matern_general.cu``: the product entry
+    once per 32 columns of V, the trace entry for the sum (float64)."""
+    nu = check_nu(nu)
+    if V is None and not frobenius:
+        raise ValueError("V=None is only meaningful with frobenius=True")
+    device = points.device
+    for name, t in (("points_cols", points_cols), ("V", V)):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, points on {device}")
+    if points.ndim != 2:
+        raise ValueError(f"points must be (n, d); got {tuple(points.shape)}")
+    nr, d = points.shape
+    scale = kernels.broadcast_scale(scale, d, dtype=points.dtype,
+                                    device=device)
+    if scale.shape != (d,):
+        raise ValueError(f"scale must be a scalar or have {d} entries")
+    if device.type == "cpu":
+        return matern_matmat_plain(points, scale, V, nu, points_cols,
+                                   frobenius, block_rows, "highest")
+    if device.type != "cuda":
+        raise ValueError(f"matern_general_matmat runs on cpu or cuda, not "
+                         f"{device}")
+    return _matern_general_matmat_cuda(points, scale, V, nu, points_cols,
+                                       frobenius)
+
+
+def _matern_general_matmat_cuda(points, scale, V, nu, points_cols,
+                                frobenius):
+    nr, d = points.shape
+    cols = points if points_cols is None else points_cols
+    if cols.ndim != 2 or cols.shape[1] != d:
+        raise ValueError(f"points_cols must be (nc, {d}); "
+                         f"got {tuple(cols.shape)}")
+    nc = cols.shape[0]
+    r = 0 if V is None else V.shape[1]
+    _check_cuda_operands(d, (("points", points), ("points_cols", cols),
+                             ("V", V)))
+    if V is not None and (V.ndim != 2 or V.shape[0] != nc):
+        raise ValueError(f"V must be ({nc}, r); got {tuple(V.shape)}")
+    if max(nr, nc, r) >= 2 ** 31:
+        raise ValueError("sizes must fit in int32")
+
+    rows_s = (points / scale).contiguous()
+    cols_s = rows_s if points_cols is None else (cols / scale).contiguous()
+    out = None if V is None else torch.empty(
+        (nr, r), dtype=torch.float32, device=points.device)
+    symmetric = points_cols is None
+    _, _, _, per_block, blocks = trace_schedule(nr, nc, symmetric)
+    partials = (torch.zeros(blocks, dtype=torch.float64,
+                            device=points.device) if frobenius else None)
+    if nr == 0 or nc == 0 or (r == 0 and not frobenius):
+        return (out, partials.sum()) if frobenius else out
+
+    lib = _general_library()
+    consts = _general_consts(nu).ctypes.data
+    slices = general_product_slices(
+        nr, nc, torch.cuda.get_device_properties(
+            points.device).multi_processor_count)
+    # the slices' partial products, summed below in a fixed order
+    dest = out if slices == 1 or r == 0 else torch.empty(
+        (slices, nr, r), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        c0 = 0
+        for entry, counter in _launch_plan("general", r, frobenius):
+            if entry == "gppe_matern_general_product":
+                width = min(_GENERAL_MAX_COLS, r - c0)
+                err = lib.gppe_matern_general_product(
+                    rows_s.data_ptr(), cols_s.data_ptr(),
+                    V.data_ptr() + 4 * c0, dest.data_ptr() + 4 * c0, nr, nc,
+                    d, width, r, r, slices, consts, stream)
+                c0 += width
+            else:
+                err = lib.gppe_matern_general_trace(
+                    rows_s.data_ptr(), cols_s.data_ptr(), partials.data_ptr(),
+                    nr, nc, d, int(symmetric), per_block, blocks, consts,
+                    stream)
+            _raise_on_cuda_error(lib, err, counter)
+            launch_counts[counter] += 1
+    if dest is not out:
+        torch.sum(dest, dim=0, out=out)
     return (out, partials.sum()) if frobenius else out

@@ -1,10 +1,15 @@
 """Matern correlation kernel and anisotropic distances, on torch tensors.
 
-Counterpart of :mod:`gppe_tpu.ops.kernels`. The closed-form nu branches
-(nu in {1/2, 3/2, 5/2} and the Gaussian limit nu >= 100) keep the
-reference's branch semantics, including x == 0 -> 1. General nu needs the
-Bessel K_nu of ``gppe_tpu.ops.special``, which belongs to the general-nu
-slice of the port and is not here yet.
+Counterpart of :mod:`gppe_tpu.ops.kernels`, with the reference's branch
+semantics: x == 0 -> 1; nu in {1/2, 3/2, 5/2} closed forms; nu < 100 the
+general Bessel form, evaluated in log space through
+:func:`gppe_tpu_torch.ops.special.log_kv`; nu >= 100 the Gaussian limit
+exp(-x^2/2).
+
+This module is the plain version. On the card the general form runs the
+hand-written kernel ``csrc/matern_general.cu`` instead
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`, and the
+general-nu products and traces of ``matern_matmat``).
 """
 
 import math
@@ -12,38 +17,75 @@ import math
 import numpy as np
 import torch
 
+from . import special
+
 _GAUSSIAN_NU_CUTOFF = 100.0
 
 CLOSED_FORM_NUS = (0.5, 1.5, 2.5)
 
 
-def check_static_nu(nu):
-    """``nu`` as a float if a closed form exists for it, else raise."""
+def is_closed_form(nu):
+    """True for a Python or numpy number nu with a closed form (1/2, 3/2,
+    5/2, or the Gaussian limit from 100), which the closed-form kernels
+    take; False for a general nu, whose form needs the Bessel K_nu."""
     nu = float(nu)
-    if nu in CLOSED_FORM_NUS or nu >= _GAUSSIAN_NU_CUTOFF:
-        return nu
-    raise NotImplementedError(
-        f"Matern nu = {nu}: only the closed forms nu in {{0.5, 1.5, 2.5}} "
-        f"and nu >= {_GAUSSIAN_NU_CUTOFF:g} are ported; general nu (Bessel "
-        f"K_nu) comes with the general-nu slice of gppe_tpu_torch "
-        f"(ROADMAP A8)")
+    return nu in CLOSED_FORM_NUS or nu >= _GAUSSIAN_NU_CUTOFF
+
+
+def _matern_general(x, nu):
+    """2^{1-nu}/Gamma(nu) (sqrt(2 nu) x)^nu K_nu(sqrt(2 nu) x) for x > 0,
+    in log space: the prefactor underflows and K_nu overflows float32
+    separately around nu ~ 10, while their product is a correlation in
+    (0, 1]. The two logs (~ +-nu |log z|) cancel, and the float32 error of
+    their sum (~1e-5 at nu ~ 25) can push the result above its bound 1:
+    clamped."""
+    z = torch.sqrt(2.0 * nu) * x
+    z = torch.clamp(z, min=1e-30)
+    log_pref = ((1.0 - nu) * math.log(2.0) - torch.lgamma(nu)
+                + nu * torch.log(z))
+    return torch.clamp(torch.exp(log_pref + special.log_kv(nu, z)), max=1.0)
 
 
 def matern(x, nu):
     """Matern correlation k(x; nu) of the scaled distance x = r / rho.
 
-    ``nu`` is a Python number selecting one closed-form branch."""
-    nu = check_static_nu(nu)
-    if nu == 0.5:
-        k = torch.exp(-x)
-    elif nu == 1.5:
-        sqrt3 = math.sqrt(3.0)
-        k = (1.0 + sqrt3 * x) * torch.exp(-sqrt3 * x)
-    elif nu == 2.5:
-        sqrt5 = math.sqrt(5.0)
-        k = (1.0 + sqrt5 * x + (5.0 / 3.0) * x * x) * torch.exp(-sqrt5 * x)
-    else:
-        k = torch.exp(-0.5 * x * x)
+    ``nu`` a Python or numpy number evaluates one branch (the recurrence of
+    the general form runs exactly round(nu) steps); a tensor nu evaluates
+    every branch and selects elementwise, the reference's traced nu (the
+    form to differentiate or batch over nu)."""
+    if not torch.is_tensor(nu):
+        nu = float(nu)
+        if nu == 0.5:
+            k = torch.exp(-x)
+        elif nu == 1.5:
+            sqrt3 = math.sqrt(3.0)
+            k = (1.0 + sqrt3 * x) * torch.exp(-sqrt3 * x)
+        elif nu == 2.5:
+            sqrt5 = math.sqrt(5.0)
+            k = (1.0 + sqrt5 * x + (5.0 / 3.0) * x * x) * torch.exp(
+                -sqrt5 * x)
+        elif nu < _GAUSSIAN_NU_CUTOFF:
+            k = _matern_general(x, torch.as_tensor(nu, dtype=x.dtype,
+                                                   device=x.device))
+        else:
+            k = torch.exp(-0.5 * x * x)
+        return torch.where(x == 0, torch.ones_like(x), k)
+
+    nu = nu.to(dtype=x.dtype, device=x.device)
+    sqrt3, sqrt5 = math.sqrt(3.0), math.sqrt(5.0)
+    k_half = torch.exp(-x)
+    k_three_half = (1.0 + sqrt3 * x) * torch.exp(-sqrt3 * x)
+    k_five_half = (1.0 + sqrt5 * x + (5.0 / 3.0) * x * x) * torch.exp(
+        -sqrt5 * x)
+    k_gauss = torch.exp(-0.5 * x * x)
+    k_general = _matern_general(
+        x, torch.where(nu < _GAUSSIAN_NU_CUTOFF, nu, torch.ones_like(nu)))
+
+    k = k_general
+    k = torch.where(nu >= _GAUSSIAN_NU_CUTOFF, k_gauss, k)
+    k = torch.where(nu == 0.5, k_half, k)
+    k = torch.where(nu == 1.5, k_three_half, k)
+    k = torch.where(nu == 2.5, k_five_half, k)
     return torch.where(x == 0, torch.ones_like(x), k)
 
 

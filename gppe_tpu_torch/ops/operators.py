@@ -2,15 +2,19 @@
 
 Counterpart of ``gppe_tpu.ops.operators.MaternOperator``. On a CUDA
 device ``matmat`` and ``trace_pow(2)`` launch the fused CUDA kernels
-(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`: the tensor-core
-kernel for the products in every dot mode, the FP32 kernel for the
-trace); on the CPU they run the plain row-blocked PyTorch version. The points live on the device
-(0.8 MB at n = 10^5); K (40 GB at n = 10^5) never exists.
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat`): for a closed-form
+nu the tensor-core kernel for the products in every dot mode and the FP32
+kernel for the trace, as the reference takes Pallas for them
+(``gppe_tpu/ops/operators.py:98-101``); for a general nu the general-nu
+kernel ``csrc/matern_general.cu`` for both, where the reference runs its
+row-blocked XLA path. On the CPU they run the plain row-blocked PyTorch
+version. The points live on the device (0.8 MB at n = 10^5); K (40 GB at
+n = 10^5) never exists.
 """
 
 import torch
 
-from . import cuda_kernels, kernels
+from . import assembly, cuda_kernels, kernels
 from ..utils.config import resolve_device, setup
 
 
@@ -18,8 +22,8 @@ class MaternOperator:
     """Assembly-free Matern correlation operator.
 
     API: ``shape``, ``matmat``, ``matvec``, ``trace_pow``, ``dense`` — what
-    the Krylov engines consume. ``nu`` is a static float with a closed
-    form (0.5, 1.5, 2.5 or >= 100).
+    the Krylov engines consume. ``nu`` is any positive number: a closed
+    form (0.5, 1.5, 2.5 or >= 100) or a general nu (the Bessel form).
     """
 
     def __init__(self, points, scale, nu=0.5, block_rows=1024,
@@ -31,11 +35,13 @@ class MaternOperator:
         ``cuda_kernels.DEFAULT_DOT_MODE`` ('highest', exact float32) at
         each call. 'bf16x3' rounds the operand, so u.(Kv) and v.(Ku) differ
         at ~1e-6: harmless to Lanczos, which re-measures its residuals, but
-        not for consumers with tolerances below that floor."""
+        not for consumers with tolerances below that floor. ``dot_mode``
+        does not apply to a general nu, whose products are exact float32
+        FMA sums, as the reference's XLA path ignores it."""
         setup()
         if dot_mode is not None:
             cuda_kernels.resolve_dot_mode(dot_mode)
-        self.nu = kernels.check_static_nu(nu)
+        self.nu = cuda_kernels.check_nu(nu)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.points = torch.as_tensor(points, dtype=dtype,
@@ -79,7 +85,8 @@ class MaternOperator:
         raise ValueError("exponent must be 0, 1 or 2")
 
     def dense(self):
-        """Materialize K (small-n debugging only)."""
+        """Materialize K (small-n debugging only); a general nu through the
+        elementwise entry of the general-nu kernel on the card."""
         dist = kernels.pairwise_scaled_distance(self.points, self.points,
                                                 self.scale)
-        return kernels.matern(dist, self.nu)
+        return assembly.correlation_of_distances(dist, self.nu)

@@ -139,7 +139,7 @@ class TaperedMaternOperator:
         if scale_arr.size == 1:
             scale_arr = np.repeat(scale_arr, d)
 
-        self.nu = kernels.check_static_nu(nu)
+        self.nu = cuda_kernels.check_tapered_nu(nu)
         self.density = density
         self.tile = int(min(tile, n))
         self.radius = estimate_kernel_radius(n, d, density, scale_arr)

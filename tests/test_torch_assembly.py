@@ -88,7 +88,7 @@ def test_same_value_errors(points, args):
 
 @pytest.mark.parametrize("args, item", [
     (dict(sparse=True), "A9"), (dict(plot=True), "A15"),
-    (dict(nu=0.7), "A8")], ids=["sparse", "plot", "general-nu"])
+    (dict(nu=0.7, sparse=True), "A9")], ids=["sparse", "plot", "general-nu"])
 def test_unported_inputs_name_their_roadmap_item(points, args, item):
     with pytest.raises(NotImplementedError, match=item):
         tasm.generate_correlation(points, 0.1, **{"nu": 0.5, **args}, **CPU)

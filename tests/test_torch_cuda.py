@@ -1106,3 +1106,143 @@ def test_cg_through_the_operator(dev, r):
     assert its.shape == (r,) and int(its.min()) > 0
     assert launches["matern_matmat_mma"] == int(its.max())
     assert launches["matern_matmat"] == 0
+
+
+# -- general nu: csrc/matern_general.cu ---------------------------------------
+
+GENERAL_NUS = [0.01, 0.3, 1.2, 3.7, 10.0, 24.9]
+
+
+@pytest.mark.parametrize("nu", GENERAL_NUS + [0.5, 2.5, 150.0])
+def test_general_elementwise(dev, nu):
+    """k(x; nu) over x in geomspace(1e-5, 40) and 0 against float64 on the
+    card: within 3e-5 (the reference's own float32 error at nu ~ 25);
+    finite and in [0, 1] at the general orders; 1 at x = 0; the closed
+    forms through the kernel's own branch for them."""
+    x = torch.cat([torch.zeros(1, device=dev),
+                   torch.logspace(-5, np.log10(40.0), 50_001,
+                                  device=dev)]).float()
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.matern_general(x, nu)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_elementwise"] == 1
+    want = kernels.matern(x.double(), nu)
+    assert float((got.double() - want).abs().max()) < 3e-5
+    assert float(got[0]) == 1.0 and bool(torch.isfinite(got).all())
+    if not kernels.is_closed_form(nu):
+        assert bool(((got >= 0) & (got <= 1)).all())
+
+
+@pytest.mark.parametrize("n", [1000, 3001])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("nu", GENERAL_NUS)
+def test_general_product_and_trace(dev, n, d, nu):
+    """K @ V at r in {1, 7, 24, 33} and trace(K^2) against float64 on the
+    card at ragged n: Frobenius-relative 1e-5, trace rtol 1e-5; a width
+    above 32 runs as two launches; the trace the same bits run to run.
+    The points are scaled by 1/rho in float32 first and handed over at
+    scale 1, so the float64 version sees the kernel's own inputs: at
+    nu = 0.01 k falls by three quarters between x = 0 and x = 1e-5, and the
+    ulp that float32 scaling moves a near 1-D pair by moved the product by
+    1.1e-5 (the plain float64 product of the two scalings, n = 1000)."""
+    rng = np.random.RandomState(n + d)
+    P = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev) / 0.1
+    V = torch.as_tensor(rng.standard_normal((n, 33)), dtype=F32, device=dev)
+    scale = kernels.broadcast_scale(1.0, d, dtype=F64, device=dev)
+    want, fro_want = cuda_kernels.matern_matmat_plain(
+        P.double(), scale, V.double(), nu, frobenius=True)
+    for r in (1, 7, 24, 33):
+        cuda_kernels.reset_launch_counts()
+        got = cuda_kernels.matern_general_matmat(P, 1.0, V[:, :r].contiguous(),
+                                                 nu)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launch_counts["matern_general_product"] == (
+            2 if r > 32 else 1)
+        err = float(torch.linalg.norm(got.double() - want[:, :r])
+                    / torch.linalg.norm(want[:, :r]))
+        assert err < 1e-5, (r, err)
+    fro = cuda_kernels.matern_general_matmat(P, 1.0, None, nu,
+                                             frobenius=True)[1]
+    again = cuda_kernels.matern_general_matmat(P, 1.0, None, nu,
+                                               frobenius=True)[1]
+    assert fro.dtype == F64 and float(fro) == float(again)
+    assert abs(float(fro) - float(fro_want)) / float(fro_want) < 1e-5
+
+
+def test_general_through_the_public_entry_points(dev):
+    """matern_matmat and MaternOperator at a general nu run the general
+    kernel (no closed-form launch) in every dot mode, with the same bits;
+    the anisotropic, rectangular product against float64; the tapered
+    wrapper refuses a general nu; a float64 CUDA tensor is refused."""
+    rng = np.random.RandomState(5)
+    P = torch.as_tensor(rng.rand(700, 2), dtype=F32, device=dev)
+    C = torch.as_tensor(rng.rand(450, 2), dtype=F32, device=dev)
+    V = torch.as_tensor(rng.standard_normal((450, 5)), dtype=F32, device=dev)
+    scale = torch.tensor([0.08, 0.2], dtype=F32, device=dev)
+    cuda_kernels.reset_launch_counts()
+    outs = [cuda_kernels.matern_matmat(P, scale, V, 3.7, points_cols=C,
+                                       dot_mode=m)
+            for m in cuda_kernels.DOT_MODES]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert cuda_kernels.launch_counts["matern_general_product"] == 3
+    assert cuda_kernels.launch_counts["matern_matmat_mma"] == 0
+    want = cuda_kernels.matern_matmat_plain(
+        P.double(), scale.double(), V.double(), 3.7, points_cols=C.double())
+    assert float(torch.linalg.norm(outs[0].double() - want)
+                 / torch.linalg.norm(want)) < 1e-5
+    op = MaternOperator(P.cpu().numpy(), 0.1, nu=1.2, device=dev)
+    W = torch.randn((700, 3), device=dev)
+    assert torch.equal(op.matmat(W), cuda_kernels.matern_general_matmat(
+        P, 0.1, W, 1.2))
+    with pytest.raises(TypeError, match="float32"):
+        cuda_kernels.matern_general(torch.rand(10, dtype=F64, device=dev),
+                                    1.2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        TaperedMaternOperator(P.cpu().numpy(), 0.1, nu=1.2, density=0.05,
+                              device=dev)
+
+
+def test_general_operator_dense_runs_the_elementwise_kernel(dev):
+    """MaternOperator.dense() at a general nu: one elementwise launch (no
+    plain Bessel on the card), K within 3e-5 of float64."""
+    pts = np.random.RandomState(6).rand(500, 2)
+    op = MaternOperator(pts, 0.1, nu=3.7, device=dev)
+    cuda_kernels.reset_launch_counts()
+    K = op.dense()
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_elementwise"] == 1
+    P = torch.as_tensor(pts, dtype=F64, device=dev)
+    want = kernels.matern(kernels.pairwise_scaled_distance(P, P, 0.1), 3.7)
+    assert K.dtype == F32
+    assert float((K.double() - want).abs().max()) < 3e-5
+
+
+def test_general_grid_engine_cuda_matches_cpu(dev):
+    """The grid engine over general nus, matrix-free (the product and
+    trace entries per point), against the same engine on the CPU in
+    float64 from the same random block, at n = 400 (the CPU's plain
+    version is slow): each point's eta within 5e-2 and sigma0 within 5e-3
+    (the reference's cuda-vs-cpu bounds)."""
+    n = 400
+    rng = np.random.RandomState(3)
+    pts = rng.rand(n, 2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    probes = np.sign(rng.standard_normal((n, 6)))
+    v_defl = rng.standard_normal((n, 1))
+    kw = dict(lanczos_steps=12, num_probes=6, matrix_free=True,
+              probes=probes, v_defl=v_defl)
+    rhos, nus = np.array([0.08, 0.15]), np.array([1.2, 6.3])
+    cuda_kernels.reset_launch_counts()
+    got = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device=dev,
+                                      **kw).fit_all()
+    assert cuda_kernels.launch_counts["matern_general_product"] == 2 * 12
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 2
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 0
+    want = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device="cpu",
+                                       dtype=F64, **kw).fit_all()
+    for a, b in zip(got, want):
+        assert a["success"] and b["success"]
+        assert abs(a["eta"] - b["eta"]) / b["eta"] < 5e-2
+        assert abs(a["sigma0"] - b["sigma0"]) / b["sigma0"] < 5e-3

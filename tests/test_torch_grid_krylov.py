@@ -218,13 +218,17 @@ def test_grid_own_random_block_and_auto_chunk(problem):
 
 
 def test_grid_general_nu_raises(problem):
+    """A general nu is ported (tests/test_torch_general_nu.py holds it
+    against the reference); what still raises is a nu that is not positive
+    and nus that do not pair up with the rhos."""
     pts, z, X = problem
-    with pytest.raises(NotImplementedError, match="special"):
-        tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, np.full(3, 1.0),
+    with pytest.raises(ValueError, match="positive"):
+        tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS,
+                                        np.array([1.0, 0.0, 2.0]),
                                         device="cpu", dtype=F64)
-    with pytest.raises(NotImplementedError, match="general nu"):
+    with pytest.raises(ValueError, match="positive"):
         tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, np.full(3, 1.0),
-                                        nu_static=1.0, device="cpu",
+                                        nu_static=-1.0, device="cpu",
                                         dtype=F64)
     with pytest.raises(ValueError, match="equal length"):
         tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, np.full(2, NU),

@@ -211,10 +211,16 @@ def test_cpu_path_launches_no_kernel():
                                        device="cpu", dtype=F64)
     top.matmat(V)
     top.trace_pow(2)
+    gop = tops.MaternOperator(pts, scale, nu=1.3, device="cpu", dtype=F64)
+    gop.matmat(V)
+    gop.trace_pow(2)
+    cuda_kernels.matern_general(_t(np.linspace(0.0, 3.0, 7)), 3.7)
     assert cuda_kernels.launch_counts == {
         "matern_matmat": 0, "matern_matmat_mma": 0,
         "matern_matmat_multirho": 0, "matern_matmat_multirho_mma": 0,
-        "matern_matmat_blocksparse": 0, "matern_matmat_blocksparse_mma": 0}
+        "matern_matmat_blocksparse": 0, "matern_matmat_blocksparse_mma": 0,
+        "matern_general_elementwise": 0, "matern_general_product": 0,
+        "matern_general_trace": 0}
 
 
 @pytest.mark.parametrize("kind", ["general_nu", "bf16", "bf16x3", "gram",
@@ -223,10 +229,21 @@ def test_unported_or_invalid_requests_raise(kind):
     pts, _, V, _, scale = _problem(n=32)
     P, Vt = _t(pts), _t(V)
     if kind == "general_nu":
-        with pytest.raises(NotImplementedError, match="general-nu"):
-            cuda_kernels.matern_matmat(P, scale, Vt, 0.7)
-        with pytest.raises(NotImplementedError):
-            tops.MaternOperator(pts, scale, nu=3.0, device="cpu")
+        # ported for the dense kernels (the general-nu kernel's plain
+        # version here); the tapered ones still refuse it, naming A9, and
+        # a general nu has no Gram form
+        got = cuda_kernels.matern_matmat(P, scale, Vt, 0.7)
+        want = cuda_kernels.matern_matmat_plain(
+            P, tk.broadcast_scale(scale, 2, dtype=F64), Vt, 0.7)
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="difference form"):
+            cuda_kernels.matern_matmat(P, scale, Vt, 0.7, dist_mode="gram")
+        with pytest.raises(NotImplementedError, match="A9"):
+            ttaper.TaperedMaternOperator(pts, scale, nu=3.0, density=0.1,
+                                         tile=16, device="cpu")
+        with pytest.raises(NotImplementedError, match="A9"):
+            cuda_kernels.matern_matmat_blocksparse(
+                P, Vt, 3.0, 0.1, [0], [0], 32)
     elif kind in ("bf16", "bf16x3"):
         # ported: the mode runs, through the wrapper and the operator, and
         # rounds (it differs from the exact product, by less than bf16's
@@ -264,7 +281,7 @@ def test_unported_or_invalid_requests_raise(kind):
 def test_build_command_flags():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/x.so")
     # one compile per source, each for sm_90a and without fast math
-    assert len(compiles) == len(_build.SOURCES) == 6
+    assert len(compiles) == len(_build.SOURCES) == 7
     objects = []
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -274,7 +291,7 @@ def test_build_command_flags():
         assert len(sources) == 1 and os.path.isfile(sources[0])
         objects.append(cmd[cmd.index("-o") + 1])
     assert link[:4] == ["nvcc", "-shared", "-o", "/tmp/x.so"]
-    assert link[4:] == objects and len(set(objects)) == 6
+    assert link[4:] == objects and len(set(objects)) == 7
     flagged = _build.nvcc_commands("nvcc", "/tmp/x.so", ("-Xptxas", "-v"))
     assert all("-Xptxas" in cmd for cmd in flagged[0])
     # the library name is keyed by sources, headers and flags

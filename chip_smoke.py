@@ -33,7 +33,12 @@ each against its plain PyTorch version on the card:
     at n = 10,000 through KrylovProfileLikelihood (its product and trace
     entries), and the (rho, nu) search of
     drivers.find_optimal_covariance (main_large: n = 10,000 over an 8 x 8
-    grid of general nus; main at a reduced size).
+    grid of general nus; main at a reduced size);
+  * the rest of the tapered slice: the scipy-sparse route
+    (generate_correlation(sparse=True) on the native host builder ->
+    GaussianProcess over a SparseOperator on cuSPARSE's SpMM) at
+    n = 2^18, and the tapered path at a general nu at n = 2^20 on the
+    tapered general-nu kernel matern_blocksparse_general.cu.
 
     python3 chip_smoke.py
 
@@ -114,6 +119,33 @@ Phases, each raising on failure:
      its defaults (n = 10,000, an 8 x 8 grid of general nus, matrix-free)
      and main cut to a 30 x 30 grid of points, a 6 x 6 (rho, nu) grid and
      DE with popsize 10 for at most 6 generations.
+ 25. the tapered general-nu kernel (matern_blocksparse_general.cu, G2)
+     against plain float64: products at r in {1, 7, 24} and traces at
+     n = 1000 and 4096 (2-D) and 1000 (3-D), nu in {0.3, 1.2, 3.7, 24.9},
+     at thresholds clear of every pair, within 1e-5; the trace the same
+     bits twice; a closed-form nu through the same entry point launching
+     the closed-form tapered kernels only;
+ 26. the scipy-sparse public route at n = 2^18 (a 512 x 512 grid, rho
+     0.005, density 1e-3, nu 1/2): generate_correlation(sparse=True) on
+     the native host builder, GaussianProcess(X, Kcsr, 'profiled').train(z)
+     over a float64 SparseOperator (cuSPARSE's SpMM, the Krylov route)
+     against TaperedMaternOperator's fit on the same points and random
+     block (eta 5e-2, sigma0 5e-3); the SpMM timed at the route's width
+     beside its byte bound (a library call, not a kernel of the port); the
+     general-nu CSR builder at n = 2^16, nu = 1.2, on the card, its pattern
+     against the native builder's at nu = 1/2 (entries kept by one only
+     must lie within 1e-5 of the threshold);
+ 27. the tapered general-nu engine at n = 4096 (grid side 64, rho 0.01,
+     density 0.004: the n = 2^20 path's taper radius in scaled units;
+     tiles of 128, nu = 1.2, 8 steps, 8 probes) on cuda (G2, float32)
+     against the CPU (the plain version, float64) from the same data and
+     random block (eta 5e-2, sigma0 5e-3);
+ 28. the tapered path at n = 2^20 at nu = 1.2 (phase 12's configuration):
+     exactly 64 launches of G2's product and one of its trace, the fit
+     finite with sigma0 in (0.18, 0.22), where phase 27's float64 fit lies
+     too; G2's product (r = 24) and trace timed over the full list against
+     their bounds (k once per unordered pair, from this run's trips), and
+     against the plain version on the first 32 row tiles' list.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -132,6 +164,8 @@ import statistics
 import subprocess
 import sys
 import time
+import types
+import warnings
 
 import numpy as np
 import torch
@@ -142,9 +176,10 @@ from gppe_tpu_torch.drivers import (find_optimal_covariance,
 from gppe_tpu_torch.models import direct_likelihood
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
+from gppe_tpu_torch import native
 from gppe_tpu_torch.ops import _build, assembly, cuda_kernels, kernels, linalg
-from gppe_tpu_torch.ops import stochastic
-from gppe_tpu_torch.ops.operators import MaternOperator
+from gppe_tpu_torch.ops import stochastic, taper
+from gppe_tpu_torch.ops.operators import MaternOperator, SparseOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
 from gppe_tpu_torch.utils import config
 from gppe_tpu_torch.utils import data as data_utils
@@ -2686,6 +2721,511 @@ def phase_general_search(dev):
     return large_window, main_window
 
 
+# -- the rest of the tapered slice (phases 25-28) -----------------------------
+
+G2_COUNTERS = ("matern_blocksparse_general_product",
+               "matern_blocksparse_general_trace")
+# phase 25's orders, and the scales that put the taper radius (density
+# 0.02) 1.6 to 3 scales out, where a threshold clear of every pair by 1e-5
+# exists (tests/test_torch_cuda.py)
+G2_NUS = (0.3, 1.2, 3.7, 24.9)
+G2_SCALES = {2: 0.05, 3: 0.05 * np.sqrt(1.5)}
+TAPER_GENERAL_NU = 1.2
+# phase 26: the scipy-sparse route at n = 2^18 (a 512 x 512 grid), and the
+# general-nu CSR builder at n = 2^16
+SPARSE_SIDE, GENERAL_CSR_SIDE = 512, 256
+# phase 27: a grid of side 64 at rho 0.01 and density 0.004 has the taper
+# radius of the n = 2^20 path in scaled units (3.6) and 16 neighbours a
+# point, as phase 11's grid; there the CPU's plain general-nu tapered product
+# takes ~6 s a step on the card's 8 host cores (tiles of 128 the fastest;
+# 80 s for 12 steps), and the float64 fit has converged at 8 steps (its eta
+# moved by 5e-9 from 12), so 8 steps and 8 probes keep the CPU side near a
+# minute
+SMALL_TAPER_SIDE, SMALL_TAPER_TILE = 64, 128
+SMALL_TAPER_SCALE, SMALL_TAPER_DENSITY = 0.01, 0.004
+SMALL_TAPER_STEPS, SMALL_TAPER_PROBES = 8, 8
+# phase 28: the plain version runs ~1,500 PyTorch operations per row tile
+# at a general nu (tens of seconds over the 2048 row tiles at n = 2^20),
+# so it is
+# timed, in turns with the kernel, on the pair list of the first
+# PLAIN_ROW_TILES row tiles among themselves
+PLAIN_ROW_TILES = 32
+
+
+def g2_case(dev, n, d, tile, nu, seed):
+    """G2 against plain float64 on one tapered problem: the product at
+    r in {1, 7, 24} (one launch each) and the trace, at a threshold clear
+    of every pair; the trace the same bits twice."""
+    pts = np.random.RandomState(seed).rand(n, d)
+    op = TaperedMaternOperator(pts, G2_SCALES[d], nu=nu, density=0.02,
+                               tile=tile, device=dev)
+    tau = clear_threshold(op)
+    args = (op.nu, tau, op.pair_i, op._pair_j, op.tile)
+    kw = dict(n=n, row_ptr=op._row_ptr)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = torch.zeros((op.n_pad, 24), device=dev)
+    V[:n] = torch.randn((n, 24), generator=g, device=dev)
+    want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V.double(), *args, frobenius=True, **kw)
+    rec = {"n": n, "d": d, "tile": op.tile, "nu": nu,
+           "pairs": len(op.pair_i), "tau_over_operator_threshold":
+           tau / op.threshold, "frob_rel_err": {}, "launches": {}}
+    ok = True
+    for r in (1, 7, 24):
+        cuda_kernels.reset_launch_counts()
+        got = cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V[:, :r].contiguous(), *args, **kw)
+        torch.cuda.synchronize()
+        rec["launches"][r] = {k: v for k, v in
+                              cuda_kernels.launch_counts.items() if v}
+        rec["frob_rel_err"][r] = compare(got, want[:, :r])[0]
+        ok = (ok and rec["launches"][r] == {G2_COUNTERS[0]: 1}
+              and not bool(got[n:].any()) and bool(torch.isfinite(got).all())
+              and rec["frob_rel_err"][r] < GENERAL_FROB_TOL)
+    traces = [float(cuda_kernels.matern_matmat_blocksparse(
+        op.points_sorted, None, *args, frobenius=True,
+        trace_walk=op._trace_walk, **kw)[1]) for _ in range(2)]
+    rec["trace_rel_err"] = rel_gap(traces[0], float(fro_want))
+    rec["trace_same_bits_twice"] = traces[0] == traces[1]
+    ok = (ok and rec["trace_same_bits_twice"]
+          and rec["trace_rel_err"] < GENERAL_TRACE_RTOL)
+    return ok, rec
+
+
+def phase_g2_parity(dev):
+    """Phase 25: the tapered general-nu kernel (matern_blocksparse_general.cu)
+    against plain float64 on the card, at n = 1000 and 4096 random 2-D
+    points and n = 1000 3-D points, each nu of G2_NUS, at thresholds from
+    blocksparse_clear_threshold: products (r 1, 7, 24) and traces within
+    GENERAL_FROB_TOL and GENERAL_TRACE_RTOL, the trace the same bits twice;
+    then a closed-form nu through the same entry point launches B3 only."""
+    cases, ok = [], True
+    for n, d, tile in ((1000, 2, 128), (4096, 2, 512), (1000, 3, 128)):
+        for nu in G2_NUS:
+            case_ok, rec = g2_case(dev, n, d, tile, nu, seed=n + d)
+            ok = ok and case_ok
+            cases.append(rec)
+    closed = {}
+    for nu in (0.5, 1.5, 2.5, 150.0):
+        op = TaperedMaternOperator(np.random.RandomState(25).rand(1000, 2),
+                                   0.05, nu=nu, density=0.02, tile=128,
+                                   device=dev)
+        V = torch.zeros((op.n_pad, 7), device=dev)
+        V[:1000] = 1.0
+        cuda_kernels.reset_launch_counts()
+        cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V, op.nu, op.threshold, op.pair_i, op._pair_j,
+            op.tile, n=1000, frobenius=True, row_ptr=op._row_ptr,
+            trace_walk=op._trace_walk)
+        torch.cuda.synchronize()
+        closed[nu] = {k: v for k, v in cuda_kernels.launch_counts.items()
+                      if v}
+        ok = ok and closed[nu] == {"matern_matmat_blocksparse_mma": 1,
+                                   "matern_matmat_blocksparse": 1}
+    log(phase="g2_parity", ok=ok, frob_tol=GENERAL_FROB_TOL,
+        trace_rtol=GENERAL_TRACE_RTOL, cases=cases,
+        closed_form_launches=closed)
+    if not ok:
+        raise AssertionError("the tapered general-nu kernel disagrees with "
+                             "float64")
+
+
+def spmm_bound(nnz, n, r, value_bytes):
+    """The byte bound (ms) of one CSR times dense product: each value and
+    column index read once (int32 indices), the row pointers, V read once
+    and the product written once, over the card's memory rate."""
+    nbytes = nnz * (value_bytes + 4) + 4 * (n + 1) + 2 * value_bytes * n * r
+    return nbytes / PEAK_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_sparse_route(dev):
+    """Phase 26: the scipy-sparse public route at n = 2^18 (a 512 x 512
+    grid, rho 0.005, density 1e-3, nu = 1/2, degree-2 basis, noise 0.2):
+    generate_correlation(sparse=True) on the native builder, then
+    GaussianProcess(X, Kcsr, 'profiled').train(z) (a float64 SparseOperator
+    on the card, cuSPARSE's SpMM, KrylovProfileLikelihood.fit), against
+    TaperedMaternOperator's fit on the same points and the same random
+    block (eta 5e-2, sigma0 5e-3: phase 11's bounds). The SpMM timed at the
+    route's width beside its byte bound, in float64 (the route's) and
+    float32. Then the general-nu CSR builder at n = 2^16, nu = 1.2 (G1's
+    elementwise entry on the card), its pattern against the native
+    builder's at nu = 1/2: the same ball, so the two differ only by
+    entries within 1e-5 (relative) of the threshold, counted."""
+    pts, z, X = tapered_problem(SPARSE_SIDE)
+    n = len(pts)
+    t0 = time.perf_counter()
+    Kcsr = gppe_tpu_torch.generate_correlation(
+        pts, TAPER_SCALE, nu=NU, sparse=True, density=TAPER_DENSITY,
+        device=dev)
+    csr_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        gp = gppe_tpu_torch.GaussianProcess(X, Kcsr, "profiled",
+                                            lanczos_steps=STEPS,
+                                            num_probes=PROBES, device=dev)
+    construct_s = sync_seconds(t0)
+    t0 = time.perf_counter()
+    res = gp.train(z)
+    train_s = sync_seconds(t0)
+    window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    op = gp.likelihood.K_mixed.K
+    switched = (gp.likelihood.K_mixed.method == "slq"
+                and any("switching to 'slq'" in str(w.message)
+                        for w in caught))
+
+    # the tapered operator on the same points and the route's random block
+    # (the engine's own draw for key 0, in float64, rounded to float32)
+    probes, v_defl = stochastic.random_block(n, PROBES, 0, dev, F64)
+    top = TaperedMaternOperator(pts, TAPER_SCALE, nu=NU,
+                                density=TAPER_DENSITY, device=dev)
+    ref = KrylovProfileLikelihood(top, X, z, lanczos_steps=STEPS,
+                                  num_probes=PROBES, device=dev,
+                                  probes=probes, v_defl=v_defl).fit()
+    del top
+    eta_gap = rel_gap(res["eta"], ref["eta"])
+    sigma0_gap = rel_gap(res["sigma0"], ref["sigma0"])
+    ok = (res["success"] and ref["success"] and switched
+          and isinstance(op, SparseOperator) and op.dtype == F64
+          and all(np.isfinite(res[k]) for k in ("eta", "sigma", "sigma0"))
+          and eta_gap < 5e-2 and sigma0_gap < 5e-3 and not window)
+
+    # SpMM at the route's width: the Lanczos block [z, X, v_defl, probes]
+    width = 1 + X.shape[1] + 1 + PROBES
+    g = torch.Generator(device=dev).manual_seed(26)
+    V64 = torch.randn((n, width), generator=g, device=dev, dtype=F64)
+    op32 = SparseOperator(Kcsr, device=dev, dtype=F32)
+    V32 = V64.float()
+    spmm_err = compare(op32.matmat(V32), op.matmat(V64))[0]
+    med, all_ms = median_in_turns({"float64": lambda: op.matmat(V64),
+                                   "float32": lambda: op32.matmat(V32)})
+    spmm = {}
+    for key, bytes_ in (("float64", 8), ("float32", 4)):
+        b_ms, nbytes = spmm_bound(op.nnz, n, width, bytes_)
+        spmm[key] = {"ms": med[key], "bound_ms": b_ms, "bound_by": "bytes",
+                     "bytes": nbytes, "bound_share": b_ms / med[key],
+                     "ms_all": all_ms[key]}
+    del op32, V32, V64
+
+    # the general-nu CSR builder on the card at n = 2^16
+    pts16 = data_utils.generate_points(GENERAL_CSR_SIDE, dimension=2)
+    n16 = len(pts16)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    G = taper.generate_tapered_correlation(pts16, TAPER_SCALE,
+                                           TAPER_GENERAL_NU, TAPER_DENSITY,
+                                           device=dev)
+    general_s = sync_seconds(t0)
+    elementwise = cuda_kernels.launch_counts["matern_general_elementwise"]
+    t0 = time.perf_counter()
+    N = taper.generate_tapered_correlation(pts16, TAPER_SCALE, NU,
+                                           TAPER_DENSITY, device=dev)
+    native16_s = time.perf_counter() - t0
+    # the per-dimension scale, as the builder takes it (the radius comes
+    # from the scales' geometric mean)
+    tau = taper.estimate_kernel_threshold(n16, 2, TAPER_DENSITY,
+                                          [TAPER_SCALE] * 2, TAPER_GENERAL_NU)
+    flipped = abs(G.sign() - N.sign()).tocoo()
+    P = pts16 / TAPER_SCALE
+    k64 = kernels.matern(torch.as_tensor(np.linalg.norm(
+        P[flipped.row] - P[flipped.col], axis=1)), TAPER_GENERAL_NU).numpy()
+    flipped_near_tau = int(np.sum(np.abs(k64 - tau) < 1e-5 * tau))
+    general_near_tau = int(np.sum(np.abs(G.data - tau) < 1e-5 * tau))
+    ok = (ok and elementwise > 0 and flipped_near_tau == flipped.nnz
+          and bool(np.all(G.diagonal() == 1.0)))
+    log(phase="sparse_route", ok=ok, n=n, scale=TAPER_SCALE, nu=NU,
+        density=TAPER_DENSITY, lanczos_steps=STEPS, num_probes=PROBES,
+        csr_builder="native", native_threads=native.num_threads(),
+        csr_seconds_host=csr_s, nnz=int(Kcsr.nnz),
+        csr_host_bytes=int(Kcsr.data.nbytes + Kcsr.indices.nbytes
+                           + Kcsr.indptr.nbytes),
+        constructor_seconds=construct_s, train_seconds=train_s,
+        method=gp.likelihood.K_mixed.method, switched_to_slq=switched,
+        operator_dtype=str(op.dtype), launches=window,
+        peak_device_memory_bytes=peak,
+        fit={k: res[k] for k in ("eta", "sigma", "sigma0", "success")},
+        tapered_operator_fit={k: ref[k] for k in ("eta", "sigma", "sigma0",
+                                                   "success")},
+        eta_rel_gap=eta_gap, sigma0_rel_gap=sigma0_gap, spmm_width=width,
+        spmm=spmm, spmm_float32_frob_vs_float64=spmm_err,
+        general_csr={"n": n16, "nu": TAPER_GENERAL_NU, "seconds": general_s,
+                     "elementwise_launches": elementwise, "nnz": int(G.nnz),
+                     "tau": tau, "entries_near_tau":
+                     general_near_tau},
+        native_csr_nu_half={"n": n16, "seconds_host": native16_s,
+                            "nnz": int(N.nnz)},
+        pattern_entries_differing=int(flipped.nnz),
+        differing_near_tau=flipped_near_tau)
+    if not ok:
+        raise AssertionError(f"the scipy-sparse route failed: {res}, "
+                             f"tapered operator {ref}")
+    return spmm
+
+
+def phase_tapered_general_engine(dev):
+    """Phase 27: TaperedMaternOperator at nu = 1.2 through
+    KrylovProfileLikelihood on cuda (float32, G2) and on the CPU (float64,
+    the plain version) from the same data and random block: a grid of side
+    SMALL_TAPER_SIDE at SMALL_TAPER_SCALE and SMALL_TAPER_DENSITY; eta
+    5e-2, sigma0 5e-3 (phase 11's bounds). Returns the CPU's float64 fit
+    and the cuda side's launches."""
+    pts, z, X = tapered_problem(SMALL_TAPER_SIDE)
+    n = len(pts)
+    probes, v_defl = random_block(n, SMALL_TAPER_PROBES, 27)
+    fits, seconds, windows = {}, {}, {}
+    for name, device, dtype in (("cuda_f32", dev, F32),
+                                ("cpu_f64", "cpu", F64)):
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        op = TaperedMaternOperator(pts, SMALL_TAPER_SCALE,
+                                   nu=TAPER_GENERAL_NU,
+                                   density=SMALL_TAPER_DENSITY,
+                                   tile=SMALL_TAPER_TILE, device=device,
+                                   dtype=dtype)
+        fits[name] = KrylovProfileLikelihood(
+            op, X, z, lanczos_steps=SMALL_TAPER_STEPS,
+            num_probes=SMALL_TAPER_PROBES, device=device, dtype=dtype,
+            probes=probes, v_defl=v_defl).fit()
+        seconds[name] = sync_seconds(t0)
+        windows[name] = {k: v for k, v in cuda_kernels.launch_counts.items()
+                         if v}
+    a, b = fits["cuda_f32"], fits["cpu_f64"]
+    eta_rel, sigma0_rel = rel_gap(a["eta"], b["eta"]), rel_gap(
+        a["sigma0"], b["sigma0"])
+    ok = (a["success"] and b["success"] and eta_rel < 5e-2
+          and sigma0_rel < 5e-3 and not windows["cpu_f64"]
+          and windows["cuda_f32"] == {G2_COUNTERS[0]: SMALL_TAPER_STEPS,
+                                      G2_COUNTERS[1]: 1})
+    log(phase="tapered_general_engine", ok=ok, n=n, nu=TAPER_GENERAL_NU,
+        scale=SMALL_TAPER_SCALE, density=SMALL_TAPER_DENSITY,
+        radius=op.radius, tile=SMALL_TAPER_TILE,
+        lanczos_steps=SMALL_TAPER_STEPS, num_probes=SMALL_TAPER_PROBES,
+        pairs=len(op.pair_i), cuda_f32=a, cpu_f64=b, seconds=seconds,
+        cpu_threads=torch.get_num_threads(), launches=windows["cuda_f32"],
+        eta_rel_err=eta_rel, sigma0_rel_err=sigma0_rel)
+    if not ok:
+        raise AssertionError("the tapered general-nu engine: cuda and cpu "
+                             "fits disagree")
+    return b, windows["cuda_f32"]
+
+
+def tile_pair_distances(op, seed):
+    """Scaled distances of TRIP_SAMPLE random point pairs of the
+    operator's active tile pairs (each tile pair equally likely, then a
+    real point of each of its tiles), as the kernels compute them: the
+    pairs whose k the tapered kernels evaluate."""
+    n, t = op.shape[0], op.tile
+    g = torch.Generator(device=op.device).manual_seed(seed)
+    p = torch.randint(0, len(op.pair_i), (TRIP_SAMPLE,), generator=g,
+                      device=op.device)
+    real = torch.as_tensor(np.minimum(t, n - t * np.arange(op.num_tiles)),
+                           device=op.device)
+    ti = torch.as_tensor(op.pair_i, device=op.device).long()[p]
+    tj = op._pair_j.long()[p]
+    u = torch.rand((2, TRIP_SAMPLE), generator=g, device=op.device)
+    i = ti * t + (u[0] * real[ti]).long()
+    j = tj * t + (u[1] * real[tj]).long()
+    S = op.points_sorted
+    return torch.sqrt(((S[i] - S[j]) ** 2).sum(dim=1))
+
+
+def g2_bounds(op, r, d, x_sample):
+    """bound() of the tapered general-nu product and trace over the
+    operator's pair list, as G1's (general_bound): each unordered pair of
+    the active tiles its distance (3 d and a sqrt), the taper's
+    compare-select and, off the diagonal, one k (its work the mean over
+    ``x_sample``, from this run's trips); then the product 2 r FMA
+    operations on each ordered pair, the trace one FMA on each unordered
+    pair. Returns (product (ms, by, term), trace (ms, by, term), work)."""
+    n = op.shape[0]
+    pairs, half = tile_pairs(op), tile_pairs(op, symmetric=True)
+    off = half - n
+    work = general_k_work(x_sample, op.nu)
+    geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
+    k_ops = half * (3 * d + 1) + off * work["fp32"]
+    mufu = half + off * work["mufu"]
+    product = bound(4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry,
+                    k_ops + pairs * 2 * r, mufu_ops=mufu)
+    trace = bound(4 * op.n_pad * d + 8 + geometry, k_ops + 2 * half,
+                  mufu_ops=mufu)
+    return product, trace, work
+
+
+def sub_list(op, row_tiles):
+    """The operator's pair list restricted to its first ``row_tiles``
+    tiles among themselves: a tapered problem of its own over the same
+    sorted points, with the attributes of the operator that tile_pairs,
+    tile_pair_distances and g2_bounds read, and its row_ptr and walk."""
+    t = op.tile
+    keep = (op.pair_i < row_tiles) & (op.pair_j < row_tiles)
+    pi, pj = op.pair_i[keep], op.pair_j[keep]
+    n = row_tiles * t
+    walk = cuda_kernels.blocksparse_trace_schedule(pi, pj, t, n)
+    return types.SimpleNamespace(
+        shape=(n, n), n_pad=n, tile=t, num_tiles=row_tiles, nu=op.nu,
+        device=op.device, points_sorted=op.points_sorted[:n], pair_i=pi,
+        pair_j=pj, _pair_j=torch.as_tensor(pj, device=op.device),
+        row_ptr=torch.as_tensor(cuda_kernels.blocksparse_row_ptr(
+            pi, row_tiles), device=op.device),
+        walk=walk._replace(units=torch.as_tensor(walk.units,
+                                                 device=op.device)))
+
+
+def phase_tapered_general_path(dev, small_fit):
+    """Phase 28: the tapered path at full size at nu = 1.2 (phase 12's
+    configuration: n = 2^20 grid points, rho 0.005, density 1e-3, 64 steps,
+    16 probes): exactly 64 launches of G2's product and one of its trace,
+    no closed-form launch; the fit finite, sigma0 within 10% of the
+    injected 0.2, a band phase 27's float64 fit must lie in too. Then G2's
+    product at r = 24 and its trace timed over the full list against their
+    bounds, and on the first PLAIN_ROW_TILES row tiles' list in turns with
+    the plain version, against that list's bounds: the kernel records'
+    numbers are the sub-list's, where the plain version runs."""
+    pts, z, X = tapered_problem(TAPER_SIDE)
+    n = pts.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    op = TaperedMaternOperator(pts, TAPER_SCALE, nu=TAPER_GENERAL_NU,
+                               density=TAPER_DENSITY, device=dev)
+    geometry_s = sync_seconds(t0)
+    t0 = time.perf_counter()
+    eng = KrylovProfileLikelihood(op, X, z, lanczos_steps=STEPS,
+                                  num_probes=PROBES, device=dev)
+    setup_s = sync_seconds(t0)
+    launches = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    res = eng.fit()
+    fit_s = time.perf_counter() - t0
+    del eng
+    band = (0.18, 0.22)
+    ok = (res["success"]
+          and all(np.isfinite(res[k]) for k in ("eta", "sigma0", "sigma"))
+          and band[0] < res["sigma0"] < band[1]
+          and band[0] < small_fit["sigma0"] < band[1]
+          and launches == {G2_COUNTERS[0]: STEPS, G2_COUNTERS[1]: 1})
+
+    # G2 over the full list: r = 24 and the trace, against their bounds
+    r, d = 24, 2
+    g = torch.Generator(device=dev).manual_seed(28)
+    V = torch.randn((op.n_pad, r), generator=g, device=dev)
+    V[n:] = 0
+    args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
+    kw = dict(n=n, row_ptr=op._row_ptr)
+    full = {"product": timed(lambda: cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, V, *args, **kw), 5),
+            "trace": timed(lambda: cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, None, *args, frobenius=True,
+                trace_walk=op._trace_walk, **kw), 5)}
+    product_bound, trace_bound, work = g2_bounds(
+        op, r, d, tile_pair_distances(op, seed=28))
+
+    # kernel and plain in turns on the first row tiles' list, its bounds,
+    # and the kernel's error against float64 there at a threshold clear of
+    # every pair: the kernel records' shape
+    sub = sub_list(op, PLAIN_ROW_TILES)
+    pts_s, pi, pj, n_s = sub.points_sorted, sub.pair_i, sub._pair_j, sub.n_pad
+    Vs = V[:n_s].contiguous()
+    sargs = (op.nu, op.threshold, pi, pj, op.tile)
+    skw = dict(n=n_s, row_ptr=sub.row_ptr)
+    med, all_ms = median_in_turns({
+        "product": lambda: cuda_kernels.matern_matmat_blocksparse(
+            pts_s, Vs, *sargs, **skw),
+        "plain_product": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
+            pts_s, Vs, *sargs, **skw),
+        "trace": lambda: cuda_kernels.matern_matmat_blocksparse(
+            pts_s, None, *sargs, frobenius=True, trace_walk=sub.walk, **skw),
+        "plain_trace": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
+            pts_s, None, *sargs, frobenius=True, **skw)}, reps=3)
+    sub_product_bound, sub_trace_bound, sub_work = g2_bounds(
+        sub, r, d, tile_pair_distances(sub, seed=28))
+    tau = cuda_kernels.blocksparse_clear_threshold(
+        pts_s.double(), op.nu, op.threshold, pi, pj, op.tile, n=n_s,
+        row_ptr=sub.row_ptr)
+    cargs = (op.nu, tau, pi, pj, op.tile)
+    got, fro = cuda_kernels.matern_matmat_blocksparse(
+        pts_s, Vs, *cargs, frobenius=True, trace_walk=sub.walk, **skw)
+    want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
+        pts_s.double(), Vs.double(), *cargs, frobenius=True, **skw)
+    frob, max_abs = compare(got, want)
+    trace_err = abs(float(fro) - float(fro_want))
+    ok = (ok and frob < GENERAL_FROB_TOL
+          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL)
+    sub_shape = (f"the pair list of row tiles 0-{PLAIN_ROW_TILES - 1} "
+                 f"among themselves ({len(pi)} of {len(op.pair_i)} tile "
+                 f"pairs, n = {n_s})")
+    full_shape = (f"the full pair list ({len(op.pair_i)} tile pairs, "
+                  f"n = {n}); the plain version not run there")
+    times = {"full_list": {
+                 "shape": full_shape,
+                 "product_r24": {
+                     "ms": statistics.median(full["product"]),
+                     "plain_ms": None, "bound_ms": product_bound[0],
+                     "bound_by": product_bound[1],
+                     "bound_term": product_bound[2],
+                     "ms_all": full["product"]},
+                 "trace": {
+                     "ms": statistics.median(full["trace"]),
+                     "plain_ms": None, "bound_ms": trace_bound[0],
+                     "bound_by": trace_bound[1],
+                     "bound_term": trace_bound[2], "ms_all": full["trace"]}},
+             "sub_list": {
+                 "shape": sub_shape,
+                 "product_r24": {
+                     "ms": med["product"], "plain_ms": med["plain_product"],
+                     "bound_ms": sub_product_bound[0],
+                     "bound_by": sub_product_bound[1],
+                     "bound_term": sub_product_bound[2],
+                     "ms_all": all_ms["product"],
+                     "plain_ms_all": all_ms["plain_product"]},
+                 "trace": {
+                     "ms": med["trace"], "plain_ms": med["plain_trace"],
+                     "bound_ms": sub_trace_bound[0],
+                     "bound_by": sub_trace_bound[1],
+                     "bound_term": sub_trace_bound[2],
+                     "ms_all": all_ms["trace"],
+                     "plain_ms_all": all_ms["plain_trace"]}}}
+    log(phase="tapered_general_path", ok=ok, n=n, scale=TAPER_SCALE,
+        nu=TAPER_GENERAL_NU, density=TAPER_DENSITY, tile=op.tile,
+        lanczos_steps=STEPS, num_probes=PROBES,
+        active_tile_pairs=len(op.pair_i), threshold=op.threshold,
+        sort_and_pair_geometry_seconds=geometry_s, setup_seconds=setup_s,
+        fit_seconds_host_numpy=fit_s, eta_star=res["eta"],
+        sigma0=res["sigma0"], sigma=res["sigma"], success=res["success"],
+        sigma0_band=band, phase27_cpu_f64_sigma0=small_fit["sigma0"],
+        launches=launches, peak_device_memory_bytes=peak,
+        pairs_ordered=tile_pairs(op),
+        pairs_unordered=tile_pairs(op, symmetric=True), times=times,
+        work_per_k=work, sub_list_work_per_k=sub_work,
+        sub_list_pairs_ordered=tile_pairs(sub),
+        sub_list_tau_over_threshold=tau / op.threshold,
+        sub_list_frob_rel_err=frob, sub_list_max_abs_err=max_abs,
+        sub_list_trace_abs_err=trace_err)
+    if not ok:
+        raise AssertionError(f"tapered general-nu path failed: {res}, "
+                             f"{launches}")
+    # the records' numbers all at the sub-list's shape, where the plain
+    # version runs; the full list's times and bounds beside them
+    full_t = times["full_list"]
+    return launches, (
+        {"max_abs_err": max_abs, "ms": med["product"],
+         "plain_ms": med["plain_product"], "bound_ms": sub_product_bound[0],
+         "bound_by": sub_product_bound[1], "shape": sub_shape,
+         "ms_full_list": full_t["product_r24"]["ms"],
+         "bound_ms_full_list": product_bound[0], "full_list_shape": full_shape},
+        {"max_abs_err": trace_err, "ms": med["trace"],
+         "plain_ms": med["plain_trace"], "bound_ms": sub_trace_bound[0],
+         "bound_by": sub_trace_bound[1], "shape": sub_shape,
+         "ms_full_list": full_t["trace"]["ms"],
+         "bound_ms_full_list": trace_bound[0], "full_list_shape": full_shape})
+
+
 def kernel_record(name, source, replaces, launches, measured,
                   launches_public_api=None, launches_per_path=None):
     """``launches``: the kernel's count on its path's run (phase 5, 10, 12,
@@ -2740,6 +3280,11 @@ def main():
     launches_23, (measured_prod, measured_gtrace) = \
         phase_general_operator_route(dev)
     launches_large, launches_main = phase_general_search(dev)
+    phase_g2_parity(dev)
+    phase_sparse_route(dev)
+    small_fit, launches_27 = phase_tapered_general_engine(dev)
+    launches_28, (measured_g2, measured_g2_trace) = \
+        phase_tapered_general_path(dev, small_fit)
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
@@ -2755,6 +3300,15 @@ def main():
     if missing:
         raise AssertionError(f"a general-nu kernel was never launched on a "
                              f"path that runs it: {missing}, {per_path}")
+
+    def g2_record(entry, replaces, measured):
+        counter = f"matern_blocksparse_general_{entry}"
+        return kernel_record(
+            f"matern_blocksparse_general[{entry}]",
+            "matern_blocksparse_general.cu", replaces, launches_28[counter],
+            measured, launches_per_path={
+                "tapered_general_engine_4096": launches_27[counter],
+                "tapered_general_path_2e20": launches_28[counter]})
 
     def general_record(entry, replaces, measured):
         counts = per_path[f"matern_general_{entry}"]
@@ -2824,7 +3378,12 @@ def main():
                        measured_prod),
         general_record("trace", "gppe_tpu/ops/operators.py:42; "
                        "gppe_tpu/models/grid_krylov.py:128-141",
-                       measured_gtrace)]}))
+                       measured_gtrace),
+        # the tapered path at a general nu: no Pallas kernel; the XLA scans
+        # of TaperedMaternOperator on the TPU
+        g2_record("product", "gppe_tpu/ops/taper.py:273", measured_g2),
+        g2_record("trace", "gppe_tpu/ops/taper.py:303",
+                  measured_g2_trace)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -74,6 +74,13 @@ struct MaternGeneralConsts {
   float rec_w[kMaxOrder];         // 1 / (4 v (v - 1)), v = mu + j, j >= 2
 };
 
+// the host's check of a struct handed to an entry of matern_general.cu or
+// matern_blocksparse_general.cu
+inline bool consts_ok(const MaternGeneralConsts& c) {
+  return c.mode >= kNuHalf && c.mode <= kNuGeneral && c.nl >= 0 &&
+         c.nl <= kMaxOrder;
+}
+
 // The pieces below are what one k runs: the entry (z, log z, z^mu), one
 // branch's setup, steps and finish, the recurrence's start and steps, the
 // end. chip_profile.py sass-mix compiles each alone and counts its FP32 and

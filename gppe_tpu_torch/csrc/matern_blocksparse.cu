@@ -86,13 +86,6 @@ static_assert(kRowSets * 32 * kR == kTraceTile && kColGroups >= 1 &&
                   kColGroups * kRowSets == kWarps,
               "the threads must tile the 128 x 128 unit exactly");
 
-// the real points of the sub-tile that starts at point p0: at most
-// kTraceTile, none past the end of its tile of `tile` points or past n
-__device__ __forceinline__ int sub_tile_points(int p0, int tile, int n) {
-  const int tile_end = (p0 / tile + 1) * tile;
-  return min(kTraceTile, min(tile_end, n) - p0);
-}
-
 // tapered k^2 of one column point y with the thread's kR rows, added into
 // their float32 sums
 template <int NU, int KD>

@@ -1,0 +1,305 @@
+// The tapered (block-sparse) Matern correlation at a general nu, on Hopper
+// (sm_90a): two entries over the general-nu device function matern_general
+// (matern_bessel.cuh) and the tapered kernels' pair list,
+//
+//   (a) product: out = K_tau @ V,
+//       K_tau[i, j] = k >= tau ? k : 0,  k = k_nu(|x_i - x_j|),
+//       over the active tile pairs only, K never stored, exact float32 FMA
+//       sums;
+//   (b) trace: partials[b] = sum over block b's units of weight * sum
+//       K_tau[i, j]^2, float64 partials that the caller sums to
+//       trace(K_tau^2).
+//
+// x (n_pad, d) are spatially sorted points already divided by the
+// correlation scale and padded to a multiple of `tile`, float32; only the
+// first n rows and columns are real, and pad rows and columns take no part
+// (pad rows of out are written as zero).
+//
+// Replaces no Pallas kernel: the reference sets use_pallas only for the
+// closed forms (gppe_tpu/ops/taper.py:238-239) and runs a general nu on the
+// XLA scans TaperedMaternOperator._matmat_blocked (taper.py:273-301) and
+// .trace_pow (:303-330), which evaluate kernels.matern per active tile pair
+// and keep k >= tau. XLA fuses the Bessel loop there; eager PyTorch would
+// run its ~2,000 elementwise steps on every tile pair. This source is that
+// fused loop on the closed-form kernels' pair list: the product walks the
+// row-tile pointer array of matern_blocksparse_mma.cu, the trace the units
+// of matern_blocksparse.cu (ops/cuda_kernels.py::blocksparse_trace_schedule).
+//
+// What bounds it on this card: per pair of an active tile pair one k, the
+// branch its argument takes in matern_general (Temme below z = 2, CF2 from
+// 2 up, then round(nu) upward steps: hundreds of FP32 operations and a few
+// MUFU operations), against d + 2r operations for the distance and the
+// product (2 for k^2 in the trace). The traffic, O(n (d + r)) words and
+// the pair list, mostly hits the L2 cache: FP32 issue bounds both entries,
+// as it bounds matern_general.cu's.
+//
+// What the design does about it (matern_general.cu's design on the pair
+// list):
+//   * each pair's k is computed once and serves all r columns of V from
+//     registers (the product) or its square (the trace);
+//   * nu is a per-launch constant: the float64 host table of
+//     ops/cuda_kernels.py::_general_consts, passed by value;
+//   * the product: a block holds 32 rows of one row tile (one per lane)
+//     and 8 warps that take every 8th real column of the row tile's active
+//     column tiles; each thread keeps its row's r sums, and the warps' sums
+//     are added in a fixed order through shared memory: no atomics, the
+//     same bits run to run. Widths above 32 run as launches of 32 columns;
+//   * the trace: the symmetric walk of the tapered trace (units of 128 x
+//     128 points of the tile pairs ti <= tj and the sub-tile triangle of
+//     diagonal tiles, weight 2 off it; K_tau is symmetric bit for bit:
+//     (a - b)^2 = (b - a)^2 and the same FMA order over d both ways), each of
+//     256 threads one row and half the unit's columns, float64 block
+//     partials;
+//   * the hard taper compares the float32 k with float32 tau, the rule of
+//     matern_blocksparse_mma.cu; rows and columns past n are masked.
+// Every pair of an active tile pair is evaluated, also those beyond the
+// taper radius (about 4.5 times the kept ones at n = 2^20, tile 512), and
+// the pairs of a warp can take different branches and trip counts. Skipping
+// the taper's empty sub-tiles and binning pairs by branch are later levers.
+// Built WITHOUT --use_fast_math: sqrtf, expf, logf and the divisions are
+// the IEEE versions.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "matern_bessel.cuh"
+#include "matern_common.cuh"
+#include "matern_trace.cuh"
+
+using namespace gppe;
+
+namespace {
+
+constexpr int kProductWarps = 8;
+constexpr int kProductThreads = 32 * kProductWarps;
+constexpr int kProductMaxCols = 32;  // widest instance; wider V in launches
+constexpr int kTraceThreads = 256;
+constexpr int kTraceWarps = kTraceThreads / 32;
+constexpr int kTraceHalves = kTraceThreads / kTraceTile;  // column halves
+
+// the tapered k of one pair from its float32 squared distance
+__device__ __forceinline__ float tapered_k(float d2, float tau,
+                                           const MaternGeneralConsts& c) {
+  const float kv = matern_general(sqrtf(d2), c);
+  return kv >= tau ? kv : 0.0f;
+}
+
+// RC: accumulators per thread, the instance's widest r. Block b takes rows
+// 32 (b % blocks_per_tile) .. + 31 of row tile b / blocks_per_tile and the
+// real columns of that tile's column tiles col_tiles[row_ptr[ti] ..
+// row_ptr[ti + 1]).
+template <int RC>
+__global__ void __launch_bounds__(kProductThreads)
+    blocksparse_general_product_kernel(
+        const float* __restrict__ pts, const float* __restrict__ V,
+        float* __restrict__ out, const int* __restrict__ row_ptr,
+        const int* __restrict__ col_tiles, int n, int d, int r, int ldv,
+        int ldo, int tile, int blocks_per_tile, float tau,
+        const MaternGeneralConsts c) {
+  __shared__ float s_acc[kProductWarps][RC][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ti = blockIdx.x / blocks_per_tile;
+  const int row0 = ti * tile + (blockIdx.x % blocks_per_tile) * 32;
+  const int tile_end = (ti + 1) * tile;
+  const int real_end = min(tile_end, n);
+  const int row = row0 + lane;
+  const bool live = row < real_end;
+  float x[kMaxD];
+#pragma unroll
+  for (int k = 0; k < kMaxD; ++k) {
+    x[k] = (live && k < d) ? pts[static_cast<int64_t>(row) * d + k] : 0.0f;
+  }
+  float acc[RC];
+#pragma unroll
+  for (int q = 0; q < RC; ++q) acc[q] = 0.0f;
+
+  if (row0 < real_end) {  // uniform over the block: pad-only blocks skip
+    const int p_end = row_ptr[ti + 1];
+    for (int p = row_ptr[ti]; p < p_end; ++p) {
+      const int j0 = col_tiles[p] * tile;
+      const int j1 = min(j0 + tile, n);
+      for (int j = j0 + warp; j < j1; j += kProductWarps) {
+        if (!live) continue;
+        const float* y = pts + static_cast<int64_t>(j) * d;
+        float d2 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kMaxD; ++k) {
+          if (k < d) {
+            const float diff = x[k] - __ldg(y + k);
+            d2 = fmaf(diff, diff, d2);
+          }
+        }
+        const float kv = tapered_k(d2, tau, c);
+        const float* v = V + static_cast<int64_t>(j) * ldv;
+#pragma unroll
+        for (int q = 0; q < RC; ++q) {
+          if (q < r) acc[q] = fmaf(kv, __ldg(v + q), acc[q]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < RC; ++q) s_acc[warp][q][lane] = acc[q];
+  __syncthreads();
+  for (int e = threadIdx.x; e < RC * 32; e += kProductThreads) {
+    const int q = e >> 5;
+    const int l = e & 31;
+    const int orow = row0 + l;
+    if (q < r && orow < tile_end) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kProductWarps; ++w) sum += s_acc[w][q][l];
+      out[static_cast<int64_t>(orow) * ldo + q] = sum;  // 0 on pad rows
+    }
+  }
+}
+
+// units[u] = (first row, first column) of unit u
+__global__ void __launch_bounds__(kTraceThreads)
+    blocksparse_general_trace_kernel(const float* __restrict__ pts,
+                                     const int2* __restrict__ units,
+                                     double* __restrict__ partials, int n,
+                                     int d, int tile, int64_t num_units,
+                                     int per_block, bool symmetric, float tau,
+                                     const MaternGeneralConsts c) {
+  __shared__ float s_pts[kTraceTile][kMaxD];
+  __shared__ double s_warp[kTraceWarps];
+  const int lrow = threadIdx.x % kTraceTile;
+  const int half = threadIdx.x / kTraceTile;
+  constexpr int kCols = kTraceTile / kTraceHalves;
+
+  double acc = 0.0;
+  const int64_t u_begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t u_end =
+      u_begin + per_block < num_units ? u_begin + per_block : num_units;
+  for (int64_t u = u_begin; u < u_end; ++u) {
+    const int2 unit = units[u];
+    const int rn = sub_tile_points(unit.x, tile, n);
+    const int cn = sub_tile_points(unit.y, tile, n);
+    __syncthreads();  // every thread is done with the previous unit
+    for (int e = threadIdx.x; e < kTraceTile * kMaxD; e += kTraceThreads) {
+      const int j = e / kMaxD;
+      const int k = e % kMaxD;
+      s_pts[j][k] = (j < cn && k < d)
+                        ? pts[static_cast<int64_t>(unit.y + j) * d + k]
+                        : 0.0f;
+    }
+    const bool live = lrow < rn;
+    float x[kMaxD];
+#pragma unroll
+    for (int k = 0; k < kMaxD; ++k) {
+      x[k] = (live && k < d)
+                 ? pts[static_cast<int64_t>(unit.x + lrow) * d + k]
+                 : 0.0f;
+    }
+    __syncthreads();
+    float part = 0.0f;
+    if (live) {
+      const int jb = half * kCols;
+      const int je = min(cn, jb + kCols);
+      for (int j = jb; j < je; ++j) {
+        float d2 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kMaxD; ++k) {
+          if (k < d) {
+            const float diff = x[k] - s_pts[j][k];
+            d2 = fmaf(diff, diff, d2);
+          }
+        }
+        const float kv = tapered_k(d2, tau, c);
+        part = fmaf(kv, kv, part);
+      }
+    }
+    // the mirror unit (columns, rows) has the same entries
+    acc += (symmetric && unit.x != unit.y ? 2.0 : 1.0) *
+           static_cast<double>(part);
+  }
+  const double total = block_sum<kTraceWarps>(acc, s_warp);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+template <int RC>
+cudaError_t launch_product(const float* pts, const float* V, float* out,
+                           const int* row_ptr, const int* col_tiles, int n,
+                           int d, int r, int ldv, int ldo, int tile,
+                           int num_tiles, int blocks_per_tile, float tau,
+                           const MaternGeneralConsts& c,
+                           cudaStream_t stream) {
+  blocksparse_general_product_kernel<RC>
+      <<<num_tiles * blocks_per_tile, kProductThreads, 0, stream>>>(
+          pts, V, out, row_ptr, col_tiles, n, d, r, ldv, ldo, tile,
+          blocks_per_tile, tau, c);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// (a) out[:, :r] = K_tau @ V[:, :r] over the pair list, for r <= 32: pts
+// (num_tiles * tile, d) sorted scaled points, the first n real; V and out
+// rows of strides ldv and ldo in the same order; row tile ti multiplies
+// the column tiles col_tiles[row_ptr[ti] .. row_ptr[ti + 1]) (num_tiles + 1
+// int32 pointers). `consts` is a host pointer to the per-launch constants
+// (gppe_matern_general_consts_bytes bytes). Every row of out is written,
+// pad rows as zero. Launches on `stream` and returns cudaGetLastError() (0
+// on success); does not synchronise and allocates nothing.
+extern "C" int gppe_matern_blocksparse_general_product(
+    const void* pts, const void* V, void* out, const void* row_ptr,
+    const void* col_tiles, int n, int d, int r, int ldv, int ldo, int tile,
+    int num_tiles, float tau, const void* consts, void* stream) {
+  const MaternGeneralConsts c = *static_cast<const MaternGeneralConsts*>(
+      consts);
+  const int blocks_per_tile = (tile + 31) / 32;
+  if (n <= 0 || d < 1 || d > kMaxD || r < 1 || r > kProductMaxCols ||
+      ldv < r || ldo < r || tile <= 0 || num_tiles <= 0 ||
+      n > static_cast<int64_t>(num_tiles) * tile ||
+      static_cast<int64_t>(num_tiles) * blocks_per_tile > 0x7fffffff ||
+      row_ptr == nullptr || col_tiles == nullptr || !consts_ok(c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* p_pts = static_cast<const float*>(pts);
+  const float* p_v = static_cast<const float*>(V);
+  float* p_out = static_cast<float*>(out);
+  const int* p_ptr = static_cast<const int*>(row_ptr);
+  const int* p_cols = static_cast<const int*>(col_tiles);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (r <= 8) {
+    return static_cast<int>(launch_product<8>(
+        p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
+        blocks_per_tile, tau, c, s));
+  }
+  if (r <= 16) {
+    return static_cast<int>(launch_product<16>(
+        p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
+        blocks_per_tile, tau, c, s));
+  }
+  return static_cast<int>(launch_product<32>(
+      p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
+      blocks_per_tile, tau, c, s));
+}
+
+// (b) partials[b] = block b's weighted sum of tapered k^2 over `per_block`
+// units of `units` (num_units (first row, first column) int32 pairs, each
+// the start of a sub-tile of a tile of `tile` points;
+// cuda_kernels.blocksparse_trace_schedule); `symmetric` counts every unit
+// whose rows are not its columns twice. The blocks must cover the units
+// exactly.
+extern "C" int gppe_matern_blocksparse_general_trace(
+    const void* pts, const void* units, void* partials, int n, int d,
+    int tile, int num_units, int symmetric, float tau, int per_block,
+    int blocks, const void* consts, void* stream) {
+  const MaternGeneralConsts c = *static_cast<const MaternGeneralConsts*>(
+      consts);
+  if (n <= 0 || d < 1 || d > kMaxD || tile <= 0 || units == nullptr ||
+      partials == nullptr || !trace_grid_ok(num_units, per_block, blocks) ||
+      !consts_ok(c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  blocksparse_general_trace_kernel<<<blocks, kTraceThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const int2*>(units),
+      static_cast<double*>(partials), n, d, tile, num_units, per_block,
+      symmetric != 0, tau, c);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -223,11 +223,6 @@ cudaError_t launch_product(const float* rows, const float* cols,
   return cudaGetLastError();
 }
 
-bool consts_ok(const MaternGeneralConsts& c) {
-  return c.mode >= kNuHalf && c.mode <= kNuGeneral && c.nl >= 0 &&
-         c.nl <= kMaxOrder;
-}
-
 }  // namespace
 
 extern "C" int gppe_matern_general_consts_bytes() {

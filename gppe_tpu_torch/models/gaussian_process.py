@@ -5,8 +5,9 @@ facade, gaussian_proc/gaussian_process/gaussian_process.py:39-71):
 ``GaussianProcess(X, K, likelihood_method).train(z)`` estimates
 (sigma, sigma0, eta) of the model z ~ N(X beta, sigma^2 K + sigma0^2 I).
 K is a dense correlation matrix (a tensor or an array; factorized on
-``device="cuda"`` unless the caller passes another device) or a
-matrix-free operator on that device.
+``device="cuda"`` unless the caller passes another device), a scipy-sparse
+K (densified up to ``dense_threshold`` points, else a SparseOperator on
+that device) or a matrix-free operator on that device.
 """
 
 from .likelihood import Likelihood, _refuse_plot

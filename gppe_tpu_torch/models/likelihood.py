@@ -9,11 +9,13 @@ over eta in [1e-4, 1e3] (likelihood.py:90).
 
 Two routes, chosen by whether K has eigenvalues:
 
-* the spectral route (a dense K, method 'eigenvalue'): the float64
+* the spectral route (a dense K, or a scipy-sparse K of at most
+  ``dense_threshold`` points densified, method 'eigenvalue'): the float64
   eigendecomposition and the rotation on the card, the O(n m) per-eta
   math in float64 on the host;
-* the operator route (a matrix-free operator, or a dense K under
-  'cholesky', 'slq' or 'hutchinson'): the fit runs
+* the operator route (a matrix-free operator, a larger scipy-sparse K as a
+  :class:`~gppe_tpu_torch.ops.operators.SparseOperator`, or a dense K
+  under 'cholesky', 'slq' or 'hutchinson'): the fit runs
   :class:`~gppe_tpu_torch.models.large_scale.KrylovProfileLikelihood`
   (one Lanczos pass over [z, X, deflation start, probes]); for both
   methods, since the direct and profiled criteria have the same maximizer.
@@ -21,7 +23,7 @@ Two routes, chosen by whether K has eigenvalues:
   logdet (SLQ through an operator, Cholesky for a dense K under
   'cholesky' and 'hutchinson').
 
-Unported: plotting (ROADMAP A15) and a scipy-sparse K (A9) raise.
+Unported: plotting (ROADMAP A15) raises.
 """
 
 import numpy as np
@@ -48,9 +50,10 @@ class Likelihood:
     def __init__(self, X, K, likelihood_method="direct",
                  imate_method="eigenvalue", interpolate=False,
                  interpolant_points=None, options=None, lanczos_steps=80,
-                 num_probes=16, *, device="cuda"):
+                 num_probes=16, dense_threshold=4096, *, device="cuda"):
         """``device``: where a dense K is factorized, in float64 (see
-        :class:`MixedCorrelation`)."""
+        :class:`MixedCorrelation`); ``dense_threshold``: the largest
+        scipy-sparse K that the exact methods densify."""
         if likelihood_method not in ("direct", "profiled"):
             raise ValueError(
                 f"likelihood_method must be 'direct' or 'profiled', got "
@@ -61,7 +64,9 @@ class Likelihood:
         self.K_mixed = MixedCorrelation(K, method=imate_method,
                                         interpolate=interpolate,
                                         interpolant_points=interpolant_points,
-                                        options=options, device=device)
+                                        options=options,
+                                        dense_threshold=dense_threshold,
+                                        device=device)
         self._lanczos_steps = lanczos_steps
         self._num_probes = num_probes
 

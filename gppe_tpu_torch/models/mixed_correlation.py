@@ -25,8 +25,13 @@ A matrix-free operator (anything with ``matvec``, such as
 :class:`~gppe_tpu_torch.ops.operators.MaternOperator`) keeps its own
 dtype, float32 through its kernel, must live on ``device``, and takes the
 stochastic backends: ``eigenvalue`` and ``cholesky`` switch to ``slq``
-with the reference's warning. A scipy-sparse K is not ported yet (its
-``SparseOperator`` route comes with ROADMAP A9) and raises.
+with the reference's warning. A scipy-sparse K (the reference accepts CSR
+throughout, mixed_correlation.py:44) is densified, float64 on ``device``
+like a dense K, for ``eigenvalue`` and ``cholesky`` up to
+``dense_threshold`` points; otherwise it becomes a float64
+:class:`~gppe_tpu_torch.ops.operators.SparseOperator` on ``device``
+(cuSPARSE's SpMM on the card) and the method switches to ``slq`` with the
+reference's warning.
 
 Every scalar method returns a 0-d tensor.
 """
@@ -52,17 +57,33 @@ class MixedCorrelation:
     """Operator view of K + eta*I with pluggable trace/solve backends."""
 
     def __init__(self, K, method="eigenvalue", interpolate=False,
-                 interpolant_points=None, options=None, *, device="cuda"):
+                 interpolant_points=None, options=None, dense_threshold=4096,
+                 *, device="cuda"):
         """``options``: keyword arguments of the stochastic engine
         (``num_probes``, ``lanczos_steps``, ``key``, ``generator``,
-        ``probes``, ``v_defl``, ``deflate``, ...)."""
+        ``probes``, ``v_defl``, ``deflate``, ...). ``dense_threshold``: a
+        scipy-sparse K under ``eigenvalue`` or ``cholesky`` is densified up
+        to this n; a larger one, or one under another method, is held as a
+        :class:`SparseOperator` (and the exact methods switch to
+        ``slq``)."""
         setup()
-        if _is_scipy_sparse(K):
-            raise NotImplementedError(
-                "a scipy-sparse K: its SparseOperator route comes with the "
-                "tapered slice of gppe_tpu_torch (ROADMAP A9); pass a dense "
-                "K or a matrix-free operator")
         self.device = resolve_device(device)
+        self.is_sparse = _is_scipy_sparse(K)
+        if self.is_sparse:
+            n = K.shape[0]
+            if method in ("eigenvalue", "cholesky") and n <= dense_threshold:
+                K = K.toarray()
+            else:
+                from ..ops.operators import SparseOperator
+                K = SparseOperator(K, device=self.device, dtype=torch.float64)
+                if method in ("eigenvalue", "cholesky"):
+                    warnings.warn(
+                        f"method={method!r} on a sparse K with n={n} > "
+                        f"dense_threshold={dense_threshold}: switching to "
+                        "'slq' (stochastic Lanczos quadrature) - the exact "
+                        "spectral backend would densify an n x n matrix",
+                        stacklevel=2)
+                    method = "slq"
         if hasattr(K, "matvec"):
             op_device = resolve_device(getattr(K, "device", self.device))
             if op_device != self.device:

@@ -25,7 +25,8 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("matern_matmat.cu", "matern_matmat_mma.cu", "matern_multirho.cu",
            "matern_multirho_mma.cu", "matern_blocksparse.cu",
-           "matern_blocksparse_mma.cu", "matern_general.cu")
+           "matern_blocksparse_mma.cu", "matern_general.cu",
+           "matern_blocksparse_general.cu")
 HEADERS = ("matern_common.cuh", "matern_mma.cuh", "matern_trace.cuh",
            "matern_bessel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -157,6 +158,14 @@ def load(path=None):
     lib.gppe_matern_general_trace.restype = i32
     lib.gppe_matern_general_trace.argtypes = [ptr, ptr, ptr, i32, i32, i32,
                                               i32, i32, i32, ptr, ptr]
+    lib.gppe_matern_blocksparse_general_product.restype = i32
+    lib.gppe_matern_blocksparse_general_product.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, ptr, ptr]
+    lib.gppe_matern_blocksparse_general_trace.restype = i32
+    lib.gppe_matern_blocksparse_general_trace.argtypes = [
+        ptr, ptr, ptr, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32,
+        ptr, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
     if path == library_path():

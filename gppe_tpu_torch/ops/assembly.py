@@ -10,10 +10,11 @@ elementwise entry of the hand-written kernel ``csrc/matern_general.cu``
 on the CPU its plain version :func:`gppe_tpu_torch.ops.kernels.matern`.
 Assembly runs in the compute dtype, float32 on the card, as the
 reference's does on its accelerator; the likelihood layer promotes what it
-needs to float64.
+needs to float64. ``sparse=True`` returns the tapered correlation as a
+scipy CSR (:func:`gppe_tpu_torch.ops.taper.generate_tapered_correlation`).
 
-Not ported yet, and refused with the ROADMAP item that brings them: the
-tapered ("sparse") correlation (A9) and the plot (A15).
+Not ported yet, and refused with the ROADMAP item that brings it: the
+plot (A15).
 """
 
 import numpy as np
@@ -72,9 +73,11 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
                          device="cuda"):
     """Front end with the reference's signature
     (generate_correlation/generate_correlation.py:32-40): the dense K of
-    ``points`` as a ``dtype`` tensor on ``device``. ``grid`` and
-    ``density`` are accepted for that signature; ``density`` belongs to
-    the tapered form, which is not ported yet."""
+    ``points`` as a ``dtype`` tensor on ``device``, or with ``sparse=True``
+    the tapered K at ``density`` as a scipy CSR (float64 values; a
+    general nu's blocked rule runs in ``dtype`` on ``device``, see
+    :func:`~gppe_tpu_torch.ops.taper.generate_tapered_correlation`).
+    ``grid`` is accepted for that signature."""
     setup()
     points_np = (points.detach().cpu().numpy() if torch.is_tensor(points)
                  else np.asarray(points))
@@ -91,17 +94,19 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
         nu_ok = False
     if not nu_ok:
         raise ValueError(f"nu must be a positive scalar, got {nu!r}")
-    if sparse:
-        raise NotImplementedError(
-            "generate_correlation(sparse=True): the tapered correlation "
-            "comes with the tapered slice of gppe_tpu_torch (ROADMAP A9)")
     if plot:
         raise NotImplementedError(
             "generate_correlation(plot=True): plotting comes with "
             "ROADMAP A15")
 
-    matrix = dense_correlation_blocked(points, scale, nu, dtype=dtype,
-                                       device=device)
+    if sparse:
+        from . import taper
+        matrix = taper.generate_tapered_correlation(
+            points_np, scale.cpu().numpy(), nu, density, verbose=verbose,
+            dtype=dtype, device=device)
+    else:
+        matrix = dense_correlation_blocked(points, scale, nu, dtype=dtype,
+                                           device=device)
     if verbose:
         n = points_np.shape[0]
         print(f"generated {n}x{n} correlation matrix "

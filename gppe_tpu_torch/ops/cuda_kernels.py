@@ -25,7 +25,8 @@ with per-rho trace(K_b^2).
 ``matern_matmat_blocksparse`` replaces
 ``pallas_kernels._blocksparse_kernel``: the hard-tapered K @ V over a list
 of active tile pairs, plus an optional trace(K^2) output that replaces the
-XLA scan of ``taper.TaperedMaternOperator.trace_pow``.
+XLA scan of ``taper.TaperedMaternOperator.trace_pow``. A general nu there
+runs ``csrc/matern_blocksparse_general.cu`` (below).
 
 Both take the same three dot modes as ``matern_matmat``, the same way: every
 product runs a tensor-core kernel (``csrc/matern_multirho_mma.cu``,
@@ -54,7 +55,11 @@ general-nu assembly, the row-blocked products and traces of
 XLA-fused. ``matern_matmat`` hands a general nu to it, so
 ``MaternOperator`` takes every nu; the multi-rho kernel takes the closed
 forms only (a general-nu grid maps ``matern_general_matmat`` over its
-points), and the tapered one refuses a general nu (ROADMAP A9).
+points). ``matern_matmat_blocksparse`` hands a general nu to
+``csrc/matern_blocksparse_general.cu``, the same device function over the
+tapered kernels' pair list and trace walk (the product in float32 FMA sums,
+one launch per 32 columns of V, and the trace), where the reference runs
+its XLA scans; so ``TaperedMaternOperator`` takes every nu too.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -84,7 +89,9 @@ launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
                  "matern_matmat_blocksparse": 0,
                  "matern_matmat_blocksparse_mma": 0,
                  "matern_general_elementwise": 0,
-                 "matern_general_product": 0, "matern_general_trace": 0}
+                 "matern_general_product": 0, "matern_general_trace": 0,
+                 "matern_blocksparse_general_product": 0,
+                 "matern_blocksparse_general_trace": 0}
 
 # nu -> template code of csrc/matern_common.cuh (kNuHalf ... kNuGauss)
 _NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2}
@@ -517,12 +524,16 @@ def _launch_plan(kernel, r, frobenius):
     sums, where asked for, are a trace-only launch of the FP32 kernel (they
     never round). ``kernel`` 'general' (a general nu, in
     ``matern_general_matmat``): the product on ``matern_general.cu``, one
-    launch per 32 columns of V, then its trace entry."""
-    if kernel == "general":
-        plan = [("gppe_matern_general_product", "matern_general_product")
+    launch per 32 columns of V, then its trace entry; ``kernel``
+    'blocksparse_general' (a general nu in ``matern_matmat_blocksparse``)
+    the same on ``matern_blocksparse_general.cu``."""
+    if kernel in ("general", "blocksparse_general"):
+        name = ("matern_general" if kernel == "general"
+                else "matern_blocksparse_general")
+        plan = [(f"gppe_{name}_product", f"{name}_product")
                 ] * -(-r // _GENERAL_MAX_COLS)
         if frobenius:
-            plan.append(("gppe_matern_general_trace", "matern_general_trace"))
+            plan.append((f"gppe_{name}_trace", f"{name}_trace"))
         return plan
     trace = ("gppe_matern_matmat", "matern_matmat") if kernel == "matmat" \
         else (f"gppe_matern_{kernel}", f"matern_matmat_{kernel}")
@@ -797,14 +808,17 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     sum is a 0-d tensor, float64 on the CUDA path.
 
     CPU tensors take :func:`matern_matmat_blocksparse_plain`; CUDA tensors
-    must be float32 and contiguous and launch float32 kernels: the product
-    the tensor-core kernel (``csrc/matern_blocksparse_mma.cu``) in every
-    mode, 'highest' as 3xTF32 with the taper on the IEEE float32 k, the
-    trace the FP32 kernel (``csrc/matern_blocksparse.cu``, over
-    ``trace_walk``, with the same k and taper), so a call that asks for
-    both launches both."""
+    must be float32 and contiguous and launch float32 kernels: for a
+    closed-form nu the product the tensor-core kernel
+    (``csrc/matern_blocksparse_mma.cu``) in every mode, 'highest' as 3xTF32
+    with the taper on the IEEE float32 k, the trace the FP32 kernel
+    (``csrc/matern_blocksparse.cu``, over ``trace_walk``, with the same k
+    and taper), so a call that asks for both launches both; for a general
+    nu both entries of ``csrc/matern_blocksparse_general.cu`` the same way
+    (the product one launch per 32 columns of V, in float32 FMA sums;
+    ``dot_mode`` does not apply)."""
     dot_mode = resolve_dot_mode(dot_mode)
-    nu = check_tapered_nu(nu)
+    nu = check_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
     if points_sorted.ndim != 2:
@@ -876,23 +890,43 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
         per_block, blocks = trace_blocks(units.shape[0])
         partials = torch.zeros(blocks, dtype=torch.float64, device=device)
     if r > 0 or frobenius:
-        lib = _build.load()
-        code = _NU_CODES.get(nu, _GAUSS_CODE)
+        general = not kernels.is_closed_form(nu)
+        if general:
+            lib, kernel = _general_library(), "blocksparse_general"
+            consts = _general_consts(nu).ctypes.data
+        else:
+            lib, kernel = _build.load(), "blocksparse"
+            code = _NU_CODES.get(nu, _GAUSS_CODE)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
-            for entry, counter in _launch_plan("blocksparse", r, frobenius):
+            c0 = 0
+            for entry, counter in _launch_plan(kernel, r, frobenius):
                 if entry == "gppe_matern_blocksparse_mma":
                     err = lib.gppe_matern_blocksparse_mma(
                         points_sorted.data_ptr(), V.data_ptr(),
                         out.data_ptr(), row_ptr.data_ptr(),
                         pair_j.data_ptr(), n, d, r, tile, num_tiles,
                         float(tau), code, _DOT_CODES[dot_mode], stream)
-                else:
+                elif entry == "gppe_matern_blocksparse":
                     err = lib.gppe_matern_blocksparse(
                         points_sorted.data_ptr(), units.data_ptr(),
                         partials.data_ptr(), n, d, tile, units.shape[0],
                         int(trace_walk.symmetric), float(tau), code,
                         per_block, blocks, stream)
+                elif entry == "gppe_matern_blocksparse_general_product":
+                    width = min(_GENERAL_MAX_COLS, r - c0)
+                    err = lib.gppe_matern_blocksparse_general_product(
+                        points_sorted.data_ptr(), V.data_ptr() + 4 * c0,
+                        out.data_ptr() + 4 * c0, row_ptr.data_ptr(),
+                        pair_j.data_ptr(), n, d, width, r, r, tile,
+                        num_tiles, float(tau), consts, stream)
+                    c0 += width
+                else:
+                    err = lib.gppe_matern_blocksparse_general_trace(
+                        points_sorted.data_ptr(), units.data_ptr(),
+                        partials.data_ptr(), n, d, tile, units.shape[0],
+                        int(trace_walk.symmetric), float(tau), per_block,
+                        blocks, consts, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
     return (out, partials.sum()) if frobenius else out
@@ -910,20 +944,6 @@ def check_nu(nu):
             from None
     if not nu > 0.0:
         raise ValueError(f"nu must be a positive number, got {nu!r}")
-    return nu
-
-
-def check_tapered_nu(nu):
-    """``nu`` as a float if the tapered kernels take it (a closed form),
-    else raise: the tapered operator at general nu, which the reference
-    runs on its XLA path, comes with the rest of the tapered slice."""
-    nu = check_nu(nu)
-    if not kernels.is_closed_form(nu):
-        raise NotImplementedError(
-            f"the tapered operator at general nu = {nu}: only the closed "
-            f"forms nu in {{0.5, 1.5, 2.5}} and nu >= 100 are ported; "
-            f"general nu comes with the rest of the tapered slice of "
-            f"gppe_tpu_torch (ROADMAP A9)")
     return nu
 
 

@@ -1,16 +1,29 @@
-"""Kernel tapering ("sparse" correlation), block-sparse form.
+"""Kernel tapering ("sparse" correlation): the host CSR and the block-sparse
+operator.
 
-Counterpart of the operator half of :mod:`gppe_tpu.ops.taper`. The
-reference sparsifies K by dropping entries whose kernel value falls below
-a threshold estimated from the requested density via d-ball geometry.
-:class:`TaperedMaternOperator` is the scalable form of that object: points
-are spatially sorted (grid-cell keys) so near points share tiles, a
-tile-pair adjacency mask is computed from tile bounding boxes and the taper
-radius, and matvecs touch only active tiles. The kernel value mask
-(k >= threshold) matches the reference's hard taper exactly. On a CUDA
-device the active tiles run through the fused CUDA kernel
-(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat_blocksparse`); on the
-CPU through its plain version. K is never materialized.
+Counterpart of :mod:`gppe_tpu.ops.taper`. The reference sparsifies K by
+dropping entries whose kernel value falls below a threshold estimated from
+the requested density via d-ball geometry. The same object comes in two
+forms:
+
+* :func:`generate_tapered_correlation`: the exact tapered K as a scipy CSR
+  on the host. For a closed-form nu the native C++/OpenMP cell-binned
+  builder (:mod:`gppe_tpu_torch.native`) keeps every pair within the taper
+  radius; for a general nu the blocked rule keeps k >= threshold, a block
+  of rows at a time: on the card distances in PyTorch and k from the
+  elementwise entry of the general-nu kernel, only the kept entries copied
+  back; on the CPU the plain ``kernels.matern``.
+* :class:`TaperedMaternOperator`: the scalable form. Points are spatially
+  sorted (grid-cell keys) so near points share tiles, a tile-pair adjacency
+  mask is computed from tile bounding boxes and the taper radius, and
+  matvecs touch only active tiles. The kernel value mask (k >= threshold)
+  matches the reference's hard taper exactly. On a CUDA device the active
+  tiles run through the fused CUDA kernels
+  (:func:`gppe_tpu_torch.ops.cuda_kernels.matern_matmat_blocksparse`: a
+  closed-form nu on ``csrc/matern_blocksparse_mma.cu`` and
+  ``csrc/matern_blocksparse.cu``, a general nu on
+  ``csrc/matern_blocksparse_general.cu``); on the CPU through their plain
+  version. K is never materialized.
 
 Since k(.; nu) is monotone decreasing, the taper "k >= threshold" is the
 distance ball "d <= kernel_radius" - tiles are pruned on distance, entries
@@ -18,14 +31,14 @@ masked on kernel value.
 
 The threshold geometry and the tile-pair geometry are host numpy, copied
 from the reference so that ``perm``, ``pair_i`` and ``pair_j`` agree with
-its operator at the same ``tile``. ``generate_tapered_correlation`` (host
-CSR) is not ported yet.
+its operator at the same ``tile``.
 """
 
 import numpy as np
 import torch
 
-from . import cuda_kernels, kernels
+from . import assembly, cuda_kernels, kernels
+from .. import native
 from ..utils.config import resolve_device, setup
 
 
@@ -104,6 +117,93 @@ def estimate_max_nnz(matrix_size, correlation_scale, dimension, density):
     return int(np.ceil(safety * estimated_nnz))
 
 
+# -- the host CSR -----------------------------------------------------------
+
+# the reference's rows per block of the blocked rule, taken on the CPU
+BLOCK_ROWS = 2048
+
+
+def _tapered_block_rows(n, d, device, dtype):
+    """Rows per block of the blocked rule on ``device``: the reference's
+    BLOCK_ROWS on the CPU; on the card as many as half the free device
+    memory holds at the block's intermediates (the differences, their
+    squares, the distances, k and the mask: 2 d + 3 words and a byte per
+    entry), at most 2^31 - 1 entries a block."""
+    if device.type != "cuda":
+        return BLOCK_ROWS
+    free, _ = torch.cuda.mem_get_info(device)
+    per_row = n * ((2 * d + 3) * torch.finfo(dtype).bits // 8 + 1)
+    return max(1, min(n, free // 2 // per_row, (2 ** 31 - 1) // n))
+
+
+def _blocked_csr(pts_scaled, nu, tau, block_rows, device, dtype):
+    """The blocked rule: each block of rows against every point, k of its
+    distances (``assembly.correlation_of_distances``: the general-nu
+    kernel's elementwise entry on the card), the entries with k >= tau
+    (compared in ``dtype``) kept in row-major order. Returns host numpy
+    (values float64, indices int64, indptr int64)."""
+    n, d = pts_scaled.shape
+    pts = torch.as_tensor(pts_scaled, dtype=dtype, device=device)
+    if block_rows is None:
+        block_rows = _tapered_block_rows(n, d, device, dtype)
+    rows, cols, vals = [], [], []
+    for start in range(0, n, block_rows):
+        dist = kernels.pairwise_scaled_distance(pts[start:start + block_rows],
+                                                pts, 1.0)
+        kblk = assembly.correlation_of_distances(dist, nu)
+        del dist  # a block fills half the free device memory: free early
+        r, c = torch.nonzero(kblk >= tau, as_tuple=True)
+        vals.append(kblk[r, c].cpu().numpy().astype(np.float64))
+        rows.append(r.cpu().numpy() + start)
+        cols.append(c.cpu().numpy())
+        del kblk, r, c
+    rows = np.concatenate(rows)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return np.concatenate(vals), np.concatenate(cols).astype(np.int64), indptr
+
+
+def generate_tapered_correlation(points, scale, nu, density, verbose=False,
+                                 block_rows=None, *, dtype=torch.float32,
+                                 device="cuda"):
+    """Exact tapered correlation as a scipy CSR (n x n, float64 values):
+    the reference's ``generate_tapered_correlation``.
+
+    A closed-form nu (and d <= 8) takes the native builder on the host,
+    which keeps every pair within the taper radius (``device`` and
+    ``dtype`` are not used). Any other nu takes the blocked rule, which
+    keeps k >= threshold: ``block_rows`` rows at a time (default: the
+    reference's 2048 on the CPU, sized to free device memory on the card),
+    distances and k in ``dtype`` on ``device``: on the card k comes from the
+    general-nu kernel's elementwise entry (float32 only) and only the kept
+    entries are copied to the host; on the CPU from the plain
+    ``kernels.matern``."""
+    import scipy.sparse
+
+    points = np.asarray(points, dtype=float)
+    n, d = points.shape
+    scale = np.atleast_1d(np.asarray(scale, dtype=float))
+    if scale.size == 1:
+        scale = np.repeat(scale, d)
+    tau = estimate_kernel_threshold(n, d, density, scale, nu)
+    radius = estimate_kernel_radius(n, d, density, scale)
+    pts_scaled = points / scale
+
+    if native.serves(nu, d):
+        values, indices, indptr = native.taper_csr(pts_scaled, radius, nu)
+        how = f"native, {native.num_threads()} threads"
+    else:
+        setup()
+        values, indices, indptr = _blocked_csr(
+            pts_scaled, nu, tau, block_rows, resolve_device(device), dtype)
+        how = "blocked"
+    csr = scipy.sparse.csr_matrix((values, indices, indptr), shape=(n, n))
+    if verbose:
+        print(f"tapered correlation ({how}): n={n} tau={tau:.3e} "
+              f"nnz={csr.nnz} density={csr.nnz / n ** 2:.3e}")
+    return csr
+
+
 # -- spatial sorting and the block-sparse operator ---------------------------
 
 def spatial_sort(points, cell_size):
@@ -123,8 +223,10 @@ class TaperedMaternOperator:
     pairs within the taper radius.
 
     API: ``shape``, ``matmat``, ``matvec``, ``trace_pow`` - what the Krylov
-    engines consume - and the geometry ``perm``, ``inv_perm``, ``pair_i``,
-    ``pair_j`` (numpy), ``tile_density``, ``radius``, ``threshold``."""
+    engines consume - ``nnz_estimate``, and the geometry ``perm``,
+    ``inv_perm``, ``pair_i``, ``pair_j`` (numpy), ``tile_density``,
+    ``radius``, ``threshold``. ``nu`` is any positive number: a closed form
+    (0.5, 1.5, 2.5 or >= 100) or a general nu (the Bessel form)."""
 
     def __init__(self, points, scale, nu=0.5, density=0.001, tile=512,
                  device="cuda", dtype=torch.float32):
@@ -139,7 +241,7 @@ class TaperedMaternOperator:
         if scale_arr.size == 1:
             scale_arr = np.repeat(scale_arr, d)
 
-        self.nu = cuda_kernels.check_tapered_nu(nu)
+        self.nu = cuda_kernels.check_nu(nu)
         self.density = density
         self.tile = int(min(tile, n))
         self.radius = estimate_kernel_radius(n, d, density, scale_arr)
@@ -199,6 +301,11 @@ class TaperedMaternOperator:
     @property
     def shape(self):
         return (self._n, self._n)
+
+    def nnz_estimate(self):
+        """The reference's upper estimate of nnz (its arguments: unit
+        scale, 2 dimensions)."""
+        return estimate_max_nnz(self._n, 1.0, 2, self.density)
 
     def _product(self, Vs, frobenius=False):
         return cuda_kernels.matern_matmat_blocksparse(

@@ -36,6 +36,19 @@ def warm_cpu_threads():
     torch.sqrt(torch.rand(1 << 20))
 
 
+def one_torch_thread():
+    """One torch thread until resumed, then the earlier count again: the
+    body of the test modules' autouse fixture,
+    ``pytest.fixture(autouse=True, scope="module")(one_torch_thread)``.
+    The test suite runs six workers on the host's cores, and torch's own
+    pool of one thread per core in each of them made small problems about
+    15 times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def precision_state():
     """The settings :func:`setup` controls, for logging."""
     return {

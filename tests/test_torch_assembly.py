@@ -14,21 +14,14 @@ torch = pytest.importorskip("torch")
 import gppe_tpu  # noqa: E402
 from gppe_tpu.ops import assembly as jasm  # noqa: E402
 from gppe_tpu_torch.ops import assembly as tasm  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tier-1 run puts six test workers on the host's cores: torch's
-    own pool of one thread per core in each worker made these small
-    problems ~15x slower there. One thread for this module, restored
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 F64 = torch.float64
 CPU = dict(device="cpu", dtype=F64)
@@ -87,8 +80,23 @@ def test_same_value_errors(points, args):
 
 
 @pytest.mark.parametrize("args, item", [
-    (dict(sparse=True), "A9"), (dict(plot=True), "A15"),
-    (dict(nu=0.7, sparse=True), "A9")], ids=["sparse", "plot", "general-nu"])
+    (dict(sparse=True, density=0.05), None), (dict(plot=True), "A15"),
+    (dict(nu=0.7, sparse=True, density=0.05), None)],
+    ids=["sparse", "plot", "general-nu"])
 def test_unported_inputs_name_their_roadmap_item(points, args, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tasm.generate_correlation(points, 0.1, **{"nu": 0.5, **args}, **CPU)
+    """What is not ported names its ROADMAP item; ``sparse=True`` (A9) is
+    ported: the tapered CSR of ``taper.generate_tapered_correlation``
+    (tests/test_torch_sparse_api.py holds it against the reference)."""
+    args = {"nu": 0.5, **args}
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            tasm.generate_correlation(points, 0.1, **args, **CPU)
+        return
+    import scipy.sparse
+
+    from gppe_tpu_torch.ops import taper as ttaper
+    got = tasm.generate_correlation(points, 0.1, **args, **CPU)
+    want = ttaper.generate_tapered_correlation(
+        points, 0.1, args["nu"], args["density"], **CPU)
+    assert scipy.sparse.isspmatrix_csr(got) and got.shape == want.shape
+    assert (got != want).nnz == 0

@@ -1173,7 +1173,8 @@ def test_general_through_the_public_entry_points(dev):
     """matern_matmat and MaternOperator at a general nu run the general
     kernel (no closed-form launch) in every dot mode, with the same bits;
     the anisotropic, rectangular product against float64; the tapered
-    wrapper refuses a general nu; a float64 CUDA tensor is refused."""
+    operator at a general nu runs the tapered general-nu kernel only; a
+    float64 CUDA tensor is refused."""
     rng = np.random.RandomState(5)
     P = torch.as_tensor(rng.rand(700, 2), dtype=F32, device=dev)
     C = torch.as_tensor(rng.rand(450, 2), dtype=F32, device=dev)
@@ -1198,9 +1199,15 @@ def test_general_through_the_public_entry_points(dev):
     with pytest.raises(TypeError, match="float32"):
         cuda_kernels.matern_general(torch.rand(10, dtype=F64, device=dev),
                                     1.2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TaperedMaternOperator(P.cpu().numpy(), 0.1, nu=1.2, density=0.05,
-                              device=dev)
+    top = TaperedMaternOperator(P.cpu().numpy(), 0.1, nu=1.2, density=0.05,
+                                device=dev)
+    cuda_kernels.reset_launch_counts()
+    top.matmat(W)
+    top.trace_pow(2)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} == {
+        "matern_blocksparse_general_product": 1,
+        "matern_blocksparse_general_trace": 1}
 
 
 def test_general_operator_dense_runs_the_elementwise_kernel(dev):
@@ -1246,3 +1253,154 @@ def test_general_grid_engine_cuda_matches_cpu(dev):
         assert a["success"] and b["success"]
         assert abs(a["eta"] - b["eta"]) / b["eta"] < 5e-2
         assert abs(a["sigma0"] - b["sigma0"]) / b["sigma0"] < 5e-3
+
+
+# -- the tapered general-nu kernel (matern_blocksparse_general.cu) ------------
+
+# every nu at one small 2-D shape; one nu at a ragged 2-D shape of 16
+# tiles, in 3-D and in 1-D (chip_smoke.py's phase 25 runs the whole
+# nu x shape grid; the float64 plain version at 3001 points takes 20-50 s
+# a nu on the card)
+BLOCKSPARSE_GENERAL_CASES = ([(1000, 128, 2, nu)
+                              for nu in (0.3, 1.2, 3.7, 24.9)]
+                             + [(3001, 200, 2, 24.9), (1000, 512, 3, 3.7),
+                                (100, 512, 1, 0.3)])
+
+
+@pytest.mark.parametrize("n, tile, d, nu", BLOCKSPARSE_GENERAL_CASES)
+def test_blocksparse_general_kernel(dev, n, tile, d, nu):
+    """matern_matmat_blocksparse at a general nu, at a threshold clear of
+    every pair: the product at r in {1, 7, 24, 40} (40: two launches) and
+    the trace against the plain float64 version (Frobenius 1e-5, the
+    general-nu kernel's bounds; trace rtol 1e-5); pad rows zero; the trace
+    the same bits twice and from the walk the wrapper builds itself; only
+    the general-nu entries launch, one product launch per 32 columns."""
+    op, args, kw = _tapered_any_d(dev, n, nu, tile, d, TAPER_SCALES[d],
+                                  seed=n + d)
+    V = _padded_normal(op, n, 40, np.random.RandomState(d), dev)
+    want, fro_want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V.double(), *args, frobenius=True, **kw)
+    for r in (1, 7, 24, 40):
+        cuda_kernels.reset_launch_counts()
+        got = cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, V[:, :r].contiguous(), *args, **kw)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} \
+            == {"matern_blocksparse_general_product": 2 if r > 32 else 1}
+        assert not bool(got[n:].any())
+        err = float(torch.linalg.norm(got.double() - want[:, :r])
+                    / torch.linalg.norm(want[:, :r]))
+        assert err < 1e-5, (r, err)
+
+    def trace(**extra):
+        return float(cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, *args, frobenius=True, **kw, **extra)[1])
+
+    got = trace(trace_walk=op._trace_walk)
+    assert trace(trace_walk=op._trace_walk) == got and trace() == got
+    np.testing.assert_allclose(got, float(fro_want), rtol=1e-5)
+
+
+def test_blocksparse_general_symmetry_and_closed_forms(dev):
+    """The tapered general-nu product is symmetric (u.Kv against v.Ku to
+    1e-6 of |u| |Kv|) and the same bits run to run and in every dot mode
+    (which it ignores); at the closed forms the same wrapper launches the
+    closed-form kernels only."""
+    op, args, kw = _tapered_any_d(dev, 3001, 1.2, 512, 2, 0.05, seed=9)
+    rng = np.random.RandomState(2)
+    u = _padded_normal(op, 3001, 1, rng, dev)
+    v = _padded_normal(op, 3001, 1, rng, dev)
+    Ku = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, u, *args,
+                                                **kw)
+    Kv = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, v, *args,
+                                                **kw)
+    skew = abs(float((u * Kv).sum() - (v * Ku).sum()))
+    assert skew < 1e-6 * float(torch.linalg.norm(u) * torch.linalg.norm(Kv))
+    for mode in cuda_kernels.DOT_MODES:
+        assert torch.equal(cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, v, *args, dot_mode=mode, **kw), Kv)
+    for nu in (0.5, 1.5, 2.5, 150.0):
+        cop, cargs, ckw = _tapered_any_d(dev, 1000, nu, 128, 2, 0.05, seed=3)
+        cuda_kernels.reset_launch_counts()
+        cuda_kernels.matern_matmat_blocksparse(
+            cop.points_sorted, _padded_normal(cop, 1000, 7, rng, dev),
+            *cargs, frobenius=True, **ckw)
+        assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} \
+            == {"matern_matmat_blocksparse_mma": 1,
+                "matern_matmat_blocksparse": 1}
+
+
+def test_tapered_general_engine_cuda_matches_cpu(dev):
+    """TaperedMaternOperator at nu = 1.2 through KrylovProfileLikelihood on
+    the card (the tapered general-nu kernel, float32) against the same on
+    the CPU in float64 from the same random block, at n = 400 (rho 0.1,
+    density 0.1: eta ~123 on the CPU): eta within 5e-2 and sigma0 within
+    5e-3 (the reference's cuda-vs-cpu bounds)."""
+    n = 400
+    rng = np.random.RandomState(4)
+    pts = rng.rand(n, 2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    kw = dict(lanczos_steps=16, num_probes=8,
+              probes=np.sign(rng.standard_normal((n, 8))),
+              v_defl=rng.standard_normal((n, 1)))
+    fits = {}
+    for name, device, dtype in (("cuda", dev, F32), ("cpu", "cpu", F64)):
+        op = TaperedMaternOperator(pts, 0.1, nu=1.2, density=0.1, tile=128,
+                                   device=device, dtype=dtype)
+        cuda_kernels.reset_launch_counts()
+        fits[name] = KrylovProfileLikelihood(op, X, z, device=device,
+                                             dtype=dtype, **kw).fit()
+        if name == "cuda":
+            assert {k: v for k, v in cuda_kernels.launch_counts.items()
+                    if v} == {"matern_blocksparse_general_product": 16,
+                              "matern_blocksparse_general_trace": 1}
+    a, b = fits["cuda"], fits["cpu"]
+    assert a["success"] and b["success"] and np.isfinite(b["eta"])
+    assert abs(a["eta"] - b["eta"]) / b["eta"] < 5e-2
+    assert abs(a["sigma0"] - b["sigma0"]) / b["sigma0"] < 5e-3
+
+
+def test_sparse_operator_and_csr_route_on_the_card(dev):
+    """A scipy CSR on the card: SparseOperator (float32 and float64, one
+    torch.sparse.mm a product) against the host product; the general-nu CSR
+    builder on the card (the elementwise entry) against the same builder on
+    the CPU in float64, the kept entries equal apart from those within
+    1e-5 of the threshold; GaussianProcess over a CSR above the dense
+    threshold runs the Krylov route."""
+    import scipy.sparse
+
+    from gppe_tpu_torch.ops import taper
+    from gppe_tpu_torch.ops.operators import SparseOperator
+
+    pts = data_utils.generate_points(40, dimension=2)
+    K = gppe_tpu_torch.generate_correlation(pts, 0.03, sparse=True,
+                                            density=0.05, device=dev)
+    assert scipy.sparse.isspmatrix_csr(K)
+    V = np.random.RandomState(0).standard_normal((K.shape[0], 5))
+    for dtype, tol in ((F32, 1e-5), (F64, 1e-12)):
+        op = SparseOperator(K, device=dev, dtype=dtype)
+        got = op.matmat(torch.as_tensor(V, device=dev)).cpu().numpy()
+        want = K @ V
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) < tol
+    cuda_kernels.reset_launch_counts()
+    G = taper.generate_tapered_correlation(pts, 0.03, 1.2, 0.05, device=dev)
+    assert cuda_kernels.launch_counts["matern_general_elementwise"] > 0
+    H = taper.generate_tapered_correlation(pts, 0.03, 1.2, 0.05,
+                                           device="cpu", dtype=F64)
+    tau = taper.estimate_kernel_threshold(len(pts), 2, 0.05, [0.03] * 2, 1.2)
+    # entries kept by one builder only: float64 k within 1e-5 of tau
+    flipped = abs(G.sign() - H.sign()).tocoo()
+    P = pts / 0.03
+    k64 = kernels.matern(torch.as_tensor(np.linalg.norm(
+        P[flipped.row] - P[flipped.col], axis=1)), 1.2).numpy()
+    assert np.all(np.abs(k64 - tau) < 1e-5 * tau)
+    assert abs(G.multiply(H.sign()) - H.multiply(G.sign())).max() < 3e-5
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    with pytest.warns(UserWarning, match="slq"):
+        gp = gppe_tpu_torch.GaussianProcess(X, K, "profiled",
+                                            dense_threshold=0, device=dev)
+    assert gp.likelihood.operator_mode
+    res = gp.train(z)
+    assert res["success"] and 0.15 < res["sigma0"] < 0.25

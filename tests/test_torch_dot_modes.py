@@ -30,9 +30,15 @@ from gppe_tpu_torch.ops import _build, cuda_kernels  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 F32, F64 = torch.float32, torch.float64
 # what rounding both operands to bfloat16 must cost (the reference records

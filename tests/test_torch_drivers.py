@@ -19,9 +19,15 @@ torch = pytest.importorskip("torch")
 from gppe_tpu_torch.drivers import profile_kernel_matrix  # noqa: E402
 from gppe_tpu_torch.drivers import roofline_matvec  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(n=512, device="cpu", lanczos_steps=16, num_probes=4,

@@ -40,7 +40,8 @@ from gppe_tpu_torch.ops import assembly as tasm  # noqa: E402
 from gppe_tpu_torch.ops import kernels as tk  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
@@ -50,14 +51,8 @@ CPU = dict(device="cpu", dtype=F64)
 NUS = [0.01, 0.3, 1.2, 3.7, 10.0, 24.9]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (the tier-1 run puts six test
-    workers on the host's cores), restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 
 def _t(a, dtype=F64):
@@ -224,17 +219,22 @@ def test_non_positive_nu_raises(points, bad):
 
 def test_closed_form_only_kernels_refuse_general_nu(points):
     """The multi-rho kernel takes the closed forms, as the reference's
-    does; the tapered kernel and operator name ROADMAP A9."""
+    does; the tapered kernel and operator take a general nu (their plain
+    version here; tests/test_torch_taper_general.py holds them against the
+    reference)."""
     P = _t(points)
     with pytest.raises(NotImplementedError, match="general nu"):
         cuda_kernels.matern_matmat_multirho(P, [0.1, 0.2], None, 1.2,
                                             return_frobenius=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        cuda_kernels.matern_matmat_blocksparse(P, None, 1.2, 0.1, [0], [0],
-                                               200, frobenius=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tops_taper = pytest.importorskip("gppe_tpu_torch.ops.taper")
-        tops_taper.TaperedMaternOperator(points, 0.1, nu=1.2, **CPU)
+    _, fro = cuda_kernels.matern_matmat_blocksparse(
+        P, None, 1.2, 0.1, [0], [0], 200, frobenius=True)
+    Kd = tk.matern(tk.pairwise_scaled_distance(P, P, 1.0), 1.2)
+    np.testing.assert_allclose(
+        float(fro), float(torch.sum(torch.where(Kd >= 0.1, Kd, 0.0) ** 2)),
+        rtol=1e-12)
+    from gppe_tpu_torch.ops import taper as ttaper
+    assert ttaper.TaperedMaternOperator(points, 0.1, nu=1.2, density=0.1,
+                                        **CPU).nu == 1.2
 
 
 # -- the per-launch constants and the card path's routing ---------------------

@@ -21,9 +21,15 @@ from gppe_tpu.ops import pallas_kernels  # noqa: E402
 from gppe_tpu_torch.models import grid_krylov as tgk  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 F64 = torch.float64
 N, STEPS, PROBES = 400, 24, 8

@@ -27,9 +27,15 @@ from gppe_tpu_torch.ops import kernels as tk  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
@@ -215,12 +221,17 @@ def test_cpu_path_launches_no_kernel():
     gop.matmat(V)
     gop.trace_pow(2)
     cuda_kernels.matern_general(_t(np.linspace(0.0, 3.0, 7)), 3.7)
+    gtop = ttaper.TaperedMaternOperator(pts, 0.1, nu=1.3, density=0.1,
+                                        tile=16, device="cpu", dtype=F64)
+    gtop.matmat(V)
+    gtop.trace_pow(2)
     assert cuda_kernels.launch_counts == {
         "matern_matmat": 0, "matern_matmat_mma": 0,
         "matern_matmat_multirho": 0, "matern_matmat_multirho_mma": 0,
         "matern_matmat_blocksparse": 0, "matern_matmat_blocksparse_mma": 0,
         "matern_general_elementwise": 0, "matern_general_product": 0,
-        "matern_general_trace": 0}
+        "matern_general_trace": 0, "matern_blocksparse_general_product": 0,
+        "matern_blocksparse_general_trace": 0}
 
 
 @pytest.mark.parametrize("kind", ["general_nu", "bf16", "bf16x3", "gram",
@@ -229,21 +240,24 @@ def test_unported_or_invalid_requests_raise(kind):
     pts, _, V, _, scale = _problem(n=32)
     P, Vt = _t(pts), _t(V)
     if kind == "general_nu":
-        # ported for the dense kernels (the general-nu kernel's plain
-        # version here); the tapered ones still refuse it, naming A9, and
-        # a general nu has no Gram form
+        # ported for the dense and the tapered kernels (their plain
+        # versions here); a general nu has no Gram form, and a
+        # non-positive one is refused
         got = cuda_kernels.matern_matmat(P, scale, Vt, 0.7)
         want = cuda_kernels.matern_matmat_plain(
             P, tk.broadcast_scale(scale, 2, dtype=F64), Vt, 0.7)
         assert torch.equal(got, want)
         with pytest.raises(ValueError, match="difference form"):
             cuda_kernels.matern_matmat(P, scale, Vt, 0.7, dist_mode="gram")
-        with pytest.raises(NotImplementedError, match="A9"):
-            ttaper.TaperedMaternOperator(pts, scale, nu=3.0, density=0.1,
-                                         tile=16, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
+        got = cuda_kernels.matern_matmat_blocksparse(
+            P, Vt, 3.0, 0.1, [0], [0], 32)
+        assert torch.equal(got, cuda_kernels.matern_matmat_blocksparse_plain(
+            P, Vt, 3.0, 0.1, [0], [0], 32))
+        assert ttaper.TaperedMaternOperator(
+            pts, scale, nu=3.0, density=0.1, tile=16, device="cpu").nu == 3.0
+        with pytest.raises(ValueError, match="positive"):
             cuda_kernels.matern_matmat_blocksparse(
-                P, Vt, 3.0, 0.1, [0], [0], 32)
+                P, Vt, -3.0, 0.1, [0], [0], 32)
     elif kind in ("bf16", "bf16x3"):
         # ported: the mode runs, through the wrapper and the operator, and
         # rounds (it differs from the exact product, by less than bf16's
@@ -281,7 +295,7 @@ def test_unported_or_invalid_requests_raise(kind):
 def test_build_command_flags():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/x.so")
     # one compile per source, each for sm_90a and without fast math
-    assert len(compiles) == len(_build.SOURCES) == 7
+    assert len(compiles) == len(_build.SOURCES) == 8
     objects = []
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -291,7 +305,7 @@ def test_build_command_flags():
         assert len(sources) == 1 and os.path.isfile(sources[0])
         objects.append(cmd[cmd.index("-o") + 1])
     assert link[:4] == ["nvcc", "-shared", "-o", "/tmp/x.so"]
-    assert link[4:] == objects and len(set(objects)) == 7
+    assert link[4:] == objects and len(set(objects)) == 8
     flagged = _build.nvcc_commands("nvcc", "/tmp/x.so", ("-Xptxas", "-v"))
     assert all("-Xptxas" in cmd for cmd in flagged[0])
     # the library name is keyed by sources, headers and flags

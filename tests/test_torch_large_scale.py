@@ -25,9 +25,15 @@ from gppe_tpu.ops import operators as jops  # noqa: E402
 from gppe_tpu_torch.models import large_scale as tls  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 N, STEPS, PROBES = 1024, 32, 16
 LOG_ETAS = [-3.0, -1.5, -0.5, 0.0, 0.5, 1.5, 2.5]

@@ -34,21 +34,14 @@ from gppe_tpu_torch.ops import interpolate as tinterp  # noqa: E402
 from gppe_tpu_torch.ops import optimize as topt  # noqa: E402
 from gppe_tpu_torch.ops import root_finding as troot  # noqa: E402
 from gppe_tpu_torch.utils import data as data_utils  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tier-1 run puts six test workers on the host's cores: torch's
-    own pool of one thread per core in each worker made these small
-    problems ~15x slower there. One thread for this module, restored
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 HYPERPARAMS = [(0.05, 0.2), (0.3, 0.1), (1.0, 1e-3), (1e-9, 0.2)]
 

@@ -17,21 +17,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from gppe_tpu.ops import linalg as jla  # noqa: E402
 from gppe_tpu_torch.ops import linalg as tla  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tier-1 run puts six test workers on the host's cores: torch's
-    own pool of one thread per core in each worker made these small
-    problems ~15x slower there. One thread for this module, restored
-    after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 N = 200
 

@@ -29,7 +29,8 @@ from gppe_tpu_torch.ops.global_opt import (  # noqa: E402
     MinimizeTerminator, differential_evolution)
 from gppe_tpu_torch.utils import checkpoint  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
@@ -37,14 +38,8 @@ F64 = torch.float64
 POINTS = [(0.15, 1.5), (0.2, 3.7), (0.12, 12.3)]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (the tier-1 run puts six test
-    workers on the host's cores), restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 
 # -- priors -------------------------------------------------------------------

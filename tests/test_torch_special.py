@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 
 from gppe_tpu.ops import special as jspecial  # noqa: E402
 from gppe_tpu_torch.ops import special  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
 
@@ -28,14 +29,8 @@ NUS = [0.0, 0.1, 0.25, 0.5, 0.9, 1.0, 1.3, 2.5, 3.2, 7.8, 25.0, 60.5, 99.0]
 X = np.logspace(-5, 2.5, 200)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (the tier-1 run puts six test
-    workers on the host's cores), restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
 
 
 @pytest.mark.parametrize("fn", ["kv", "log_kv", "kve"])

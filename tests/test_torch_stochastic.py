@@ -18,9 +18,15 @@ from gppe_tpu.ops import stochastic as jst  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.ops import root_finding as troot  # noqa: E402
 from gppe_tpu_torch.ops import stochastic as tst  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 F64 = torch.float64
 

@@ -94,20 +94,25 @@ def _walked_sub_pairs(walk, starts):
 
 def test_trace_walk_constants_match_the_sources():
     """The schedule's unit of kTraceTile points, its weights and its
-    sub-tile ends are the kernel's own."""
+    sub-tile ends are the kernels' own: the closed-form tapered trace's
+    and the general-nu one's, which share ``sub_tile_points`` through
+    ``matern_trace.cuh``."""
     with open(os.path.join(CSRC, "matern_trace.cuh")) as f:
-        assert f"constexpr int kTraceTile = {TILE};" in f.read()
-    with open(os.path.join(CSRC, "matern_blocksparse.cu")) as f:
-        src = f.read()
-    assert '#include "matern_trace.cuh"' in src
-    # weight 2 exactly where the walk is symmetric and rows != columns
-    assert "(symmetric && unit.x != unit.y ? 2.0 : 1.0)" in src
+        header = f.read()
+    assert f"constexpr int kTraceTile = {TILE};" in header
     # a sub-tile ends at the end of its tile or at n, at most kTraceTile on
-    assert "const int tile_end = (p0 / tile + 1) * tile;" in src
-    assert "return min(kTraceTile, min(tile_end, n) - p0);" in src
-    # the units come as int2 (first row, first column)
-    assert "const int2* __restrict__ units" in src
-    assert "const int rn = sub_tile_points(unit.x, tile, n);" in src
+    assert "const int tile_end = (p0 / tile + 1) * tile;" in header
+    assert "return min(kTraceTile, min(tile_end, n) - p0);" in header
+    for name in ("matern_blocksparse.cu", "matern_blocksparse_general.cu"):
+        with open(os.path.join(CSRC, name)) as f:
+            src = f.read()
+        assert '#include "matern_trace.cuh"' in src
+        # weight 2 exactly where the walk is symmetric and rows != columns
+        assert "(symmetric && unit.x != unit.y ? 2.0 : 1.0)" in src
+        # the units come as int2 (first row, first column)
+        assert "const int2* __restrict__ units" in src
+        assert "const int rn = sub_tile_points(unit.x, tile, n);" in src
+        assert "(p0 / tile + 1) * tile" not in src  # no second copy
 
 
 @pytest.mark.parametrize("n, tile", [(1000, 128), (1500, 200), (4000, 512),

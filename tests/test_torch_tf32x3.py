@@ -25,9 +25,15 @@ torch = pytest.importorskip("torch")
 from gppe_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from gppe_tpu.ops import taper as jtaper  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels, kernels  # noqa: E402
-from gppe_tpu_torch.utils.config import warm_cpu_threads  # noqa: E402
+from gppe_tpu_torch.utils.config import (  # noqa: E402
+    one_torch_thread, warm_cpu_threads)
 
 warm_cpu_threads()
+
+
+_one_torch_thread = pytest.fixture(autouse=True, scope="module")(
+    one_torch_thread)
+
 
 F32 = torch.float32
 FROB_TOL, MAXABS_TOL, SYM_TOL = 2e-5, 5e-4, 1e-6

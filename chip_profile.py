@@ -14,7 +14,7 @@
     python3 chip_profile.py eta             # eta* of every path
     python3 chip_profile.py eta-main        # main eta* under other products
     python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
-    python3 chip_profile.py general-slices  # G1's product, split or not
+    python3 chip_profile.py --parent DIR general-levers  # G1, G2 by lever
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -103,12 +103,28 @@ n = 2^20), with each library in turns, in this one
 process, with each library's error against plain float64 (multirho: the
 largest over the rhos): how the design choices of the kernels were made.
 
-``general-slices`` times the general-nu product (``matern_general_matmat``)
-at n = 10^4, rho 0.1, nu = 1.2, r = 16 (``main_large``'s width) and
-r = 24, with its columns split over grid.y as
-``cuda_kernels.general_product_slices`` chooses and with one slice, in
-turns, median of 8, and the largest absolute difference of the two
-outputs.
+``general-levers`` times the general-nu products lever by lever, in
+turns, median of 8 (H100 name and power limit printed beside): G1's
+product at n = 10^4, rho 0.1, nu = 1.2, r = 24 and 16 as the parent had it
+(with ``--parent``), on the binned k tiles alone (the rectangular walk:
+every tile pair, columns given as distinct points), and with the symmetric
+walk; ``main_large``'s step (its points and 64 (rho, nu) points, r = 16)
+as 64 single calls of the parent and of this package, and as one batched
+call (its walk in 13 bands), beside the batched call's bound: the sum over
+the 64 points of chip_smoke.general_bound, each point from its own sample
+of distances and so its own trips; G1
+at nu = 1/2 through the same kernel (k a closed form: the walk, binning
+and products alone, the binning's overhead per pair); G2's product over the
+full list at n = 2^20, r = 24, nu = 1.2 of the parent, of this package
+without the skip (every pair of an active tile pair binned and evaluated)
+and with it; each of those of this package's products with the bin counts
+of GENERAL_BIN_VARIANTS; and G1's product at r = 16 with its parts taken
+away one by one (GENERAL_PART_VARIANTS: the products, the evaluation, the
+scatter, the classify pass's match and atomics), which times each part.
+Each variant is a copy of this package whose kernel sources carry its
+text substitutions, built by the copy's own ``_build`` as ``variants``
+builds its copies. Then one batched call under ``torch.profiler``: the
+tile kernel's and the band sums' device times, and the bands' scratch.
 
 Exits non-zero without a CUDA device.
 """
@@ -117,6 +133,7 @@ import importlib
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,12 +152,12 @@ import chip_smoke as cs
 # turn (chip_smoke.median_in_turns) each package and library runs first in
 # half of them
 REPS = 8
+from gppe_tpu_torch.drivers import find_optimal_covariance
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
 from gppe_tpu_torch.ops.operators import MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
-from gppe_tpu_torch.utils import data as data_utils
 
 
 def ptxas_report():
@@ -777,19 +794,28 @@ def path_etas(dev, pkgs, float64=False):
           flush=True)
 
 
+def copy_libraries(dirs):
+    """{dir: the kernel library of the package copy ``dir/gppe_tpu_torch``,
+    built by that copy's own ``_build`` (one process per copy, all at
+    once) and bound by this package's ``_build.load``}."""
+    load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
+            "print(_build.library_path())")
+    procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
+                              stdout=subprocess.PIPE, text=True)
+             for d in dirs]
+    paths = [p.communicate()[0].split() for p in procs]
+    if any(p.returncode or not path for p, path in zip(procs, paths)):
+        raise RuntimeError("a package copy's kernels did not build")
+    return {d: _build.load(Path(path[-1])) for d, path in zip(dirs, paths)}
+
+
 def variant_times(dev, dirs, kernel):
     """Median ms and errors of one wrapper (``kernel``: 'matmat',
     'multirho' or 'blocksparse') at its path's shape under each dot mode,
     or of one trace ('matmat_trace', 'multirho_trace',
     'blocksparse_trace'), with the kernel library of each package copy in
     ``dirs``."""
-    load = ("from gppe_tpu_torch.ops import _build; _build.load(); "
-            "print(_build.library_path())")
-    procs = [subprocess.Popen([sys.executable, "-c", load], cwd=d,
-                              stdout=subprocess.PIPE, text=True)
-             for d in dirs]
-    libs = {d: _build.load(Path(p.communicate()[0].split()[-1]))
-            for d, p in zip(dirs, procs)}
+    libs = copy_libraries(dirs)
     pts, _, _ = cs.make_problem(cs.N_MAIN, 7)
     P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -863,37 +889,187 @@ def variant_times(dev, dirs, kernel):
           flush=True)
 
 
-def general_slices(dev):
-    """Median ms of the general-nu product at n = 10^4, r = 16 and 24,
-    with the chosen column slices and with one slice, in turns."""
-    g = torch.Generator(device=dev).manual_seed(10)
-    P = torch.rand((cs.GENERAL_N, 2), generator=g, device=dev)
-    chosen = cuda_kernels.general_product_slices
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slices = chosen(cs.GENERAL_N, cs.GENERAL_N, sms)
+# Libraries of the general-nu sources with one change each, by text
+# substitution, (file, old, new): the bin counts (kTemmeBins, kCf2Bins) of
+# csrc/matern_general_tile.cuh beside the source's own 4 + 6 (one bin a
+# branch, fewer, more); and G1's product with its parts taken away one by
+# one, which times the parts (those libraries' results are wrong)
+_PRODUCTS = [("matern_general.cu",
+              "    tile_times_v<RC>(s.k, s.v[0], acc);\n", ""),
+             ("matern_general.cu",
+              "    if (mirror) tile_t_times_v<RC>(s.k, s.v[1], mirror_acc);\n",
+              "")]
+_EVALUATION = [("matern_general.cu",
+                "    tile_evaluate<false>(s, t, c, 0.0f);\n", "")]
+_SCATTER = [("matern_general_tile.cuh",
+             "  __syncthreads();\n  for (int m = 0; m < kTilePairs / kTileThreads; ++m) {\n"
+             "    const int e = m * kTileThreads + threadIdx.x;\n    float* kp",
+             "  __syncthreads();\n  for (int m = 0; m < 0; ++m) {\n"
+             "    const int e = m * kTileThreads + threadIdx.x;\n    float* kp")]
+_MATCH = [("matern_general_tile.cuh",
+           "    const unsigned peers = __match_any_sync(0xffffffffu, bin);\n"
+           "    if (bin != kNoBin && lane == __ffs(peers) - 1) {\n"
+           "      atomicAdd(&t.cursor[bin], __popc(peers));\n    }\n", "")]
+GENERAL_BIN_VARIANTS = {
+    f"bins{temme}+{cf2}": [
+        ("matern_general_tile.cuh", "constexpr int kTemmeBins = 4;",
+         f"constexpr int kTemmeBins = {temme};"),
+        ("matern_general_tile.cuh", "constexpr int kCf2Bins = 6;",
+         f"constexpr int kCf2Bins = {cf2};")]
+    for temme, cf2 in ((1, 1), (2, 3), (8, 12))}
+GENERAL_PART_VARIANTS = {
+    "without_products": _PRODUCTS,
+    "without_products_evaluation": _PRODUCTS + _EVALUATION,
+    "without_products_evaluation_scatter": _PRODUCTS + _EVALUATION + _SCATTER,
+    "without_products_evaluation_scatter_match":
+        _PRODUCTS + _EVALUATION + _SCATTER + _MATCH}
 
-    def product(V, split):
-        cuda_kernels.general_product_slices = (
-            chosen if split else lambda nr, nc, sms=0: 1)
+
+def source_variants(tmp, variants):
+    """{name: the kernel library of a copy of this package under
+    ``tmp/name`` whose kernel sources carry that variant's substitutions},
+    built all at once (copy_libraries)."""
+    pkg = Path(cuda_kernels.__file__).resolve().parents[1]
+    roots = {}
+    for name, subs in variants.items():
+        root = Path(tmp) / name
+        shutil.copytree(pkg, root / pkg.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        csrc = root / pkg.name / "csrc"
+        for fname, old, new in subs:
+            text = (csrc / fname).read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} is not once in "
+                                   f"{fname}")
+            (csrc / fname).write_text(text.replace(old, new))
+        roots[name] = str(root)
+    libs = copy_libraries(list(roots.values()))
+    return {name: libs[root] for name, root in roots.items()}
+
+
+def with_library(lib, fn):
+    """``fn`` run with the wrappers launching ``lib``'s kernels."""
+    def run():
+        saved = _build._lib
+        _build._lib = lib
         try:
-            return cuda_kernels.matern_general_matmat(P, cs.RHO, V,
-                                                      cs.GENERAL_NU)
+            return fn()
         finally:
-            cuda_kernels.general_product_slices = chosen
+            _build._lib = saved
+    return run
 
-    fns, diff = {}, {}
-    for r in (16, 24):
-        V = torch.randn((cs.GENERAL_N, r), generator=g, device=dev)
-        fns[f"r{r}:slices{slices}"] = lambda V=V: product(V, True)
-        fns[f"r{r}:slices1"] = lambda V=V: product(V, False)
-        diff[r] = float((product(V, True) - product(V, False)).abs().max())
-    med, times = cs.median_in_turns(fns, REPS)
-    print(json.dumps({"phase": "general_slices",
-                      "nvidia_smi": cs.nvidia_smi(), "n": cs.GENERAL_N,
-                      "nu": cs.GENERAL_NU, "rho": cs.RHO, "slices": slices,
-                      "reps": REPS, "ms_median": med,
-                      "max_abs_diff_split_vs_one": diff, "ms_all": times}),
-          flush=True)
+
+def general_levers(dev, pkgs):
+    """G1's and G2's products lever by lever, in turns (see the module
+    docstring), with the bin-count variants beside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parent = pkgs.get("parent", (None,))[0]
+    g = torch.Generator(device=dev).manual_seed(12)
+    P = torch.as_tensor(find_optimal_covariance.large_problem(cs.GENERAL_N)[0],
+                        dtype=F32, device=dev)
+    V = {r: torch.randn((cs.GENERAL_N, r), generator=g, device=dev)
+         for r in (16, 24)}
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
+                       indexing="ij")
+    rhos, nus = R.ravel().tolist(), N.ravel().tolist()
+    scales = torch.tensor(rhos, device=dev)
+    W = torch.randn((64, cs.GENERAL_N, 16), generator=g, device=dev)
+    nu = cs.GENERAL_NU
+    out = {"nvidia_smi": cs.nvidia_smi(), "n": cs.GENERAL_N, "nu": nu,
+           "rho": cs.RHO, "reps": REPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = source_variants(
+            tmp, {**GENERAL_BIN_VARIANTS, **GENERAL_PART_VARIANTS})
+        variants = {k: libs[k] for k in GENERAL_BIN_VARIANTS}
+        g1 = {}
+        for r in (24, 16):
+            if parent is not None:
+                g1[f"parent_r{r}"] = (lambda r=r: parent.matern_general_matmat(
+                    P, cs.RHO, V[r], nu))
+            g1[f"binned_rectangular_r{r}"] = (
+                lambda r=r: cuda_kernels.matern_general_matmat(
+                    P, cs.RHO, V[r], nu, points_cols=P))
+            g1[f"binned_symmetric_r{r}"] = (
+                lambda r=r: cuda_kernels.matern_general_matmat(
+                    P, cs.RHO, V[r], nu))
+            for key, lib in variants.items():
+                g1[f"{key}_symmetric_r{r}"] = with_library(
+                    lib, lambda r=r: cuda_kernels.matern_general_matmat(
+                        P, cs.RHO, V[r], nu))
+        g1["closed_form_nu0.5_symmetric_r16"] = (
+            lambda: cuda_kernels.matern_general_matmat(P, cs.RHO, V[16], 0.5))
+        for key in GENERAL_PART_VARIANTS:
+            g1[f"{key}_symmetric_r16"] = with_library(
+                libs[key], lambda: cuda_kernels.matern_general_matmat(
+                    P, cs.RHO, V[16], nu))
+        out["g1_ms"], out["g1_ms_all"] = cs.median_in_turns(g1, REPS)
+        step = {"singles_r16": lambda: [cuda_kernels.matern_general_matmat(
+                    P, rhos[b], W[b], nus[b]) for b in range(64)],
+                "batched_r16":
+                    lambda: cuda_kernels.matern_general_matmat_batched(
+                        P, scales, W, nus)}
+        if parent is not None:
+            step["parent_singles_r16"] = lambda: [parent.matern_general_matmat(
+                P, rhos[b], W[b], nus[b]) for b in range(64)]
+        for key, lib in variants.items():
+            step[f"{key}_batched_r16"] = with_library(lib,
+                                                      step["batched_r16"])
+        out["step_64_points_ms"], out["step_ms_all"] = cs.median_in_turns(
+            step, REPS // 2)
+        # the batched call's bound: each point's own, summed
+        bounds = [cs.general_bound("product", cs.GENERAL_N, 2, 16, nus[b],
+                                   cs.sample_pair_distances(P, rhos[b],
+                                                            seed=b))
+                  for b in range(64)]
+        out["batched_r16_bound_ms"] = sum(b[0] for b in bounds)
+        out["batched_r16_bound_ms_per_point"] = [b[0] for b in bounds]
+        out["batched_r16_k_work_per_point"] = [b[3] for b in bounds]
+        pts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
+        op = TaperedMaternOperator(pts, cs.TAPER_SCALE, nu=cs.TAPER_GENERAL_NU,
+                                   density=cs.TAPER_DENSITY, device=dev)
+        Vt = torch.randn((op.n_pad, 24), generator=g, device=dev)
+        Vt[op.shape[0]:] = 0
+        args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
+        kw = dict(n=op.shape[0], row_ptr=op._row_ptr)
+        skip2 = cuda_kernels._blocksparse_skip2
+
+        def g2(skip=True):
+            if not skip:
+                cuda_kernels._blocksparse_skip2 = lambda nu, tau: float("inf")
+            try:
+                return cuda_kernels.matern_matmat_blocksparse(
+                    op.points_sorted, Vt, *args, **kw)
+            finally:
+                cuda_kernels._blocksparse_skip2 = skip2
+        g2_fns = {"binned_no_skip": lambda: g2(False), "binned_skip": g2}
+        if parent is not None:
+            g2_fns["parent"] = lambda: parent.matern_matmat_blocksparse(
+                op.points_sorted, Vt, *args, **kw)
+        for key, lib in variants.items():
+            g2_fns[f"{key}_skip"] = with_library(lib, g2)
+        out["g2_full_list_r24_ms"], out["g2_ms_all"] = cs.median_in_turns(
+            g2_fns, REPS // 2)
+        out["g2_skip_radius"] = cuda_kernels.blocksparse_skip_radius(
+            op.nu, op.threshold)
+        out["g2_taper_radius"] = op.radius
+        out["g2_skip_equals_no_skip"] = bool(torch.equal(g2(), g2(False)))
+    # one batched launch under the profiler: the tile kernel and the sum
+    step["batched_r16"]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step["batched_r16"]()
+        torch.cuda.synchronize()
+    out["batched_r16_device_ms"] = {
+        re.sub(r"<.*", "", e.key)[:60]: e.device_time_total / 1e3
+        for e in prof.key_averages() if e.device_time_total > 0}
+    walk = cuda_kernels.general_product_bands(cs.GENERAL_N, cs.GENERAL_N, 16,
+                                              64, True)
+    out["batched_r16_bands"] = walk._asdict()
+    out["batched_r16_slot_bytes"] = 4 * walk.slot_floats
+    out["general_product_pairs_per_point"] = (
+        cs.GENERAL_N * (cs.GENERAL_N + 1) // 2)
+    print(json.dumps({"phase": "general_levers", **out}), flush=True)
 
 
 def main(argv):
@@ -917,8 +1093,8 @@ def main(argv):
         sass_twins(argv[argv.index("--parent") + 1])
     if "sass-mix" in argv:
         sass_mix()
-    if "general-slices" in argv:
-        general_slices(dev)
+    if "general-levers" in argv:
+        general_levers(dev, packages(argv))
     if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:
@@ -940,10 +1116,7 @@ def main(argv):
             matrix_free=True, chunk=B, device=dev))
     if "search" in argv:
         # find_optimal_covariance.main_large's engine at its defaults
-        rng = np.random.RandomState(31)
-        pts = rng.rand(cs.GENERAL_N, 2)
-        z = data_utils.generate_data(pts, 0.1)
-        X = data_utils.generate_basis_functions(pts, 2)
+        pts, z, X = find_optimal_covariance.large_problem(cs.GENERAL_N)
         R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
                            indexing="ij")
         profile_setup("search", lambda: GridKrylovProfileLikelihood(

@@ -33,7 +33,8 @@ each against its plain PyTorch version on the card:
     at n = 10,000 through KrylovProfileLikelihood (its product and trace
     entries), and the (rho, nu) search of
     drivers.find_optimal_covariance (main_large: n = 10,000 over an 8 x 8
-    grid of general nus; main at a reduced size);
+    grid of general nus, one batched product call a Lanczos step; main
+    at a reduced size);
   * the rest of the tapered slice: the scipy-sparse route
     (generate_correlation(sparse=True) on the native host builder ->
     GaussianProcess over a SparseOperator on cuSPARSE's SpMM) at
@@ -105,9 +106,13 @@ Phases, each raising on failure:
  21. the general-nu kernel (matern_general.cu) against plain float64:
      k over x in geomspace(1e-5, 40) at nu in {0.01, 0.3, 1.2, 3.7, 10,
      24.9} (finite, in [0, 1], within 3e-5), the product at r in {1, 7,
-     16, 24} and the trace at n = 1000 and 4096 (2-D) and 1000 (3-D),
-     within 1e-5; at the closed forms the general kernel's branch, and
-     matern_matmat launching the closed-form kernels only;
+     16, 24} (the symmetric walk, the same bits twice; the rectangular
+     walk at r = 24) and the trace at n = 1000 and 4096 (2-D) and 1000
+     (3-D), within 1e-5; one batched product launch over the six nus
+     equal bit for bit to their single calls and to itself in bands of 7
+     tile pairs; at the closed forms the
+     general kernel's branch, and matern_matmat launching the
+     closed-form kernels only;
  22. the dense API at general nu: generate_correlation on phase 19's grid
      at nu = 1.2 and 3.7 (the elementwise entry), GaussianProcess.train
      in 'direct' and 'profiled'; the elementwise entry timed;
@@ -115,10 +120,17 @@ Phases, each raising on failure:
      KrylovProfileLikelihood.fit (the product and trace entries, no
      closed-form kernel) against the float64 eigh route on the same K;
      the product timed at n = 10^4 and 10^5 (r = 24), the trace at 10^4;
+     at 10^5 the product in bands of its walk, its first and last 300 rows
+     against float64, the same bits in bands of a third the size;
  24. the (rho, nu) search: drivers.find_optimal_covariance.main_large at
-     its defaults (n = 10,000, an 8 x 8 grid of general nus, matrix-free)
-     and main cut to a 30 x 30 grid of points, a 6 x 6 (rho, nu) grid and
-     DE with popsize 10 for at most 6 generations.
+     its defaults (n = 10,000, an 8 x 8 grid of general nus, matrix-free:
+     one batched product call a Lanczos step for all 64 points, a launch
+     per band of its walk: 40 x 13 launches), its points (0.1, 1.0) and
+     (0.3, 25.0) against the float64 eigh route on the same K (eta within
+     5e-2, the lp gap logged); and main cut to a 30 x 30 grid of points, a
+     6 x 6 (rho, nu) grid and DE with popsize 10 for at most 6
+     generations, its lp at three grid points
+     within 1e-5 of the CPU's float64 build_objective.
  25. the tapered general-nu kernel (matern_blocksparse_general.cu, G2)
      against plain float64: products at r in {1, 7, 24} and traces at
      n = 1000 and 4096 (2-D) and 1000 (3-D), nu in {0.3, 1.2, 3.7, 24.9},
@@ -144,7 +156,8 @@ Phases, each raising on failure:
      exactly 64 launches of G2's product and one of its trace, the fit
      finite with sigma0 in (0.18, 0.22), where phase 27's float64 fit lies
      too; G2's product (r = 24) and trace timed over the full list against
-     their bounds (k once per unordered pair, from this run's trips), and
+     their bounds (every unordered pair its distance and a compare, only
+     the pairs within the taper radius a k, from this run's trips), and
      against the plain version on the first 32 row tiles' list.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
@@ -2210,7 +2223,8 @@ def phase_public_operator_route(dev, main_fit):
 GENERAL_NUS = (0.01, 0.3, 1.2, 3.7, 10.0, 24.9)
 # k against float64: the reference's own float32 error at nu ~ 25
 # (gppe_tpu/ops/kernels.py:33-36); products (Frobenius) and traces
-GENERAL_K_ATOL, GENERAL_FROB_TOL, GENERAL_TRACE_RTOL = 3e-5, 1e-5, 1e-5
+GENERAL_K_ATOL, GENERAL_FROB_TOL, GENERAL_TRACE_RTOL = (
+    cuda_kernels.GENERAL_K_ATOL, 1e-5, 1e-5)
 # phases 23 and 24: the operator route at n = 10^4 and the (rho, nu) search
 GENERAL_N, GENERAL_NU, GENERAL_STEPS, GENERAL_PROBES = 10_000, 1.2, 64, 16
 GENERAL_BIG_N = 100_000
@@ -2388,6 +2402,18 @@ def launched(counts, *names):
     return {k: counts.get(k, 0) for k in names}
 
 
+def with_slot_budget(nbytes, fn):
+    """``fn()`` with the general-nu product's slot budget set to
+    ``nbytes`` (``cuda_kernels.GENERAL_SLOT_BYTES``), so that its walk
+    runs in other bands."""
+    saved = cuda_kernels.GENERAL_SLOT_BYTES
+    cuda_kernels.GENERAL_SLOT_BYTES = nbytes
+    try:
+        return fn()
+    finally:
+        cuda_kernels.GENERAL_SLOT_BYTES = saved
+
+
 GENERAL_COUNTERS = ("matern_general_elementwise", "matern_general_product",
                     "matern_general_trace")
 CLOSED_FORM_COUNTERS = ("matern_matmat", "matern_matmat_mma",
@@ -2400,8 +2426,12 @@ def phase_general_parity(dev):
     float64 on the card. (a) k over x in geomspace(1e-5, 40) and 0 at each
     nu of GENERAL_NUS: finite, in [0, 1], within GENERAL_K_ATOL; (b) and
     (c) at n = 1000 and 4096 random 2-D points and n = 1000 3-D points,
-    r in {1, 7, 16, 24}: products and traces within GENERAL_FROB_TOL and
-    GENERAL_TRACE_RTOL. Then the closed forms: the general kernel at
+    r in {1, 7, 16, 24}: products (the symmetric walk; the rectangular
+    one at r = 24) and traces within GENERAL_FROB_TOL and
+    GENERAL_TRACE_RTOL, the product the same bits twice; one batched
+    launch over the nus at six scales equal bit for bit to the six single
+    calls, and to itself with its walk cut into bands of 7 tile pairs.
+    Then the closed forms: the general kernel at
     nu = 1/2, 3/2, 5/2 and 150 against their plain forms, and matern_matmat
     there launching the closed-form kernels only."""
     x = torch.cat([torch.zeros(1, device=dev),
@@ -2424,10 +2454,12 @@ def phase_general_parity(dev):
              and e["max_abs_err"] < GENERAL_K_ATOL for e in elem.values())
 
     g = torch.Generator(device=dev).manual_seed(21)
-    products = []
+    products, batches = [], []
     for n, d in ((1000, 2), (4096, 2), (1000, 3)):
         P = torch.rand((n, d), generator=g, device=dev)
         V = torch.randn((n, 24), generator=g, device=dev)
+        C = torch.rand((n // 2 + 3, d), generator=g, device=dev)
+        W = V[:C.shape[0]].contiguous()
         scale = kernels.broadcast_scale(RHO, d, dtype=F64, device=dev)
         for nu in GENERAL_NUS:
             want, fro_want = cuda_kernels.matern_matmat_plain(
@@ -2441,10 +2473,50 @@ def phase_general_parity(dev):
                 got = cuda_kernels.matern_general_matmat(
                     P, RHO, V[:, :r].contiguous(), nu)
                 rec["frob_rel_err"][r] = compare(got, want[:, :r])[0]
+            # the symmetric walk the same bits twice; the rectangular walk
+            # (distinct column points, every tile pair) against float64
+            rec["same_bits_twice"] = bool(torch.equal(
+                got, cuda_kernels.matern_general_matmat(P, RHO, V, nu)))
+            rect = cuda_kernels.matern_general_matmat(P, RHO, W, nu,
+                                                      points_cols=C)
+            rec["rectangular_frob_rel_err"] = compare(
+                rect, cuda_kernels.matern_matmat_plain(
+                    P.double(), scale, W.double(), nu,
+                    points_cols=C.double()))[0]
             products.append(rec)
+        # one batched launch over every nu, each at its own scale: each
+        # point the bits of its single call
+        rhos = [RHO * (1.0 + b / 4.0) for b in range(len(GENERAL_NUS))]
+        Vb = torch.randn((len(GENERAL_NUS), n, 24), generator=g, device=dev)
+        cuda_kernels.reset_launch_counts()
+        batch = cuda_kernels.matern_general_matmat_batched(
+            P, torch.tensor(rhos, device=dev), Vb, GENERAL_NUS)
+        launches = cuda_kernels.launch_counts["matern_general_product"]
+        walk = cuda_kernels.general_product_bands(n, n, 24,
+                                                  len(GENERAL_NUS), True)
+        cuda_kernels.reset_launch_counts()
+        banded = with_slot_budget(
+            4 * walk.slot_floats // walk.band_pairs * 7,
+            lambda: cuda_kernels.matern_general_matmat_batched(
+                P, torch.tensor(rhos, device=dev), Vb, GENERAL_NUS))
+        batches.append({
+            "n": n, "d": d, "rhos": rhos, "launches": launches,
+            "bands_of_7_launches":
+                cuda_kernels.launch_counts["matern_general_product"],
+            "bands_of_7_expected": -(-walk.pairs // 7),
+            "bands_of_7_equal": bool(torch.equal(batch, banded)),
+            "equal_to_single_calls": all(
+                torch.equal(batch[b], cuda_kernels.matern_general_matmat(
+                    P, rhos[b], Vb[b], nu))
+                for b, nu in enumerate(GENERAL_NUS))})
     ok = ok and all(p["trace_rel_err"] < GENERAL_TRACE_RTOL
                     and max(p["frob_rel_err"].values()) < GENERAL_FROB_TOL
-                    for p in products)
+                    and p["rectangular_frob_rel_err"] < GENERAL_FROB_TOL
+                    and p["same_bits_twice"] for p in products)
+    ok = ok and all(b["launches"] == 1 and b["equal_to_single_calls"]
+                    and b["bands_of_7_equal"]
+                    and b["bands_of_7_launches"] == b["bands_of_7_expected"]
+                    for b in batches)
 
     # the closed forms: the general kernel's own branch for them (the
     # grid's mixed nus reach it), and the closed-form kernels unchanged:
@@ -2476,7 +2548,7 @@ def phase_general_parity(dev):
     log(phase="general_parity", ok=ok, nus=list(GENERAL_NUS),
         k_atol=GENERAL_K_ATOL, frob_tol=GENERAL_FROB_TOL,
         trace_rtol=GENERAL_TRACE_RTOL, elementwise=elem, products=products,
-        closed_forms=closed)
+        batches=batches, closed_forms=closed)
     if not ok:
         raise AssertionError("the general-nu kernel disagrees with float64")
 
@@ -2558,7 +2630,10 @@ def phase_general_operator_route(dev):
     assembled by the elementwise entry (GaussianProcess 'profiled'). Then
     the product timed at n = 10^4 and 10^5, r = 24, and the trace at
     n = 10^4, each against its plain version (float32, row-blocked) where
-    that runs in seconds, and its bound."""
+    that runs in seconds, and its bound. At n = 10^5 the product's walk
+    runs in bands (its slots for every tile pair would take 7.5 GB): its
+    first and last 300 rows against float64, and the same bits in bands
+    of a third the size."""
     pts, z, X = make_problem(GENERAL_N, 7)
     op = MaternOperator(pts, RHO, nu=GENERAL_NU, device=dev)
     torch.cuda.synchronize()
@@ -2624,6 +2699,26 @@ def phase_general_operator_route(dev):
         big, RHO, Vb, GENERAL_NU), 5)
     big_bound = general_bound("product", GENERAL_BIG_N, 2, 24, GENERAL_NU,
                               sample_pair_distances(big, RHO, seed=24))
+    big_out = cuda_kernels.matern_general_matmat(big, RHO, Vb, GENERAL_NU)
+    big_walk = cuda_kernels.general_product_bands(GENERAL_BIG_N,
+                                                  GENERAL_BIG_N, 24, 1, True)
+    thirds = with_slot_budget(
+        cuda_kernels.GENERAL_SLOT_BYTES // 3,
+        lambda: cuda_kernels.matern_general_matmat(big, RHO, Vb, GENERAL_NU))
+    rows = torch.cat([torch.arange(300, device=dev),
+                      torch.arange(GENERAL_BIG_N - 300, GENERAL_BIG_N,
+                                   device=dev)])
+    big_frob = compare(big_out[rows], cuda_kernels.matern_matmat_plain(
+        big[rows].double(), kernels.broadcast_scale(
+            RHO, 2, dtype=F64, device=dev),
+        Vb.double(), GENERAL_NU, points_cols=big.double()))[0]
+    big_check = {"bands": big_walk.bands,
+                 "slot_bytes": 4 * big_walk.slot_floats,
+                 "rows_frob_rel_err": big_frob,
+                 "same_bits_in_thirds": bool(torch.equal(big_out, thirds))}
+    del thirds
+    ok = (ok and big_walk.bands > 1 and big_frob < GENERAL_FROB_TOL
+          and big_check["same_bits_in_thirds"])
     times = {"product_n1e4_r24": {
                  "ms": med["product"], "plain_ms": med["plain_product"],
                  "bound_ms": prod_bound[0], "bound_term": prod_bound[2],
@@ -2643,7 +2738,7 @@ def phase_general_operator_route(dev):
         fit=res, launches=window, eigh_route=exact,
         eigh_route_seconds=exact_s, eta_rel_gap_to_eigh_route=gap,
         times=times, work_per_k=prod_bound[3],
-        work_per_k_n1e5=big_bound[3])
+        work_per_k_n1e5=big_bound[3], product_n1e5_check=big_check)
     if not ok:
         raise AssertionError(f"general-nu operator route failed: {res}, "
                              f"eigh route {exact}, launches {window}")
@@ -2656,35 +2751,68 @@ def phase_general_operator_route(dev):
          "bound_by": trace_bound[1]})
 
 
-# phase 24's cuts: main_large at its own defaults unless it runs over
-# this many seconds (then a 4 x 4 grid); main at 30 x 30 points, a 6 x 6
-# grid, DE with popsize 10 for at most 6 generations (the reference: a
-# 61 x 60 grid, popsize 24, 40 generations)
-LARGE_GRID_LIMIT_S = 120.0
+# phase 24's cuts: main_large at its own defaults; main at 30 x 30
+# points, a 6 x 6 grid, DE with popsize 10 for at most 6 generations (the
+# reference: a 61 x 60 grid, popsize 24, 40 generations)
+LARGE_STEPS = 40   # main_large's Lanczos steps
 MAIN_CUTS = {"num_points": 30, "grid_rho": 6, "grid_nu": 6, "popsize": 10,
              "max_generations": 6}
+# main_large's grid points held to the float64 eigh route on the same K
+# (its first and its last: the smallest rho and nu, and the MAP's corner),
+# and main's grid points (row, column of its 6 x 6 grid) whose lp is held
+# to the CPU's float64 build_objective: the card assembles K in float32
+# (within 1e-6 of float64, phase 21), which moved lp by 1.4e-5 of its
+# ~2170 in a float32 rounding of K on the CPU; 1e-5 relative is a hundred
+# times that
+LARGE_F64_POINTS = ((0, 0), (7, 7))
+MAIN_F64_POINTS = ((0, 0), (2, 3), (5, 5))
+MAIN_LP_RTOL = 1e-5
 
 
 def phase_general_search(dev):
     """Phase 24: the (rho, nu) search, each call in its own launch window:
     the driver twin's main_large at its defaults (n = 10^4, 8 x 8 general
-    nus, 40 steps, 8 probes; the general-nu product and trace kernels for
-    every point), then main at MAIN_CUTS (the elementwise entry for every
-    lp)."""
+    nus, 40 steps, 8 probes: one batched product call a step for all 64
+    points, a launch per band of its walk, one trace launch a point), two
+    of its grid points against the float64 eigh route on the same K (eta
+    5e-2, the lp gap logged); then
+    main at MAIN_CUTS (the elementwise entry for every lp), its lp at
+    three grid points against the CPU's float64 build_objective."""
     cuda_kernels.reset_launch_counts()
     large = find_optimal_covariance.main_large(verbose=False, device=dev)
     large_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
-    grid = (8, 8)
-    if large["setup_seconds"] + large["fit_seconds"] > LARGE_GRID_LIMIT_S:
-        grid = (4, 4)
-        log(phase="general_search_cut", main_large_grid=grid,
-            reason=f"8 x 8 took over {LARGE_GRID_LIMIT_S} s")
+    # one chunk of the 64 points: one batched product call a step, a
+    # launch per band (r = 16: z, 6 basis columns, the deflation vector
+    # and 8 probes)
+    large_bands = cuda_kernels.general_product_bands(
+        large["n"], large["n"], 16, 64, True).bands
     ok = (bool(np.all(np.isfinite(large["Lp"])))
           and all(r["success"] for r in large["results"])
-          and large["matrix_free"]
-          and large_window.get("matern_general_product", 0) > 0
-          and large_window.get("matern_general_trace", 0) > 0
+          and large["matrix_free"] and large["chunk"] == 64
+          and large_window.get("matern_general_product", 0)
+          == LARGE_STEPS * large_bands
+          and large_window.get("matern_general_trace", 0) == 64
           and not any(large_window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
+
+    # two grid points against the float64 eigh route on the same K
+    pts, z, X = find_optimal_covariance.large_problem()
+    lp_f64 = find_optimal_covariance.build_objective(pts, z, X, False,
+                                                     device=dev)[0]
+    large_f64 = []
+    for i, j in LARGE_F64_POINTS:
+        rho, nu = float(large["rhos"][i]), float(large["nus"][j])
+        krylov = large["results"][i * len(large["nus"]) + j]
+        K = gppe_tpu_torch.generate_correlation(pts, rho, nu=nu, device=dev)
+        _, exact = dense_fit(dev, K, X, z, "profiled")
+        del K
+        lp_exact = lp_f64(rho, nu)
+        large_f64.append({
+            "rho": rho, "nu": nu, "eta": krylov["eta"],
+            "eigh_route_eta": exact["eta"],
+            "eta_rel_gap": rel_gap(krylov["eta"], exact["eta"]),
+            "lp": krylov["lp"], "eigh_lp": lp_exact,
+            "lp_gap": krylov["lp"] - lp_exact})
+    ok = ok and all(c["eta_rel_gap"] < 5e-2 for c in large_f64)
 
     cuda_kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2692,6 +2820,20 @@ def phase_general_search(dev):
                                          **MAIN_CUTS)
     main_s = sync_seconds(t0)
     main_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
+    # main's lp against the CPU's float64 surface on its own points
+    pts = data_utils.generate_points(MAIN_CUTS["num_points"], dimension=2)
+    lp_cpu = find_optimal_covariance.build_objective(
+        pts, data_utils.generate_data(pts, 0.05),
+        data_utils.generate_basis_functions(pts, 2), False, device="cpu")[0]
+    main_f64 = []
+    for i, j in MAIN_F64_POINTS:
+        rho, nu = float(small["rhos"][i]), float(small["nus"][j])
+        want = lp_cpu(rho, nu)
+        main_f64.append({"rho": rho, "nu": nu, "lp": float(small["Lp"][i, j]),
+                         "cpu_f64_lp": want,
+                         "lp_rel_gap": rel_gap(float(small["Lp"][i, j]),
+                                               want)})
+    ok = ok and all(c["lp_rel_gap"] < MAIN_LP_RTOL for c in main_f64)
     ok = (ok and bool(np.all(np.isfinite(small["Lp"])))
           and 0.1 <= small["de_rho"] <= 0.3
           and 1.0 <= small["de_nu"] <= 25.0 and np.isfinite(small["de_lp"])
@@ -2700,8 +2842,8 @@ def phase_general_search(dev):
     log(phase="general_search", ok=ok,
         main_large={"n": large["n"], "grid": [len(large["rhos"]),
                                               len(large["nus"])],
-                    "lanczos_steps": 40, "num_probes": 8,
-                    "chunk": large["chunk"],
+                    "lanczos_steps": LARGE_STEPS, "num_probes": 8,
+                    "chunk": large["chunk"], "product_bands": large_bands,
                     "setup_seconds": large["setup_seconds"],
                     "fit_seconds": large["fit_seconds"],
                     "seconds_per_point": large["seconds_per_point"],
@@ -2710,7 +2852,9 @@ def phase_general_search(dev):
                     "max_lp": large["max_lp"],
                     "etas": [r["eta"] for r in large["results"]]},
         main_large_launches=large_window,
+        main_large_vs_eigh_route=large_f64,
         main_cuts=MAIN_CUTS, main_seconds=main_s,
+        main_lp_vs_cpu_f64=main_f64, main_lp_rtol=MAIN_LP_RTOL,
         main={k: small[k] for k in ("max_lp", "optimal_rho", "optimal_nu",
                                     "de_rho", "de_nu", "de_lp",
                                     "de_generations")},
@@ -3035,24 +3179,29 @@ def tile_pair_distances(op, seed):
 
 def g2_bounds(op, r, d, x_sample):
     """bound() of the tapered general-nu product and trace over the
-    operator's pair list, as G1's (general_bound): each unordered pair of
-    the active tiles its distance (3 d and a sqrt), the taper's
-    compare-select and, off the diagonal, one k (its work the mean over
-    ``x_sample``, from this run's trips); then the product 2 r FMA
-    operations on each ordered pair, the trace one FMA on each unordered
-    pair. Returns (product (ms, by, term), trace (ms, by, term), work)."""
+    operator's pair list: the least work for the same function. Every
+    unordered pair of the active tiles pays its distance (3 d operations)
+    and a compare with the taper radius; only the pairs within the radius
+    (their share of ``x_sample``, this run's distances of the active tile
+    pairs) pay a sqrt and, off the diagonal, one k (its work the mean over
+    those pairs' trips); the product then 2 r FMA operations on each kept
+    ordered pair, the trace one FMA on each kept unordered pair. Returns
+    (product (ms, by, term), trace (ms, by, term), work, kept share)."""
     n = op.shape[0]
     pairs, half = tile_pairs(op), tile_pairs(op, symmetric=True)
-    off = half - n
-    work = general_k_work(x_sample, op.nu)
+    x = x_sample[x_sample > 0]
+    inside = x[x <= op.radius]
+    share = inside.numel() / max(x.numel(), 1)
+    kept_off = (half - n) * share       # kept unordered pairs, i != j
+    work = general_k_work(inside, op.nu)
     geometry = 4 * (op.num_tiles + 1 + len(op.pair_j))
-    k_ops = half * (3 * d + 1) + off * work["fp32"]
-    mufu = half + off * work["mufu"]
+    k_ops = half * (3 * d + 1) + kept_off * work["fp32"]
+    mufu = kept_off * (1 + work["mufu"])
     product = bound(4 * (op.n_pad * d + 2 * op.n_pad * r) + geometry,
-                    k_ops + pairs * 2 * r, mufu_ops=mufu)
-    trace = bound(4 * op.n_pad * d + 8 + geometry, k_ops + 2 * half,
-                  mufu_ops=mufu)
-    return product, trace, work
+                    k_ops + (n + 2 * kept_off) * 2 * r, mufu_ops=mufu)
+    trace = bound(4 * op.n_pad * d + 8 + geometry,
+                  k_ops + 2 * (n + kept_off), mufu_ops=mufu)
+    return product, trace, work, share
 
 
 def sub_list(op, row_tiles):
@@ -3067,6 +3216,7 @@ def sub_list(op, row_tiles):
     walk = cuda_kernels.blocksparse_trace_schedule(pi, pj, t, n)
     return types.SimpleNamespace(
         shape=(n, n), n_pad=n, tile=t, num_tiles=row_tiles, nu=op.nu,
+        radius=op.radius,
         device=op.device, points_sorted=op.points_sorted[:n], pair_i=pi,
         pair_j=pj, _pair_j=torch.as_tensor(pj, device=op.device),
         row_ptr=torch.as_tensor(cuda_kernels.blocksparse_row_ptr(
@@ -3123,7 +3273,7 @@ def phase_tapered_general_path(dev, small_fit):
             "trace": timed(lambda: cuda_kernels.matern_matmat_blocksparse(
                 op.points_sorted, None, *args, frobenius=True,
                 trace_walk=op._trace_walk, **kw), 5)}
-    product_bound, trace_bound, work = g2_bounds(
+    product_bound, trace_bound, work, kept = g2_bounds(
         op, r, d, tile_pair_distances(op, seed=28))
 
     # kernel and plain in turns on the first row tiles' list, its bounds,
@@ -3143,7 +3293,7 @@ def phase_tapered_general_path(dev, small_fit):
             pts_s, None, *sargs, frobenius=True, trace_walk=sub.walk, **skw),
         "plain_trace": lambda: cuda_kernels.matern_matmat_blocksparse_plain(
             pts_s, None, *sargs, frobenius=True, **skw)}, reps=3)
-    sub_product_bound, sub_trace_bound, sub_work = g2_bounds(
+    sub_product_bound, sub_trace_bound, sub_work, sub_kept = g2_bounds(
         sub, r, d, tile_pair_distances(sub, seed=28))
     tau = cuda_kernels.blocksparse_clear_threshold(
         pts_s.double(), op.nu, op.threshold, pi, pj, op.tile, n=n_s,
@@ -3203,6 +3353,10 @@ def phase_tapered_general_path(dev, small_fit):
         pairs_ordered=tile_pairs(op),
         pairs_unordered=tile_pairs(op, symmetric=True), times=times,
         work_per_k=work, sub_list_work_per_k=sub_work,
+        kept_share_of_pairs=kept, sub_list_kept_share_of_pairs=sub_kept,
+        skip_radius=cuda_kernels.blocksparse_skip_radius(op.nu,
+                                                         op.threshold),
+        taper_radius=op.radius,
         sub_list_pairs_ordered=tile_pairs(sub),
         sub_list_tau_over_threshold=tau / op.threshold,
         sub_list_frob_rel_err=frob, sub_list_max_abs_err=max_abs,
@@ -3312,9 +3466,14 @@ def main():
 
     def general_record(entry, replaces, measured):
         counts = per_path[f"matern_general_{entry}"]
-        return kernel_record(f"matern_general[{entry}]", "matern_general.cu",
-                             replaces, sum(counts.values()), measured,
-                             launches_per_path=counts)
+        rec = kernel_record(f"matern_general[{entry}]", "matern_general.cu",
+                            replaces, sum(counts.values()), measured,
+                            launches_per_path=counts)
+        if entry == "product":
+            # each counted launch is the tile kernel and its band's sum
+            # kernel (matern_general_product_sum_kernel); ms covers both
+            rec["sum_launches"] = rec["launches"]
+        return rec
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
                   for k in ("matern_matmat_mma", "matern_matmat")),

@@ -4,8 +4,7 @@
 //
 //   (a) product: out = K_tau @ V,
 //       K_tau[i, j] = k >= tau ? k : 0,  k = k_nu(|x_i - x_j|),
-//       over the active tile pairs only, K never stored, exact float32 FMA
-//       sums;
+//       over the active tile pairs only, K never stored, float32 FMA sums;
 //   (b) trace: partials[b] = sum over block b's units of weight * sum
 //       K_tau[i, j]^2, float64 partials that the caller sums to
 //       trace(K_tau^2).
@@ -25,37 +24,41 @@
 // row-tile pointer array of matern_blocksparse_mma.cu, the trace the units
 // of matern_blocksparse.cu (ops/cuda_kernels.py::blocksparse_trace_schedule).
 //
-// What bounds it on this card: per pair of an active tile pair one k, the
+// What bounds it on this card: per pair within the taper radius one k, the
 // branch its argument takes in matern_general (Temme below z = 2, CF2 from
 // 2 up, then round(nu) upward steps: hundreds of FP32 operations and a few
-// MUFU operations), against d + 2r operations for the distance and the
-// product (2 for k^2 in the trace). The traffic, O(n (d + r)) words and
-// the pair list, mostly hits the L2 cache: FP32 issue bounds both entries,
-// as it bounds matern_general.cu's.
+// MUFU operations), against d + 1 operations for the distance and the
+// compare of every pair of an active tile pair, 2r for the product (2 for
+// k^2 in the trace). The traffic, O(n (d + r)) words and the pair list,
+// mostly hits the L2 cache: FP32 issue bounds both entries, as it bounds
+// matern_general.cu's.
 //
-// What the design does about it (matern_general.cu's design on the pair
-// list):
-//   * each pair's k is computed once and serves all r columns of V from
-//     registers (the product) or its square (the trace);
+// What the design does about it:
 //   * nu is a per-launch constant: the float64 host table of
 //     ops/cuda_kernels.py::_general_consts, passed by value;
-//   * the product: a block holds 32 rows of one row tile (one per lane)
-//     and 8 warps that take every 8th real column of the row tile's active
-//     column tiles; each thread keeps its row's r sums, and the warps' sums
-//     are added in a fixed order through shared memory: no atomics, the
-//     same bits run to run. Widths above 32 run as launches of 32 columns;
+//   * the taper's skip: past the skip radius (`skip2`, its square, from
+//     ops/cuda_kernels.py::blocksparse_skip_radius) float64 k lies below
+//     tau by more than the kernel's error bound, so the rule k >= tau would
+//     drop the pair anyway: it takes no k and is an exact 0. Inside it the
+//     rule stands (the float32 k against the float32 tau, the rule of
+//     matern_blocksparse_mma.cu), so the kept set and its values are those
+//     of evaluating every pair;
+//   * the product: a block holds 64 rows of one row tile and walks the 128
+//     column sub-tiles of that tile's active column tiles; a sub-tile pair
+//     whose bounding boxes lie past the skip radius is skipped whole (the
+//     boxes' gap is computed in the pairs' own float32 arithmetic, so it is
+//     never larger than any pair's distance), the others fill one
+//     branch-binned k tile of their kept pairs (matern_general_tile.cuh)
+//     and add K_t @ V to the rows' sums in registers, in the list's order:
+//     the output is row-owned, no atomics, the same bits run to run. Widths
+//     above 32 run as launches of 32 columns;
 //   * the trace: the symmetric walk of the tapered trace (units of 128 x
 //     128 points of the tile pairs ti <= tj and the sub-tile triangle of
 //     diagonal tiles, weight 2 off it; K_tau is symmetric bit for bit:
 //     (a - b)^2 = (b - a)^2 and the same FMA order over d both ways), each of
 //     256 threads one row and half the unit's columns, float64 block
-//     partials;
-//   * the hard taper compares the float32 k with float32 tau, the rule of
-//     matern_blocksparse_mma.cu; rows and columns past n are masked.
-// Every pair of an active tile pair is evaluated, also those beyond the
-// taper radius (about 4.5 times the kept ones at n = 2^20, tile 512), and
-// the pairs of a warp can take different branches and trip counts. Skipping
-// the taper's empty sub-tiles and binning pairs by branch are later levers.
+//     partials. It evaluates every pair of its units: the skip and the bins
+//     are not in it yet.
 // Built WITHOUT --use_fast_math: sqrtf, expf, logf and the divisions are
 // the IEEE versions.
 
@@ -65,14 +68,13 @@
 
 #include "matern_bessel.cuh"
 #include "matern_common.cuh"
+#include "matern_general_tile.cuh"
 #include "matern_trace.cuh"
 
 using namespace gppe;
 
 namespace {
 
-constexpr int kProductWarps = 8;
-constexpr int kProductThreads = 32 * kProductWarps;
 constexpr int kProductMaxCols = 32;  // widest instance; wider V in launches
 constexpr int kTraceThreads = 256;
 constexpr int kTraceWarps = kTraceThreads / 32;
@@ -85,73 +87,98 @@ __device__ __forceinline__ float tapered_k(float d2, float tau,
   return kv >= tau ? kv : 0.0f;
 }
 
-// RC: accumulators per thread, the instance's widest r. Block b takes rows
-// 32 (b % blocks_per_tile) .. + 31 of row tile b / blocks_per_tile and the
-// real columns of that tile's column tiles col_tiles[row_ptr[ti] ..
-// row_ptr[ti + 1]).
+// RC: the instance's widest r. Block b takes rows kTileRows (b %
+// blocks_per_tile) .. + kTileRows - 1 of row tile b / blocks_per_tile and
+// the real columns of that tile's column tiles col_tiles[row_ptr[ti] ..
+// row_ptr[ti + 1]), in sub-tiles of kTileCols.
 template <int RC>
-__global__ void __launch_bounds__(kProductThreads)
+__global__ void __launch_bounds__(kTileThreads, 3)
     blocksparse_general_product_kernel(
         const float* __restrict__ pts, const float* __restrict__ V,
         float* __restrict__ out, const int* __restrict__ row_ptr,
         const int* __restrict__ col_tiles, int n, int d, int r, int ldv,
-        int ldo, int tile, int blocks_per_tile, float tau,
+        int ldo, int tile, int blocks_per_tile, float tau, float skip2,
         const MaternGeneralConsts c) {
-  __shared__ float s_acc[kProductWarps][RC][32];
-  const int lane = threadIdx.x & 31;
+  extern __shared__ float4 smem_raw[];
+  TileSmem<RC, 1>& s = *reinterpret_cast<TileSmem<RC, 1>*>(smem_raw);
+  __shared__ TilePoints t;
+  __shared__ float s_lo[2][kMaxD], s_hi[2][kMaxD];  // rows', columns' boxes
   const int warp = threadIdx.x >> 5;
   const int ti = blockIdx.x / blocks_per_tile;
-  const int row0 = ti * tile + (blockIdx.x % blocks_per_tile) * 32;
+  const int row0 = ti * tile + (blockIdx.x % blocks_per_tile) * kTileRows;
   const int tile_end = (ti + 1) * tile;
-  const int real_end = min(tile_end, n);
-  const int row = row0 + lane;
-  const bool live = row < real_end;
-  float x[kMaxD];
-#pragma unroll
-  for (int k = 0; k < kMaxD; ++k) {
-    x[k] = (live && k < d) ? pts[static_cast<int64_t>(row) * d + k] : 0.0f;
-  }
-  float acc[RC];
-#pragma unroll
-  for (int q = 0; q < RC; ++q) acc[q] = 0.0f;
+  const int nrows = max(0, min(kTileRows, min(tile_end, n) - row0));
+  float acc[2][RC / 8] = {};
 
-  if (row0 < real_end) {  // uniform over the block: pad-only blocks skip
+  if (nrows > 0) {  // uniform over the block: pad-only blocks skip
+    for (int e = threadIdx.x; e < kMaxD * kTileRows; e += kTileThreads) {
+      const int k = e / kTileRows;
+      const int i = e % kTileRows;
+      t.rx[k][i] = (k < d && i < nrows)
+                       ? pts[static_cast<int64_t>(row0 + i) * d + k]
+                       : 0.0f;
+    }
+    __syncthreads();
+    if (warp < d) {
+      float lo, hi;
+      warp_bounds(t.rx[warp], nrows, lo, hi);
+      s_lo[0][warp] = lo;
+      s_hi[0][warp] = hi;
+    }
     const int p_end = row_ptr[ti + 1];
     for (int p = row_ptr[ti]; p < p_end; ++p) {
-      const int j0 = col_tiles[p] * tile;
-      const int j1 = min(j0 + tile, n);
-      for (int j = j0 + warp; j < j1; j += kProductWarps) {
-        if (!live) continue;
-        const float* y = pts + static_cast<int64_t>(j) * d;
-        float d2 = 0.0f;
+      const int cj = col_tiles[p] * tile;
+      const int cend = min(cj + tile, n);
+      for (int j0 = cj; j0 < cend; j0 += kTileCols) {
+        const int ncols = min(kTileCols, cend - j0);
+        __syncthreads();  // the previous sub-tile is done with cx and v
+        for (int e = threadIdx.x; e < kMaxD * kTileCols;
+             e += kTileThreads) {
+          const int k = e / kTileCols;
+          const int j = e % kTileCols;
+          t.cx[k][j] = (k < d && j < ncols)
+                           ? pts[static_cast<int64_t>(j0 + j) * d + k]
+                           : 0.0f;
+        }
+        __syncthreads();
+        if (warp < d) {
+          float lo, hi;
+          warp_bounds(t.cx[warp], ncols, lo, hi);
+          s_lo[1][warp] = lo;
+          s_hi[1][warp] = hi;
+        }
+        __syncthreads();
+        // the boxes' squared gap, as a pair's d2: no pair is nearer
+        float gap2 = 0.0f;
 #pragma unroll
         for (int k = 0; k < kMaxD; ++k) {
           if (k < d) {
-            const float diff = x[k] - __ldg(y + k);
-            d2 = fmaf(diff, diff, d2);
+            const float g = fmaxf(fmaxf(s_lo[0][k] - s_hi[1][k],
+                                        s_lo[1][k] - s_hi[0][k]),
+                                  0.0f);
+            gap2 = fmaf(g, g, gap2);
           }
         }
-        const float kv = tapered_k(d2, tau, c);
-        const float* v = V + static_cast<int64_t>(j) * ldv;
-#pragma unroll
-        for (int q = 0; q < RC; ++q) {
-          if (q < r) acc[q] = fmaf(kv, __ldg(v + q), acc[q]);
-        }
+        if (gap2 > skip2) continue;  // uniform: every pair lies past it
+        if (!tile_classify(s, t, nrows, ncols, d, skip2, c)) continue;
+        tile_evaluate<true>(s, t, c, tau);
+        stage_v<RC>(s.v[0], V, j0, ncols, r, ldv);  // where the list was
+        __syncthreads();
+        tile_times_v<RC>(s.k, s.v[0], acc);
       }
     }
   }
+  const int q0 = (threadIdx.x % 8) * (RC / 8);
 #pragma unroll
-  for (int q = 0; q < RC; ++q) s_acc[warp][q][lane] = acc[q];
-  __syncthreads();
-  for (int e = threadIdx.x; e < RC * 32; e += kProductThreads) {
-    const int q = e >> 5;
-    const int l = e & 31;
-    const int orow = row0 + l;
-    if (q < r && orow < tile_end) {
-      float sum = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + threadIdx.x / 8 + 32 * h;
+    if (row < tile_end) {
 #pragma unroll
-      for (int w = 0; w < kProductWarps; ++w) sum += s_acc[w][q][l];
-      out[static_cast<int64_t>(orow) * ldo + q] = sum;  // 0 on pad rows
+      for (int u = 0; u < RC / 8; ++u) {
+        if (q0 + u < r) {
+          out[static_cast<int64_t>(row) * ldo + q0 + u] = acc[h][u];
+        }
+      }
     }
   }
 }
@@ -225,12 +252,17 @@ cudaError_t launch_product(const float* pts, const float* V, float* out,
                            const int* row_ptr, const int* col_tiles, int n,
                            int d, int r, int ldv, int ldo, int tile,
                            int num_tiles, int blocks_per_tile, float tau,
-                           const MaternGeneralConsts& c,
+                           float skip2, const MaternGeneralConsts& c,
                            cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(TileSmem<RC, 1>));
+  cudaError_t err = cudaFuncSetAttribute(
+      blocksparse_general_product_kernel<RC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
   blocksparse_general_product_kernel<RC>
-      <<<num_tiles * blocks_per_tile, kProductThreads, 0, stream>>>(
+      <<<num_tiles * blocks_per_tile, kTileThreads, bytes, stream>>>(
           pts, V, out, row_ptr, col_tiles, n, d, r, ldv, ldo, tile,
-          blocks_per_tile, tau, c);
+          blocks_per_tile, tau, skip2, c);
   return cudaGetLastError();
 }
 
@@ -241,16 +273,19 @@ cudaError_t launch_product(const float* pts, const float* V, float* out,
 // rows of strides ldv and ldo in the same order; row tile ti multiplies
 // the column tiles col_tiles[row_ptr[ti] .. row_ptr[ti + 1]) (num_tiles + 1
 // int32 pointers). `consts` is a host pointer to the per-launch constants
-// (gppe_matern_general_consts_bytes bytes). Every row of out is written,
-// pad rows as zero. Launches on `stream` and returns cudaGetLastError() (0
-// on success); does not synchronise and allocates nothing.
+// (gppe_matern_general_consts_bytes bytes). A pair whose float32 squared
+// distance exceeds skip2 (+inf: none) is 0 without its k. Every row of out
+// is written, pad rows as zero. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); does not synchronise and allocates
+// nothing.
 extern "C" int gppe_matern_blocksparse_general_product(
     const void* pts, const void* V, void* out, const void* row_ptr,
     const void* col_tiles, int n, int d, int r, int ldv, int ldo, int tile,
-    int num_tiles, float tau, const void* consts, void* stream) {
+    int num_tiles, float tau, float skip2, const void* consts,
+    void* stream) {
   const MaternGeneralConsts c = *static_cast<const MaternGeneralConsts*>(
       consts);
-  const int blocks_per_tile = (tile + 31) / 32;
+  const int blocks_per_tile = (tile + kTileRows - 1) / kTileRows;
   if (n <= 0 || d < 1 || d > kMaxD || r < 1 || r > kProductMaxCols ||
       ldv < r || ldo < r || tile <= 0 || num_tiles <= 0 ||
       n > static_cast<int64_t>(num_tiles) * tile ||
@@ -267,16 +302,16 @@ extern "C" int gppe_matern_blocksparse_general_product(
   if (r <= 8) {
     return static_cast<int>(launch_product<8>(
         p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
-        blocks_per_tile, tau, c, s));
+        blocks_per_tile, tau, skip2, c, s));
   }
   if (r <= 16) {
     return static_cast<int>(launch_product<16>(
         p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
-        blocks_per_tile, tau, c, s));
+        blocks_per_tile, tau, skip2, c, s));
   }
   return static_cast<int>(launch_product<32>(
       p_pts, p_v, p_out, p_ptr, p_cols, n, d, r, ldv, ldo, tile, num_tiles,
-      blocks_per_tile, tau, c, s));
+      blocks_per_tile, tau, skip2, c, s));
 }
 
 // (b) partials[b] = block b's weighted sum of tapered k^2 over `per_block`

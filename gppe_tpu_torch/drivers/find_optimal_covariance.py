@@ -268,24 +268,31 @@ def main(num_points=30, noise=0.05, with_prior=False, grid_rho=25,
                                     use_saved=use_saved, verbose=verbose)
 
 
+def large_problem(n=10_000, noise=0.1):
+    """``(pts, z, X)`` of :func:`main_large`: n uniform random 2-D points
+    (RandomState(31)), the reference's data and degree-2 basis."""
+    pts = np.random.RandomState(31).rand(n, 2)
+    return (pts, data_utils.generate_data(pts, noise),
+            data_utils.generate_basis_functions(pts, 2))
+
+
 def main_large(n=10_000, noise=0.1, grid_rho=8, grid_nu=8,
                lanczos_steps=40, num_probes=8, verbose=True,
                results_path=None, use_saved=False, *, device="cuda"):
     """The (rho, nu) grid at large n through the grid-batched Krylov engine
     (one Lanczos pass per chunk of kernels instead of a fresh O(n^3)
     factorization per point; reference :281-339): n uniform random 2-D
-    points (RandomState(31)), rhos in linspace(0.1, 0.3, grid_rho) x nus in
-    linspace(1, 25, grid_nu). Above n = 8192 the engine is matrix-free: each
-    point's products and trace run the general-nu kernel. Reports the setup
-    and fit seconds (the setup ended by a device synchronise), the
-    amortized seconds per point and the argmax."""
+    points (RandomState(31), :func:`large_problem`), rhos in
+    linspace(0.1, 0.3, grid_rho) x nus in linspace(1, 25, grid_nu). Above
+    n = 8192 the engine is matrix-free: each Lanczos step's products of a
+    chunk of points are one batched call of the general-nu kernel (a
+    launch per band of its walk), each point's trace one launch. Reports
+    the setup and fit seconds (the setup ended by a device synchronise),
+    the amortized seconds per point and the argmax."""
     device = resolve_device(device)
 
     def compute():
-        rng = np.random.RandomState(31)
-        pts = rng.rand(n, 2)
-        z = data_utils.generate_data(pts, noise)
-        X = data_utils.generate_basis_functions(pts, 2)
+        pts, z, X = large_problem(n, noise)
         rhos = np.linspace(0.1, 0.3, grid_rho)
         nus = np.linspace(1.0, 25.0, grid_nu)
         R, N = np.meshgrid(rhos, nus, indexing="ij")

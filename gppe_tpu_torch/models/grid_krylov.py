@@ -20,14 +20,15 @@ A grid whose points share one closed-form ``nu_static`` takes the
 multi-rho kernel (matrix-free) or one closed-form assembly per rho (dense).
 Any other grid - ``nu_static=None`` with per-point ``nus``, as the
 reference's (rho, nu) sweeps run it, or a general ``nu_static`` - takes
-the general-nu kernel ``csrc/matern_general.cu``, point by point, as the
-reference's general branch maps its row-blocked XLA matvec over the
-chunk's points: the matrix-free chunk calls the product and trace entries
-(:func:`cuda_kernels.matern_general_matmat`) for each point. The dense
-chunk of any grid assembles each K(rho, nu) once - a general nu with the
-elementwise entry (:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`)
-- and multiplies with ``torch.matmul``. On the CPU they run their plain
-versions.
+the general-nu kernel ``csrc/matern_general.cu``, where the reference's
+general branch maps its row-blocked XLA matvec over the chunk's points:
+the matrix-free chunk's product is one batched call per Lanczos step for
+all its points (:func:`cuda_kernels.matern_general_matmat_batched`, a
+launch per band of its walk), its trace one launch per point
+(:func:`cuda_kernels.matern_general_matmat`). The dense chunk of any grid
+assembles each K(rho, nu) once - a general nu with the elementwise entry
+(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`) - and multiplies
+with ``torch.matmul``. On the CPU they run their plain versions.
 """
 
 import numpy as np
@@ -56,14 +57,15 @@ def _factorize_chunk(points, rhos, nus, AB, k, s):
 def _factorize_chunk_general_matrixfree(points, rhos, nus, AB, k, s,
                                         block_rows):
     """Matrix-free variant over per-point (rho, nu): each Lanczos step
-    runs the general-nu product kernel once per point, and one trace
-    launch per point follows; ``block_rows`` is the row blocking of their
-    plain version on the CPU."""
+    runs the general-nu product kernel for all the chunk's points at once
+    (a launch per band and 32 columns), and one trace launch per point
+    follows; ``block_rows`` is the row blocking of their plain version on
+    the CPU."""
+    scales = torch.as_tensor(rhos, dtype=points.dtype, device=points.device)
+
     def bmv(W):                                             # (B, n, r)
-        return torch.stack([
-            cuda_kernels.matern_general_matmat(
-                points, rho, W[b].contiguous(), nu, block_rows=block_rows)
-            for b, (rho, nu) in enumerate(zip(rhos, nus))])
+        return cuda_kernels.matern_general_matmat_batched(
+            points, scales, W.contiguous(), nus, block_rows=block_rows)
 
     def tk2():
         return torch.stack([
@@ -175,9 +177,10 @@ class GridKrylovProfileLikelihood:
         grid point). ``nu_static``: the one nu every point shares (then
         ``nus`` is not read); a closed form (0.5, 1.5, 2.5, >= 100) takes
         the multi-rho kernel, None or a general nu the general-nu kernel
-        point by point. ``chunk``: kernels per batch
-        (default sized so device memory per chunk stays under
-        ``max_chunk_bytes``). ``matrix_free``: never materialize the
+        (matrix-free: one batched product call per step for the chunk).
+        ``chunk``: kernels per batch (default sized so that the chunk's
+        Lanczos basis, and the general-nu product's slot scratch, stay
+        under ``max_chunk_bytes``). ``matrix_free``: never materialize the
         (b, n, n) kernel chunk; default auto: dense below n=8192,
         matrix-free above. ``block_rows``: row blocking of the matrix-free
         matvec's plain version on the CPU.
@@ -223,13 +226,18 @@ class GridKrylovProfileLikelihood:
 
         itemsize = torch.empty((), dtype=dtype).element_size()
         if chunk is None:
+            budget = max_chunk_bytes
             if self.matrix_free:
                 # the live chunk memory is the Lanczos basis storage
-                # (k, n, B * r): size B so it stays under the budget
+                # (k, n, B * r), and the general-nu product's slot scratch
+                # (at most GENERAL_SLOT_BYTES): size B so they stay under
+                # the budget
                 bytes_per_k = self.k * self.n * AB.shape[1] * itemsize
+                if general:
+                    budget -= cuda_kernels.GENERAL_SLOT_BYTES
             else:
                 bytes_per_k = self.n * self.n * itemsize
-            chunk = max(1, int(max_chunk_bytes // max(bytes_per_k, 1)))
+            chunk = max(1, int(budget // max(bytes_per_k, 1)))
         self.chunk = int(min(chunk, self.num_points))
 
         pts_dev = torch.as_tensor(points, dtype=dtype,

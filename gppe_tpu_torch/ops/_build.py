@@ -28,7 +28,7 @@ SOURCES = ("matern_matmat.cu", "matern_matmat_mma.cu", "matern_multirho.cu",
            "matern_blocksparse_mma.cu", "matern_general.cu",
            "matern_blocksparse_general.cu")
 HEADERS = ("matern_common.cuh", "matern_mma.cuh", "matern_trace.cuh",
-           "matern_bessel.cuh")
+           "matern_bessel.cuh", "matern_general_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -152,16 +152,17 @@ def load(path=None):
     lib.gppe_matern_general_elementwise.argtypes = [ptr, ptr, ctypes.c_int64,
                                                     ptr, ptr]
     lib.gppe_matern_general_product.restype = i32
-    lib.gppe_matern_general_product.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                                i32, i32, i32, i32, i32, ptr,
-                                                ptr]
+    lib.gppe_matern_general_product.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        ctypes.c_int64, ctypes.c_int64, i32, i32, ctypes.c_int64, i32,
+        ctypes.c_int64, ptr]
     lib.gppe_matern_general_trace.restype = i32
     lib.gppe_matern_general_trace.argtypes = [ptr, ptr, ptr, i32, i32, i32,
                                               i32, i32, i32, ptr, ptr]
     lib.gppe_matern_blocksparse_general_product.restype = i32
     lib.gppe_matern_blocksparse_general_product.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, ptr, ptr]
+        ctypes.c_float, ctypes.c_float, ptr, ptr]
     lib.gppe_matern_blocksparse_general_trace.restype = i32
     lib.gppe_matern_blocksparse_general_trace.argtypes = [
         ptr, ptr, ptr, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32,

@@ -47,19 +47,26 @@ triangle on diagonal tiles) where the list holds its mirror:
 :func:`blocksparse_trace_schedule` builds that walk and mirrors it.
 
 ``matern_general`` (elementwise), ``matern_general_matmat`` (the product
-and trace(K^2)) run ``csrc/matern_general.cu``, the Matern correlation of
-a general nu (outside 1/2, 3/2, 5/2 and the Gaussian limit) through the
-Bessel K_nu in registers. It replaces no Pallas kernel: on the TPU the
-general-nu assembly, the row-blocked products and traces of
+and trace(K^2)) and ``matern_general_matmat_batched`` (the product for a
+batch of (scale, nu) points) run ``csrc/matern_general.cu``, the Matern
+correlation of a general nu (outside 1/2, 3/2, 5/2 and the Gaussian limit)
+through the Bessel K_nu in registers. It replaces no Pallas kernel: on the
+TPU the general-nu assembly, the row-blocked products and traces of
 ``operators.MaternOperator`` and the general branch of the grid engine ran
-XLA-fused. ``matern_matmat`` hands a general nu to it, so
+XLA-fused. Its product fills branch-binned k tiles
+(``csrc/matern_general_tile.cuh``) on a symmetric walk of tile pairs, each k
+serving K[i, j] and K[j, i], and sums each row tile's slots in a fixed
+order; its walk runs in bands whose slots fit :data:`GENERAL_SLOT_BYTES`
+(:func:`general_product_bands`), and each band's launch serves a whole
+grid chunk. ``matern_matmat`` hands a general nu to it, so
 ``MaternOperator`` takes every nu; the multi-rho kernel takes the closed
-forms only (a general-nu grid maps ``matern_general_matmat`` over its
-points). ``matern_matmat_blocksparse`` hands a general nu to
+forms only (a general-nu grid calls ``matern_general_matmat_batched``).
+``matern_matmat_blocksparse`` hands a general nu to
 ``csrc/matern_blocksparse_general.cu``, the same device function over the
-tapered kernels' pair list and trace walk (the product in float32 FMA sums,
-one launch per 32 columns of V, and the trace), where the reference runs
-its XLA scans; so ``TaperedMaternOperator`` takes every nu too.
+tapered kernels' pair list and trace walk (the product on the binned k
+tiles of the pairs within :func:`blocksparse_skip_radius`, one launch per
+32 columns of V, and the trace), where the reference runs its XLA scans;
+so ``TaperedMaternOperator`` takes every nu too.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -106,12 +113,18 @@ _MAX_D = 8
 # partial (per rho); the multi-rho one holds _TRACE_RHOS rhos per thread,
 # more over grid.y
 _TRACE_TILE, _TRACE_MAX_BLOCKS, _TRACE_RHOS = 128, 1 << 19, 8
-# the general-nu product kernel (csrc/matern_general.cu): 32 rows and 8
-# warps per block, at most 32 columns of V per launch; its grid.y splits the
-# columns into slices of at least _GENERAL_MIN_SLICE until about
-# _GENERAL_BLOCKS_PER_SM blocks per SM are in flight
-_GENERAL_ROWS, _GENERAL_MAX_COLS = 32, 32
-_GENERAL_MIN_SLICE, _GENERAL_BLOCKS_PER_SM = 64, 8
+# the general-nu product kernels (csrc/matern_general.cu,
+# matern_blocksparse_general.cu): at most 32 columns of V per launch
+_GENERAL_MAX_COLS = 32
+# the most slot scratch one general-nu product (csrc/matern_general.cu)
+# takes: its walk runs in bands of tile pairs whose slots fit (at least
+# one pair a band), and the grid engine counts it in its chunk's budget
+GENERAL_SLOT_BYTES = 256 << 20
+# the general-nu kernel's k against float64: the reference's own float32
+# error at nu ~ 25 (gppe_tpu/ops/kernels.py:33-36), the bound chip_smoke.py
+# holds it to (9.1e-7 measured); the tapered product's skip radius rests
+# on it
+GENERAL_K_ATOL = 3e-5
 
 
 def reset_launch_counts():
@@ -523,10 +536,12 @@ def _launch_plan(kernel, r, frobenius):
     tensor-core kernel, which takes the mode's code; it sums no k^2, so the
     sums, where asked for, are a trace-only launch of the FP32 kernel (they
     never round). ``kernel`` 'general' (a general nu, in
-    ``matern_general_matmat``): the product on ``matern_general.cu``, one
-    launch per 32 columns of V, then its trace entry; ``kernel``
-    'blocksparse_general' (a general nu in ``matern_matmat_blocksparse``)
-    the same on ``matern_blocksparse_general.cu``."""
+    ``matern_general_matmat`` and ``matern_general_matmat_batched``): the
+    product on ``matern_general.cu``, one entry per 32 columns of V for
+    the whole batch (launched once per band of its walk), then its trace
+    entry; ``kernel`` 'blocksparse_general' (a general nu in
+    ``matern_matmat_blocksparse``) one launch per 32 columns of
+    ``matern_blocksparse_general.cu``'s product, then its trace."""
     if kernel in ("general", "blocksparse_general"):
         name = ("matern_general" if kernel == "general"
                 else "matern_blocksparse_general")
@@ -815,7 +830,8 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     (``csrc/matern_blocksparse.cu``, over ``trace_walk``, with the same k
     and taper), so a call that asks for both launches both; for a general
     nu both entries of ``csrc/matern_blocksparse_general.cu`` the same way
-    (the product one launch per 32 columns of V, in float32 FMA sums;
+    (the product one launch per 32 columns of V, in float32 FMA sums, each
+    pair past :func:`blocksparse_skip_radius` an exact 0 without its k;
     ``dot_mode`` does not apply)."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = check_nu(nu)
@@ -894,6 +910,7 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
         if general:
             lib, kernel = _general_library(), "blocksparse_general"
             consts = _general_consts(nu).ctypes.data
+            skip2 = _blocksparse_skip2(nu, float(tau))
         else:
             lib, kernel = _build.load(), "blocksparse"
             code = _NU_CODES.get(nu, _GAUSS_CODE)
@@ -919,7 +936,7 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                         points_sorted.data_ptr(), V.data_ptr() + 4 * c0,
                         out.data_ptr() + 4 * c0, row_ptr.data_ptr(),
                         pair_j.data_ptr(), n, d, width, r, r, tile,
-                        num_tiles, float(tau), consts, stream)
+                        num_tiles, float(tau), skip2, consts, stream)
                     c0 += width
                 else:
                     err = lib.gppe_matern_blocksparse_general_trace(
@@ -930,6 +947,53 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
     return (out, partials.sum()) if frobenius else out
+
+
+@functools.lru_cache(maxsize=256)
+def blocksparse_skip_radius(nu, tau):
+    """The scaled distance past which the tapered general-nu product
+    (``csrc/matern_blocksparse_general.cu``) skips a pair, in float64.
+
+    The kernel keeps k >= tau, k its float32 k and tau rounded to float32;
+    its k lies within :data:`GENERAL_K_ATOL` of float64 k (chip_smoke.py
+    phase 21). So a pair whose float64 k is below float32(tau) -
+    GENERAL_K_ATOL is dropped by that rule, and past the radius x* where
+    float64 k falls to that level (k decreases with x) every pair is. The
+    radius returned is x* (1 + 1e-6): the float32 sqrt of the kernel's
+    float32 squared distance rounds by 6e-8 at most, so a pair the kernel
+    finds past it is past x*. ``inf`` where float32(tau) <= GENERAL_K_ATOL
+    (no pair is skipped). Slightly beyond the taper radius, whose k is tau
+    itself."""
+    target = float(np.float32(tau)) - GENERAL_K_ATOL
+    if not target > 0.0:
+        return math.inf
+    nu = check_nu(nu)
+
+    def k(x):
+        return kernels.matern(torch.as_tensor(x, dtype=torch.float64),
+                              nu).numpy()
+
+    hi = 1.0
+    while k(hi) >= target:
+        hi *= 2.0
+    lo = 0.0
+    for _ in range(4):          # each round narrows the bracket 1024 times
+        x = np.linspace(lo, hi, 1025)
+        first = int(np.argmax(k(x) < target))   # k(x[0]) >= target
+        lo, hi = x[first - 1], x[first]
+    return float(hi) * (1.0 + 1e-6)
+
+
+def _blocksparse_skip2(nu, tau):
+    """The kernel's ``skip2``: the skip radius squared, rounded up to
+    float32 (a pair skipped by d2 > skip2 is past the radius)."""
+    radius = blocksparse_skip_radius(nu, tau)
+    if math.isinf(radius):
+        return math.inf
+    skip2 = np.float32(radius * radius)
+    if float(skip2) < radius * radius:
+        skip2 = np.nextafter(skip2, np.float32(np.inf))
+    return float(skip2)
 
 
 # -- general nu ---------------------------------------------------------------
@@ -1042,13 +1106,79 @@ def _matern_general_cuda(x, nu):
     return out
 
 
-def general_product_slices(nr, nc, sms=132):
-    """grid.y of the general-nu product kernel: the column slices that
-    bring the ceil(nr / 32) row blocks up to about ``_GENERAL_BLOCKS_PER_SM``
-    blocks per SM, each slice at least ``_GENERAL_MIN_SLICE`` columns."""
-    row_blocks = -(-nr // _GENERAL_ROWS)
-    want = -(-_GENERAL_BLOCKS_PER_SM * sms // row_blocks)
-    return max(1, min(want, nc // _GENERAL_MIN_SLICE, 65535))
+class GeneralProductBands(NamedTuple):
+    """The general-nu product's walk cut into bands (one launch each):
+    ``pairs`` tile pairs of 128 x 128 points in all, ``band_pairs`` per
+    band (the last perhaps fewer), ``bands`` of them, ``sides`` slots a
+    pair (2 on the symmetric walk: the row side and the mirror), and
+    ``slot_floats`` float32 entries of scratch they take."""
+    pairs: int
+    band_pairs: int
+    bands: int
+    sides: int
+    slot_floats: int
+
+
+def general_product_bands(nr, nc, r, batch, symmetric):
+    """The bands of one launch width ``r`` <= 32 of the general-nu product
+    (``csrc/matern_general.cu``): as many consecutive pairs of its walk as
+    keep the slot scratch, ``batch * band_pairs * sides * 128 * r``
+    floats, within :data:`GENERAL_SLOT_BYTES` (at least one pair)."""
+    tiles_r, tiles_c = -(-nr // _TRACE_TILE), -(-nc // _TRACE_TILE)
+    pairs = (tiles_r * (tiles_r + 1) // 2 if symmetric
+             else tiles_r * tiles_c)
+    sides = 2 if symmetric else 1
+    per_pair = batch * sides * _TRACE_TILE * r
+    band_pairs = max(1, min(pairs, GENERAL_SLOT_BYTES // (4 * per_pair),
+                            2 ** 31 - 1))
+    return GeneralProductBands(pairs, band_pairs, -(-pairs // band_pairs),
+                               sides, band_pairs * per_pair)
+
+
+@functools.lru_cache(maxsize=64)
+def _general_consts_device(nus, device):
+    """The constants of ``nus`` (a tuple), one struct per point, as one
+    uint8 tensor on ``device``: the batched product's per-point table."""
+    host = np.stack([_general_consts(nu) for nu in nus])
+    return torch.from_numpy(host.view(np.uint8).copy()).to(device)
+
+
+def _general_product_cuda(points, cols, scales, V, nus, symmetric):
+    """out_b = K_b @ V_b on the card for (B, nc, r) float32 V, B = len(nus)
+    points of (B, d) float32 ``scales``: the product entry of
+    ``csrc/matern_general.cu`` once per band of its walk
+    (:func:`general_product_bands`) and 32 columns, for the whole batch.
+    Each call of the entry launches the tile kernel and its band's sum
+    kernel, and counts once under ``matern_general_product``."""
+    B, nc, r = V.shape
+    nr, d = points.shape
+    device = points.device
+    if nr == 0 or nc == 0 or r == 0:
+        return torch.zeros((B, nr, r), dtype=torch.float32, device=device)
+    out = torch.empty((B, nr, r), dtype=torch.float32, device=device)
+    lib = _general_library()
+    consts = _general_consts_device(nus, device)
+    walk = general_product_bands(nr, nc, min(r, _GENERAL_MAX_COLS), B,
+                                 symmetric)
+    slots = torch.empty(walk.slot_floats, dtype=torch.float32,
+                        device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        c0 = 0
+        for entry, counter in _launch_plan("general", r, False):
+            width = min(_GENERAL_MAX_COLS, r - c0)
+            for g0 in range(0, walk.pairs, walk.band_pairs):
+                err = lib.gppe_matern_general_product(
+                    points.data_ptr(), cols.data_ptr(), scales.data_ptr(),
+                    consts.data_ptr(), V.data_ptr() + 4 * c0,
+                    out.data_ptr() + 4 * c0, slots.data_ptr(), nr, nc, d,
+                    width, r, r, nc * r, nr * r, B, int(symmetric), g0,
+                    min(walk.band_pairs, walk.pairs - g0), walk.band_pairs,
+                    stream)
+                _raise_on_cuda_error(lib, err, counter)
+                launch_counts[counter] += 1
+            c0 += width
+    return out
 
 
 def matern_general_matmat(points, scale, V, nu, points_cols=None,
@@ -1061,7 +1191,9 @@ def matern_general_matmat(points, scale, V, nu, points_cols=None,
     CPU tensors take :func:`matern_matmat_plain` ('highest', the inputs'
     dtype, ``block_rows`` rows at a time); CUDA tensors must be float32 and
     contiguous and launch ``csrc/matern_general.cu``: the product entry
-    once per 32 columns of V, the trace entry for the sum (float64)."""
+    once per band and 32 columns of V (the batch of one of
+    :func:`matern_general_matmat_batched`, the same bits), the trace entry
+    for the sum (float64)."""
     nu = check_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
@@ -1094,51 +1226,78 @@ def _matern_general_matmat_cuda(points, scale, V, nu, points_cols,
         raise ValueError(f"points_cols must be (nc, {d}); "
                          f"got {tuple(cols.shape)}")
     nc = cols.shape[0]
-    r = 0 if V is None else V.shape[1]
     _check_cuda_operands(d, (("points", points), ("points_cols", cols),
-                             ("V", V)))
+                             ("V", V), ("scale", scale)))
     if V is not None and (V.ndim != 2 or V.shape[0] != nc):
         raise ValueError(f"V must be ({nc}, r); got {tuple(V.shape)}")
-    if max(nr, nc, r) >= 2 ** 31:
+    if max(nr, nc) >= 2 ** 31:
         raise ValueError("sizes must fit in int32")
-
-    rows_s = (points / scale).contiguous()
-    cols_s = rows_s if points_cols is None else (cols / scale).contiguous()
-    out = None if V is None else torch.empty(
-        (nr, r), dtype=torch.float32, device=points.device)
     symmetric = points_cols is None
+    out = None if V is None else _general_product_cuda(
+        points, cols, scale[None], V[None], (nu,), symmetric)[0]
+    if not frobenius:
+        return out
     _, _, _, per_block, blocks = trace_schedule(nr, nc, symmetric)
-    partials = (torch.zeros(blocks, dtype=torch.float64,
-                            device=points.device) if frobenius else None)
-    if nr == 0 or nc == 0 or (r == 0 and not frobenius):
-        return (out, partials.sum()) if frobenius else out
+    partials = torch.zeros(blocks, dtype=torch.float64, device=points.device)
+    if nr and nc:
+        rows_s = (points / scale).contiguous()
+        cols_s = rows_s if symmetric else (cols / scale).contiguous()
+        lib = _general_library()
+        with torch.cuda.device(points.device):
+            err = lib.gppe_matern_general_trace(
+                rows_s.data_ptr(), cols_s.data_ptr(), partials.data_ptr(),
+                nr, nc, d, int(symmetric), per_block, blocks,
+                _general_consts(nu).ctypes.data,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on_cuda_error(lib, err, "matern_general_trace")
+        launch_counts["matern_general_trace"] += 1
+    return out, partials.sum()
 
-    lib = _general_library()
-    consts = _general_consts(nu).ctypes.data
-    slices = general_product_slices(
-        nr, nc, torch.cuda.get_device_properties(
-            points.device).multi_processor_count)
-    # the slices' partial products, summed below in a fixed order
-    dest = out if slices == 1 or r == 0 else torch.empty(
-        (slices, nr, r), dtype=torch.float32, device=points.device)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        c0 = 0
-        for entry, counter in _launch_plan("general", r, frobenius):
-            if entry == "gppe_matern_general_product":
-                width = min(_GENERAL_MAX_COLS, r - c0)
-                err = lib.gppe_matern_general_product(
-                    rows_s.data_ptr(), cols_s.data_ptr(),
-                    V.data_ptr() + 4 * c0, dest.data_ptr() + 4 * c0, nr, nc,
-                    d, width, r, r, slices, consts, stream)
-                c0 += width
-            else:
-                err = lib.gppe_matern_general_trace(
-                    rows_s.data_ptr(), cols_s.data_ptr(), partials.data_ptr(),
-                    nr, nc, d, int(symmetric), per_block, blocks, consts,
-                    stream)
-            _raise_on_cuda_error(lib, err, counter)
-            launch_counts[counter] += 1
-    if dest is not out:
-        torch.sum(dest, dim=0, out=out)
-    return (out, partials.sum()) if frobenius else out
+
+def matern_general_matmat_batched(points, scales, V, nus, block_rows=1024):
+    """K_b @ V_b for a batch of B Matern correlations over one set of
+    points, K_b[i, j] = k(|x_i - x_j| / scale_b; nu_b), each nu positive
+    (a closed form too), K never stored: the product of a matrix-free grid
+    chunk.
+
+    ``points`` (n, d); ``scales`` B scales, each a scalar or d per-dimension
+    ones (a (B,) or (B, d) tensor on the points' device, or anything
+    ``torch.as_tensor`` takes); ``V`` (B, n, r); ``nus`` B numbers.
+    Returns (B, n, r).
+
+    CPU tensors take :func:`matern_matmat_plain` point by point ('highest',
+    the inputs' dtype, ``block_rows`` rows at a time); CUDA tensors must be
+    float32 and contiguous and launch the product entry of
+    ``csrc/matern_general.cu`` once per band and 32 columns of V for the
+    whole batch, each point with the bits it has alone in
+    :func:`matern_general_matmat`."""
+    nus = tuple(check_nu(nu) for nu in nus)
+    device = points.device
+    if points.ndim != 2:
+        raise ValueError(f"points must be (n, d); got {tuple(points.shape)}")
+    n, d = points.shape
+    B = len(nus)
+    if V.device != device:
+        raise ValueError(f"V is on {V.device}, points on {device}")
+    if V.ndim != 3 or V.shape[:2] != (B, n):
+        raise ValueError(f"V must be ({B}, {n}, r); got {tuple(V.shape)}")
+    scales = torch.as_tensor(scales, dtype=points.dtype, device=device)
+    if scales.ndim == 1:
+        scales = scales[:, None].expand(B, d)
+    if scales.shape != (B, d):
+        raise ValueError(f"scales must be ({B},) or ({B}, {d}); got "
+                         f"{tuple(scales.shape)}")
+    if device.type == "cpu":
+        return torch.stack([
+            matern_matmat_plain(points, scales[b], V[b], nu, None, False,
+                                block_rows, "highest")
+            for b, nu in enumerate(nus)])
+    if device.type != "cuda":
+        raise ValueError(f"matern_general_matmat_batched runs on cpu or "
+                         f"cuda, not {device}")
+    scales = scales.contiguous()
+    _check_cuda_operands(d, (("points", points), ("V", V),
+                             ("scales", scales)))
+    if n >= 2 ** 31 or B > 65535:
+        raise ValueError("n must fit in int32, the batch in 65535")
+    return _general_product_cuda(points, points, scales, V, nus, True)

@@ -1169,6 +1169,105 @@ def test_general_product_and_trace(dev, n, d, nu):
     assert abs(float(fro) - float(fro_want)) / float(fro_want) < 1e-5
 
 
+@pytest.mark.parametrize("n, d", [(1000, 2), (3001, 2), (700, 3)])
+@pytest.mark.parametrize("nu", [0.3, 1.2, 24.9])
+def test_general_product_symmetric_rectangular_batched(dev, n, d, nu):
+    """The general-nu product on its symmetric walk (rows are columns) and
+    on the rectangular one (distinct column points, every tile pair)
+    against float64 (Frobenius 1e-5, chip_smoke.py's GENERAL_FROB_TOL), at
+    r = 16 and 40; the same bits twice; a batch of three (scale, nu)
+    points equal bit for bit to its single calls."""
+    rng = np.random.RandomState(n + d)
+    P = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev)
+    C = torch.as_tensor(rng.rand(n // 2 + 3, d), dtype=F32, device=dev)
+    scale = kernels.broadcast_scale(0.1, d, dtype=F32, device=dev)
+    for r in (16, 40):
+        V = torch.as_tensor(rng.standard_normal((n, r)), dtype=F32,
+                            device=dev)
+        W = V[:C.shape[0]].contiguous()
+        for cols, rhs in ((None, V), (C, W)):
+            got = cuda_kernels.matern_general_matmat(P, scale, rhs, nu,
+                                                     points_cols=cols)
+            again = cuda_kernels.matern_general_matmat(P, scale, rhs, nu,
+                                                       points_cols=cols)
+            assert torch.equal(got, again)
+            want = cuda_kernels.matern_matmat_plain(
+                P.double(), scale.double(), rhs.double(), nu,
+                points_cols=None if cols is None else cols.double())
+            err = float(torch.linalg.norm(got.double() - want)
+                        / torch.linalg.norm(want))
+            assert err < 1e-5, (r, cols is None, err)
+    rhos, nus = [0.1, 0.25, 0.05], [nu, 3.7, 1.5]
+    Vb = torch.as_tensor(rng.standard_normal((3, n, 24)), dtype=F32,
+                         device=dev)
+    cuda_kernels.reset_launch_counts()
+    batch = cuda_kernels.matern_general_matmat_batched(
+        P, torch.tensor(rhos, device=dev), Vb, nus)
+    assert cuda_kernels.launch_counts["matern_general_product"] == 1
+    for b in range(3):
+        assert torch.equal(batch[b], cuda_kernels.matern_general_matmat(
+            P, rhos[b], Vb[b], nus[b]))
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_general_product_bands(dev, monkeypatch, symmetric):
+    """The general-nu product's walk in bands: at n = 40,000, r = 32 its
+    slots for every tile pair would take 1.6 GB (the symmetric walk), over
+    six times GENERAL_SLOT_BYTES; it runs in bands within that budget
+    (the scratch the wrapper allocates, measured by the allocator's peak),
+    its first and last 200 rows against float64 (Frobenius 1e-5); and
+    with the walk cut into bands of 5 tile pairs a batch of two equals its
+    one-band result and its single calls bit for bit (n = 3001)."""
+    rng = np.random.RandomState(40)
+    n = 40_000
+    P = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
+    C = None if symmetric else torch.as_tensor(rng.rand(n // 2, 2),
+                                               dtype=F32, device=dev)
+    nc = n if symmetric else n // 2
+    V = torch.as_tensor(rng.standard_normal((nc, 32)), dtype=F32, device=dev)
+    walk = cuda_kernels.general_product_bands(n, nc, 32, 1, symmetric)
+    assert walk.bands > 1
+    assert 4 * walk.slot_floats <= cuda_kernels.GENERAL_SLOT_BYTES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.matern_general_matmat(P, 0.1, V, 1.2, points_cols=C)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_product"] == walk.bands
+    assert (torch.cuda.max_memory_allocated(dev) - base
+            <= 4 * walk.slot_floats + 4 * n * 32 + (1 << 20))
+    rows = torch.cat([torch.arange(200, device=dev),
+                      torch.arange(n - 200, n, device=dev)])
+    want = cuda_kernels.matern_matmat_plain(
+        P[rows].double(), kernels.broadcast_scale(0.1, 2, dtype=F64,
+                                                  device=dev),
+        V.double(), 1.2, points_cols=(P if C is None else C).double())
+    err = float(torch.linalg.norm(got[rows].double() - want)
+                / torch.linalg.norm(want))
+    assert err < 1e-5, err
+
+    n = 3001
+    P = P[:n].contiguous()
+    rhos, nus = [0.1, 0.05], [1.2, 24.9]
+    Vb = torch.as_tensor(rng.standard_normal((2, n, 24)), dtype=F32,
+                         device=dev)
+    whole = cuda_kernels.matern_general_matmat_batched(
+        P, torch.tensor(rhos, device=dev), Vb, nus)
+    per_pair = 4 * 2 * 2 * 128 * 24
+    monkeypatch.setattr(cuda_kernels, "GENERAL_SLOT_BYTES", 5 * per_pair)
+    cuda_kernels.reset_launch_counts()
+    banded = cuda_kernels.matern_general_matmat_batched(
+        P, torch.tensor(rhos, device=dev), Vb, nus)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_product"] == (
+        -(-(24 * 25 // 2) // 5))
+    assert torch.equal(banded, whole)
+    for b in range(2):
+        assert torch.equal(whole[b], cuda_kernels.matern_general_matmat(
+            P, rhos[b], Vb[b], nus[b]))
+
+
 def test_general_through_the_public_entry_points(dev):
     """matern_matmat and MaternOperator at a general nu run the general
     kernel (no closed-form launch) in every dot mode, with the same bits;
@@ -1226,11 +1325,12 @@ def test_general_operator_dense_runs_the_elementwise_kernel(dev):
 
 
 def test_general_grid_engine_cuda_matches_cpu(dev):
-    """The grid engine over general nus, matrix-free (the product and
-    trace entries per point), against the same engine on the CPU in
-    float64 from the same random block, at n = 400 (the CPU's plain
-    version is slow): each point's eta within 5e-2 and sigma0 within 5e-3
-    (the reference's cuda-vs-cpu bounds)."""
+    """The grid engine over general nus, matrix-free (one batched product
+    launch a step, one band at n = 400, one trace launch per point),
+    against the same engine on the CPU in float64 from the same random
+    block, at n = 400 (the CPU's plain version is slow): each point's eta
+    within 5e-2 and sigma0 within 5e-3 (the reference's cuda-vs-cpu
+    bounds)."""
     n = 400
     rng = np.random.RandomState(3)
     pts = rng.rand(n, 2)
@@ -1244,7 +1344,7 @@ def test_general_grid_engine_cuda_matches_cpu(dev):
     cuda_kernels.reset_launch_counts()
     got = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device=dev,
                                       **kw).fit_all()
-    assert cuda_kernels.launch_counts["matern_general_product"] == 2 * 12
+    assert cuda_kernels.launch_counts["matern_general_product"] == 12
     assert cuda_kernels.launch_counts["matern_general_trace"] == 2
     assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 0
     want = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device="cpu",
@@ -1299,6 +1399,37 @@ def test_blocksparse_general_kernel(dev, n, tile, d, nu):
     got = trace(trace_walk=op._trace_walk)
     assert trace(trace_walk=op._trace_walk) == got and trace() == got
     np.testing.assert_allclose(got, float(fro_want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n, tile, d, nu", [(1000, 128, 2, 1.2),
+                                             (2000, 512, 2, 24.9),
+                                             (1000, 512, 3, 0.3)])
+def test_blocksparse_general_skip(dev, monkeypatch, n, tile, d, nu):
+    """The tapered general-nu product skips the pairs past the skip radius
+    (and the sub-tile pairs whose boxes lie past it): at the operator's
+    threshold and at one clear of every pair, the same bits as with no
+    pair skipped (a skipped pair adds an exact 0 in the same order), and
+    within 1e-5 (Frobenius) of float64 at the clear threshold."""
+    op, args, kw = _tapered_any_d(dev, n, nu, tile, d, TAPER_SCALES[d],
+                                  seed=n + d)
+    V = _padded_normal(op, n, 24, np.random.RandomState(d), dev)
+    skip2 = cuda_kernels._blocksparse_skip2
+    for tau in (op.threshold, args[1]):
+        targs = (args[0], tau, *args[2:])
+        got = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, V,
+                                                     *targs, **kw)
+        assert np.isfinite(skip2(nu, tau))
+        monkeypatch.setattr(cuda_kernels, "_blocksparse_skip2",
+                            lambda nu, tau: float("inf"))
+        every = cuda_kernels.matern_matmat_blocksparse(op.points_sorted, V,
+                                                       *targs, **kw)
+        monkeypatch.setattr(cuda_kernels, "_blocksparse_skip2", skip2)
+        assert torch.equal(got, every)
+    want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), V.double(), *args, **kw)
+    err = float(torch.linalg.norm(got.double() - want)
+                / torch.linalg.norm(want))
+    assert err < 1e-5, err
 
 
 def test_blocksparse_general_symmetry_and_closed_forms(dev):

@@ -9,10 +9,11 @@ algorithm, summed in another order); the grid engine over general nus,
 dense and matrix-free, per-point eta, sigma and sigma0 rtol 1e-6 (the
 bound of tests/test_torch_grid_krylov.py: two Lanczos passes in float64).
 
-The card path of the wrappers (launch plan, column slices, pointer
-offsets, the sum of the slices' partial products) is driven on CPU tensors
-against a stand-in library that computes each launch's share in float64
-from the pointers it is handed.
+The card path of the wrappers (launch plan, pointer offsets, the batch's
+constants and scales, the product's slot grid and its sum in order) is
+driven on CPU tensors against a stand-in library that computes each
+launch in float64 from the pointers it is handed; the tapered product's
+skip radius is held to the plain float32 k.
 """
 
 import ctypes
@@ -38,6 +39,7 @@ from gppe_tpu_torch.models import grid_krylov as tgk  # noqa: E402
 from gppe_tpu_torch.ops import _build, cuda_kernels, special  # noqa: E402
 from gppe_tpu_torch.ops import assembly as tasm  # noqa: E402
 from gppe_tpu_torch.ops import kernels as tk  # noqa: E402
+from gppe_tpu_torch.ops import taper as ttaper  # noqa: E402
 from gppe_tpu_torch.ops import operators as tops  # noqa: E402
 from gppe_tpu_torch.utils import data as tdata  # noqa: E402
 from gppe_tpu_torch.utils.config import (  # noqa: E402
@@ -264,16 +266,84 @@ def test_general_consts(nu):
         rtol=2e-7)
 
 
-def test_product_slices():
-    """grid.y of the product kernel: enough column slices to reach about 8
-    blocks of 32 rows per SM, each slice at least 64 columns."""
-    assert cuda_kernels.general_product_slices(100_000, 100_000) == 1
-    assert cuda_kernels.general_product_slices(10_000, 10_000) == 4
-    assert cuda_kernels.general_product_slices(1000, 1000) == 15
-    assert cuda_kernels.general_product_slices(40, 40) == 1
-    for nr in (1, 33, 999, 4096, 12_345):
-        s = cuda_kernels.general_product_slices(nr, nr)
-        assert 1 <= s <= max(1, nr // 64)
+# the walk's slots: (nr, nc, symmetric) at one, two and many tiles, ragged
+SLOT_CASES = [(1, 1, True), (128, 128, True), (129, 129, True),
+              (1000, 1000, True), (300, 129, False), (128, 1000, False)]
+
+
+def _walk(tiles_r, tiles_c, symmetric):
+    """The product's walk by its definition: row tile by row tile, tj >= ti
+    where symmetric."""
+    return [(ti, tj) for ti in range(tiles_r)
+            for tj in range(ti if symmetric else 0, tiles_c)]
+
+
+@pytest.mark.parametrize("nr, nc, symmetric", SLOT_CASES)
+@pytest.mark.parametrize("cap_pairs", [1, 3, None])
+def test_product_slots(monkeypatch, nr, nc, symmetric, cap_pairs):
+    """The product's bands (general_product_bands) at a slot budget of one
+    pair, three and the default: the scratch within the budget; the bands
+    cover the walk once in order; each band writes a row tile's slots s
+    (the row side of pair (x, s), on the symmetric walk for s < x the
+    mirror of pair (s, x)) as one run of s, the runs in order of s from
+    band to band, so that every slot is summed once and in the order of
+    its column tile."""
+    r, B = 7, 3
+    sides = 2 if symmetric else 1
+    per_pair = 4 * B * sides * 128 * r
+    if cap_pairs is not None:
+        monkeypatch.setattr(cuda_kernels, "GENERAL_SLOT_BYTES",
+                            cap_pairs * per_pair + 5)
+    walk = cuda_kernels.general_product_bands(nr, nc, r, B, symmetric)
+    tiles_r, tiles_c = -(-nr // 128), -(-nc // 128)
+    pairs = _walk(tiles_r, tiles_c, symmetric)
+    assert walk.pairs == len(pairs) and walk.sides == sides
+    assert walk.band_pairs == min(cap_pairs or len(pairs), len(pairs))
+    assert walk.bands == -(-len(pairs) // walk.band_pairs)
+    assert walk.slot_floats == B * walk.band_pairs * sides * 128 * r
+    assert 4 * walk.slot_floats <= cuda_kernels.GENERAL_SLOT_BYTES
+    seen = {x: [] for x in range(tiles_r)}
+    for g0 in range(0, walk.pairs, walk.band_pairs):
+        band = {x: [] for x in range(tiles_r)}
+        for ti, tj in pairs[g0:g0 + walk.band_pairs]:
+            band[ti].append(tj)
+            if symmetric and ti != tj:
+                band[tj].append(ti)
+        for x, ss in band.items():
+            ss.sort()
+            assert not ss or ss == list(range(ss[0], ss[0] + len(ss)))
+            seen[x] += ss
+    per_row = tiles_r if symmetric else tiles_c
+    assert all(ss == list(range(per_row)) for ss in seen.values())
+
+
+@pytest.mark.parametrize("nu", NUS)
+def test_skip_radius(nu):
+    """The tapered product's skip radius at chip_smoke.py phase 27's taper
+    (n = 64^2, rho 0.01, density 0.004): within 2% beyond the taper radius,
+    its float32 square (the kernel's skip2) at least its square; and on
+    2^16 random float32 pairs near the radius, no pair whose plain float32
+    k is at least the float32 tau lies past it."""
+    n = 64 * 64
+    radius = ttaper.estimate_kernel_radius(n, 2, 0.004, 0.01)
+    tau = ttaper.estimate_kernel_threshold(n, 2, 0.004, 0.01, nu)
+    skip = cuda_kernels.blocksparse_skip_radius(nu, tau)
+    assert radius < skip < 1.02 * radius
+    skip2 = np.float32(cuda_kernels._blocksparse_skip2(nu, tau))
+    assert float(skip2) >= skip * skip
+    rng = np.random.RandomState(int(100 * nu))
+    a = (rng.rand(1 << 16, 2) * 100.0).astype(np.float32)
+    angle = rng.rand(1 << 16) * 2.0 * np.pi
+    length = radius * rng.uniform(0.95, 1.05, 1 << 16)
+    b = (a + length[:, None] * np.stack([np.cos(angle), np.sin(angle)], 1)
+         ).astype(np.float32)
+    diff = a - b
+    d2 = diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+    k = tk.matern(torch.as_tensor(np.sqrt(d2)), nu).numpy()
+    assert k.dtype == np.float32
+    kept = k >= np.float32(tau)
+    assert kept.any() and (d2 > skip2).any()
+    assert not np.any(kept & (d2 > skip2))
 
 
 def _floats(ptr, count):
@@ -281,34 +351,91 @@ def _floats(ptr, count):
         ctypes.cast(ptr, ctypes.POINTER(ctypes.c_float)), shape=(count,))
 
 
+def _strided(ptr, rows, cols, ld):
+    """(rows, cols) float32 view of rows of stride ld at ptr."""
+    return np.lib.stride_tricks.as_strided(
+        _floats(ptr, (rows - 1) * ld + cols), (rows, cols), (4 * ld, 4),
+        writeable=True)
+
+
 class _GeneralLibrary:
     """Stands in for the kernel library's general-nu entries: computes
-    each launch's share of the product (its column slices, its columns of
-    V) and the trace partials in float64 from the pointers it is handed,
-    and records the calls."""
+    each launch from the pointers it is handed, in float64 on the kernel's
+    own float32 inputs, and records the calls. The product fills the
+    band's slots pair by pair of the walk as the kernel's blocks do (each
+    slot once, NaN where none wrote) and adds each row tile's slots of the
+    band to its rows in order of s, in float32, from 0 where the band holds
+    the tile's first slot, as the kernel's second pass does; it checks
+    each point's constants against _general_consts and keeps the scales
+    it was handed."""
 
-    def __init__(self, nu):
-        self.nu = nu
+    def __init__(self, nus):
+        self.nus = tuple(nus)
+        self.nu = self.nus[0]
         self.calls = []
+        self.scales = []
 
     def gppe_matern_general_consts_bytes(self):
         return 1752
 
-    def gppe_matern_general_product(self, rows, cols, V, out, nr, nc, d, r,
-                                    ldv, ldo, slices, consts, stream):
-        x = _floats(rows, nr * d).reshape(nr, d).astype(np.float64)
-        y = _floats(cols, nc * d).reshape(nc, d).astype(np.float64)
-        v = np.lib.stride_tricks.as_strided(
-            _floats(V, (nc - 1) * ldv + r), (nc, r), (4 * ldv, 4))
-        K = tk.matern(tk.pairwise_scaled_distance(_t(x), _t(y), 1.0),
-                      self.nu).numpy()
-        per = -(-nc // slices)
-        for s in range(slices):
-            o = np.lib.stride_tricks.as_strided(
-                _floats(out + 4 * s * nr * ldo, (nr - 1) * ldo + r),
-                (nr, r), (4 * ldo, 4), writeable=True)
-            o[:] = K[:, s * per:(s + 1) * per] @ v[s * per:(s + 1) * per]
-        self.calls.append(("product", r, slices))
+    def gppe_matern_general_product(self, rows, cols, scales, consts, V,
+                                    out, slots, nr, nc, d, r, ldv, ldo,
+                                    v_stride, out_stride, batch, symmetric,
+                                    g0, band_pairs, slot_pairs, stream):
+        assert batch == len(self.nus) and 1 <= band_pairs <= slot_pairs
+        symmetric = bool(symmetric)
+        x = _floats(rows, nr * d).reshape(nr, d)
+        y = _floats(cols, nc * d).reshape(nc, d)
+        sc = _floats(scales, batch * d).reshape(batch, d).copy()
+        self.scales.append(sc)
+        table = np.ctypeslib.as_array(
+            ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(batch * 1752,))
+        for b, nu in enumerate(self.nus):
+            assert table[1752 * b:1752 * (b + 1)].tobytes() == (
+                cuda_kernels._general_consts(nu).tobytes())
+        T = 128
+        tiles_r, tiles_c = -(-nr // T), -(-nc // T)
+        sides = 2 if symmetric else 1
+        walk = _walk(tiles_r, tiles_c, symmetric)
+        index = {pair: g for g, pair in enumerate(walk)}
+        assert g0 + band_pairs <= len(walk)
+        grid = _floats(slots, batch * slot_pairs * sides * T * r).reshape(
+            batch, slot_pairs, sides, T, r)
+        grid[:] = np.nan
+        for b, nu in enumerate(self.nus):
+            xs = _t(x / sc[b])              # the kernel's float32 division
+            ys = _t(y / sc[b])
+            K = tk.matern(tk.pairwise_scaled_distance(xs, ys, 1.0),
+                          nu).numpy()
+            v = _strided(V + 4 * b * v_stride, nc, r, ldv).astype(np.float64)
+            for p in range(band_pairs):
+                ti, tj = walk[g0 + p]
+                Kt = K[T * ti:T * (ti + 1), T * tj:T * (tj + 1)]
+                grid[b, p, 0, :Kt.shape[0]] = Kt @ v[T * tj:T * (tj + 1)]
+                if symmetric and ti != tj:
+                    grid[b, p, 1, :Kt.shape[1]] = (
+                        Kt.T @ v[T * ti:T * (ti + 1)])
+            o = _strided(out + 4 * b * out_stride, nr, r, ldo)
+            for t in range(tiles_r):
+                rows_t = slice(T * t, min(T * (t + 1), nr))
+                m = rows_t.stop - rows_t.start
+                ss = [s_ for s_ in range(tiles_r if symmetric else tiles_c)
+                      if g0 <= index[(min(s_, t), max(s_, t)) if symmetric
+                                     else (t, s_)] < g0 + band_pairs]
+                if not ss:
+                    continue
+                total = (np.zeros((m, r), np.float32) if ss[0] == 0
+                         else o[rows_t].copy())
+                for s_ in ss:
+                    g = index[(min(s_, t), max(s_, t)) if symmetric
+                              else (t, s_)]
+                    side = int(symmetric and s_ < t)
+                    slot = grid[b, g - g0, side, :m]
+                    assert not np.isnan(slot).any()
+                    total += slot
+                o[rows_t] = total
+        self.calls.append(("product", r, batch, int(symmetric)))
         return 0
 
     def gppe_matern_general_trace(self, rows, cols, partials, nr, nc, d,
@@ -335,18 +462,19 @@ class _GeneralLibrary:
         return 0
 
 
-@pytest.fixture
-def general_library(monkeypatch):
-    lib = _GeneralLibrary(3.7)
+def _fake_card(monkeypatch, nus):
+    lib = _GeneralLibrary(nus)
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda device: SimpleNamespace(
-                            multi_processor_count=4))
     cuda_kernels.reset_launch_counts()
     return lib
+
+
+@pytest.fixture
+def general_library(monkeypatch):
+    return _fake_card(monkeypatch, (3.7,))
 
 
 @pytest.mark.parametrize("r", [0, 1, 7, 33, 70])
@@ -354,10 +482,10 @@ def general_library(monkeypatch):
 @pytest.mark.parametrize("n", [100, 300])
 def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     """The card path of matern_general_matmat: one product launch per 32
-    columns of V, each on its columns (V and out offset, strides r), over
-    the column slices the schedule asks for, summed; one trace launch on
-    the symmetric walk; each launch counted once. The result equals the
-    plain version."""
+    columns of V, each on its columns (V and out offset, strides r), a
+    batch of one on the symmetric walk with the scale handed to the kernel;
+    one trace launch on the symmetric walk; each launch counted once. The
+    result equals the plain version."""
     rng = np.random.RandomState(n + r)
     pts = _t(rng.rand(n, 2), F32)
     V = _t(rng.standard_normal((n, r)), F32) if r else None
@@ -365,13 +493,14 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
         return
     got = cuda_kernels._matern_general_matmat_cuda(
         pts, _t([0.1, 0.1], F32), V, 3.7, None, frobenius)
-    slices = cuda_kernels.general_product_slices(n, n, 4)
     widths = [min(32, r - c) for c in range(0, r, 32)]
-    want_calls = [("product", w, slices) for w in widths]
+    want_calls = [("product", w, 1, 1) for w in widths]
     if frobenius:
         want_calls.append(("trace", 1,
                            cuda_kernels.trace_schedule(n, n, True)[4]))
     assert general_library.calls == want_calls
+    for sc in general_library.scales:
+        np.testing.assert_array_equal(sc, np.float32([[0.1, 0.1]]))
     assert cuda_kernels.launch_counts == {
         **dict.fromkeys(cuda_kernels.launch_counts, 0),
         "matern_general_product": len(widths),
@@ -387,6 +516,124 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     if r:
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+# (B, n, r): one point, a chunk of three over ragged tiles, a chunk over two
+# launches of columns
+BATCH_CASES = [(1, 200, 5), (3, 300, 14), (4, 129, 40)]
+
+
+@pytest.mark.parametrize("B, n, r", BATCH_CASES)
+@pytest.mark.parametrize("cap_pairs", [None, 2])
+def test_card_path_batched(monkeypatch, B, n, r, cap_pairs):
+    """matern_general_matmat_batched's card path: one product launch per
+    band and 32 columns for the whole batch (one band under the default
+    budget; a budget of two pairs of the batch cuts the walk into bands),
+    the constants one struct per point in order (checked by the stand-in),
+    the scales per point and dimension, every slot written and summed in
+    order; the result equals the plain per-point loop, and each point
+    equals its single call (other bands) and the batch under the default
+    budget bit for bit."""
+    nus = (3.7, 0.3, 12.3, 1.5)[:B]
+    rhos = (0.1, 0.2, 0.07, 0.15)[:B]
+    rng = np.random.RandomState(B + n)
+    pts = _t(rng.rand(n, 2), F32)
+    V = _t(rng.standard_normal((B, n, r)), F32)
+    scales = _t(rhos, F32)[:, None].expand(B, 2).contiguous()
+    _fake_card(monkeypatch, nus)
+    whole = cuda_kernels._general_product_cuda(pts, pts, scales, V, nus,
+                                               True)
+    if cap_pairs is not None:
+        monkeypatch.setattr(cuda_kernels, "GENERAL_SLOT_BYTES",
+                            cap_pairs * 4 * B * 2 * 128 * min(r, 32))
+    lib = _fake_card(monkeypatch, nus)
+    got = cuda_kernels._general_product_cuda(pts, pts, scales, V, nus, True)
+    widths = [min(32, r - c) for c in range(0, r, 32)]
+    bands = [cuda_kernels.general_product_bands(n, n, min(r, 32), B,
+                                                True).bands] * len(widths)
+    assert bands[0] == (1 if cap_pairs is None
+                        else -(-(-(-n // 128) * (-(-n // 128) + 1) // 2)
+                               // cap_pairs))
+    assert lib.calls == [("product", w, B, 1)
+                         for w, k in zip(widths, bands) for _ in range(k)]
+    assert cuda_kernels.launch_counts["matern_general_product"] == sum(bands)
+    for sc in lib.scales:
+        np.testing.assert_array_equal(sc, np.repeat(
+            np.float32(rhos)[:, None], 2, axis=1))
+    np.testing.assert_array_equal(got.numpy(), whole.numpy())
+    want = cuda_kernels.matern_general_matmat_batched(
+        pts.double(), _t(rhos), V.double(), nus)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for b in range(B):
+        single = _fake_card(monkeypatch, nus[b:b + 1])
+        one = cuda_kernels._matern_general_matmat_cuda(
+            pts, _t([rhos[b]] * 2, F32), V[b], nus[b], None, False)
+        assert {c[:3] for c in single.calls} == {
+            ("product", w, 1) for w in widths}
+        np.testing.assert_array_equal(one.numpy(), got[b].numpy())
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_grid_chunk_budget(monkeypatch, problem, random_block, general):
+    """The matrix-free grid chunk's default size: the Lanczos basis of its
+    points and, over general nus, the product's slot scratch
+    (GENERAL_SLOT_BYTES) within max_chunk_bytes."""
+    pts, z, X = problem
+    probes, v_defl = random_block
+    monkeypatch.setattr(cuda_kernels, "GENERAL_SLOT_BYTES", 1 << 20)
+    r = 1 + X.shape[1] + 1 + PROBES
+    basis = STEPS * N * r * 8          # float64 on the CPU
+    budget = 3 * basis + (1 << 20) + 7
+    grid = tgk.GridKrylovProfileLikelihood(
+        pts, X, z, RHOS, GRID_NUS if general else np.full(4, 1.5),
+        nu_static=None if general else 1.5, lanczos_steps=STEPS,
+        num_probes=PROBES, matrix_free=True, max_chunk_bytes=budget,
+        probes=probes, v_defl=v_defl, **CPU)
+    assert grid.chunk == (3 if general else 4)
+
+
+def test_grid_chunk_one_product_launch_per_step(monkeypatch, problem,
+                                                random_block):
+    """The matrix-free grid chunk over general nus: each Lanczos step one
+    batched product launch for all its points (the block is 14 columns
+    wide), then one trace launch per point; the fits agree with the plain
+    float64 chunk's (eta 5e-2, sigma0 5e-3: the card-vs-cpu bounds; two
+    of the four points fit eta = inf in both)."""
+    pts, z, X = problem
+    lib = _fake_card(monkeypatch, tuple(GRID_NUS))
+
+    def card(points, scales, V, nus, block_rows=1024):
+        assert tuple(nus) == lib.nus
+        d = points.shape[1]
+        return cuda_kernels._general_product_cuda(
+            points, points, scales[:, None].expand(len(nus), d).contiguous(),
+            V, tuple(nus), True)
+
+    def trace(points, rho, V, nu, frobenius=False, block_rows=1024):
+        lib.nu = nu
+        scale = tk.broadcast_scale(rho, points.shape[1], dtype=points.dtype)
+        return cuda_kernels._matern_general_matmat_cuda(
+            points, scale, V, nu, None, frobenius)
+
+    probes, v_defl = random_block
+    kw = dict(lanczos_steps=STEPS, num_probes=PROBES, matrix_free=True,
+              probes=probes, v_defl=v_defl)
+    monkeypatch.setattr(cuda_kernels, "matern_general_matmat_batched", card)
+    monkeypatch.setattr(cuda_kernels, "matern_general_matmat", trace)
+    got = tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, GRID_NUS,
+                                          device="cpu", dtype=F32, **kw)
+    assert [c for c in lib.calls if c[0] == "product"] == [
+        ("product", 14, len(RHOS), 1)] * STEPS
+    assert cuda_kernels.launch_counts["matern_general_product"] == STEPS
+    assert cuda_kernels.launch_counts["matern_general_trace"] == len(RHOS)
+    monkeypatch.undo()
+    want = tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, GRID_NUS, **kw,
+                                           **CPU)
+    for a, b in zip(got.fit_all(), want.fit_all()):
+        assert a["success"] and b["success"]
+        np.testing.assert_allclose(a["eta"], b["eta"], rtol=5e-2)
+        np.testing.assert_allclose(a["sigma0"], b["sigma0"], rtol=5e-3)
 
 
 def test_card_path_elementwise(general_library):

@@ -15,6 +15,7 @@
     python3 chip_profile.py eta-main        # main eta* under other products
     python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
     python3 chip_profile.py --parent DIR general-levers  # G1, G2 by lever
+    python3 chip_profile.py --parent DIR general-traces  # their traces
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -125,6 +126,17 @@ Each variant is a copy of this package whose kernel sources carry its
 text substitutions, built by the copy's own ``_build`` as ``variants``
 builds its copies. Then one batched call under ``torch.profiler``: the
 tile kernel's and the band sums' device times, and the bands' scratch.
+Last the general-nu traces (``general-traces`` runs them alone), each
+through the parent's package too with ``--parent``, in turns, median of 8,
+beside its bound and with its value's relative gap to the parent's: G1's
+trace at n = 10^4, rho 0.1, nu = 1.2 (the operator route's); the 64
+traces of ``main_large``'s chunk as 64 single calls (the parent's, this
+package's) and as one batched launch, beside the sum of their bounds; G2's
+trace over the full list at n = 2^20, nu = 1.2 (the parent's on its own
+walk of 128 x 128 units), this package's with and without the skip; G1's
+and G2's traces with the evaluation of k taken away
+(GENERAL_TRACE_PART_VARIANTS: the rest of a trace's time; those results
+are wrong); then the batched launch under ``torch.profiler``.
 
 Exits non-zero without a CUDA device.
 """
@@ -925,6 +937,14 @@ GENERAL_PART_VARIANTS = {
         _PRODUCTS + _EVALUATION + _SCATTER + _MATCH}
 
 
+# the traces (tile_trace) with k's evaluation taken away, which times it
+GENERAL_TRACE_PART_VARIANTS = {
+    "traces_without_evaluation": [(
+        "matern_general_tile.cuh",
+        "  tile_evaluate<TAPER>(s, t, c, tau);\n  return tile_sum_k2(s);",
+        "  return tile_sum_k2(s);")]}
+
+
 def source_variants(tmp, variants):
     """{name: the kernel library of a copy of this package under
     ``tmp/name`` whose kernel sources carry that variant's substitutions},
@@ -1070,6 +1090,107 @@ def general_levers(dev, pkgs):
     out["general_product_pairs_per_point"] = (
         cs.GENERAL_N * (cs.GENERAL_N + 1) // 2)
     print(json.dumps({"phase": "general_levers", **out}), flush=True)
+    general_traces(dev, pkgs)
+
+
+def general_traces(dev, pkgs):
+    """The general-nu traces in turns against the parent's (see the module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parent = pkgs.get("parent", (None,))[0]
+    P = torch.as_tensor(find_optimal_covariance.large_problem(cs.GENERAL_N)[0],
+                        dtype=F32, device=dev)
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
+                       indexing="ij")
+    rhos, nus = R.ravel().tolist(), N.ravel().tolist()
+    scales = torch.tensor(rhos, device=dev)
+    nu = cs.GENERAL_NU
+    out = {"nvidia_smi": cs.nvidia_smi(), "n": cs.GENERAL_N, "nu": nu,
+           "rho": cs.RHO, "reps": REPS}
+    values = {}
+
+    def keep(key, fn):
+        def run():
+            values[key] = fn()
+            return values[key]
+        return run
+
+    def single(ck):
+        return lambda: ck.matern_general_matmat(P, cs.RHO, None, nu,
+                                                frobenius=True)[1]
+
+    def singles(ck):
+        return lambda: torch.stack([ck.matern_general_matmat(
+            P, rhos[b], None, nus[b], frobenius=True)[1] for b in range(64)])
+    g1 = {"trace": keep("trace", single(cuda_kernels)),
+          "singles_64": keep("singles_64", singles(cuda_kernels)),
+          "batched_64": keep("batched_64", lambda: (
+              cuda_kernels.matern_general_trace_batched(P, scales, nus)))}
+    if parent is not None:
+        g1["parent_trace"] = keep("parent_trace", single(parent))
+        g1["parent_singles_64"] = keep("parent_singles_64", singles(parent))
+    tmp = tempfile.TemporaryDirectory()
+    parts = source_variants(tmp.name, GENERAL_TRACE_PART_VARIANTS)
+    for key, lib in parts.items():
+        g1[f"{key}_trace"] = with_library(lib, single(cuda_kernels))
+    out["g1_ms"], out["g1_ms_all"] = cs.median_in_turns(g1, REPS)
+    sample = cs.sample_pair_distances(P, cs.RHO, seed=23)
+    out["g1_trace_bound_ms"] = cs.general_bound(
+        "trace", cs.GENERAL_N, 2, 0, nu, sample)[0]
+    out["g1_batched_64_bound_ms"] = sum(
+        cs.general_bound("trace", cs.GENERAL_N, 2, 0, nus[b],
+                         cs.sample_pair_distances(P, rhos[b], seed=b))[0]
+        for b in range(64))
+    out["g1_batched_equals_singles"] = bool(torch.equal(
+        values["batched_64"], values["singles_64"]))
+
+    pts, _, _ = cs.tapered_problem(cs.TAPER_SIDE)
+    op = TaperedMaternOperator(pts, cs.TAPER_SCALE, nu=cs.TAPER_GENERAL_NU,
+                               density=cs.TAPER_DENSITY, device=dev)
+    args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
+    kw = dict(n=op.shape[0], row_ptr=op._row_ptr)
+
+    def g2(ck, walk):
+        return lambda: ck.matern_matmat_blocksparse(
+            op.points_sorted, None, *args, frobenius=True, trace_walk=walk,
+            **kw)[1]
+    g2_fns = {"skip": keep("g2_skip", g2(cuda_kernels, op._trace_walk)),
+              "no_skip": keep("g2_no_skip", lambda: cs.without_skip(
+                  g2(cuda_kernels, op._trace_walk)))}
+    if parent is not None:
+        walk = parent.blocksparse_trace_schedule(op.pair_i, op.pair_j,
+                                                 op.tile, op.shape[0])
+        walk = walk._replace(units=torch.as_tensor(walk.units, device=dev))
+        g2_fns["parent"] = keep("g2_parent", g2(parent, walk))
+    for key, lib in parts.items():
+        g2_fns[f"{key}_skip"] = with_library(
+            lib, g2(cuda_kernels, op._trace_walk))
+    out["g2_full_list_ms"], out["g2_ms_all"] = cs.median_in_turns(g2_fns,
+                                                                  REPS)
+    tmp.cleanup()
+    out["g2_trace_bound_ms"] = cs.g2_bounds(
+        op, 24, 2, cs.tile_pair_distances(op, seed=28))[1][0]
+    out["g2_units"] = len(op._trace_walk.units)
+    out["g2_skip_equals_no_skip"] = float(values["g2_skip"]) == float(
+        values["g2_no_skip"])
+    out["values"] = {k: v.tolist() for k, v in values.items()}
+    if parent is not None:
+        out["rel_gap_to_parent"] = {
+            "g1_trace": cs.rel_gap(float(values["trace"]),
+                                   float(values["parent_trace"])),
+            "g1_64": float(((values["batched_64"]
+                             - values["parent_singles_64"]).abs()
+                            / values["parent_singles_64"]).max()),
+            "g2_trace": cs.rel_gap(float(values["g2_skip"]),
+                                   float(values["g2_parent"]))}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g1["batched_64"]()
+        torch.cuda.synchronize()
+    out["batched_64_device_ms"] = {
+        re.sub(r"<.*", "", e.key)[:60]: e.device_time_total / 1e3
+        for e in prof.key_averages() if e.device_time_total > 0}
+    print(json.dumps({"phase": "general_traces", **out}), flush=True)
 
 
 def main(argv):
@@ -1095,6 +1216,8 @@ def main(argv):
         sass_mix()
     if "general-levers" in argv:
         general_levers(dev, packages(argv))
+    elif "general-traces" in argv:
+        general_traces(dev, packages(argv))
     if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:

@@ -108,9 +108,11 @@ Phases, each raising on failure:
      24.9} (finite, in [0, 1], within 3e-5), the product at r in {1, 7,
      16, 24} (the symmetric walk, the same bits twice; the rectangular
      walk at r = 24) and the trace at n = 1000 and 4096 (2-D) and 1000
-     (3-D), within 1e-5; one batched product launch over the six nus
+     (3-D), within 1e-5 (the trace on the square and the rectangular walk,
+     the same bits twice); one batched product launch over the six nus
      equal bit for bit to their single calls and to itself in bands of 7
-     tile pairs; at the closed forms the
+     tile pairs, one batched trace launch over them equal bit for bit to
+     their single calls; at the closed forms the
      general kernel's branch, and matern_matmat launching the
      closed-form kernels only;
  22. the dense API at general nu: generate_correlation on phase 19's grid
@@ -119,13 +121,15 @@ Phases, each raising on failure:
  23. MaternOperator at n = 10,000, nu = 1.2, through
      KrylovProfileLikelihood.fit (the product and trace entries, no
      closed-form kernel) against the float64 eigh route on the same K;
-     the product timed at n = 10^4 and 10^5 (r = 24), the trace at 10^4;
+     the product timed at n = 10^4 and 10^5 (r = 24), the trace at both;
      at 10^5 the product in bands of its walk, its first and last 300 rows
-     against float64, the same bits in bands of a third the size;
+     against float64, the same bits in bands of a third the size, and the
+     trace against a float64 sum over an interpolated float64 table of k;
  24. the (rho, nu) search: drivers.find_optimal_covariance.main_large at
      its defaults (n = 10,000, an 8 x 8 grid of general nus, matrix-free:
      one batched product call a Lanczos step for all 64 points, a launch
-     per band of its walk: 40 x 13 launches), its points (0.1, 1.0) and
+     per band of its walk: 40 x 13 launches; one trace launch for all 64
+     points), its points (0.1, 1.0) and
      (0.3, 25.0) against the float64 eigh route on the same K (eta within
      5e-2, the lp gap logged); and main cut to a 30 x 30 grid of points, a
      6 x 6 (rho, nu) grid and DE with popsize 10 for at most 6
@@ -135,8 +139,9 @@ Phases, each raising on failure:
      against plain float64: products at r in {1, 7, 24} and traces at
      n = 1000 and 4096 (2-D) and 1000 (3-D), nu in {0.3, 1.2, 3.7, 24.9},
      at thresholds clear of every pair, within 1e-5; the trace the same
-     bits twice; a closed-form nu through the same entry point launching
-     the closed-form tapered kernels only;
+     bits twice and with and without the taper skip; a closed-form nu
+     through the same entry point launching the closed-form tapered
+     kernels only;
  26. the scipy-sparse public route at n = 2^18 (a 512 x 512 grid, rho
      0.005, density 1e-3, nu 1/2): generate_correlation(sparse=True) on
      the native host builder, GaussianProcess(X, Kcsr, 'profiled').train(z)
@@ -158,7 +163,8 @@ Phases, each raising on failure:
      too; G2's product (r = 24) and trace timed over the full list against
      their bounds (every unordered pair its distance and a compare, only
      the pairs within the taper radius a k, from this run's trips), and
-     against the plain version on the first 32 row tiles' list.
+     against the plain version on the first 32 row tiles' list; the trace
+     the same bits with and without the taper skip on both lists.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -2398,6 +2404,46 @@ def general_bound(kind, n, d, r, nu, x_sample, elements=None):
     return (*bound(nbytes, ops, mufu_ops=pairs + off * work["mufu"]), work)
 
 
+# the float64 table of k that stands in for the plain float64 trace where
+# that would take minutes (phase 23, n = 10^5): TABLE_NODES equal steps up
+# to the largest scaled distance, linear between them; at n = 10^5, rho 0.1
+# a step is 3.4e-6, so the table's error, h^2 / 8 |k''|, is ~1e-11, which
+# each run measures on a sample of its distances against kernels.matern
+TABLE_NODES = 1 << 22
+TABLE_ATOL = 1e-9
+
+
+def general_trace_f64(P, rho, nu, block_rows=1024):
+    """trace(K^2) in float64 of the general-nu K over the points P (on the
+    card) at scale rho, from a float64 table of k (TABLE_NODES steps,
+    linear between them) on float64 distances: twice the sum over the
+    pairs above the diagonal, row block by row block, plus n. Returns the
+    trace and the table's largest error against kernels.matern on
+    TRIP_SAMPLE of the points' pairs."""
+    S = P.double() / rho
+    n = S.shape[0]
+    span = float(torch.linalg.norm(S.max(0).values - S.min(0).values))
+    h = span * (1.0 + 1e-9) / TABLE_NODES
+    table = kernels.matern(
+        torch.arange(TABLE_NODES + 2, dtype=F64, device=P.device) * h, nu)
+
+    def k_of(x):
+        t = x / h
+        i = torch.clamp(t.floor().long(), max=TABLE_NODES)
+        return torch.lerp(table[i], table[i + 1], t - i)
+
+    x = sample_pair_distances(P.double(), rho, seed=7)
+    table_err = float((k_of(x) - kernels.matern(x, nu)).abs().max())
+    total = 0.0
+    for i0 in range(0, n, block_rows):
+        rows = S[i0:i0 + block_rows]
+        d2 = sum((rows[:, k, None] - S[None, i0:, k]) ** 2
+                 for k in range(S.shape[1]))
+        K = k_of(torch.sqrt(d2))
+        total += 2.0 * float(torch.triu(K * K, diagonal=1).sum())
+    return total + n, table_err
+
+
 def launched(counts, *names):
     return {k: counts.get(k, 0) for k in names}
 
@@ -2427,10 +2473,12 @@ def phase_general_parity(dev):
     nu of GENERAL_NUS: finite, in [0, 1], within GENERAL_K_ATOL; (b) and
     (c) at n = 1000 and 4096 random 2-D points and n = 1000 3-D points,
     r in {1, 7, 16, 24}: products (the symmetric walk; the rectangular
-    one at r = 24) and traces within GENERAL_FROB_TOL and
-    GENERAL_TRACE_RTOL, the product the same bits twice; one batched
-    launch over the nus at six scales equal bit for bit to the six single
-    calls, and to itself with its walk cut into bands of 7 tile pairs.
+    one at r = 24) and traces (both walks) within GENERAL_FROB_TOL and
+    GENERAL_TRACE_RTOL, the product and the trace the same bits twice; one
+    batched product launch over the nus at six scales equal bit for bit to
+    the six single calls, and to itself with its walk cut into bands of 7
+    tile pairs; one batched trace launch over them equal bit for bit to
+    the six single calls.
     Then the closed forms: the general kernel at
     nu = 1/2, 3/2, 5/2 and 150 against their plain forms, and matern_matmat
     there launching the closed-form kernels only."""
@@ -2468,6 +2516,9 @@ def phase_general_parity(dev):
                 P, RHO, None, nu, frobenius=True)[1]
             rec = {"n": n, "d": d, "nu": nu,
                    "trace_rel_err": rel_gap(float(fro), float(fro_want)),
+                   "trace_same_bits_twice": float(fro) == float(
+                       cuda_kernels.matern_general_matmat(
+                           P, RHO, None, nu, frobenius=True)[1]),
                    "frob_rel_err": {}}
             for r in (1, 7, 16, 24):
                 got = cuda_kernels.matern_general_matmat(
@@ -2477,12 +2528,14 @@ def phase_general_parity(dev):
             # (distinct column points, every tile pair) against float64
             rec["same_bits_twice"] = bool(torch.equal(
                 got, cuda_kernels.matern_general_matmat(P, RHO, V, nu)))
-            rect = cuda_kernels.matern_general_matmat(P, RHO, W, nu,
-                                                      points_cols=C)
-            rec["rectangular_frob_rel_err"] = compare(
-                rect, cuda_kernels.matern_matmat_plain(
-                    P.double(), scale, W.double(), nu,
-                    points_cols=C.double()))[0]
+            rect, rect_fro = cuda_kernels.matern_general_matmat(
+                P, RHO, W, nu, points_cols=C, frobenius=True)
+            rect_want, rect_fro_want = cuda_kernels.matern_matmat_plain(
+                P.double(), scale, W.double(), nu, points_cols=C.double(),
+                frobenius=True)
+            rec["rectangular_frob_rel_err"] = compare(rect, rect_want)[0]
+            rec["rectangular_trace_rel_err"] = rel_gap(float(rect_fro),
+                                                       float(rect_fro_want))
             products.append(rec)
         # one batched launch over every nu, each at its own scale: each
         # point the bits of its single call
@@ -2499,10 +2552,19 @@ def phase_general_parity(dev):
             4 * walk.slot_floats // walk.band_pairs * 7,
             lambda: cuda_kernels.matern_general_matmat_batched(
                 P, torch.tensor(rhos, device=dev), Vb, GENERAL_NUS))
+        banded_launches = cuda_kernels.launch_counts["matern_general_product"]
+        cuda_kernels.reset_launch_counts()
+        traces = cuda_kernels.matern_general_trace_batched(
+            P, torch.tensor(rhos, device=dev), GENERAL_NUS)
+        trace_launches = cuda_kernels.launch_counts["matern_general_trace"]
         batches.append({
             "n": n, "d": d, "rhos": rhos, "launches": launches,
-            "bands_of_7_launches":
-                cuda_kernels.launch_counts["matern_general_product"],
+            "trace_launches": trace_launches,
+            "traces_equal_to_single_calls": all(
+                float(traces[b]) == float(cuda_kernels.matern_general_matmat(
+                    P, rhos[b], None, nu, frobenius=True)[1])
+                for b, nu in enumerate(GENERAL_NUS)),
+            "bands_of_7_launches": banded_launches,
             "bands_of_7_expected": -(-walk.pairs // 7),
             "bands_of_7_equal": bool(torch.equal(batch, banded)),
             "equal_to_single_calls": all(
@@ -2510,10 +2572,14 @@ def phase_general_parity(dev):
                     P, rhos[b], Vb[b], nu))
                 for b, nu in enumerate(GENERAL_NUS))})
     ok = ok and all(p["trace_rel_err"] < GENERAL_TRACE_RTOL
+                    and p["rectangular_trace_rel_err"] < GENERAL_TRACE_RTOL
                     and max(p["frob_rel_err"].values()) < GENERAL_FROB_TOL
                     and p["rectangular_frob_rel_err"] < GENERAL_FROB_TOL
-                    and p["same_bits_twice"] for p in products)
+                    and p["same_bits_twice"] and p["trace_same_bits_twice"]
+                    for p in products)
     ok = ok and all(b["launches"] == 1 and b["equal_to_single_calls"]
+                    and b["trace_launches"] == 1
+                    and b["traces_equal_to_single_calls"]
                     and b["bands_of_7_equal"]
                     and b["bands_of_7_launches"] == b["bands_of_7_expected"]
                     for b in batches)
@@ -2629,11 +2695,13 @@ def phase_general_operator_route(dev):
     own launch window, against the float64 eigh route on the same K
     assembled by the elementwise entry (GaussianProcess 'profiled'). Then
     the product timed at n = 10^4 and 10^5, r = 24, and the trace at
-    n = 10^4, each against its plain version (float32, row-blocked) where
+    both, each against its plain version (float32, row-blocked) where
     that runs in seconds, and its bound. At n = 10^5 the product's walk
     runs in bands (its slots for every tile pair would take 7.5 GB): its
     first and last 300 rows against float64, and the same bits in bands
-    of a third the size."""
+    of a third the size; the trace against general_trace_f64 (the plain
+    float64 trace would take minutes), whose table is held to float64 at
+    n = 10^4 too."""
     pts, z, X = make_problem(GENERAL_N, 7)
     op = MaternOperator(pts, RHO, nu=GENERAL_NU, device=dev)
     torch.cuda.synchronize()
@@ -2683,8 +2751,12 @@ def phase_general_operator_route(dev):
     fro_want = cuda_kernels.matern_matmat_plain(
         P.double(), op.scale.double(), None, GENERAL_NU, frobenius=True)[1]
     trace_err = abs(float(fro) - float(fro_want))
+    table_fro, table_err = general_trace_f64(P, float(RHO), GENERAL_NU)
+    table_check = {"n1e4_table_vs_plain_f64_rel_gap": rel_gap(
+        table_fro, float(fro_want)), "n1e4_table_max_abs_err": table_err}
     ok = (ok and frob < GENERAL_FROB_TOL
-          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL)
+          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL
+          and table_err < TABLE_ATOL)
     sample = sample_pair_distances(P, float(RHO), seed=23)
     prod_bound = general_bound("product", GENERAL_N, 2, 24, GENERAL_NU,
                                sample)
@@ -2716,9 +2788,27 @@ def phase_general_operator_route(dev):
                  "slot_bytes": 4 * big_walk.slot_floats,
                  "rows_frob_rel_err": big_frob,
                  "same_bits_in_thirds": bool(torch.equal(big_out, thirds))}
-    del thirds
+    del thirds, big_out
+    # the trace at n = 10^5: one launch, median of 5, against the table
+    big_fro = cuda_kernels.matern_general_matmat(big, RHO, None, GENERAL_NU,
+                                                 frobenius=True)[1]
+    big_trace_ms = timed(lambda: cuda_kernels.matern_general_matmat(
+        big, RHO, None, GENERAL_NU, frobenius=True), 5)
+    big_trace_bound = general_bound("trace", GENERAL_BIG_N, 2, 0, GENERAL_NU,
+                                    sample_pair_distances(big, RHO, seed=24))
+    big_fro_want, big_table_err = general_trace_f64(big, RHO, GENERAL_NU)
+    big_trace_rel = rel_gap(float(big_fro), big_fro_want)
+    table_check.update(n1e5_table_max_abs_err=big_table_err,
+                       n1e5_trace_rel_err=big_trace_rel,
+                       n1e5_trace_same_bits_twice=float(big_fro) == float(
+                           cuda_kernels.matern_general_matmat(
+                               big, RHO, None, GENERAL_NU,
+                               frobenius=True)[1]))
     ok = (ok and big_walk.bands > 1 and big_frob < GENERAL_FROB_TOL
-          and big_check["same_bits_in_thirds"])
+          and big_check["same_bits_in_thirds"]
+          and big_trace_rel < GENERAL_TRACE_RTOL
+          and big_table_err < TABLE_ATOL
+          and table_check["n1e5_trace_same_bits_twice"])
     times = {"product_n1e4_r24": {
                  "ms": med["product"], "plain_ms": med["plain_product"],
                  "bound_ms": prod_bound[0], "bound_term": prod_bound[2],
@@ -2727,7 +2817,16 @@ def phase_general_operator_route(dev):
              "trace_n1e4": {
                  "ms": med["trace"], "plain_ms": med["plain_trace"],
                  "bound_ms": trace_bound[0], "bound_term": trace_bound[2],
+                 "bound_share": trace_bound[0] / med["trace"],
                  "abs_err": trace_err, "ms_all": all_ms["trace"]},
+             "trace_n1e5": {
+                 "ms": statistics.median(big_trace_ms), "plain_ms": None,
+                 "bound_ms": big_trace_bound[0],
+                 "bound_term": big_trace_bound[2],
+                 "bound_share": big_trace_bound[0]
+                 / statistics.median(big_trace_ms),
+                 "rel_err_vs_table_f64": big_trace_rel,
+                 "ms_all": big_trace_ms},
              "product_n1e5_r24": {
                  "ms": statistics.median(big_ms), "plain_ms": None,
                  "bound_ms": big_bound[0], "bound_term": big_bound[2],
@@ -2738,7 +2837,8 @@ def phase_general_operator_route(dev):
         fit=res, launches=window, eigh_route=exact,
         eigh_route_seconds=exact_s, eta_rel_gap_to_eigh_route=gap,
         times=times, work_per_k=prod_bound[3],
-        work_per_k_n1e5=big_bound[3], product_n1e5_check=big_check)
+        work_per_k_n1e5=big_bound[3], product_n1e5_check=big_check,
+        trace_f64_table=table_check)
     if not ok:
         raise AssertionError(f"general-nu operator route failed: {res}, "
                              f"eigh route {exact}, launches {window}")
@@ -2748,7 +2848,11 @@ def phase_general_operator_route(dev):
          "bound_by": prod_bound[1]},
         {"max_abs_err": trace_err, "ms": med["trace"],
          "plain_ms": med["plain_trace"], "bound_ms": trace_bound[0],
-         "bound_by": trace_bound[1]})
+         "bound_by": trace_bound[1],
+         "bound_share": trace_bound[0] / med["trace"],
+         "ms_n1e5": times["trace_n1e5"]["ms"],
+         "bound_ms_n1e5": big_trace_bound[0],
+         "rel_err_n1e5": big_trace_rel})
 
 
 # phase 24's cuts: main_large at its own defaults; main at 30 x 30
@@ -2773,7 +2877,8 @@ def phase_general_search(dev):
     """Phase 24: the (rho, nu) search, each call in its own launch window:
     the driver twin's main_large at its defaults (n = 10^4, 8 x 8 general
     nus, 40 steps, 8 probes: one batched product call a step for all 64
-    points, a launch per band of its walk, one trace launch a point), two
+    points, a launch per band of its walk, one trace launch for all 64
+    points), two
     of its grid points against the float64 eigh route on the same K (eta
     5e-2, the lp gap logged); then
     main at MAIN_CUTS (the elementwise entry for every lp), its lp at
@@ -2786,12 +2891,18 @@ def phase_general_search(dev):
     # and 8 probes)
     large_bands = cuda_kernels.general_product_bands(
         large["n"], large["n"], 16, 64, True).bands
+    # and the chunk's traces: one launch while its 64 points' partials fit
+    # (cuda_kernels.general_trace_batches)
+    large_trace_launches = -(-64 // cuda_kernels.general_trace_batches(
+        large["n"], large["n"], 64, True)[2])
     ok = (bool(np.all(np.isfinite(large["Lp"])))
           and all(r["success"] for r in large["results"])
           and large["matrix_free"] and large["chunk"] == 64
           and large_window.get("matern_general_product", 0)
           == LARGE_STEPS * large_bands
-          and large_window.get("matern_general_trace", 0) == 64
+          and large_trace_launches == 1
+          and large_window.get("matern_general_trace", 0)
+          == large_trace_launches
           and not any(large_window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
 
     # two grid points against the float64 eigh route on the same K
@@ -2844,6 +2955,7 @@ def phase_general_search(dev):
                                               len(large["nus"])],
                     "lanczos_steps": LARGE_STEPS, "num_probes": 8,
                     "chunk": large["chunk"], "product_bands": large_bands,
+                    "trace_launches": large_trace_launches,
                     "setup_seconds": large["setup_seconds"],
                     "fit_seconds": large["fit_seconds"],
                     "seconds_per_point": large["seconds_per_point"],
@@ -2896,10 +3008,22 @@ SMALL_TAPER_STEPS, SMALL_TAPER_PROBES = 8, 8
 PLAIN_ROW_TILES = 32
 
 
+def without_skip(fn):
+    """``fn()`` with the tapered general-nu kernels skipping no pair
+    (cuda_kernels._blocksparse_skip2 at +inf)."""
+    saved = cuda_kernels._blocksparse_skip2
+    cuda_kernels._blocksparse_skip2 = lambda nu, tau: float("inf")
+    try:
+        return fn()
+    finally:
+        cuda_kernels._blocksparse_skip2 = saved
+
+
 def g2_case(dev, n, d, tile, nu, seed):
     """G2 against plain float64 on one tapered problem: the product at
     r in {1, 7, 24} (one launch each) and the trace, at a threshold clear
-    of every pair; the trace the same bits twice."""
+    of every pair; the trace the same bits twice, and with and without the
+    taper skip at that threshold and at the operator's."""
     pts = np.random.RandomState(seed).rand(n, d)
     op = TaperedMaternOperator(pts, G2_SCALES[d], nu=nu, density=0.02,
                                tile=tile, device=dev)
@@ -2926,12 +3050,18 @@ def g2_case(dev, n, d, tile, nu, seed):
         ok = (ok and rec["launches"][r] == {G2_COUNTERS[0]: 1}
               and not bool(got[n:].any()) and bool(torch.isfinite(got).all())
               and rec["frob_rel_err"][r] < GENERAL_FROB_TOL)
-    traces = [float(cuda_kernels.matern_matmat_blocksparse(
-        op.points_sorted, None, *args, frobenius=True,
-        trace_walk=op._trace_walk, **kw)[1]) for _ in range(2)]
+    def trace(t=tau):
+        return float(cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, op.nu, t, *args[2:], frobenius=True,
+            trace_walk=op._trace_walk, **kw)[1])
+    traces = [trace() for _ in range(2)]
     rec["trace_rel_err"] = rel_gap(traces[0], float(fro_want))
     rec["trace_same_bits_twice"] = traces[0] == traces[1]
+    rec["trace_same_bits_without_skip"] = (
+        traces[0] == without_skip(trace)
+        and trace(op.threshold) == without_skip(lambda: trace(op.threshold)))
     ok = (ok and rec["trace_same_bits_twice"]
+          and rec["trace_same_bits_without_skip"]
           and rec["trace_rel_err"] < GENERAL_TRACE_RTOL)
     return ok, rec
 
@@ -2941,8 +3071,9 @@ def phase_g2_parity(dev):
     against plain float64 on the card, at n = 1000 and 4096 random 2-D
     points and n = 1000 3-D points, each nu of G2_NUS, at thresholds from
     blocksparse_clear_threshold: products (r 1, 7, 24) and traces within
-    GENERAL_FROB_TOL and GENERAL_TRACE_RTOL, the trace the same bits twice;
-    then a closed-form nu through the same entry point launches B3 only."""
+    GENERAL_FROB_TOL and GENERAL_TRACE_RTOL, the trace the same bits twice
+    and with and without the taper skip; then a closed-form nu through the
+    same entry point launches B3 only."""
     cases, ok = [], True
     for n, d, tile in ((1000, 2, 128), (4096, 2, 512), (1000, 3, 128)):
         for nu in G2_NUS:
@@ -3213,7 +3344,7 @@ def sub_list(op, row_tiles):
     keep = (op.pair_i < row_tiles) & (op.pair_j < row_tiles)
     pi, pj = op.pair_i[keep], op.pair_j[keep]
     n = row_tiles * t
-    walk = cuda_kernels.blocksparse_trace_schedule(pi, pj, t, n)
+    walk = cuda_kernels.blocksparse_trace_schedule_for(op.nu)(pi, pj, t, n)
     return types.SimpleNamespace(
         shape=(n, n), n_pad=n, tile=t, num_tiles=row_tiles, nu=op.nu,
         radius=op.radius,
@@ -3234,7 +3365,8 @@ def phase_tapered_general_path(dev, small_fit):
     product at r = 24 and its trace timed over the full list against their
     bounds, and on the first PLAIN_ROW_TILES row tiles' list in turns with
     the plain version, against that list's bounds: the kernel records'
-    numbers are the sub-list's, where the plain version runs."""
+    numbers are the sub-list's, where the plain version runs. The trace
+    the same bits with and without the taper skip on both lists."""
     pts, z, X = tapered_problem(TAPER_SIDE)
     n = pts.shape[0]
     torch.cuda.synchronize()
@@ -3268,11 +3400,15 @@ def phase_tapered_general_path(dev, small_fit):
     V[n:] = 0
     args = (op.nu, op.threshold, op.pair_i, op._pair_j, op.tile)
     kw = dict(n=n, row_ptr=op._row_ptr)
+    def full_trace():
+        return cuda_kernels.matern_matmat_blocksparse(
+            op.points_sorted, None, *args, frobenius=True,
+            trace_walk=op._trace_walk, **kw)[1]
     full = {"product": timed(lambda: cuda_kernels.matern_matmat_blocksparse(
                 op.points_sorted, V, *args, **kw), 5),
-            "trace": timed(lambda: cuda_kernels.matern_matmat_blocksparse(
-                op.points_sorted, None, *args, frobenius=True,
-                trace_walk=op._trace_walk, **kw), 5)}
+            "trace": timed(full_trace, 5)}
+    skip_bits = {"full_list": float(full_trace())
+                 == float(without_skip(full_trace))}
     product_bound, trace_bound, work, kept = g2_bounds(
         op, r, d, tile_pair_distances(op, seed=28))
 
@@ -3305,8 +3441,16 @@ def phase_tapered_general_path(dev, small_fit):
         pts_s.double(), Vs.double(), *cargs, frobenius=True, **skw)
     frob, max_abs = compare(got, want)
     trace_err = abs(float(fro) - float(fro_want))
+
+    def sub_trace():
+        return cuda_kernels.matern_matmat_blocksparse(
+            pts_s, None, *sargs, frobenius=True, trace_walk=sub.walk,
+            **skw)[1]
+    skip_bits["sub_list"] = float(sub_trace()) == float(
+        without_skip(sub_trace))
     ok = (ok and frob < GENERAL_FROB_TOL
-          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL)
+          and trace_err / float(fro_want) < GENERAL_TRACE_RTOL
+          and all(skip_bits.values()))
     sub_shape = (f"the pair list of row tiles 0-{PLAIN_ROW_TILES - 1} "
                  f"among themselves ({len(pi)} of {len(op.pair_i)} tile "
                  f"pairs, n = {n_s})")
@@ -3360,7 +3504,10 @@ def phase_tapered_general_path(dev, small_fit):
         sub_list_pairs_ordered=tile_pairs(sub),
         sub_list_tau_over_threshold=tau / op.threshold,
         sub_list_frob_rel_err=frob, sub_list_max_abs_err=max_abs,
-        sub_list_trace_abs_err=trace_err)
+        sub_list_trace_abs_err=trace_err,
+        trace_same_bits_without_skip=skip_bits,
+        trace_units_full_list=len(op._trace_walk.units),
+        trace_units_sub_list=len(sub.walk.units))
     if not ok:
         raise AssertionError(f"tapered general-nu path failed: {res}, "
                              f"{launches}")
@@ -3375,9 +3522,12 @@ def phase_tapered_general_path(dev, small_fit):
          "bound_ms_full_list": product_bound[0], "full_list_shape": full_shape},
         {"max_abs_err": trace_err, "ms": med["trace"],
          "plain_ms": med["plain_trace"], "bound_ms": sub_trace_bound[0],
-         "bound_by": sub_trace_bound[1], "shape": sub_shape,
-         "ms_full_list": full_t["trace"]["ms"],
-         "bound_ms_full_list": trace_bound[0], "full_list_shape": full_shape})
+         "bound_by": sub_trace_bound[1],
+         "bound_share": sub_trace_bound[0] / med["trace"],
+         "shape": sub_shape, "ms_full_list": full_t["trace"]["ms"],
+         "bound_ms_full_list": trace_bound[0],
+         "bound_share_full_list": trace_bound[0] / full_t["trace"]["ms"],
+         "full_list_shape": full_shape})
 
 
 def kernel_record(name, source, replaces, launches, measured,

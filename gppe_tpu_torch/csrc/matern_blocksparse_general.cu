@@ -6,8 +6,8 @@
 //       K_tau[i, j] = k >= tau ? k : 0,  k = k_nu(|x_i - x_j|),
 //       over the active tile pairs only, K never stored, float32 FMA sums;
 //   (b) trace: partials[b] = sum over block b's units of weight * sum
-//       K_tau[i, j]^2, float64 partials that the caller sums to
-//       trace(K_tau^2).
+//       K_tau[i, j]^2, float64 partials that the caller sums (adding the
+//       diagonal's ones on the symmetric walk) to trace(K_tau^2).
 //
 // x (n_pad, d) are spatially sorted points already divided by the
 // correlation scale and padded to a multiple of `tile`, float32; only the
@@ -21,8 +21,9 @@
 // and keep k >= tau. XLA fuses the Bessel loop there; eager PyTorch would
 // run its ~2,000 elementwise steps on every tile pair. This source is that
 // fused loop on the closed-form kernels' pair list: the product walks the
-// row-tile pointer array of matern_blocksparse_mma.cu, the trace the units
-// of matern_blocksparse.cu (ops/cuda_kernels.py::blocksparse_trace_schedule).
+// row-tile pointer array of matern_blocksparse_mma.cu, the trace units of
+// 64 x 128 points of the list's tile pairs
+// (ops/cuda_kernels.py::blocksparse_general_trace_schedule).
 //
 // What bounds it on this card: per pair within the taper radius one k, the
 // branch its argument takes in matern_general (Temme below z = 2, CF2 from
@@ -52,13 +53,21 @@
 //     and add K_t @ V to the rows' sums in registers, in the list's order:
 //     the output is row-owned, no atomics, the same bits run to run. Widths
 //     above 32 run as launches of 32 columns;
-//   * the trace: the symmetric walk of the tapered trace (units of 128 x
-//     128 points of the tile pairs ti <= tj and the sub-tile triangle of
-//     diagonal tiles, weight 2 off it; K_tau is symmetric bit for bit:
-//     (a - b)^2 = (b - a)^2 and the same FMA order over d both ways), each of
-//     256 threads one row and half the unit's columns, float64 block
-//     partials. It evaluates every pair of its units: the skip and the bins
-//     are not in it yet.
+//   * the trace: the symmetric half of the pair list (K_tau is symmetric
+//     bit for bit: (a - b)^2 = (b - a)^2 and the same FMA order over d both
+//     ways) in units of the product's 64 x 128 sub-tile pairs: the tile
+//     pairs ti <= tj, and of a diagonal tile pair the units that hold a
+//     pair above K's diagonal. A unit counts only its pairs above the
+//     diagonal (column past row), each at weight 2; K[i, i] = 1 for every
+//     real point and the caller adds those n ones. A unit whose boxes lie
+//     past the skip radius is skipped whole, the others fill the binned k
+//     tile with the taper skip as the product does, and each thread sums
+//     k^2 over its fixed pairs in float32 FMAs, then adds that in float64
+//     to its sum over the block's units: float64 block partials, no
+//     atomics. A skipped pair or unit adds an exact 0 (its float32 k would
+//     be tapered to 0), so the trace is the same bits with and without the
+//     skip. The tile holds no V operands (TraceTileSmem): four blocks share
+//     an SM. A list without its mirror walks every unit at weight 1.
 // Built WITHOUT --use_fast_math: sqrtf, expf, logf and the divisions are
 // the IEEE versions.
 
@@ -76,15 +85,24 @@ using namespace gppe;
 namespace {
 
 constexpr int kProductMaxCols = 32;  // widest instance; wider V in launches
-constexpr int kTraceThreads = 256;
-constexpr int kTraceWarps = kTraceThreads / 32;
-constexpr int kTraceHalves = kTraceThreads / kTraceTile;  // column halves
 
-// the tapered k of one pair from its float32 squared distance
-__device__ __forceinline__ float tapered_k(float d2, float tau,
-                                           const MaternGeneralConsts& c) {
-  const float kv = matern_general(sqrtf(d2), c);
-  return kv >= tau ? kv : 0.0f;
+// the squared gap between the boxes s_lo[0] .. s_hi[0] (the rows) and
+// s_lo[1] .. s_hi[1] (the columns), as a pair's d2: no pair is nearer (the
+// boxes' gap in the pairs' own float32 arithmetic)
+__device__ __forceinline__ float box_gap2(const float (&s_lo)[2][kMaxD],
+                                          const float (&s_hi)[2][kMaxD],
+                                          int d) {
+  float gap2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxD; ++k) {
+    if (k < d) {
+      const float g = fmaxf(fmaxf(s_lo[0][k] - s_hi[1][k],
+                                  s_lo[1][k] - s_hi[0][k]),
+                            0.0f);
+      gap2 = fmaf(g, g, gap2);
+    }
+  }
+  return gap2;
 }
 
 // RC: the instance's widest r. Block b takes rows kTileRows (b %
@@ -148,18 +166,8 @@ __global__ void __launch_bounds__(kTileThreads, 3)
           s_hi[1][warp] = hi;
         }
         __syncthreads();
-        // the boxes' squared gap, as a pair's d2: no pair is nearer
-        float gap2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kMaxD; ++k) {
-          if (k < d) {
-            const float g = fmaxf(fmaxf(s_lo[0][k] - s_hi[1][k],
-                                        s_lo[1][k] - s_hi[0][k]),
-                                  0.0f);
-            gap2 = fmaf(g, g, gap2);
-          }
-        }
-        if (gap2 > skip2) continue;  // uniform: every pair lies past it
+        // uniform: every pair lies past the skip radius
+        if (box_gap2(s_lo, s_hi, d) > skip2) continue;
         if (!tile_classify(s, t, nrows, ncols, d, skip2, c)) continue;
         tile_evaluate<true>(s, t, c, tau);
         stage_v<RC>(s.v[0], V, j0, ncols, r, ldv);  // where the list was
@@ -183,67 +191,66 @@ __global__ void __launch_bounds__(kTileThreads, 3)
   }
 }
 
-// units[u] = (first row, first column) of unit u
-__global__ void __launch_bounds__(kTraceThreads)
+// units[u] = (first row, first column) of unit u: the real rows of
+// kTileRows from its first row by the real columns of kTraceTile from
+// its first column (sub_tile_points). Symmetric: only the
+// pairs above K's diagonal count, at weight 2; else every pair, weight 1.
+__global__ void __launch_bounds__(kTileThreads, 4)
     blocksparse_general_trace_kernel(const float* __restrict__ pts,
                                      const int2* __restrict__ units,
                                      double* __restrict__ partials, int n,
                                      int d, int tile, int64_t num_units,
                                      int per_block, bool symmetric, float tau,
+                                     float skip2,
                                      const MaternGeneralConsts c) {
-  __shared__ float s_pts[kTraceTile][kMaxD];
-  __shared__ double s_warp[kTraceWarps];
-  const int lrow = threadIdx.x % kTraceTile;
-  const int half = threadIdx.x / kTraceTile;
-  constexpr int kCols = kTraceTile / kTraceHalves;
-
+  extern __shared__ float4 smem_raw[];
+  TraceTileSmem& s = *reinterpret_cast<TraceTileSmem*>(smem_raw);
+  __shared__ TilePoints t;
+  __shared__ float s_lo[2][kMaxD], s_hi[2][kMaxD];  // rows', columns' boxes
+  __shared__ double s_warp[kTileWarps];
+  const int warp = threadIdx.x >> 5;
+  const double weight = symmetric ? 2.0 : 1.0;
   double acc = 0.0;
   const int64_t u_begin = static_cast<int64_t>(blockIdx.x) * per_block;
   const int64_t u_end =
       u_begin + per_block < num_units ? u_begin + per_block : num_units;
   for (int64_t u = u_begin; u < u_end; ++u) {
     const int2 unit = units[u];
-    const int rn = sub_tile_points(unit.x, tile, n);
-    const int cn = sub_tile_points(unit.y, tile, n);
-    __syncthreads();  // every thread is done with the previous unit
-    for (int e = threadIdx.x; e < kTraceTile * kMaxD; e += kTraceThreads) {
-      const int j = e / kMaxD;
-      const int k = e % kMaxD;
-      s_pts[j][k] = (j < cn && k < d)
-                        ? pts[static_cast<int64_t>(unit.y + j) * d + k]
-                        : 0.0f;
+    const int nrows = sub_tile_points<kTileRows>(unit.x, tile, n);
+    const int ncols = sub_tile_points(unit.y, tile, n);
+    __syncthreads();  // every thread is done with the previous unit's boxes
+    for (int e = threadIdx.x; e < kMaxD * kTileRows; e += kTileThreads) {
+      const int k = e / kTileRows;
+      const int i = e % kTileRows;
+      t.rx[k][i] = (k < d && i < nrows)
+                       ? pts[static_cast<int64_t>(unit.x + i) * d + k]
+                       : 0.0f;
     }
-    const bool live = lrow < rn;
-    float x[kMaxD];
-#pragma unroll
-    for (int k = 0; k < kMaxD; ++k) {
-      x[k] = (live && k < d)
-                 ? pts[static_cast<int64_t>(unit.x + lrow) * d + k]
-                 : 0.0f;
+    for (int e = threadIdx.x; e < kMaxD * kTileCols; e += kTileThreads) {
+      const int k = e / kTileCols;
+      const int j = e % kTileCols;
+      t.cx[k][j] = (k < d && j < ncols)
+                       ? pts[static_cast<int64_t>(unit.y + j) * d + k]
+                       : 0.0f;
     }
     __syncthreads();
-    float part = 0.0f;
-    if (live) {
-      const int jb = half * kCols;
-      const int je = min(cn, jb + kCols);
-      for (int j = jb; j < je; ++j) {
-        float d2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kMaxD; ++k) {
-          if (k < d) {
-            const float diff = x[k] - s_pts[j][k];
-            d2 = fmaf(diff, diff, d2);
-          }
-        }
-        const float kv = tapered_k(d2, tau, c);
-        part = fmaf(kv, kv, part);
-      }
+    if (warp < d) {
+      float lo, hi;
+      warp_bounds(t.rx[warp], nrows, lo, hi);
+      s_lo[0][warp] = lo;
+      s_hi[0][warp] = hi;
+      warp_bounds(t.cx[warp], ncols, lo, hi);
+      s_lo[1][warp] = lo;
+      s_hi[1][warp] = hi;
     }
-    // the mirror unit (columns, rows) has the same entries
-    acc += (symmetric && unit.x != unit.y ? 2.0 : 1.0) *
-           static_cast<double>(part);
+    __syncthreads();
+    // uniform: every pair lies past the skip radius
+    if (box_gap2(s_lo, s_hi, d) > skip2) continue;
+    acc += weight * static_cast<double>(tile_trace<true>(
+                        s, t, nrows, ncols, d, skip2,
+                        symmetric ? unit.x - unit.y : -kTileRows, c, tau));
   }
-  const double total = block_sum<kTraceWarps>(acc, s_warp);
+  const double total = block_sum<kTileWarps>(acc, s_warp);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
@@ -315,15 +322,19 @@ extern "C" int gppe_matern_blocksparse_general_product(
 }
 
 // (b) partials[b] = block b's weighted sum of tapered k^2 over `per_block`
-// units of `units` (num_units (first row, first column) int32 pairs, each
-// the start of a sub-tile of a tile of `tile` points;
-// cuda_kernels.blocksparse_trace_schedule); `symmetric` counts every unit
-// whose rows are not its columns twice. The blocks must cover the units
-// exactly.
+// units of `units` (num_units (first row, first column) int32 pairs: 64
+// rows of a tile of `tile` points by 128 columns of another;
+// cuda_kernels.blocksparse_general_trace_schedule); `symmetric` counts
+// only the pairs above K's diagonal, each twice (the caller adds the
+// diagonal's n ones). A pair whose float32 squared distance exceeds skip2
+// (+inf: none) is 0 without its k, a unit whose boxes lie past it is
+// skipped. The blocks must cover the units exactly. Launches on `stream`
+// and returns cudaGetLastError() (0 on success); does not synchronise and
+// allocates nothing.
 extern "C" int gppe_matern_blocksparse_general_trace(
     const void* pts, const void* units, void* partials, int n, int d,
-    int tile, int num_units, int symmetric, float tau, int per_block,
-    int blocks, const void* consts, void* stream) {
+    int tile, int num_units, int symmetric, float tau, float skip2,
+    int per_block, int blocks, const void* consts, void* stream) {
   const MaternGeneralConsts c = *static_cast<const MaternGeneralConsts*>(
       consts);
   if (n <= 0 || d < 1 || d > kMaxD || tile <= 0 || units == nullptr ||
@@ -331,10 +342,15 @@ extern "C" int gppe_matern_blocksparse_general_trace(
       !consts_ok(c)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  blocksparse_general_trace_kernel<<<blocks, kTraceThreads, 0,
+  const int bytes = static_cast<int>(sizeof(TraceTileSmem));
+  const cudaError_t err = cudaFuncSetAttribute(
+      blocksparse_general_trace_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  blocksparse_general_trace_kernel<<<blocks, kTileThreads, bytes,
                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int2*>(units),
       static_cast<double*>(partials), n, d, tile, num_units, per_block,
-      symmetric != 0, tau, c);
+      symmetric != 0, tau, skip2, c);
   return static_cast<int>(cudaGetLastError());
 }

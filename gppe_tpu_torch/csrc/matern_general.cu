@@ -6,9 +6,9 @@
 //   (b) product: out_b = K_b @ V_b for a batch of B (scale, nu) points of
 //       one grid chunk (B = 1: one operator), K_b[i, j] =
 //       k(|x_i - y_j| / scale_b; nu_b), K never stored, float32 FMA sums;
-//   (c) trace: partials[b] = weight * sum K[i, j]^2 over block b's tile
-//       pairs of the symmetric walk of matern_trace.cuh, float64 partials
-//       that the caller sums to trace(K^2).
+//   (c) trace: out_b = trace(K_b^2) for a batch of (scale, nu) points,
+//       on the walk of matern_trace.cuh, float64 block partials summed in
+//       order by a second kernel.
 //
 // Replaces no Pallas kernel: the TPU has none for general nu. It ran
 // XLA-fused there, at the call sites gppe_tpu/ops/assembly.py:22 (dense
@@ -59,10 +59,20 @@
 //     memory and divides its points by the scale itself (IEEE division),
 //     so a point gives the same bits alone or in any batch (and in any
 //     bands). Widths above 32 run as launches of 32 columns;
-//   * the trace: the symmetric walk of matern_trace.cuh (tile pairs tj >= ti
-//     of 128 x 128 points, weight 2 off the diagonal), each of 256 threads
-//     one row and half the tile's columns, float64 block partials, no
-//     atomics. Its pairs are not binned yet.
+//   * the trace on the same binned k tiles: the walk of matern_trace.cuh
+//     (on a square K the tile pairs tj >= ti of 128 x 128 points), each
+//     tile pair two k tiles of 64 rows. On the square K a tile counts only
+//     its pairs above K's diagonal (column past row), each at weight 2, so
+//     a diagonal tile pair evaluates its upper triangle once; K[i, i] = 1
+//     for every point, and the sum kernel adds those n ones. A thread sums
+//     k^2 over its fixed pairs of a tile in float32 FMAs and adds that, in
+//     float64, to its sum over the block's tile pairs; the block's sum (a
+//     fixed tree) is its partial, and a second kernel sums each point's
+//     partials in a fixed order. A launch covers a batch of points as the
+//     product does (grid.y the point, its constants and scale copied into
+//     shared memory), so a point's trace is the same bits alone or in any
+//     batch. The tile holds no V operands (TraceTileSmem), so four blocks
+//     share an SM.
 
 #include <cuda_runtime.h>
 
@@ -79,9 +89,6 @@ namespace {
 
 constexpr int kElemThreads = 256;
 constexpr int kProductMaxCols = 32;  // widest instance; wider V in launches
-constexpr int kTraceThreads = 256;
-constexpr int kTraceWarps = kTraceThreads / 32;
-constexpr int kTraceHalves = kTraceThreads / kTraceTile;  // column halves
 
 __global__ void __launch_bounds__(kElemThreads)
     matern_general_elementwise_kernel(const float* __restrict__ x,
@@ -308,63 +315,96 @@ __global__ void __launch_bounds__(256)
   *dst = sum;
 }
 
-__global__ void __launch_bounds__(kTraceThreads)
-    matern_general_trace_kernel(const float* __restrict__ rows,
-                                const float* __restrict__ cols,
-                                double* __restrict__ partials, int nr,
-                                int nc, int d, int tiles_r, int tiles_c,
-                                int64_t pairs, int per_block, bool symmetric,
-                                const MaternGeneralConsts c) {
-  __shared__ float s_pts[kTraceTile][kMaxD];
-  __shared__ double s_warp[kTraceWarps];
-  const int lrow = threadIdx.x % kTraceTile;
-  const int half = threadIdx.x / kTraceTile;
-  constexpr int kCols = kTraceTile / kTraceHalves;
-
+// Block (q, b): tile pairs [q per_block, (q + 1) per_block) of the walk
+// (matern_trace.cuh) for point b, each as k tiles of kTileRows rows; on
+// the symmetric walk only the pairs above K's diagonal, at weight 2, else
+// every pair at weight 1. partials[b blocks + q] = the block's float64 sum.
+__global__ void __launch_bounds__(kTileThreads, 4)
+    matern_general_trace_kernel(
+        const float* __restrict__ rows, const float* __restrict__ cols,
+        const float* __restrict__ scales,
+        const MaternGeneralConsts* __restrict__ consts,
+        double* __restrict__ partials, int nr, int nc, int d, int tiles_r,
+        int tiles_c, int64_t pairs, int per_block, int blocks,
+        bool symmetric) {
+  extern __shared__ float4 smem_raw[];
+  TraceTileSmem& s = *reinterpret_cast<TraceTileSmem*>(smem_raw);
+  __shared__ TilePoints t;
+  __shared__ MaternGeneralConsts c;
+  __shared__ float s_scale[kMaxD];
+  __shared__ double s_warp[kTileWarps];
+  const int b = blockIdx.y;
+  {
+    const int* src = reinterpret_cast<const int*>(consts + b);
+    int* dst = reinterpret_cast<int*>(&c);
+    for (int w = threadIdx.x; w < static_cast<int>(sizeof(c) / 4);
+         w += kTileThreads) {
+      dst[w] = src[w];
+    }
+  }
+  if (threadIdx.x < kMaxD) {
+    s_scale[threadIdx.x] =
+        threadIdx.x < d ? scales[b * d + threadIdx.x] : 1.0f;
+  }
+  __syncthreads();  // the scale and the constants
   double acc = 0.0;
   const int64_t p_begin = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t p_end =
-      p_begin + per_block < pairs ? p_begin + per_block : pairs;
-  for (int64_t p = p_begin; p < p_end; ++p) {
-    const TilePair tp = trace_tile_pair(p, tiles_r, tiles_c, symmetric);
+  const int count = static_cast<int>(
+      p_begin + per_block < pairs ? per_block : pairs - p_begin);
+  for (int q = 0; q < count; ++q) {
+    const TilePair tp = trace_tile_pair(
+        static_cast<int64_t>(blockIdx.x) * per_block + q, tiles_r, tiles_c,
+        symmetric);
+    const int i0 = tp.ti * kTraceTile;
     const int j0 = tp.tj * kTraceTile;
-    const int tc = min(kTraceTile, nc - j0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTraceTile * kMaxD; e += kTraceThreads) {
-      const int j = e / kMaxD;
-      const int k = e % kMaxD;
-      s_pts[j][k] = (j < tc && k < d)
-                        ? cols[static_cast<int64_t>(j0 + j) * d + k]
-                        : 0.0f;
+    const int ncols = min(kTraceTile, nc - j0);
+    const int nrows_tile = min(kTraceTile, nr - i0);
+    for (int e = threadIdx.x; e < kMaxD * kTileCols; e += kTileThreads) {
+      const int k = e / kTileCols;
+      const int j = e % kTileCols;
+      t.cx[k][j] = (k < d && j < ncols)
+                       ? cols[static_cast<int64_t>(j0 + j) * d + k] /
+                             s_scale[k]
+                       : 0.0f;
     }
-    const int row = tp.ti * kTraceTile + lrow;
-    const bool live = row < nr;
-    float x[kMaxD];
-#pragma unroll
-    for (int k = 0; k < kMaxD; ++k) {
-      x[k] = (live && k < d) ? rows[static_cast<int64_t>(row) * d + k]
-                             : 0.0f;
-    }
-    __syncthreads();
-    float part = 0.0f;
-    const int jb = half * kCols;
-    const int je = min(tc, jb + kCols);
-    for (int j = jb; j < je; ++j) {
-      float d2 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kMaxD; ++k) {
-        if (k < d) {
-          const float diff = x[k] - s_pts[j][k];
-          d2 = fmaf(diff, diff, d2);
-        }
+    for (int r0 = 0; r0 < nrows_tile; r0 += kTileRows) {
+      const int nrows = min(kTileRows, nrows_tile - r0);
+      for (int e = threadIdx.x; e < kMaxD * kTileRows; e += kTileThreads) {
+        const int k = e / kTileRows;
+        const int i = e % kTileRows;
+        t.rx[k][i] =
+            (k < d && i < nrows)
+                ? rows[static_cast<int64_t>(i0 + r0 + i) * d + k] / s_scale[k]
+                : 0.0f;
       }
-      const float kv = matern_general(sqrtf(d2), c);
-      part = fmaf(kv, kv, part);
+      // the square K: pair (i, j) counts where column j0 + j > row
+      // i0 + r0 + i; any pair of a rectangular K (j - i > -kTileRows)
+      acc += static_cast<double>(tile_trace<false>(
+          s, t, nrows, ncols, d, kInf,
+          symmetric ? i0 + r0 - j0 : -kTileRows, c, 0.0f));
     }
-    if (live) acc += tp.weight * static_cast<double>(part);
   }
-  const double total = block_sum<kTraceWarps>(acc, s_warp);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  // each counted pair twice on the square K: the weight, a power of two,
+  // scales every sum exactly
+  const double total = block_sum<kTileWarps>(acc, s_warp);
+  if (threadIdx.x == 0) {
+    partials[static_cast<int64_t>(blockIdx.y) * blocks + blockIdx.x] =
+        symmetric ? 2.0 * total : total;
+  }
+}
+
+// out[b] = point b's partials summed in a fixed order (thread x its
+// partials x, x + 256, ..., then the block's tree), plus `diagonal`
+__global__ void __launch_bounds__(256)
+    matern_general_trace_sum_kernel(const double* __restrict__ partials,
+                                    double* __restrict__ out, int blocks,
+                                    double diagonal) {
+  __shared__ double s_warp[8];
+  const double* src = partials + static_cast<int64_t>(blockIdx.x) * blocks;
+  double acc = 0.0;
+  for (int q = threadIdx.x; q < blocks; q += 256) acc += src[q];
+  const double total = block_sum<8>(acc, s_warp);
+  if (threadIdx.x == 0) out[blockIdx.x] = total + diagonal;
 }
 
 template <int RC>
@@ -495,31 +535,46 @@ extern "C" int gppe_matern_general_product(
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) partials[b] = block b's weighted sum of k^2 over `per_block` tile
-// pairs of the walk (matern_trace.cuh); `symmetric` (rows are cols, nr ==
-// nc) walks tj >= ti. The blocks must cover the walk's pairs exactly
-// (cuda_kernels.trace_schedule).
-extern "C" int gppe_matern_general_trace(const void* rows, const void* cols,
-                                         void* partials, int nr, int nc,
-                                         int d, int symmetric, int per_block,
-                                         int blocks, const void* consts,
-                                         void* stream) {
-  const MaternGeneralConsts c = *static_cast<const MaternGeneralConsts*>(
-      consts);
-  if (nr <= 0 || nc <= 0 || d < 1 || d > kMaxD || partials == nullptr ||
-      (symmetric && nr != nc) || !consts_ok(c)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// (c) out[b] = trace(K_b^2) for b < batch, float64: rows (nr, d), cols
+// (nc, d) unscaled points; scales (batch, d) float32 and consts (batch
+// structs), both on the device, as the product takes them; `symmetric`
+// (cols is rows) walks tj >= ti. partials: a float64 scratch of batch *
+// blocks entries, the blocks covering the walk's pairs `per_block` each
+// (cuda_kernels.trace_schedule). Launches the tile kernel and the sum
+// kernel on `stream` and returns cudaGetLastError() (0 on success); does
+// not synchronise and allocates nothing.
+extern "C" int gppe_matern_general_trace(
+    const void* rows, const void* cols, const void* scales,
+    const void* consts, void* partials, void* out, int nr, int nc, int d,
+    int symmetric, int per_block, int blocks, int batch, void* stream) {
   const int tiles_r = (nr + kTraceTile - 1) / kTraceTile;
   const int tiles_c = (nc + kTraceTile - 1) / kTraceTile;
   const int64_t pairs = trace_pairs(tiles_r, tiles_c, symmetric != 0);
-  if (!trace_grid_ok(pairs, per_block, blocks)) {
+  if (nr <= 0 || nc <= 0 || d < 1 || d > kMaxD || batch < 1 ||
+      batch > 65535 || (symmetric && (nr != nc || rows != cols)) ||
+      !trace_grid_ok(pairs, per_block, blocks) || rows == nullptr ||
+      cols == nullptr || scales == nullptr || consts == nullptr ||
+      partials == nullptr || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  matern_general_trace_kernel<<<blocks, kTraceThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bytes = static_cast<int>(sizeof(TraceTileSmem));
+  cudaError_t err = cudaFuncSetAttribute(
+      matern_general_trace_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matern_general_trace_kernel<<<dim3(static_cast<unsigned>(blocks), batch),
+                                kTileThreads, bytes, s>>>(
       static_cast<const float*>(rows), static_cast<const float*>(cols),
+      static_cast<const float*>(scales),
+      static_cast<const MaternGeneralConsts*>(consts),
       static_cast<double*>(partials), nr, nc, d, tiles_r, tiles_c, pairs,
-      per_block, symmetric != 0, c);
+      per_block, blocks, symmetric != 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the diagonal of a square K: one 1 a point
+  matern_general_trace_sum_kernel<<<batch, 256, 0, s>>>(
+      static_cast<const double*>(partials), static_cast<double*>(out), blocks,
+      symmetric ? static_cast<double>(nr) : 0.0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// The branch-binned k tile of the general-nu products (matern_general.cu,
+// The branch-binned k tile of the general-nu kernels (matern_general.cu,
 // matern_blocksparse_general.cu): one block of kTileThreads threads fills a
 // tile of kTileRows x kTileCols pairs with k(x; nu) in shared memory and
-// multiplies it with the V rows it needs.
+// multiplies it with the V rows it needs (the products) or sums its k^2
+// (the traces).
 //
 // Why binned. matern_general (matern_bessel.cuh) runs Temme's series below
 // z = sqrt(2 nu) x = 2 and CF2 from 2 up, each until its own series has
@@ -27,8 +28,9 @@
 //      branch, trips alike. k replaces x in the tile.
 //
 // The order in which pairs are evaluated depends on the atomics; each
-// pair's k does not, and the products below read the tile in a fixed
-// order, so the results are the same bits run to run. No float atomics.
+// pair's k does not, and the products and the traces below read the tile
+// in a fixed order, so the results are the same bits run to run. No float
+// atomics.
 //
 // The products (float32 FMAs, fixed order):
 //   * tile_times_v: acc += K_t @ Vc for the tile's rows, each thread two
@@ -38,13 +40,19 @@
 //     of Vr, the V rows of the tile's rows;
 // each V load (a float4 where it fits) serves two rows or columns.
 //
+// The traces (tile_trace): the tile classified with only the pairs above
+// K's diagonal counted where the walk is symmetric (the caller adds the
+// diagonal's ones), evaluated, then k^2 summed in float32 FMAs over each
+// thread's fixed pairs, which the caller adds to its float64 sum.
+//
 // Shared memory: the k tile (its columns permuted per row, k_index), and
 // in one place the list (16-bit indices, passes 2 and 3) and then the NV V
 // operands of kTileCols x RC floats, staged once the tile is evaluated
 // (TileSmem, dynamic: above 48 KB); the staged points and the bin counters
 // (TilePoints, static). A block of G1 takes 56 KB at RC <= 16, so four
 // blocks of 8 warps share an SM (three at RC = 32: 72 KB); one of G2
-// (NV = 1) 54 KB at RC = 32.
+// (NV = 1) 54 KB at RC = 32. A trace's tile (TraceTileSmem) holds no V
+// operands: the k tile and the list, 48 KB dynamic.
 #pragma once
 
 #include <cstdint>
@@ -76,6 +84,15 @@ struct TileSmem {
     float v[NV][kTileCols * RC];    // the products: V operands, 0 past r
   };
 };
+
+// The traces' layout: no V operands (a trace multiplies nothing), so the
+// list needs no union
+template <>
+struct TileSmem<0, 0> {
+  float k[kTilePairs];
+  uint16_t list[kTilePairs];
+};
+using TraceTileSmem = TileSmem<0, 0>;
 
 // where pair (i, j) of the k tile lies: row-major, the columns of row i
 // permuted by an XOR with 8 (i % 4), so that the four rows a warp of the
@@ -122,12 +139,15 @@ __device__ __forceinline__ float pair_d2(const TilePoints& t, int i, int j,
 // points (the rest are pad pairs): the tile holds x where a pair is to be
 // evaluated and its k (0 or 1) elsewhere, the list the pairs to evaluate.
 // Between the passes a pair that is not evaluated holds -1 - k, so that
-// pass 2 reads each pair's bin back from its x. Returns, to every thread,
-// whether any pair is nonzero. Starts and ends with a barrier.
-template <int RC, int NV>
+// pass 2 reads each pair's bin back from its x. With UPPER, pair (i, j)
+// is a pad pair too unless j - i > diag (the traces: diag = the tile's
+// first row less its first column, so only the pairs above K's diagonal
+// count). Returns, to every thread, whether any pair is nonzero. Starts
+// and ends with a barrier.
+template <bool UPPER = false, int RC, int NV>
 __device__ bool tile_classify(TileSmem<RC, NV>& s, TilePoints& t, int nrows,
                               int ncols, int d, float skip2,
-                              const MaternGeneralConsts& c) {
+                              const MaternGeneralConsts& c, int diag = 0) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < kBins) t.cursor[threadIdx.x] = 0;
   __syncthreads();
@@ -138,7 +158,7 @@ __device__ bool tile_classify(TileSmem<RC, NV>& s, TilePoints& t, int nrows,
     const int j = e % kTileCols;
     int bin = kNoBin;
     float v = -1.0f;  // k = 0
-    if (i < nrows && j < ncols) {
+    if (i < nrows && j < ncols && (!UPPER || j - i > diag)) {
       const float d2 = pair_d2(t, i, j, d);
       if (d2 == 0.0f) {
         v = -2.0f;  // k = 1
@@ -203,6 +223,37 @@ __device__ void tile_evaluate(TileSmem<RC, NV>& s, const TilePoints& t,
     *kp = (!TAPER || kv >= tau) ? kv : 0.0f;
   }
   __syncthreads();
+}
+
+// The tile's k^2 in a fixed order: thread x sums pairs x, x + 256, ...
+// of the row-major tile in float32 FMAs (0 for a pair not counted)
+__device__ __forceinline__ float tile_sum_k2(const TraceTileSmem& s) {
+  float part = 0.0f;
+#pragma unroll 8
+  for (int m = 0; m < kTilePairs / kTileThreads; ++m) {
+    const int e = m * kTileThreads + threadIdx.x;
+    const float kv = s.k[k_index(e / kTileCols, e % kTileCols)];
+    part = fmaf(kv, kv, part);
+  }
+  return part;
+}
+
+// One k tile of a trace over the staged points (as tile_classify, UPPER,
+// with skip2 and diag; with TAPER k < tau is 0): each thread's float32
+// sum of k^2 over its fixed pairs, 0 where the tile has no nonzero pair
+// (the sum of its zeros). Starts with a barrier; the caller may restage
+// the points right after, not the tile.
+template <bool TAPER>
+__device__ __forceinline__ float tile_trace(TraceTileSmem& s, TilePoints& t,
+                                            int nrows, int ncols, int d,
+                                            float skip2, int diag,
+                                            const MaternGeneralConsts& c,
+                                            float tau) {
+  if (!tile_classify<true>(s, t, nrows, ncols, d, skip2, c, diag)) {
+    return 0.0f;
+  }
+  tile_evaluate<TAPER>(s, t, c, tau);
+  return tile_sum_k2(s);
 }
 
 // Q consecutive floats of shared memory (aligned to 4 Q bytes) in one load

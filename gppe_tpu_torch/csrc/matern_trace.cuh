@@ -72,11 +72,12 @@ __device__ __forceinline__ TilePair trace_tile_pair(int64_t p, int tiles_r,
 
 // The tapered kernels' units (matern_blocksparse.cu,
 // matern_blocksparse_general.cu): the real points of the sub-tile that
-// starts at point p0, at most kTraceTile, none past the end of its tile of
-// `tile` points or past n
+// starts at point p0, at most kSize (the general-nu trace's rows: 64),
+// none past the end of its tile of `tile` points or past n
+template <int kSize = kTraceTile>
 __device__ __forceinline__ int sub_tile_points(int p0, int tile, int n) {
   const int tile_end = (p0 / tile + 1) * tile;
-  return min(kTraceTile, min(tile_end, n) - p0);
+  return min(kSize, min(tile_end, n) - p0);
 }
 
 // The block's sum of one value per thread, in a fixed order (the warp's

@@ -24,8 +24,9 @@ the general-nu kernel ``csrc/matern_general.cu``, where the reference's
 general branch maps its row-blocked XLA matvec over the chunk's points:
 the matrix-free chunk's product is one batched call per Lanczos step for
 all its points (:func:`cuda_kernels.matern_general_matmat_batched`, a
-launch per band of its walk), its trace one launch per point
-(:func:`cuda_kernels.matern_general_matmat`). The dense chunk of any grid
+launch per band of its walk), its traces one batched launch
+(:func:`cuda_kernels.matern_general_trace_batched`), as the reference
+maps its trace over the chunk. The dense chunk of any grid
 assembles each K(rho, nu) once - a general nu with the elementwise entry
 (:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`) - and multiplies
 with ``torch.matmul``. On the CPU they run their plain versions.
@@ -58,9 +59,9 @@ def _factorize_chunk_general_matrixfree(points, rhos, nus, AB, k, s,
                                         block_rows):
     """Matrix-free variant over per-point (rho, nu): each Lanczos step
     runs the general-nu product kernel for all the chunk's points at once
-    (a launch per band and 32 columns), and one trace launch per point
-    follows; ``block_rows`` is the row blocking of their plain version on
-    the CPU."""
+    (a launch per band and 32 columns), and one trace launch for all of
+    them follows; ``block_rows`` is the row blocking of their plain
+    version on the CPU."""
     scales = torch.as_tensor(rhos, dtype=points.dtype, device=points.device)
 
     def bmv(W):                                             # (B, n, r)
@@ -68,11 +69,8 @@ def _factorize_chunk_general_matrixfree(points, rhos, nus, AB, k, s,
             points, scales, W.contiguous(), nus, block_rows=block_rows)
 
     def tk2():
-        return torch.stack([
-            cuda_kernels.matern_general_matmat(
-                points, rho, None, nu, frobenius=True,
-                block_rows=block_rows)[1]
-            for rho, nu in zip(rhos, nus)])
+        return cuda_kernels.matern_general_trace_batched(
+            points, scales, nus, block_rows=block_rows)
 
     return _factorize_common(AB, len(rhos), k, s, bmv, tk2)
 

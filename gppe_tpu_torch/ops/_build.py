@@ -157,16 +157,17 @@ def load(path=None):
         ctypes.c_int64, ctypes.c_int64, i32, i32, ctypes.c_int64, i32,
         ctypes.c_int64, ptr]
     lib.gppe_matern_general_trace.restype = i32
-    lib.gppe_matern_general_trace.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                              i32, i32, i32, ptr, ptr]
+    lib.gppe_matern_general_trace.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                              i32, i32, i32, i32, i32, i32,
+                                              i32, ptr]
     lib.gppe_matern_blocksparse_general_product.restype = i32
     lib.gppe_matern_blocksparse_general_product.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
         ctypes.c_float, ctypes.c_float, ptr, ptr]
     lib.gppe_matern_blocksparse_general_trace.restype = i32
     lib.gppe_matern_blocksparse_general_trace.argtypes = [
-        ptr, ptr, ptr, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32,
-        ptr, ptr]
+        ptr, ptr, ptr, i32, i32, i32, i32, i32, ctypes.c_float,
+        ctypes.c_float, i32, i32, ptr, ptr]
     lib.gppe_cuda_error_string.restype = ctypes.c_char_p
     lib.gppe_cuda_error_string.argtypes = [i32]
     if path == library_path():

@@ -47,8 +47,9 @@ triangle on diagonal tiles) where the list holds its mirror:
 :func:`blocksparse_trace_schedule` builds that walk and mirrors it.
 
 ``matern_general`` (elementwise), ``matern_general_matmat`` (the product
-and trace(K^2)) and ``matern_general_matmat_batched`` (the product for a
-batch of (scale, nu) points) run ``csrc/matern_general.cu``, the Matern
+and trace(K^2)), ``matern_general_matmat_batched`` and
+``matern_general_trace_batched`` (the product and the trace for a batch of
+(scale, nu) points) run ``csrc/matern_general.cu``, the Matern
 correlation of a general nu (outside 1/2, 3/2, 5/2 and the Gaussian limit)
 through the Bessel K_nu in registers. It replaces no Pallas kernel: on the
 TPU the general-nu assembly, the row-blocked products and traces of
@@ -58,14 +59,18 @@ XLA-fused. Its product fills branch-binned k tiles
 serving K[i, j] and K[j, i], and sums each row tile's slots in a fixed
 order; its walk runs in bands whose slots fit :data:`GENERAL_SLOT_BYTES`
 (:func:`general_product_bands`), and each band's launch serves a whole
-grid chunk. ``matern_matmat`` hands a general nu to it, so
+grid chunk. Its trace fills the same k tiles on the dense traces' walk,
+counting the pairs above K's diagonal of a square K, and one launch
+serves a grid chunk too (:func:`general_trace_batches`). ``matern_matmat`` hands a general nu to it, so
 ``MaternOperator`` takes every nu; the multi-rho kernel takes the closed
 forms only (a general-nu grid calls ``matern_general_matmat_batched``).
 ``matern_matmat_blocksparse`` hands a general nu to
 ``csrc/matern_blocksparse_general.cu``, the same device function over the
 tapered kernels' pair list and trace walk (the product on the binned k
 tiles of the pairs within :func:`blocksparse_skip_radius`, one launch per
-32 columns of V, and the trace), where the reference runs its XLA scans;
+32 columns of V, and the trace on the same tiles over the walk of
+:func:`blocksparse_general_trace_schedule`), where the reference runs its
+XLA scans;
 so ``TaperedMaternOperator`` takes every nu too.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
@@ -116,6 +121,12 @@ _TRACE_TILE, _TRACE_MAX_BLOCKS, _TRACE_RHOS = 128, 1 << 19, 8
 # the general-nu product kernels (csrc/matern_general.cu,
 # matern_blocksparse_general.cu): at most 32 columns of V per launch
 _GENERAL_MAX_COLS = 32
+# the rows of their branch-binned k tile (csrc/matern_general_tile.cuh),
+# the general-nu traces' unit of rows
+_TILE_ROWS = 64
+# the most float64 partials one launch of the general-nu trace writes
+# (32 MiB): a larger batch of points runs as launches of fewer points
+_GENERAL_TRACE_PARTIALS = 1 << 22
 # the most slot scratch one general-nu product (csrc/matern_general.cu)
 # takes: its walk runs in bands of tile pairs whose slots fit (at least
 # one pair a band), and the grid engine counts it in its chunk's budget
@@ -463,6 +474,10 @@ def matern_matmat_multirho_plain(points, rhos, V, nu, return_frobenius=False,
     B = rhos.shape[0]
     out = None if V is None else torch.empty(
         V.shape, dtype=V.dtype, device=V.device)
+    if V is not None:
+        # one layout whatever V's strides: the CPU's matmul takes another
+        # route, and sums in another order, for a strided operand
+        V = V.contiguous()
     fro = torch.zeros(B, dtype=points.dtype, device=points.device)
     for i in range(0, n, block_rows):
         r0 = kernels.pairwise_scaled_distance(points[i:i + block_rows],
@@ -625,23 +640,28 @@ def blocksparse_row_ptr(pair_i, num_tiles):
 
 
 class BlocksparseTraceWalk(NamedTuple):
-    """The walk of the tapered trace kernel (``csrc/matern_blocksparse.cu``)
-    over a pair list: ``units`` (U, 2) int32, the first row and the first
-    column of each pair of sub-tiles of at most ``_TRACE_TILE`` points
+    """The walk of a tapered trace kernel over a pair list: ``units``
+    (U, 2) int32, the first row and the first column of each pair of
+    sub-tiles, of at most ``unit_rows`` rows and ``_TRACE_TILE`` columns
     (numpy, or a tensor on the points' device); ``weights`` (U,) the count
-    of each unit, 2 where the walk is ``symmetric`` and the unit's rows are
-    not its columns, else 1 (the kernel derives them the same way)."""
+    of each unit's pairs (the kernel derives them the same way).
+    ``unit_rows`` ``_TRACE_TILE``: the closed-form kernel's walk
+    (``csrc/matern_blocksparse.cu``, :func:`blocksparse_trace_schedule`);
+    ``_TILE_ROWS``: the general-nu kernel's
+    (``csrc/matern_blocksparse_general.cu``,
+    :func:`blocksparse_general_trace_schedule`)."""
     units: object
     weights: np.ndarray
     symmetric: bool
+    unit_rows: int = _TRACE_TILE
 
 
-def blocksparse_sub_tile_points(starts, tile, n):
+def blocksparse_sub_tile_points(starts, tile, n, size=_TRACE_TILE):
     """The real points of the sub-tiles that start at ``starts`` (numpy):
-    at most ``_TRACE_TILE``, none past the end of their tile of ``tile``
-    points or past ``n`` (``matern_blocksparse.cu::sub_tile_points``)."""
+    at most ``size``, none past the end of their tile of ``tile`` points or
+    past ``n`` (``matern_trace.cuh::sub_tile_points``)."""
     starts = np.asarray(starts, dtype=np.int64)
-    return np.minimum(_TRACE_TILE,
+    return np.minimum(size,
                       np.minimum((starts // tile + 1) * tile, n) - starts)
 
 
@@ -661,9 +681,7 @@ def blocksparse_trace_schedule(pair_i, pair_j, tile, n, symmetric=True):
     pair_i = np.asarray(pair_i, dtype=np.int64)
     pair_j = np.asarray(pair_j, dtype=np.int64)
     num_tiles = -(-n // tile)
-    symmetric = symmetric and np.array_equal(
-        np.sort(pair_i * num_tiles + pair_j),
-        np.sort(pair_j * num_tiles + pair_i))
+    symmetric = symmetric and _mirrored(pair_i, pair_j, num_tiles)
     if symmetric:
         upper = pair_i <= pair_j
         pair_i, pair_j = pair_i[upper], pair_j[upper]
@@ -680,6 +698,64 @@ def blocksparse_trace_schedule(pair_i, pair_j, tile, n, symmetric=True):
     return BlocksparseTraceWalk(
         np.stack([rows, cols], axis=1).astype(np.int32),
         np.where(symmetric & (rows != cols), 2, 1), bool(symmetric))
+
+
+def _mirrored(pair_i, pair_j, num_tiles):
+    """Whether the list holds (j, i) with every (i, j)."""
+    return np.array_equal(np.sort(pair_i * num_tiles + pair_j),
+                          np.sort(pair_j * num_tiles + pair_i))
+
+
+def blocksparse_general_trace_schedule(pair_i, pair_j, tile, n,
+                                       symmetric=True):
+    """The tapered general-nu trace kernel's walk
+    (``csrc/matern_blocksparse_general.cu``) over the tile-pair list
+    ``pair_i``, ``pair_j`` (tiles of ``tile`` points, the first ``n``
+    real), as a :class:`BlocksparseTraceWalk` of ``unit_rows`` =
+    ``_TILE_ROWS``, on the host: units of the product's sub-tile pairs,
+    ``_TILE_ROWS`` rows of a row tile by ``_TRACE_TILE`` columns of a
+    column tile (the last of each tile perhaps short), row-major within a
+    tile pair, in the list's order.
+
+    Where ``symmetric`` and the list holds its mirror, the walk takes the
+    tile pairs ti <= tj and, of a diagonal tile pair, only the units with
+    a column past a row; the kernel counts only the pairs of a unit whose
+    column is past its row (above K's diagonal), each at weight 2, and the
+    caller adds the diagonal's n ones (K[i, i] = 1): every unordered pair
+    of points of the list once. Else every unit of the list, each of its
+    pairs at weight 1."""
+    pair_i = np.asarray(pair_i, dtype=np.int64)
+    pair_j = np.asarray(pair_j, dtype=np.int64)
+    num_tiles = -(-n // tile)
+    symmetric = symmetric and _mirrored(pair_i, pair_j, num_tiles)
+    if symmetric:
+        upper = pair_i <= pair_j
+        pair_i, pair_j = pair_i[upper], pair_j[upper]
+    real = np.minimum(tile, n - tile * np.arange(num_tiles))
+    row_subs, col_subs = -(-real // _TILE_ROWS), -(-real // _TRACE_TILE)
+    side_r, side_c = -(-tile // _TILE_ROWS), -(-tile // _TRACE_TILE)
+    si, sj = np.divmod(np.arange(side_r * side_c), side_c)
+    take = ((si[None] < row_subs[pair_i][:, None])
+            & (sj[None] < col_subs[pair_j][:, None]))
+    rows = pair_i[:, None] * tile + si[None] * _TILE_ROWS
+    cols = pair_j[:, None] * tile + sj[None] * _TRACE_TILE
+    if symmetric:
+        # the unit's last column past its first row
+        last = cols + blocksparse_sub_tile_points(cols, tile, n) - 1
+        take &= last > rows
+    rows, cols = rows[take], cols[take]
+    return BlocksparseTraceWalk(
+        np.stack([rows, cols], axis=1).astype(np.int32),
+        np.full(len(rows), 2 if symmetric else 1), bool(symmetric),
+        _TILE_ROWS)
+
+
+def blocksparse_trace_schedule_for(nu):
+    """The schedule of the tapered trace kernel that ``nu`` runs:
+    :func:`blocksparse_general_trace_schedule` for a general nu, else
+    :func:`blocksparse_trace_schedule`."""
+    return (blocksparse_trace_schedule if kernels.is_closed_form(nu)
+            else blocksparse_general_trace_schedule)
 
 
 def _host(a):
@@ -812,11 +888,12 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     answers for both). ``tau``: the taper threshold; entries with k < tau
     are zero. ``dot_mode`` as in :func:`matern_matmat`. ``trace_walk``:
     the trace kernel's :class:`BlocksparseTraceWalk` of this pair list,
-    its units an int32 tensor on the points' device; when absent (and
-    ``frobenius``) it is built here on the host by
-    :func:`blocksparse_trace_schedule`, symmetric where the list holds its
-    mirror (a caller that asks for traces often passes it, and answers
-    for it). The plain version sums the full list and takes no walk.
+    its units an int32 tensor on the points' device: of
+    :func:`blocksparse_trace_schedule_for` ``nu`` (its ``unit_rows`` is
+    checked); when absent (and ``frobenius``) it is built here on the
+    host, symmetric where the list holds its mirror (a caller
+    that asks for traces often passes it, and answers for it). The plain
+    version sums the full list and takes no walk.
 
     Returns out (n_pad, r), and with ``frobenius=True`` the pair (out, sum
     of squared tapered entries = trace(K^2)), out None when V is None; the
@@ -831,8 +908,10 @@ def matern_matmat_blocksparse(points_sorted, V, nu, tau, pair_i, pair_j,
     and taper), so a call that asks for both launches both; for a general
     nu both entries of ``csrc/matern_blocksparse_general.cu`` the same way
     (the product one launch per 32 columns of V, in float32 FMA sums, each
-    pair past :func:`blocksparse_skip_radius` an exact 0 without its k;
-    ``dot_mode`` does not apply)."""
+    pair past :func:`blocksparse_skip_radius` an exact 0 without its k, in
+    the trace too, whose symmetric walk sums the pairs above the diagonal
+    twice and adds the diagonal's n ones here; ``dot_mode`` does not
+    apply)."""
     dot_mode = resolve_dot_mode(dot_mode)
     nu = check_nu(nu)
     if V is None and not frobenius:
@@ -897,16 +976,21 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
 
     out = None if V is None else torch.empty(
         (n_pad, r), dtype=torch.float32, device=device)
+    general = not kernels.is_closed_form(nu)
     if frobenius:
+        unit_rows = _TILE_ROWS if general else _TRACE_TILE
         if trace_walk is None:
             # an unprepared walk: built here, on the host
-            trace_walk = blocksparse_trace_schedule(
+            trace_walk = blocksparse_trace_schedule_for(nu)(
                 _host(pair_i), _host(pair_j), tile, n)
+        if trace_walk.unit_rows != unit_rows:
+            raise ValueError(f"trace_walk has units of "
+                             f"{trace_walk.unit_rows} rows; this nu's "
+                             f"trace kernel takes {unit_rows}")
         units = _trace_units(trace_walk, device)
         per_block, blocks = trace_blocks(units.shape[0])
         partials = torch.zeros(blocks, dtype=torch.float64, device=device)
     if r > 0 or frobenius:
-        general = not kernels.is_closed_form(nu)
         if general:
             lib, kernel = _general_library(), "blocksparse_general"
             consts = _general_consts(nu).ctypes.data
@@ -942,11 +1026,15 @@ def _matern_matmat_blocksparse_cuda(points_sorted, V, nu, tau, pair_i,
                     err = lib.gppe_matern_blocksparse_general_trace(
                         points_sorted.data_ptr(), units.data_ptr(),
                         partials.data_ptr(), n, d, tile, units.shape[0],
-                        int(trace_walk.symmetric), float(tau), per_block,
-                        blocks, consts, stream)
+                        int(trace_walk.symmetric), float(tau), skip2,
+                        per_block, blocks, consts, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
-    return (out, partials.sum()) if frobenius else out
+    if not frobenius:
+        return out
+    fro = partials.sum()
+    # the general-nu kernel's symmetric walk: the diagonal's ones
+    return out, (fro + n if general and trace_walk.symmetric else fro)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1193,7 +1281,8 @@ def matern_general_matmat(points, scale, V, nu, points_cols=None,
     contiguous and launch ``csrc/matern_general.cu``: the product entry
     once per band and 32 columns of V (the batch of one of
     :func:`matern_general_matmat_batched`, the same bits), the trace entry
-    for the sum (float64)."""
+    for the sum (float64; the batch of one of
+    :func:`matern_general_trace_batched`, the same bits)."""
     nu = check_nu(nu)
     if V is None and not frobenius:
         raise ValueError("V=None is only meaningful with frobenius=True")
@@ -1237,21 +1326,74 @@ def _matern_general_matmat_cuda(points, scale, V, nu, points_cols,
         points, cols, scale[None], V[None], (nu,), symmetric)[0]
     if not frobenius:
         return out
-    _, _, _, per_block, blocks = trace_schedule(nr, nc, symmetric)
-    partials = torch.zeros(blocks, dtype=torch.float64, device=points.device)
-    if nr and nc:
-        rows_s = (points / scale).contiguous()
-        cols_s = rows_s if symmetric else (cols / scale).contiguous()
-        lib = _general_library()
-        with torch.cuda.device(points.device):
+    return out, _general_trace_cuda(points, cols, scale[None], (nu,),
+                                    symmetric)[0]
+
+
+def general_trace_batches(nr, nc, batch, symmetric):
+    """``(per_block, blocks, points)`` of the general-nu trace
+    (``csrc/matern_general.cu``) over an nr x nc K for a batch of
+    ``batch`` points: each point's blocks as the dense traces'
+    (:func:`trace_schedule`), and ``points`` of the batch a launch, as
+    many as keep their float64 partials, points * blocks of them, within
+    ``_GENERAL_TRACE_PARTIALS`` (at least one)."""
+    per_block, blocks = trace_schedule(nr, nc, symmetric)[3:]
+    return per_block, blocks, max(1, min(batch, 65535,
+                                         _GENERAL_TRACE_PARTIALS // blocks))
+
+
+def _general_trace_cuda(points, cols, scales, nus, symmetric):
+    """trace(K_b^2) (B,) float64 on the card for B = len(nus) points of
+    (B, d) float32 ``scales``: the trace entry of ``csrc/matern_general.cu``
+    once per launch's points of :func:`general_trace_batches`, counted
+    once each under ``matern_general_trace``. Each call of the entry
+    launches the tile kernel over its points and their sum kernel; each
+    point runs on blocks of its own and its sum in a fixed order, so it
+    has the same bits alone or in any batch."""
+    B = len(nus)
+    nr, d = points.shape
+    nc = cols.shape[0]
+    device = points.device
+    out = torch.zeros(B, dtype=torch.float64, device=device)
+    if nr == 0 or nc == 0:
+        return out
+    per_block, blocks, per_launch = general_trace_batches(nr, nc, B,
+                                                          symmetric)
+    partials = torch.empty(min(B, per_launch) * blocks, dtype=torch.float64,
+                           device=device)
+    lib = _general_library()
+    consts = _general_consts_device(nus, device)
+    size = _CONSTS_DTYPE.itemsize
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for b0 in range(0, B, per_launch):
             err = lib.gppe_matern_general_trace(
-                rows_s.data_ptr(), cols_s.data_ptr(), partials.data_ptr(),
-                nr, nc, d, int(symmetric), per_block, blocks,
-                _general_consts(nu).ctypes.data,
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on_cuda_error(lib, err, "matern_general_trace")
-        launch_counts["matern_general_trace"] += 1
-    return out, partials.sum()
+                points.data_ptr(), cols.data_ptr(),
+                scales.data_ptr() + 4 * d * b0,
+                consts.data_ptr() + size * b0, partials.data_ptr(),
+                out.data_ptr() + 8 * b0, nr, nc, d, int(symmetric),
+                per_block, blocks, min(per_launch, B - b0), stream)
+            _raise_on_cuda_error(lib, err, "matern_general_trace")
+            launch_counts["matern_general_trace"] += 1
+    return out
+
+
+def _general_batch(points, scales, nus):
+    """The batched general-nu wrappers' points, scales and nus, checked:
+    ``nus`` as a tuple of positive floats, ``scales`` as a (B, d) tensor
+    in the points' dtype on their device (B scalars, or B rows of d
+    per-dimension scales)."""
+    nus = tuple(check_nu(nu) for nu in nus)
+    if points.ndim != 2:
+        raise ValueError(f"points must be (n, d); got {tuple(points.shape)}")
+    B, d = len(nus), points.shape[1]
+    scales = torch.as_tensor(scales, dtype=points.dtype, device=points.device)
+    if scales.ndim == 1:
+        scales = scales[:, None].expand(B, d)
+    if scales.shape != (B, d):
+        raise ValueError(f"scales must be ({B},) or ({B}, {d}); got "
+                         f"{tuple(scales.shape)}")
+    return nus, scales
 
 
 def matern_general_matmat_batched(points, scales, V, nus, block_rows=1024):
@@ -1271,22 +1413,14 @@ def matern_general_matmat_batched(points, scales, V, nus, block_rows=1024):
     ``csrc/matern_general.cu`` once per band and 32 columns of V for the
     whole batch, each point with the bits it has alone in
     :func:`matern_general_matmat`."""
-    nus = tuple(check_nu(nu) for nu in nus)
+    nus, scales = _general_batch(points, scales, nus)
     device = points.device
-    if points.ndim != 2:
-        raise ValueError(f"points must be (n, d); got {tuple(points.shape)}")
     n, d = points.shape
     B = len(nus)
     if V.device != device:
         raise ValueError(f"V is on {V.device}, points on {device}")
     if V.ndim != 3 or V.shape[:2] != (B, n):
         raise ValueError(f"V must be ({B}, {n}, r); got {tuple(V.shape)}")
-    scales = torch.as_tensor(scales, dtype=points.dtype, device=device)
-    if scales.ndim == 1:
-        scales = scales[:, None].expand(B, d)
-    if scales.shape != (B, d):
-        raise ValueError(f"scales must be ({B},) or ({B}, {d}); got "
-                         f"{tuple(scales.shape)}")
     if device.type == "cpu":
         return torch.stack([
             matern_matmat_plain(points, scales[b], V[b], nu, None, False,
@@ -1301,3 +1435,35 @@ def matern_general_matmat_batched(points, scales, V, nus, block_rows=1024):
     if n >= 2 ** 31 or B > 65535:
         raise ValueError("n must fit in int32, the batch in 65535")
     return _general_product_cuda(points, points, scales, V, nus, True)
+
+
+def matern_general_trace_batched(points, scales, nus, block_rows=1024):
+    """trace(K_b^2) for a batch of B Matern correlations over one set of
+    points, K_b[i, j] = k(|x_i - x_j| / scale_b; nu_b), each nu positive
+    (a closed form too), K never stored: the traces of a matrix-free grid
+    chunk. Arguments as :func:`matern_general_matmat_batched`; returns
+    (B,).
+
+    CPU tensors take :func:`matern_matmat_plain`'s sum point by point (the
+    inputs' dtype, ``block_rows`` rows at a time); CUDA tensors must be
+    float32 and contiguous and launch the trace entry of
+    ``csrc/matern_general.cu`` once for the whole batch (for a batch whose
+    partials pass ``_GENERAL_TRACE_PARTIALS``, once per
+    :func:`general_trace_batches` points), float64, each point with the
+    bits it has alone in :func:`matern_general_matmat`."""
+    nus, scales = _general_batch(points, scales, nus)
+    device = points.device
+    n, d = points.shape
+    if device.type == "cpu":
+        return torch.stack([
+            matern_matmat_plain(points, scales[b], None, nu, None, True,
+                                block_rows, "highest")[1]
+            for b, nu in enumerate(nus)])
+    if device.type != "cuda":
+        raise ValueError(f"matern_general_trace_batched runs on cpu or "
+                         f"cuda, not {device}")
+    scales = scales.contiguous()
+    _check_cuda_operands(d, (("points", points), ("scales", scales)))
+    if n >= 2 ** 31:
+        raise ValueError("n must fit in int32")
+    return _general_trace_cuda(points, points, scales, nus, True)

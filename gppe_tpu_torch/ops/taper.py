@@ -284,7 +284,8 @@ class TaperedMaternOperator:
         # on the device: the sorted points, the permutations, the pair list
         # as the row-tile pointer array the products walk, and the trace's
         # walk (the list is mirrored, so its sub-tile pairs of tiles
-        # ti <= tj, 128 x 128 points each)
+        # ti <= tj: 128 x 128 points each for a closed-form nu, 64 x 128 for
+        # a general nu)
         self.points_sorted = torch.as_tensor(pts_sorted, dtype=dtype,
                                              device=self.device)
         self._perm = torch.as_tensor(self.perm, device=self.device)
@@ -293,7 +294,7 @@ class TaperedMaternOperator:
             cuda_kernels.blocksparse_row_ptr(self.pair_i, num_tiles),
             device=self.device)
         self._pair_j = torch.as_tensor(self.pair_j, device=self.device)
-        walk = cuda_kernels.blocksparse_trace_schedule(
+        walk = cuda_kernels.blocksparse_trace_schedule_for(self.nu)(
             self.pair_i, self.pair_j, t, n)
         self._trace_walk = walk._replace(
             units=torch.as_tensor(walk.units, device=self.device))

@@ -1268,6 +1268,65 @@ def test_general_product_bands(dev, monkeypatch, symmetric):
             P, rhos[b], Vb[b], nus[b]))
 
 
+@pytest.mark.parametrize("n", [10_000, 40_000])
+def test_general_trace_against_float64(dev, n):
+    """The general-nu trace on the binned k tile at n = 10^4 and 40,000
+    random points (rho 0.1, nu = 1.2: the operator route's shape) against
+    the plain float64 trace, on the square K's walk (the pairs above the
+    diagonal, twice, and n) and on the rectangular one (the points given
+    as columns: every pair): rtol 1e-5 (chip_smoke.py's
+    GENERAL_TRACE_RTOL); one launch each; the same bits twice."""
+    P = torch.as_tensor(np.random.RandomState(n).rand(n, 2), dtype=F32,
+                        device=dev)
+    cuda_kernels.reset_launch_counts()
+    fro = cuda_kernels.matern_general_matmat(P, 0.1, None, 1.2,
+                                             frobenius=True)[1]
+    rect = cuda_kernels.matern_general_matmat(P, 0.1, None, 1.2,
+                                              points_cols=P.clone(),
+                                              frobenius=True)[1]
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 2
+    assert fro.dtype == F64 and float(fro) == float(
+        cuda_kernels.matern_general_matmat(P, 0.1, None, 1.2,
+                                           frobenius=True)[1])
+    want = float(cuda_kernels.matern_matmat_plain(
+        P.double(), kernels.broadcast_scale(0.1, 2, dtype=F64, device=dev),
+        None, 1.2, frobenius=True, block_rows=2048)[1])
+    for got in (fro, rect):
+        assert abs(float(got) - want) / want < 1e-5, (float(got), want)
+
+
+def test_general_trace_batch_equals_single_calls(dev, monkeypatch):
+    """A batch of six (scale, nu) points (per-dimension scales, a closed
+    form among them) in one trace launch equals its six single calls bit
+    for bit, and so do launches of two points each (the partials capped);
+    each within 1e-5 of float64."""
+    n = 3001
+    rng = np.random.RandomState(6)
+    P = torch.as_tensor(rng.rand(n, 2), dtype=F32, device=dev)
+    nus = (0.3, 1.2, 1.5, 3.7, 10.0, 24.9)
+    scales = torch.as_tensor(0.05 + 0.2 * rng.rand(6, 2), dtype=F32,
+                             device=dev)
+    cuda_kernels.reset_launch_counts()
+    batch = cuda_kernels.matern_general_trace_batched(P, scales, nus)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 1
+    blocks = cuda_kernels.trace_schedule(n, n, True)[4]
+    monkeypatch.setattr(cuda_kernels, "_GENERAL_TRACE_PARTIALS", 2 * blocks)
+    cuda_kernels.reset_launch_counts()
+    pairs = cuda_kernels.matern_general_trace_batched(P, scales, nus)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 3
+    assert torch.equal(batch, pairs)
+    for b, nu in enumerate(nus):
+        single = cuda_kernels.matern_general_matmat(P, scales[b], None, nu,
+                                                    frobenius=True)[1]
+        assert float(batch[b]) == float(single)
+        want = float(cuda_kernels.matern_matmat_plain(
+            P.double(), scales[b].double(), None, nu, frobenius=True)[1])
+        assert abs(float(single) - want) / want < 1e-5, (nu, want)
+
+
 def test_general_through_the_public_entry_points(dev):
     """matern_matmat and MaternOperator at a general nu run the general
     kernel (no closed-form launch) in every dot mode, with the same bits;
@@ -1326,7 +1385,7 @@ def test_general_operator_dense_runs_the_elementwise_kernel(dev):
 
 def test_general_grid_engine_cuda_matches_cpu(dev):
     """The grid engine over general nus, matrix-free (one batched product
-    launch a step, one band at n = 400, one trace launch per point),
+    launch a step, one band at n = 400, one trace launch for both points),
     against the same engine on the CPU in float64 from the same random
     block, at n = 400 (the CPU's plain version is slow): each point's eta
     within 5e-2 and sigma0 within 5e-3 (the reference's cuda-vs-cpu
@@ -1345,7 +1404,7 @@ def test_general_grid_engine_cuda_matches_cpu(dev):
     got = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device=dev,
                                       **kw).fit_all()
     assert cuda_kernels.launch_counts["matern_general_product"] == 12
-    assert cuda_kernels.launch_counts["matern_general_trace"] == 2
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 1
     assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 0
     want = GridKrylovProfileLikelihood(pts, X, z, rhos, nus, device="cpu",
                                        dtype=F64, **kw).fit_all()
@@ -1430,6 +1489,81 @@ def test_blocksparse_general_skip(dev, monkeypatch, n, tile, d, nu):
     err = float(torch.linalg.norm(got.double() - want)
                 / torch.linalg.norm(want))
     assert err < 1e-5, err
+
+
+def _traces_with_and_without_skip(monkeypatch, trace):
+    """``trace()`` with the taper skip, and with no pair skipped."""
+    skip2 = cuda_kernels._blocksparse_skip2
+    got = trace()
+    monkeypatch.setattr(cuda_kernels, "_blocksparse_skip2",
+                        lambda nu, tau: float("inf"))
+    every = trace()
+    monkeypatch.setattr(cuda_kernels, "_blocksparse_skip2", skip2)
+    return got, every
+
+
+@pytest.mark.parametrize("n, tile, d, nu", [(1000, 128, 2, 1.2),
+                                             (2000, 512, 2, 24.9),
+                                             (1000, 512, 3, 0.3)])
+def test_blocksparse_general_trace_skip(dev, monkeypatch, n, tile, d, nu):
+    """The tapered general-nu trace skips the pairs past the skip radius
+    and the units whose boxes lie past it: at the operator's threshold and
+    at one clear of every pair, the same bits as with no pair skipped (a
+    skipped pair or unit adds an exact 0), and within 1e-5 of float64 at
+    the clear one; one launch each, on the operator's walk of 64-row
+    units."""
+    op, args, kw = _tapered_any_d(dev, n, nu, tile, d, TAPER_SCALES[d],
+                                  seed=n + d)
+    assert op._trace_walk.unit_rows == 64
+    for tau in (op.threshold, args[1]):
+        targs = (args[0], tau, *args[2:])
+
+        def trace():
+            return cuda_kernels.matern_matmat_blocksparse(
+                op.points_sorted, None, *targs, frobenius=True,
+                trace_walk=op._trace_walk, **kw)[1]
+        assert np.isfinite(cuda_kernels._blocksparse_skip2(nu, tau))
+        cuda_kernels.reset_launch_counts()
+        got, every = _traces_with_and_without_skip(monkeypatch, trace)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} \
+            == {"matern_blocksparse_general_trace": 2}
+        assert got.dtype == F64 and float(got) == float(every)
+    want = cuda_kernels.matern_matmat_blocksparse_plain(
+        op.points_sorted.double(), None, *args, frobenius=True, **kw)[1]
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_blocksparse_general_trace_on_the_path_sub_list(dev, monkeypatch):
+    """The tapered path's trace at nu = 1.2 (chip_smoke.py phase 28: a
+    1024 x 1024 grid, rho 0.005, density 1e-3, tiles of 512) on the pair
+    list of its first 32 row tiles among themselves (94 tile pairs,
+    n = 16384): with and without the skip the same bits, within 1e-5 of
+    float64 at a threshold clear of every pair."""
+    pts = data_utils.generate_points(1024, dimension=2)
+    op = TaperedMaternOperator(pts, 0.005, nu=1.2, density=1e-3, device=dev)
+    keep = (op.pair_i < 32) & (op.pair_j < 32)
+    pi, pj = op.pair_i[keep], op.pair_j[keep]
+    assert len(pi) == 94
+    n = 32 * op.tile
+    P = op.points_sorted[:n]
+    kw = dict(n=n, row_ptr=torch.as_tensor(
+        cuda_kernels.blocksparse_row_ptr(pi, 32), device=dev))
+    geometry = (pi, torch.as_tensor(pj, device=dev), op.tile)
+    walk = cuda_kernels.blocksparse_general_trace_schedule(pi, pj, op.tile, n)
+    walk = walk._replace(units=torch.as_tensor(walk.units, device=dev))
+    tau = cuda_kernels.blocksparse_clear_threshold(
+        P.double(), 1.2, op.threshold, *geometry, **kw)
+
+    def trace():
+        return cuda_kernels.matern_matmat_blocksparse(
+            P, None, 1.2, tau, *geometry, frobenius=True, trace_walk=walk,
+            **kw)[1]
+    got, every = _traces_with_and_without_skip(monkeypatch, trace)
+    assert float(got) == float(every)
+    want = cuda_kernels.matern_matmat_blocksparse_plain(
+        P.double(), None, 1.2, tau, *geometry, frobenius=True, **kw)[1]
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_blocksparse_general_symmetry_and_closed_forms(dev):

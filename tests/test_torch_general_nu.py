@@ -367,7 +367,10 @@ class _GeneralLibrary:
     band to its rows in order of s, in float32, from 0 where the band holds
     the tile's first slot, as the kernel's second pass does; it checks
     each point's constants against _general_consts and keeps the scales
-    it was handed."""
+    it was handed. The trace takes each point's nu from its constants,
+    fills the launch's whole partials scratch, and sums, as the kernels
+    do, on a square K only the pairs above the diagonal, twice, and its
+    n ones."""
 
     def __init__(self, nus):
         self.nus = tuple(nus)
@@ -438,21 +441,34 @@ class _GeneralLibrary:
         self.calls.append(("product", r, batch, int(symmetric)))
         return 0
 
-    def gppe_matern_general_trace(self, rows, cols, partials, nr, nc, d,
-                                  symmetric, per_block, blocks, consts,
-                                  stream):
+    def gppe_matern_general_trace(self, rows, cols, scales, consts, partials,
+                                  out, nr, nc, d, symmetric, per_block,
+                                  blocks, batch, stream):
         assert (per_block, blocks) == cuda_kernels.trace_schedule(
             nr, nc, bool(symmetric))[3:]
-        x = _floats(rows, nr * d).reshape(nr, d).astype(np.float64)
-        y = _floats(cols, nc * d).reshape(nc, d).astype(np.float64)
-        K = tk.matern(tk.pairwise_scaled_distance(_t(x), _t(y), 1.0),
-                      self.nu).numpy()
-        out = np.ctypeslib.as_array(
+        assert not symmetric or (rows == cols and nr == nc)
+        x = _floats(rows, nr * d).reshape(nr, d)
+        y = _floats(cols, nc * d).reshape(nc, d)
+        sc = _floats(scales, batch * d).reshape(batch, d).copy()
+        self.scales.append(sc)
+        table = np.ctypeslib.as_array(
+            ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(batch * 1752,))
+        np.ctypeslib.as_array(
             ctypes.cast(partials, ctypes.POINTER(ctypes.c_double)),
-            shape=(blocks,))
-        out[:] = 0.0
-        out[0] = np.sum(K * K)
-        self.calls.append(("trace", int(symmetric), blocks))
+            shape=(batch * blocks,))[:] = 0.0
+        traces = np.ctypeslib.as_array(
+            ctypes.cast(out, ctypes.POINTER(ctypes.c_double)),
+            shape=(batch,))
+        for b in range(batch):
+            nu, = [nu for nu in self.nus
+                   if cuda_kernels._general_consts(nu).tobytes()
+                   == table[1752 * b:1752 * (b + 1)].tobytes()]
+            K = tk.matern(tk.pairwise_scaled_distance(
+                _t(x / sc[b]), _t(y / sc[b]), 1.0), nu).numpy()
+            traces[b] = (2.0 * np.sum(np.triu(K, 1) ** 2) + nr if symmetric
+                         else np.sum(K * K))
+        self.calls.append(("trace", int(symmetric), blocks, batch))
         return 0
 
     def gppe_matern_general_elementwise(self, x, out, n, consts, stream):
@@ -484,8 +500,8 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     """The card path of matern_general_matmat: one product launch per 32
     columns of V, each on its columns (V and out offset, strides r), a
     batch of one on the symmetric walk with the scale handed to the kernel;
-    one trace launch on the symmetric walk; each launch counted once. The
-    result equals the plain version."""
+    one trace launch on the symmetric walk, a batch of one; each launch
+    counted once. The result equals the plain version."""
     rng = np.random.RandomState(n + r)
     pts = _t(rng.rand(n, 2), F32)
     V = _t(rng.standard_normal((n, r)), F32) if r else None
@@ -497,7 +513,7 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     want_calls = [("product", w, 1, 1) for w in widths]
     if frobenius:
         want_calls.append(("trace", 1,
-                           cuda_kernels.trace_schedule(n, n, True)[4]))
+                           cuda_kernels.trace_schedule(n, n, True)[4], 1))
     assert general_library.calls == want_calls
     for sc in general_library.scales:
         np.testing.assert_array_equal(sc, np.float32([[0.1, 0.1]]))
@@ -597,7 +613,8 @@ def test_grid_chunk_one_product_launch_per_step(monkeypatch, problem,
                                                 random_block):
     """The matrix-free grid chunk over general nus: each Lanczos step one
     batched product launch for all its points (the block is 14 columns
-    wide), then one trace launch per point; the fits agree with the plain
+    wide), then one trace launch for all of them (each point's nu and
+    scale in it); the fits agree with the plain
     float64 chunk's (eta 5e-2, sigma0 5e-3: the card-vs-cpu bounds; two
     of the four points fit eta = inf in both)."""
     pts, z, X = problem
@@ -610,23 +627,29 @@ def test_grid_chunk_one_product_launch_per_step(monkeypatch, problem,
             points, points, scales[:, None].expand(len(nus), d).contiguous(),
             V, tuple(nus), True)
 
-    def trace(points, rho, V, nu, frobenius=False, block_rows=1024):
-        lib.nu = nu
-        scale = tk.broadcast_scale(rho, points.shape[1], dtype=points.dtype)
-        return cuda_kernels._matern_general_matmat_cuda(
-            points, scale, V, nu, None, frobenius)
+    def traces(points, scales, nus, block_rows=1024):
+        assert tuple(nus) == lib.nus
+        d = points.shape[1]
+        return cuda_kernels._general_trace_cuda(
+            points, points, scales[:, None].expand(len(nus), d).contiguous(),
+            tuple(nus), True)
 
     probes, v_defl = random_block
     kw = dict(lanczos_steps=STEPS, num_probes=PROBES, matrix_free=True,
               probes=probes, v_defl=v_defl)
     monkeypatch.setattr(cuda_kernels, "matern_general_matmat_batched", card)
-    monkeypatch.setattr(cuda_kernels, "matern_general_matmat", trace)
+    monkeypatch.setattr(cuda_kernels, "matern_general_trace_batched",
+                        traces)
     got = tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, GRID_NUS,
                                           device="cpu", dtype=F32, **kw)
     assert [c for c in lib.calls if c[0] == "product"] == [
         ("product", 14, len(RHOS), 1)] * STEPS
     assert cuda_kernels.launch_counts["matern_general_product"] == STEPS
-    assert cuda_kernels.launch_counts["matern_general_trace"] == len(RHOS)
+    assert [c for c in lib.calls if c[0] == "trace"] == [
+        ("trace", 1, cuda_kernels.trace_schedule(N, N, True)[4], len(RHOS))]
+    assert cuda_kernels.launch_counts["matern_general_trace"] == 1
+    np.testing.assert_array_equal(lib.scales[-1], np.repeat(
+        np.float32(RHOS)[:, None], 2, axis=1))
     monkeypatch.undo()
     want = tgk.GridKrylovProfileLikelihood(pts, X, z, RHOS, GRID_NUS, **kw,
                                            **CPU)

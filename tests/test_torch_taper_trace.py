@@ -93,26 +93,45 @@ def _walked_sub_pairs(walk, starts):
 
 
 def test_trace_walk_constants_match_the_sources():
-    """The schedule's unit of kTraceTile points, its weights and its
-    sub-tile ends are the kernels' own: the closed-form tapered trace's
-    and the general-nu one's, which share ``sub_tile_points`` through
-    ``matern_trace.cuh``."""
+    """The schedules' units, weights and sub-tile ends are the kernels'
+    own: the closed-form tapered trace's (units of kTraceTile points,
+    weight 2 off the sub-diagonal) and the general-nu one's (kTileRows
+    rows by kTraceTile columns, only the pairs above the diagonal, at
+    weight 2, on the symmetric walk), which share ``sub_tile_points``
+    through ``matern_trace.cuh``."""
     with open(os.path.join(CSRC, "matern_trace.cuh")) as f:
         header = f.read()
     assert f"constexpr int kTraceTile = {TILE};" in header
-    # a sub-tile ends at the end of its tile or at n, at most kTraceTile on
+    # a sub-tile ends at the end of its tile or at n, at most kSize on
+    assert "template <int kSize = kTraceTile>" in header
     assert "const int tile_end = (p0 / tile + 1) * tile;" in header
-    assert "return min(kTraceTile, min(tile_end, n) - p0);" in header
+    assert "return min(kSize, min(tile_end, n) - p0);" in header
+    with open(os.path.join(CSRC, "matern_general_tile.cuh")) as f:
+        tile = f.read()
+    assert (f"constexpr int kTileRows = {cuda_kernels._TILE_ROWS};"
+            in tile)
+    # with UPPER, pair (i, j) counts where j - i > diag
+    assert "(!UPPER || j - i > diag)" in tile
+    sources = {}
     for name in ("matern_blocksparse.cu", "matern_blocksparse_general.cu"):
         with open(os.path.join(CSRC, name)) as f:
-            src = f.read()
+            sources[name] = src = f.read()
         assert '#include "matern_trace.cuh"' in src
-        # weight 2 exactly where the walk is symmetric and rows != columns
-        assert "(symmetric && unit.x != unit.y ? 2.0 : 1.0)" in src
         # the units come as int2 (first row, first column)
         assert "const int2* __restrict__ units" in src
-        assert "const int rn = sub_tile_points(unit.x, tile, n);" in src
         assert "(p0 / tile + 1) * tile" not in src  # no second copy
+    src = sources["matern_blocksparse.cu"]
+    # weight 2 exactly where the walk is symmetric and rows != columns
+    assert "(symmetric && unit.x != unit.y ? 2.0 : 1.0)" in src
+    assert "const int rn = sub_tile_points(unit.x, tile, n);" in src
+    src = sources["matern_blocksparse_general.cu"]
+    # every counted pair at weight 2 on the symmetric walk; diag = first
+    # row less first column, so that only column > row counts
+    assert "const double weight = symmetric ? 2.0 : 1.0;" in src
+    assert "symmetric ? unit.x - unit.y : -kTileRows" in src
+    assert ("const int nrows = sub_tile_points<kTileRows>(unit.x, tile, n);"
+            in src)
+    assert "const int ncols = sub_tile_points(unit.y, tile, n);" in src
 
 
 @pytest.mark.parametrize("n, tile", [(1000, 128), (1500, 200), (4000, 512),

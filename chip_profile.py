@@ -4,6 +4,7 @@
     python3 chip_profile.py ptxas           # registers and spills per kernel
     python3 chip_profile.py main grid taper # torch.profiler, one setup each
     python3 chip_profile.py search          # the (rho, nu) search's setup
+    python3 chip_profile.py --parent DIR search  # and G1's assembly, sums
     python3 chip_profile.py --dot-mode bf16x3 grid taper
     python3 chip_profile.py modes           # kernel ms under each dot mode
     python3 chip_profile.py --parent DIR modes eta  # beside another commit
@@ -16,6 +17,7 @@
     python3 chip_profile.py --kernel K variants DIR...  # per kernel variant
     python3 chip_profile.py --parent DIR general-levers  # G1, G2 by lever
     python3 chip_profile.py --parent DIR general-traces  # their traces
+    python3 chip_profile.py assembly-levers # G1's assembly with, without bins
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -27,8 +29,14 @@ build one engine of chip_smoke.py's full-size paths twice - a warm-up,
 then one construction under ``torch.profiler`` - and print one JSON line:
 the host window, the device time by kernel name, and the device's idle
 share of the window (one minus the union of the kernel intervals over the
-window). ``--dot-mode`` makes that tile-dot mode the module default for
-the profiled setups.
+window). ``search`` then profiles ``find_optimal_covariance.main`` at
+chip_smoke.py's cuts (MAIN_CUTS) the same way, and with ``--parent`` runs
+``search_vs_parent``: G1's assembly (phase 22's K and main's chunk)
+against the parent's distance-plus-elementwise route, and main_large's
+step through both packages' products (the same bits, and this package's
+band sums on a second stream, two_stream_product), in turns, then
+main_large's 64 etas through both. ``--dot-mode`` makes that tile-dot
+mode the module default for the profiled setups.
 
 ``--parent DIR`` loads a second copy of the package, ``DIR/gppe_tpu_torch``
 (the parent commit, unpacked under the git-ignored ``build/``), beside this
@@ -133,10 +141,16 @@ trace at n = 10^4, rho 0.1, nu = 1.2 (the operator route's); the 64
 traces of ``main_large``'s chunk as 64 single calls (the parent's, this
 package's) and as one batched launch, beside the sum of their bounds; G2's
 trace over the full list at n = 2^20, nu = 1.2 (the parent's on its own
-walk of 128 x 128 units), this package's with and without the skip; G1's
+walk for that nu), this package's with and without the skip; G1's
 and G2's traces with the evaluation of k taken away
 (GENERAL_TRACE_PART_VARIANTS: the rest of a trace's time; those results
 are wrong); then the batched launch under ``torch.profiler``.
+
+``assembly-levers`` times G1's assembly against a copy whose k tile is
+filled pair by pair without the tile's bins (GENERAL_ASSEMBLY_VARIANTS,
+built as ``variants`` builds its copies), in turns, on phase 22's grid,
+on random points of the same n and on main's chunk, each beside its
+bound, with both outputs compared bit for bit.
 
 Exits non-zero without a CUDA device.
 """
@@ -945,6 +959,80 @@ GENERAL_TRACE_PART_VARIANTS = {
         "  return tile_sum_k2(s);")]}
 
 
+# the assembly's k tile filled pair by pair by the thread that owns it,
+# without the tile's bins (the walk, each pair's k and the symmetric stores
+# unchanged, so the same bits): what the binning buys the assembly
+GENERAL_ASSEMBLY_VARIANTS = {
+    "assembly_unbinned": [(
+        "matern_general.cu",
+        "    tile_classify<true>(s, t, nrows, ncols, d, kInf, c, diag);\n"
+        "    tile_evaluate<false>(s, t, c, 0.0f);\n",
+        "    __syncthreads();\n"
+        "    for (int e = threadIdx.x; e < kTilePairs; e += kTileThreads) {\n"
+        "      const int i = e / kTileCols;\n"
+        "      const int j = e % kTileCols;\n"
+        "      float v = 0.0f;\n"
+        "      if (i < nrows && j < ncols && j - i > diag) {\n"
+        "        const float d2 = pair_d2(t, i, j, d);\n"
+        "        v = d2 == 0.0f ? 1.0f : matern_general(sqrtf(d2), c);\n"
+        "      }\n"
+        "      s.k[k_index(i, j)] = v;\n"
+        "    }\n"
+        "    __syncthreads();\n")]}
+
+
+def assembly_levers(dev):
+    """G1's assembly with and without the k tile's bins
+    (GENERAL_ASSEMBLY_VARIANTS), in turns, median of REPS, each beside its
+    bound: K of phase 22's 64 x 64 grid and of 4096 uniform random points
+    (rho 0.1, nu = 3.7), and main's chunk (its 36 grid points on a 30 x 30
+    grid, float64); both variants' outputs compared bit for bit."""
+    out = {"nvidia_smi": cs.nvidia_smi(), "reps": REPS}
+    grid = torch.as_tensor(
+        cs.data_utils.generate_points(cs.DENSE_SIDE, dimension=2),
+        dtype=F32, device=dev)
+    rand = torch.as_tensor(np.random.RandomState(7).rand(len(grid), 2),
+                           dtype=F32, device=dev)
+    mp = torch.as_tensor(cs.data_utils.generate_points(
+        cs.MAIN_CUTS["num_points"], dimension=2), dtype=F32, device=dev)
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, cs.MAIN_CUTS["grid_rho"]),
+                       np.linspace(1.0, 25.0, cs.MAIN_CUTS["grid_nu"]),
+                       indexing="ij")
+    mr, mn = torch.tensor(R.ravel().tolist(), device=dev), N.ravel().tolist()
+    one = torch.tensor([cs.RHO], device=dev)
+    shapes = {
+        "grid_n4096": lambda: cuda_kernels.matern_general_assemble(
+            grid, one, (3.7,)),
+        "random_n4096": lambda: cuda_kernels.matern_general_assemble(
+            rand, one, (3.7,)),
+        "main_chunk": lambda: cuda_kernels.matern_general_assemble(
+            mp, mr, mn, out_dtype=torch.float64)}
+    tmp = tempfile.TemporaryDirectory()
+    libs = source_variants(tmp.name, GENERAL_ASSEMBLY_VARIANTS)
+    fns = {}
+    for key, fn in shapes.items():
+        fns[f"binned_{key}"] = fn
+        for name, lib in libs.items():
+            fns[f"{name}_{key}"] = with_library(lib, fn)
+    out["ms"], out["ms_all"] = cs.median_in_turns(fns, REPS)
+    out["same_bits"] = {
+        f"{name}_{key}": bool(torch.equal(fn(), with_library(lib, fn)()))
+        for key, fn in shapes.items() for name, lib in libs.items()}
+    tmp.cleanup()
+    out["bound_ms"] = {
+        "grid_n4096": cs.general_bound(
+            "assembly", len(grid), 2, None, 3.7,
+            cs.sample_pair_distances(grid, cs.RHO, seed=1))[0],
+        "random_n4096": cs.general_bound(
+            "assembly", len(rand), 2, None, 3.7,
+            cs.sample_pair_distances(rand, cs.RHO, seed=1))[0],
+        "main_chunk": sum(cs.general_bound(
+            "assembly", len(mp), 2, None, nu,
+            cs.sample_pair_distances(mp, float(rho), seed=b),
+            word=8)[0] for b, (rho, nu) in enumerate(zip(mr.tolist(), mn)))}
+    print(json.dumps({"phase": "assembly_levers", **out}), flush=True)
+
+
 def source_variants(tmp, variants):
     """{name: the kernel library of a copy of this package under
     ``tmp/name`` whose kernel sources carry that variant's substitutions},
@@ -1159,8 +1247,10 @@ def general_traces(dev, pkgs):
               "no_skip": keep("g2_no_skip", lambda: cs.without_skip(
                   g2(cuda_kernels, op._trace_walk)))}
     if parent is not None:
-        walk = parent.blocksparse_trace_schedule(op.pair_i, op.pair_j,
-                                                 op.tile, op.shape[0])
+        # the parent's own walk for this nu (the 64-row units of the
+        # general-nu trace since its redesign)
+        walk = parent.blocksparse_trace_schedule_for(op.nu)(
+            op.pair_i, op.pair_j, op.tile, op.shape[0])
         walk = walk._replace(units=torch.as_tensor(walk.units, device=dev))
         g2_fns["parent"] = keep("g2_parent", g2(parent, walk))
     for key, lib in parts.items():
@@ -1193,6 +1283,141 @@ def general_traces(dev, pkgs):
     print(json.dumps({"phase": "general_traces", **out}), flush=True)
 
 
+def two_stream_product(P, scales, W, nus):
+    """The batched general-nu product (r <= 32) with each band's sum on a
+    second stream, where it overlaps the next band's tile kernel: the
+    bands' slots in two halves of GENERAL_SLOT_BYTES, a band's tiles
+    waiting for the sum that last read its half, the sums in the walk's
+    order on one stream (the lever of the band sums' redesign, measured
+    here and not adopted unless it wins)."""
+    ck = cuda_kernels
+    B, n, r = W.shape
+    d = P.shape[1]
+    nus, scales = ck._general_batch(P, scales, nus)
+    scales = scales.contiguous()
+    lib = ck._general_library()
+    consts = ck._general_consts_device(nus, P.device)
+    saved = ck.GENERAL_SLOT_BYTES
+    ck.GENERAL_SLOT_BYTES = saved // 2
+    try:
+        walk = ck.general_product_bands(n, n, r, B, True)
+    finally:
+        ck.GENERAL_SLOT_BYTES = saved
+    halves = [torch.empty(walk.slot_floats, dtype=F32, device=P.device)
+              for _ in range(2)]
+    out = torch.empty((B, n, r), dtype=F32, device=P.device)
+    main_stream = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    read = [None, None]
+    for i, g0 in enumerate(range(0, walk.pairs, walk.band_pairs)):
+        h = i % 2
+        if read[h] is not None:
+            main_stream.wait_event(read[h])
+        band = min(walk.band_pairs, walk.pairs - g0)
+        err = lib.gppe_matern_general_product(
+            P.data_ptr(), P.data_ptr(), scales.data_ptr(), consts.data_ptr(),
+            W.data_ptr(), halves[h].data_ptr(), n, n, d, r, r, n * r, B, 1,
+            g0, band, walk.band_pairs, main_stream.cuda_stream)
+        ck._raise_on_cuda_error(lib, err, "matern_general_product")
+        tiles = torch.cuda.Event()
+        tiles.record(main_stream)
+        side.wait_event(tiles)
+        with torch.cuda.stream(side):
+            ck._general_product_sum_cuda(halves[h], out, n, True, g0, band,
+                                         walk.band_pairs)
+            read[h] = torch.cuda.Event()
+            read[h].record(side)
+    main_stream.wait_stream(side)
+    return out
+
+
+def search_vs_parent(dev, pkgs):
+    """G1's assembly and band sums beside the parent's, in turns (median
+    of REPS): the dense K at phase 22's shape (n = 4096, nu = 3.7) and
+    main's chunk (its 36 grid points at n = 900, float64) through this
+    package's assembly entry and the parent's route (the distance passes,
+    the elementwise entry, the stack and the float64 copy), with the
+    largest gap between them; main_large's step (n = 10^4, 64 points,
+    r = 16) through both packages' batched product, whose outputs must be
+    the same bits, and with the band sums on a second stream
+    (two_stream_product, also the same bits); the step of each under
+    torch.profiler (the tile kernel's and the sums' device time); then
+    main_large through both packages, whose 64 etas must be equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parent = pkgs["parent"][0]
+    out = {"nvidia_smi": cs.nvidia_smi(), "reps": REPS}
+    pts = cs.data_utils.generate_points(cs.DENSE_SIDE, dimension=2)
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    scale = torch.tensor([cs.RHO], device=dev)
+
+    def parent_route(P, rhos, nus, dtype):
+        K = torch.stack([parent.matern_general(
+            kernels.pairwise_scaled_distance(P, P, rho).contiguous(), nu)
+            for rho, nu in zip(rhos, nus)])
+        return K.to(dtype)
+    mp = torch.as_tensor(cs.data_utils.generate_points(
+        cs.MAIN_CUTS["num_points"], dimension=2), dtype=F32, device=dev)
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, cs.MAIN_CUTS["grid_rho"]),
+                       np.linspace(1.0, 25.0, cs.MAIN_CUTS["grid_nu"]),
+                       indexing="ij")
+    mr, mn = R.ravel().tolist(), N.ravel().tolist()
+    fns = {
+        "assembly_n4096": lambda: cuda_kernels.matern_general_assemble(
+            P, scale, (3.7,)),
+        "parent_route_n4096": lambda: parent_route(P, [cs.RHO], [3.7], F32),
+        "assembly_main_chunk": lambda: cuda_kernels.matern_general_assemble(
+            mp, torch.tensor(mr, device=dev), mn, out_dtype=torch.float64),
+        "parent_route_main_chunk": lambda: parent_route(mp, mr, mn,
+                                                        torch.float64)}
+    out["assembly_ms"], out["assembly_ms_all"] = cs.median_in_turns(fns,
+                                                                    REPS)
+    out["assembly_max_abs_gap_to_parent"] = {
+        "n4096": float((fns["assembly_n4096"]()
+                        - fns["parent_route_n4096"]()).abs().max()),
+        "main_chunk": float((fns["assembly_main_chunk"]()
+                             - fns["parent_route_main_chunk"]()).abs().max())}
+
+    Pl = torch.as_tensor(find_optimal_covariance.large_problem(cs.GENERAL_N)[0],
+                         dtype=F32, device=dev)
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
+                       indexing="ij")
+    rhos, nus = R.ravel().tolist(), N.ravel().tolist()
+    scales = torch.tensor(rhos, device=dev)
+    W = torch.randn((64, cs.GENERAL_N, 16),
+                    generator=torch.Generator(device=dev).manual_seed(14),
+                    device=dev)
+    step = {"change": lambda: cuda_kernels.matern_general_matmat_batched(
+                Pl, scales, W, nus),
+            "parent": lambda: parent.matern_general_matmat_batched(
+                Pl, scales, W, nus),
+            "change_two_streams": lambda: two_stream_product(Pl, scales, W,
+                                                             nus)}
+    out["step_ms"], out["step_ms_all"] = cs.median_in_turns(step, REPS)
+    a, b, c = (step[k]() for k in ("change", "parent", "change_two_streams"))
+    out["step_same_bits_as_parent"] = bool(torch.equal(a, b))
+    out["two_streams_same_bits"] = bool(torch.equal(a, c))
+    del a, b, c
+    out["step_device_ms"] = {}
+    for label, fn in step.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out["step_device_ms"][label] = {
+            re.sub(r"<.*", "", e.key)[:60]: e.device_time_total / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+    etas = {}
+    for label, (_, name) in pkgs.items():
+        drv = importlib.import_module(f"{name}.drivers.find_optimal_covariance")
+        res = drv.main_large(verbose=False, device=dev)
+        etas[label] = [r["eta"] for r in res["results"]]
+        out[f"main_large_setup_seconds_{label}"] = res["setup_seconds"]
+    out["main_large_etas_equal_parent"] = etas["change"] == etas["parent"]
+    print(json.dumps({"phase": "search_vs_parent", **out}), flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: needs an NVIDIA GPU")
@@ -1202,8 +1427,9 @@ def main(argv):
             argv[argv.index("--dot-mode") + 1])
     if "ptxas" in argv:
         ptxas_report()
-    pkgs = (packages(argv) if {"modes", "eta", "traces"} & set(argv)
-            else None)
+    pkgs = (packages(argv)
+            if {"modes", "eta", "traces"} & set(argv)
+            or ("search" in argv and "--parent" in argv) else None)
     if "modes" in argv:
         mode_times(dev, pkgs)
     if "traces" in argv:
@@ -1218,6 +1444,8 @@ def main(argv):
         general_levers(dev, packages(argv))
     elif "general-traces" in argv:
         general_traces(dev, packages(argv))
+    if "assembly-levers" in argv:
+        assembly_levers(dev)
     if "eta-main" in argv:
         eta_sensitivity(dev)
     if "variants" in argv:
@@ -1245,6 +1473,11 @@ def main(argv):
         profile_setup("search", lambda: GridKrylovProfileLikelihood(
             pts, X, z, R.ravel(), N.ravel(), lanczos_steps=40,
             num_probes=8, device=dev))
+        # main at chip_smoke.py's cuts: the whole search, lp chunks and DE
+        profile_setup("search_main", lambda: find_optimal_covariance.main(
+            verbose=False, device=dev, **cs.MAIN_CUTS))
+        if pkgs is not None:
+            search_vs_parent(dev, pkgs)
     if "taper" in argv:
         pts, z, X = cs.tapered_problem(cs.TAPER_SIDE)
         op = TaperedMaternOperator(pts, cs.TAPER_SCALE, nu=cs.NU,

@@ -29,12 +29,12 @@ each against its plain PyTorch version on the card:
     at n = 100,000, whose fit and likelihood run matern_matmat_mma at
     widths 1, 6, 16 and 32 and matern_matmat for trace(K^2);
   * general Matern nu on the general-nu kernel matern_general.cu: the
-    dense API at nu = 1.2 and 3.7 (its elementwise entry), MaternOperator
+    dense API at nu = 1.2 and 3.7 (its assembly entry), MaternOperator
     at n = 10,000 through KrylovProfileLikelihood (its product and trace
     entries), and the (rho, nu) search of
     drivers.find_optimal_covariance (main_large: n = 10,000 over an 8 x 8
     grid of general nus, one batched product call a Lanczos step; main
-    at a reduced size);
+    at a reduced size, one assembly launch per chunk of its lp calls);
   * the rest of the tapered slice: the scipy-sparse route
     (generate_correlation(sparse=True) on the native host builder ->
     GaussianProcess over a SparseOperator on cuSPARSE's SpMM) at
@@ -105,19 +105,25 @@ Phases, each raising on failure:
      its bound;
  21. the general-nu kernel (matern_general.cu) against plain float64:
      k over x in geomspace(1e-5, 40) at nu in {0.01, 0.3, 1.2, 3.7, 10,
-     24.9} (finite, in [0, 1], within 3e-5), the product at r in {1, 7,
+     24.9} (finite, in [0, 1], within 3e-5), the assembly of the six nus
+     in one launch at each shape below (each K within 3e-5, symmetric bit
+     for bit, a diagonal of ones, equal to its single call; float64 the
+     float32 widened; blocks of rows the square's rows), the product at r in {1, 7,
      16, 24} (the symmetric walk, the same bits twice; the rectangular
      walk at r = 24) and the trace at n = 1000 and 4096 (2-D) and 1000
      (3-D), within 1e-5 (the trace on the square and the rectangular walk,
      the same bits twice); one batched product launch over the six nus
      equal bit for bit to their single calls and to itself in bands of 7
-     tile pairs, one batched trace launch over them equal bit for bit to
+     tile pairs, each of those bands' sums through the sum kernel equal
+     bit for bit to its plain version on the band's captured slots, one
+     batched trace launch over them equal bit for bit to
      their single calls; at the closed forms the
      general kernel's branch, and matern_matmat launching the
      closed-form kernels only;
  22. the dense API at general nu: generate_correlation on phase 19's grid
-     at nu = 1.2 and 3.7 (the elementwise entry), GaussianProcess.train
-     in 'direct' and 'profiled'; the elementwise entry timed;
+     at nu = 1.2 and 3.7 (one assembly launch each), GaussianProcess.train
+     in 'direct' and 'profiled'; the assembly timed in turns against the
+     parent's route (the distance passes and the elementwise entry);
  23. MaternOperator at n = 10,000, nu = 1.2, through
      KrylovProfileLikelihood.fit (the product and trace entries, no
      closed-form kernel) against the float64 eigh route on the same K;
@@ -131,9 +137,12 @@ Phases, each raising on failure:
      per band of its walk: 40 x 13 launches; one trace launch for all 64
      points), its points (0.1, 1.0) and
      (0.3, 25.0) against the float64 eigh route on the same K (eta within
-     5e-2, the lp gap logged); and main cut to a 30 x 30 grid of points, a
+     5e-2, the lp gap logged); the band sums of one of its steps replayed
+     through the kernel and the plain version (the product's bits) and
+     timed; and main cut to a 30 x 30 grid of points, a
      6 x 6 (rho, nu) grid and DE with popsize 10 for at most 6
-     generations, its lp at three grid points
+     generations (at most one assembly launch per chunk of lp calls, no
+     elementwise launch), its lp at three grid points
      within 1e-5 of the CPU's float64 build_objective.
  25. the tapered general-nu kernel (matern_blocksparse_general.cu, G2)
      against plain float64: products at r in {1, 7, 24} and traces at
@@ -149,7 +158,8 @@ Phases, each raising on failure:
      against TaperedMaternOperator's fit on the same points and random
      block (eta 5e-2, sigma0 5e-3); the SpMM timed at the route's width
      beside its byte bound (a library call, not a kernel of the port); the
-     general-nu CSR builder at n = 2^16, nu = 1.2, on the card, its pattern
+     general-nu CSR builder at n = 2^16, nu = 1.2, on the card (one
+     assembly launch per block of rows), its pattern
      against the native builder's at nu = 1/2 (entries kept by one only
      must lie within 1e-5 of the threshold);
  27. the tapered general-nu engine at n = 4096 (grid side 64, rho 0.01,
@@ -2378,9 +2388,12 @@ def sample_pair_distances(P, rho, seed=0):
     return torch.sqrt(((S[i[keep]] - S[j[keep]]) ** 2).sum(dim=1))
 
 
-def general_bound(kind, n, d, r, nu, x_sample, elements=None):
+def general_bound(kind, n, d, r, nu, x_sample, elements=None, word=4):
     """bound() of one general-nu launch over this run's data: the
-    elementwise entry over ``elements`` distances; the symmetric product
+    elementwise entry over ``elements`` distances; the assembly of the
+    square K (n x n, ``word`` bytes an entry) on its symmetric walk, each
+    walk pair its distance and, off the diagonal, one k, the n d points
+    read and the n^2 entries written; the symmetric product
     K @ V (n x n, V n x r) and the trace over the n (n + 1) / 2 pairs of
     the symmetric walk (K is symmetric bit for bit), each pair its
     distance (3 d and a sqrt) and, off the diagonal, one k; then the
@@ -2395,7 +2408,9 @@ def general_bound(kind, n, d, r, nu, x_sample, elements=None):
     off = n * (n - 1) // 2
     pairs = off + n
     ops = pairs * 3 * d + off * work["fp32"]
-    if kind == "product":
+    if kind == "assembly":
+        nbytes = 4 * n * d + word * n * n
+    elif kind == "product":
         ops += n * n * 2 * r
         nbytes = 4 * (n * d + 2 * n * r)
     else:
@@ -2460,25 +2475,120 @@ def with_slot_budget(nbytes, fn):
         cuda_kernels.GENERAL_SLOT_BYTES = saved
 
 
-GENERAL_COUNTERS = ("matern_general_elementwise", "matern_general_product",
+GENERAL_COUNTERS = ("matern_general_elementwise", "matern_general_assembly",
+                    "matern_general_product", "matern_general_product_sum",
                     "matern_general_trace")
+
+
+def captured_band_sums(fn):
+    """``fn()`` and, for every band sum of the general-nu product that it
+    launches, its inputs as they stood: (slots, out before the sum, the
+    sum's other arguments), cloned."""
+    captured = []
+    sum_cuda = cuda_kernels._general_product_sum_cuda
+
+    def spy(slots, out, *args):
+        captured.append((slots.clone(), out.clone(), args))
+        return sum_cuda(slots, out, *args)
+    cuda_kernels._general_product_sum_cuda = spy
+    try:
+        return fn(), captured
+    finally:
+        cuda_kernels._general_product_sum_cuda = sum_cuda
+
+
+def band_sums_match_plain(captured):
+    """Each captured band sum through the kernel and through its plain
+    version on the same inputs: True where every band's outputs are the
+    same bits (compared as integers: the rows a band does not write hold
+    what the scratch held, NaN patterns too)."""
+    same = True
+    for slots, before, args in captured:
+        got, want = before.clone(), before.clone()
+        cuda_kernels.general_product_sum(slots, got, *args)
+        cuda_kernels.general_product_sum_plain(slots, want, *args)
+        same = same and bool(torch.equal(got.view(torch.int32),
+                                         want.view(torch.int32)))
+    return same
+
+
+def band_sum_bytes(captured):
+    """The bytes the captured band sums must move: each slot entry of a
+    row tile's rows read once, each row tile's out read where its band
+    continues a sum and written once."""
+    total = 0
+    for _, before, (nc, symmetric, g0, band, _) in captured:
+        B, nr, r = before.shape
+        for x, s_lo, pairs, _ in cuda_kernels.general_product_sum_slots(
+                nr, nc, symmetric, g0, g0 + band):
+            rows = min(cuda_kernels._TRACE_TILE, nr - x
+                       * cuda_kernels._TRACE_TILE)
+            total += 4 * B * rows * r * (len(pairs) + 1 + (s_lo > 0))
+    return total
+
+
+def scaled_f32(P, scale):
+    """The points divided by the scale in float32, as the general-nu
+    kernels divide them, then float64: the float64 references' inputs."""
+    return (P / torch.as_tensor(scale, dtype=F32, device=P.device)).double()
 CLOSED_FORM_COUNTERS = ("matern_matmat", "matern_matmat_mma",
                         "matern_matmat_multirho",
                         "matern_matmat_multirho_mma")
 
 
+def assembly_parity(dev, P, rhos):
+    """The assembly entry over GENERAL_NUS at the scales ``rhos`` on the
+    points P: one launch for the batch; each K against float64 on the
+    kernel's own float32 scaled points and against the plain float32
+    version (logged), symmetric bit for bit, a diagonal of ones, equal to
+    its single call; float64 output the float32 widened; blocks of rows
+    the square's rows, bit for bit."""
+    n, d = P.shape
+    scales = torch.tensor(rhos, device=dev)
+    cuda_kernels.reset_launch_counts()
+    K = cuda_kernels.matern_general_assemble(P, scales, GENERAL_NUS)
+    launches = cuda_kernels.launch_counts["matern_general_assembly"]
+    rec = {"n": n, "d": d, "launches": launches,
+           "float64_is_widened": bool(torch.equal(
+               cuda_kernels.matern_general_assemble(
+                   P, scales, GENERAL_NUS, out_dtype=F64), K.double())),
+           "rows_equal_square": all(
+               torch.equal(cuda_kernels.matern_general_assemble(
+                   P, scales, GENERAL_NUS, rows=rows), K[:, rows[0]:rows[1]])
+               for rows in ((0, 129), (n // 3, n), (n - 1, n))),
+           "per_nu": {}}
+    for b, nu in enumerate(GENERAL_NUS):
+        S = scaled_f32(P, rhos[b])
+        want = kernels.matern(kernels.pairwise_scaled_distance(S, S, 1.0), nu)
+        plain = kernels.matern(kernels.pairwise_scaled_distance(
+            P, P, rhos[b]), nu)
+        rec["per_nu"][nu] = {
+            "max_abs_err_vs_f64": float((K[b].double() - want).abs().max()),
+            "plain_f32_max_abs_err_vs_f64": float(
+                (plain.double() - want).abs().max()),
+            "symmetric_bits": bool(torch.equal(K[b], K[b].T)),
+            "diagonal_one": bool(torch.all(torch.diagonal(K[b]) == 1.0)),
+            "equal_to_single_call": bool(torch.equal(
+                cuda_kernels.matern_general_assemble(
+                    P, scales[b:b + 1], (nu,))[0], K[b]))}
+        del want, plain
+    return rec
+
+
 def phase_general_parity(dev):
-    """Phase 21: the three entries of the general-nu kernel against plain
+    """Phase 21: the entries of the general-nu kernel against plain
     float64 on the card. (a) k over x in geomspace(1e-5, 40) and 0 at each
-    nu of GENERAL_NUS: finite, in [0, 1], within GENERAL_K_ATOL; (b) and
+    nu of GENERAL_NUS: finite, in [0, 1], within GENERAL_K_ATOL; at each
+    shape below the assembly of the six nus (assembly_parity); (b) and
     (c) at n = 1000 and 4096 random 2-D points and n = 1000 3-D points,
     r in {1, 7, 16, 24}: products (the symmetric walk; the rectangular
     one at r = 24) and traces (both walks) within GENERAL_FROB_TOL and
     GENERAL_TRACE_RTOL, the product and the trace the same bits twice; one
     batched product launch over the nus at six scales equal bit for bit to
     the six single calls, and to itself with its walk cut into bands of 7
-    tile pairs; one batched trace launch over them equal bit for bit to
-    the six single calls.
+    tile pairs, each band's sum kernel equal bit for bit to the plain
+    version on its captured inputs; one batched trace launch over them
+    equal bit for bit to the six single calls.
     Then the closed forms: the general kernel at
     nu = 1/2, 3/2, 5/2 and 150 against their plain forms, and matern_matmat
     there launching the closed-form kernels only."""
@@ -2502,7 +2612,7 @@ def phase_general_parity(dev):
              and e["max_abs_err"] < GENERAL_K_ATOL for e in elem.values())
 
     g = torch.Generator(device=dev).manual_seed(21)
-    products, batches = [], []
+    products, batches, assemblies = [], [], []
     for n, d in ((1000, 2), (4096, 2), (1000, 3)):
         P = torch.rand((n, d), generator=g, device=dev)
         V = torch.randn((n, 24), generator=g, device=dev)
@@ -2540,6 +2650,7 @@ def phase_general_parity(dev):
         # one batched launch over every nu, each at its own scale: each
         # point the bits of its single call
         rhos = [RHO * (1.0 + b / 4.0) for b in range(len(GENERAL_NUS))]
+        assemblies.append(assembly_parity(dev, P, rhos))
         Vb = torch.randn((len(GENERAL_NUS), n, 24), generator=g, device=dev)
         cuda_kernels.reset_launch_counts()
         batch = cuda_kernels.matern_general_matmat_batched(
@@ -2548,11 +2659,13 @@ def phase_general_parity(dev):
         walk = cuda_kernels.general_product_bands(n, n, 24,
                                                   len(GENERAL_NUS), True)
         cuda_kernels.reset_launch_counts()
-        banded = with_slot_budget(
+        banded, band_inputs = captured_band_sums(lambda: with_slot_budget(
             4 * walk.slot_floats // walk.band_pairs * 7,
             lambda: cuda_kernels.matern_general_matmat_batched(
-                P, torch.tensor(rhos, device=dev), Vb, GENERAL_NUS))
+                P, torch.tensor(rhos, device=dev), Vb, GENERAL_NUS)))
         banded_launches = cuda_kernels.launch_counts["matern_general_product"]
+        sum_launches = cuda_kernels.launch_counts[
+            "matern_general_product_sum"]
         cuda_kernels.reset_launch_counts()
         traces = cuda_kernels.matern_general_trace_batched(
             P, torch.tensor(rhos, device=dev), GENERAL_NUS)
@@ -2565,8 +2678,12 @@ def phase_general_parity(dev):
                     P, rhos[b], None, nu, frobenius=True)[1])
                 for b, nu in enumerate(GENERAL_NUS)),
             "bands_of_7_launches": banded_launches,
+            "bands_of_7_sum_launches": sum_launches,
             "bands_of_7_expected": -(-walk.pairs // 7),
             "bands_of_7_equal": bool(torch.equal(batch, banded)),
+            # each band's sum through the kernel and its plain version on
+            # the band's captured slots and rows
+            "band_sums_equal_plain": band_sums_match_plain(band_inputs),
             "equal_to_single_calls": all(
                 torch.equal(batch[b], cuda_kernels.matern_general_matmat(
                     P, rhos[b], Vb[b], nu))
@@ -2582,7 +2699,17 @@ def phase_general_parity(dev):
                     and b["traces_equal_to_single_calls"]
                     and b["bands_of_7_equal"]
                     and b["bands_of_7_launches"] == b["bands_of_7_expected"]
+                    and b["bands_of_7_sum_launches"]
+                    == b["bands_of_7_expected"]
+                    and b["band_sums_equal_plain"]
                     for b in batches)
+    ok = ok and all(
+        a["launches"] == 1 and a["float64_is_widened"]
+        and a["rows_equal_square"]
+        and all(e["max_abs_err_vs_f64"] < GENERAL_K_ATOL
+                and e["symmetric_bits"] and e["diagonal_one"]
+                and e["equal_to_single_call"] for e in a["per_nu"].values())
+        for a in assemblies)
 
     # the closed forms: the general kernel's own branch for them (the
     # grid's mixed nus reach it), and the closed-form kernels unchanged:
@@ -2614,7 +2741,7 @@ def phase_general_parity(dev):
     log(phase="general_parity", ok=ok, nus=list(GENERAL_NUS),
         k_atol=GENERAL_K_ATOL, frob_tol=GENERAL_FROB_TOL,
         trace_rtol=GENERAL_TRACE_RTOL, elementwise=elem, products=products,
-        batches=batches, closed_forms=closed)
+        batches=batches, assemblies=assemblies, closed_forms=closed)
     if not ok:
         raise AssertionError("the general-nu kernel disagrees with float64")
 
@@ -2623,9 +2750,11 @@ def phase_general_dense_api(dev):
     """Phase 22: generate_correlation on the reference's 64 x 64 grid (rho
     0.1, noise 0.2, degree-2 basis, as phase 19) at nu = 1.2 and 3.7, then
     GaussianProcess(X, K).train(z) by both methods; the launch counts of
-    the two calls in one window per nu. Then the elementwise entry timed
-    at that shape (K of n = 4096: 16.8M distances) against its plain
-    version and its bound."""
+    the two calls in one window per nu (one assembly launch, no
+    elementwise one). Then, at that shape (K of n = 4096), the assembly
+    entry timed in turns against the parent's route (the distance passes,
+    then the elementwise entry over 16.8M distances), the elementwise
+    entry alone and both plain versions, each beside its bound."""
     pts = data_utils.generate_points(DENSE_SIDE, dimension=2)
     z, X = dense_problem(pts)
     P64 = torch.as_tensor(pts, dtype=F64, device=dev)
@@ -2657,43 +2786,71 @@ def phase_general_dense_api(dev):
               and all(f["success"] and f["finite"]
                       and 0.18 < f["sigma0"] < 0.22 for f in rec.values())
               and agree < 1e-3
-              and window[nu].get("matern_general_elementwise", 0) > 0)
+              and window[nu].get("matern_general_assembly", 0) == 1
+              and window[nu].get("matern_general_elementwise", 0) == 0)
         del K
 
-    # the elementwise entry at this shape: kernel, plain float32, bound
+    # the assembly at this shape against the parent's route (the distance
+    # passes, then the elementwise entry), in turns, beside the elementwise
+    # entry alone on the distances, the plain float32 version and their
+    # bounds
     P = torch.as_tensor(pts, dtype=F32, device=dev)
     dist = kernels.pairwise_scaled_distance(P, P, RHO).contiguous()
     nu = 3.7
-    got = cuda_kernels.matern_general(dist, nu)
-    err = float((got.double() - kernels.matern(dist.double(), nu))
-                .abs().max())
+    scale = torch.tensor([RHO], device=dev)
+    S = scaled_f32(P, RHO)
+    want = kernels.matern(kernels.pairwise_scaled_distance(S, S, 1.0), nu)
+    K = cuda_kernels.matern_general_assemble(P, scale, (nu,))[0]
+    asm_err = float((K.double() - want).abs().max())
+    route_err = float((cuda_kernels.matern_general(dist, nu).double()
+                       - want).abs().max())
+    elem_err = float((cuda_kernels.matern_general(dist, nu).double()
+                      - kernels.matern(dist.double(), nu)).abs().max())
+    del want, K
     med, times = median_in_turns({
-        "kernel": lambda: cuda_kernels.matern_general(dist, nu),
-        "plain": lambda: kernels.matern(dist, nu)}, reps=5)
+        "assembly": lambda: cuda_kernels.matern_general_assemble(
+            P, scale, (nu,)),
+        "parent_route": lambda: cuda_kernels.matern_general(
+            kernels.pairwise_scaled_distance(P, P, RHO).contiguous(), nu),
+        "elementwise": lambda: cuda_kernels.matern_general(dist, nu),
+        "plain": lambda: kernels.matern(
+            kernels.pairwise_scaled_distance(P, P, RHO), nu),
+        "plain_elementwise": lambda: kernels.matern(dist, nu)}, reps=5)
+    n = len(pts)
+    pair_sample = sample_pair_distances(P, RHO, seed=22)
+    asm_bound = general_bound("assembly", n, 2, None, nu, pair_sample)
     flat = dist.reshape(-1)
     sample = flat[torch.randint(0, flat.numel(), (TRIP_SAMPLE,),
                                 device=dev)]
     bound_ms, bound_by, term, work = general_bound(
         "elementwise", None, None, None, nu, sample, elements=flat.numel())
-    measured = {"max_abs_err": err, "ms": med["kernel"],
-                "plain_ms": med["plain"], "bound_ms": bound_ms,
+    measured = {"max_abs_err": elem_err, "ms": med["elementwise"],
+                "plain_ms": med["plain_elementwise"], "bound_ms": bound_ms,
                 "bound_by": bound_by}
-    log(phase="general_dense_api", ok=ok, n=len(pts), rho=RHO, fits=fits,
-        launches_per_nu=window, elementwise_nu=nu,
+    measured_asm = {"max_abs_err": asm_err, "ms": med["assembly"],
+                    "plain_ms": med["plain"], "bound_ms": asm_bound[0],
+                    "bound_by": asm_bound[1],
+                    "bound_share": asm_bound[0] / med["assembly"],
+                    "parent_route_ms": med["parent_route"],
+                    "parent_route_max_abs_err": route_err,
+                    "shape": f"K of n = {n} (2-D grid), rho {RHO}, nu {nu}"}
+    log(phase="general_dense_api", ok=ok, n=n, rho=RHO, fits=fits,
+        launches_per_nu=window, nu_timed=nu, assembly=measured_asm,
+        assembly_bound_term=asm_bound[2], assembly_work_per_k=asm_bound[3],
         elementwise_elements=flat.numel(), elementwise=measured,
         elementwise_bound_term=term, elementwise_work_per_k=work,
-        kernel_ms_all=times["kernel"])
+        ms_all=times)
     if not ok:
         raise AssertionError(f"dense public API at general nu failed: "
                              f"{fits}")
-    return window, measured
+    return window, measured, measured_asm
 
 
 def phase_general_operator_route(dev):
     """Phase 23: MaternOperator at n = 10^4 random points, nu = 1.2,
     through KrylovProfileLikelihood.fit() (64 steps, 16 probes), in its
     own launch window, against the float64 eigh route on the same K
-    assembled by the elementwise entry (GaussianProcess 'profiled'). Then
+    assembled by the assembly entry (GaussianProcess 'profiled'). Then
     the product timed at n = 10^4 and 10^5, r = 24, and the trace at
     both, each against its plain version (float32, row-blocked) where
     that runs in seconds, and its bound. At n = 10^5 the product's walk
@@ -2880,8 +3037,9 @@ def phase_general_search(dev):
     points, a launch per band of its walk, one trace launch for all 64
     points), two
     of its grid points against the float64 eigh route on the same K (eta
-    5e-2, the lp gap logged); then
-    main at MAIN_CUTS (the elementwise entry for every lp), its lp at
+    5e-2, the lp gap logged); the band sums of one of its steps
+    (step_band_sums); then main at MAIN_CUTS (one assembly launch at most
+    per chunk of lp calls, none of the elementwise entry), its lp at
     three grid points against the CPU's float64 build_objective."""
     cuda_kernels.reset_launch_counts()
     large = find_optimal_covariance.main_large(verbose=False, device=dev)
@@ -2925,11 +3083,24 @@ def phase_general_search(dev):
             "lp_gap": krylov["lp"] - lp_exact})
     ok = ok and all(c["eta_rel_gap"] < 5e-2 for c in large_f64)
 
-    cuda_kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    small = find_optimal_covariance.main(verbose=False, device=dev,
-                                         **MAIN_CUTS)
-    main_s = sync_seconds(t0)
+    measured_sum = step_band_sums(dev)
+
+    # main's lp chunks: each a call of assembly.correlations_of_points
+    chunk_calls = []
+    chunk_assembly = assembly.correlations_of_points
+
+    def counted(*args, **kw):
+        chunk_calls.append(len(args[2]))
+        return chunk_assembly(*args, **kw)
+    assembly.correlations_of_points = counted
+    try:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        small = find_optimal_covariance.main(verbose=False, device=dev,
+                                             **MAIN_CUTS)
+        main_s = sync_seconds(t0)
+    finally:
+        assembly.correlations_of_points = chunk_assembly
     main_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
     # main's lp against the CPU's float64 surface on its own points
     pts = data_utils.generate_points(MAIN_CUTS["num_points"], dimension=2)
@@ -2948,7 +3119,11 @@ def phase_general_search(dev):
     ok = (ok and bool(np.all(np.isfinite(small["Lp"])))
           and 0.1 <= small["de_rho"] <= 0.3
           and 1.0 <= small["de_nu"] <= 25.0 and np.isfinite(small["de_lp"])
-          and main_window.get("matern_general_elementwise", 0) > 0
+          and 0 < main_window.get("matern_general_assembly", 0)
+          <= len(chunk_calls)
+          and main_window.get("matern_general_elementwise", 0) == 0
+          and measured_sum["same_bits_as_the_product"]
+          and measured_sum["max_abs_err"] == 0.0
           and not any(main_window.get(k, 0) for k in CLOSED_FORM_COUNTERS))
     log(phase="general_search", ok=ok,
         main_large={"n": large["n"], "grid": [len(large["rhos"]),
@@ -2965,7 +3140,9 @@ def phase_general_search(dev):
                     "etas": [r["eta"] for r in large["results"]]},
         main_large_launches=large_window,
         main_large_vs_eigh_route=large_f64,
+        main_large_step_band_sums=measured_sum,
         main_cuts=MAIN_CUTS, main_seconds=main_s,
+        main_lp_chunks=len(chunk_calls), main_lp_chunk_points=chunk_calls,
         main_lp_vs_cpu_f64=main_f64, main_lp_rtol=MAIN_LP_RTOL,
         main={k: small[k] for k in ("max_lp", "optimal_rho", "optimal_nu",
                                     "de_rho", "de_nu", "de_lp",
@@ -2974,7 +3151,59 @@ def phase_general_search(dev):
     if not ok:
         raise AssertionError(f"(rho, nu) search failed: main_large "
                              f"{large['Lp']}, main {small}")
-    return large_window, main_window
+    return large_window, main_window, measured_sum
+
+
+def step_band_sums(dev):
+    """The band sums of one of main_large's Lanczos steps (n = 10^4, its
+    64 (rho, nu) points, r = 16: 13 bands), captured from a batched
+    product call: replayed from the first band's rows through the kernel
+    they give the product's output bits, as through the plain version;
+    the 13 sums timed in turns against the plain ones, beside their byte
+    bound. The record's numbers are per launch (a step's over 13)."""
+    P = torch.as_tensor(find_optimal_covariance.large_problem(GENERAL_N)[0],
+                        dtype=F32, device=dev)
+    R, N = np.meshgrid(np.linspace(0.1, 0.3, 8), np.linspace(1, 25, 8),
+                       indexing="ij")
+    scales = torch.tensor(R.ravel().tolist(), device=dev)
+    nus = N.ravel().tolist()
+    W = torch.randn((64, GENERAL_N, 16),
+                    generator=torch.Generator(device=dev).manual_seed(24),
+                    device=dev)
+    out, bands = captured_band_sums(
+        lambda: cuda_kernels.matern_general_matmat_batched(P, scales, W,
+                                                           nus))
+    first = bands[0][1]
+
+    def replay(fn):
+        o = first.clone()
+        for slots, _, args in bands:
+            fn(slots, o, *args)
+        return o
+    kernel = replay(cuda_kernels.general_product_sum)
+    plain = replay(cuda_kernels.general_product_sum_plain)
+    scratch = first.clone()
+    med, times = median_in_turns({
+        "kernel": lambda: [cuda_kernels.general_product_sum(
+            slots, scratch, *args) for slots, _, args in bands],
+        "plain": lambda: [cuda_kernels.general_product_sum_plain(
+            slots, scratch, *args) for slots, _, args in bands]}, reps=5)
+    nbytes = band_sum_bytes(bands)
+    step_bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    k = len(bands)
+    rec = {"max_abs_err": float((kernel - plain).abs().max()),
+           "ms": med["kernel"] / k, "plain_ms": med["plain"] / k,
+           "bound_ms": step_bound / k, "bound_by": "bytes",
+           "bound_share": step_bound / med["kernel"],
+           "same_bits_as_the_product": bool(torch.equal(kernel, out)),
+           "bands": k, "step_ms": med["kernel"], "step_plain_ms": med["plain"],
+           "step_bound_ms": step_bound, "step_bytes": nbytes,
+           "slot_bytes_per_band": 4 * bands[0][0].numel(),
+           "step_ms_all": times["kernel"],
+           "shape": f"main_large's step: n = {GENERAL_N}, 64 points, r = 16, "
+                    f"{k} bands"}
+    del bands, out, kernel, plain, scratch, first
+    return rec
 
 
 # -- the rest of the tapered slice (phases 25-28) -----------------------------
@@ -3123,7 +3352,8 @@ def phase_sparse_route(dev):
     block (eta 5e-2, sigma0 5e-3: phase 11's bounds). The SpMM timed at the
     route's width beside its byte bound, in float64 (the route's) and
     float32. Then the general-nu CSR builder at n = 2^16, nu = 1.2 (G1's
-    elementwise entry on the card), its pattern against the native
+    assembly entry on the card, one launch per block of rows, in a launch
+    window of its own), its pattern against the native
     builder's at nu = 1/2: the same ball, so the two differ only by
     entries within 1e-5 (relative) of the threshold, counted."""
     pts, z, X = tapered_problem(SPARSE_SIDE)
@@ -3195,7 +3425,7 @@ def phase_sparse_route(dev):
                                            TAPER_GENERAL_NU, TAPER_DENSITY,
                                            device=dev)
     general_s = sync_seconds(t0)
-    elementwise = cuda_kernels.launch_counts["matern_general_elementwise"]
+    csr_window = {k: v for k, v in cuda_kernels.launch_counts.items() if v}
     t0 = time.perf_counter()
     N = taper.generate_tapered_correlation(pts16, TAPER_SCALE, NU,
                                            TAPER_DENSITY, device=dev)
@@ -3210,7 +3440,11 @@ def phase_sparse_route(dev):
         P[flipped.row] - P[flipped.col], axis=1)), TAPER_GENERAL_NU).numpy()
     flipped_near_tau = int(np.sum(np.abs(k64 - tau) < 1e-5 * tau))
     general_near_tau = int(np.sum(np.abs(G.data - tau) < 1e-5 * tau))
-    ok = (ok and elementwise > 0 and flipped_near_tau == flipped.nnz
+    # the blocked rule's blocks of rows, each one assembly launch
+    blocks = -(-n16 // taper._tapered_block_rows(
+        n16, 2, TAPER_GENERAL_NU, torch.device(dev), F32))
+    ok = (ok and csr_window == {"matern_general_assembly": blocks}
+          and flipped_near_tau == flipped.nnz
           and bool(np.all(G.diagonal() == 1.0)))
     log(phase="sparse_route", ok=ok, n=n, scale=TAPER_SCALE, nu=NU,
         density=TAPER_DENSITY, lanczos_steps=STEPS, num_probes=PROBES,
@@ -3228,7 +3462,8 @@ def phase_sparse_route(dev):
         eta_rel_gap=eta_gap, sigma0_rel_gap=sigma0_gap, spmm_width=width,
         spmm=spmm, spmm_float32_frob_vs_float64=spmm_err,
         general_csr={"n": n16, "nu": TAPER_GENERAL_NU, "seconds": general_s,
-                     "elementwise_launches": elementwise, "nnz": int(G.nnz),
+                     "launches": csr_window, "row_blocks": blocks,
+                     "nnz": int(G.nnz),
                      "tau": tau, "entries_near_tau":
                      general_near_tau},
         native_csr_nu_half={"n": n16, "seconds_host": native16_s,
@@ -3238,7 +3473,7 @@ def phase_sparse_route(dev):
     if not ok:
         raise AssertionError(f"the scipy-sparse route failed: {res}, "
                              f"tapered operator {ref}")
-    return spmm
+    return spmm, csr_window
 
 
 def phase_tapered_general_engine(dev):
@@ -3580,30 +3815,34 @@ def main():
     launches_fit, launches_lp, launches_api = phase_public_operator_route(
         dev, main_fit)
     phase_general_parity(dev)
-    launches_22, measured_elem = phase_general_dense_api(dev)
+    launches_22, measured_elem, measured_asm = phase_general_dense_api(dev)
     launches_23, (measured_prod, measured_gtrace) = \
         phase_general_operator_route(dev)
-    launches_large, launches_main = phase_general_search(dev)
+    launches_large, launches_main, measured_sum = phase_general_search(dev)
     phase_g2_parity(dev)
-    phase_sparse_route(dev)
+    launches_csr = phase_sparse_route(dev)[1]
     small_fit, launches_27 = phase_tapered_general_engine(dev)
     launches_28, (measured_g2, measured_g2_trace) = \
         phase_tapered_general_path(dev, small_fit)
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
-               "main": launches_main}
-    expected = {"matern_general_elementwise": ("dense_api_nu1.2",
-                                               "dense_api_nu3.7", "main"),
+               "main": launches_main, "general_csr_2e16": launches_csr}
+    dense = ("dense_api_nu1.2", "dense_api_nu3.7", "main",
+             "general_csr_2e16")
+    expected = {"matern_general_assembly": dense,
                 "matern_general_product": ("operator_route", "main_large"),
+                "matern_general_product_sum": ("operator_route",
+                                               "main_large"),
                 "matern_general_trace": ("operator_route", "main_large")}
     per_path = {k: {path: w.get(k, 0) for path, w in windows.items()}
                 for k in GENERAL_COUNTERS}
     missing = [(k, path) for k, paths in expected.items() for path in paths
                if per_path[k][path] == 0]
-    if missing:
+    if missing or any(per_path["matern_general_elementwise"].values()):
         raise AssertionError(f"a general-nu kernel was never launched on a "
-                             f"path that runs it: {missing}, {per_path}")
+                             f"path that runs it, or the elementwise entry "
+                             f"was: {missing}, {per_path}")
 
     def g2_record(entry, replaces, measured):
         counter = f"matern_blocksparse_general_{entry}"
@@ -3620,9 +3859,9 @@ def main():
                             replaces, sum(counts.values()), measured,
                             launches_per_path=counts)
         if entry == "product":
-            # each counted launch is the tile kernel and its band's sum
-            # kernel (matern_general_product_sum_kernel); ms covers both
-            rec["sum_launches"] = rec["launches"]
+            # ms covers the tile kernel and its band's sums (the
+            # product_sum record times the sums alone)
+            rec["ms_includes"] = "matern_general[product_sum]"
         return rec
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
@@ -3680,11 +3919,18 @@ def main():
                       launches_default["matern_matmat_blocksparse_mma"],
                       measured["blocksparse_bf16x3"]),
         # general nu: no Pallas kernel; XLA-fused on the TPU at these sites
+        general_record("assembly", "gppe_tpu/ops/assembly.py:22",
+                       measured_asm),
+        # the elementwise entry: no path runs it (launches_per_path all 0),
+        # the probe of k over any distances
         general_record("elementwise", "gppe_tpu/ops/assembly.py:22",
                        measured_elem),
         general_record("product", "gppe_tpu/ops/operators.py:22; "
                        "gppe_tpu/models/grid_krylov.py:128-141",
                        measured_prod),
+        general_record("product_sum", "gppe_tpu/ops/operators.py:22; "
+                       "gppe_tpu/models/grid_krylov.py:128-141",
+                       measured_sum),
         general_record("trace", "gppe_tpu/ops/operators.py:42; "
                        "gppe_tpu/models/grid_krylov.py:128-141",
                        measured_gtrace),

@@ -30,8 +30,8 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   drivers.maximize_likelihood_direct_method times it;
 * general Matern nu (the Bessel K_nu of ops.special) on every dense path:
   generate_correlation, MaternOperator and the grid engine over per-point
-  (rho, nu), on the general-nu kernel ``matern_general`` (elementwise
-  assembly, K @ V, trace(K^2)); drivers.find_optimal_covariance runs the
+  (rho, nu), on the general-nu kernel ``matern_general`` (the fused
+  assembly from the points, K @ V, trace(K^2)); drivers.find_optimal_covariance runs the
   (rho, nu) search over it (ops.global_opt.differential_evolution,
   models.priors).
 

@@ -1,12 +1,19 @@
-// The general-nu Matern correlation on Hopper (sm_90a): three entries over
+// The general-nu Matern correlation on Hopper (sm_90a): four entries over
 // one device function, matern_general (matern_bessel.cuh):
 //
 //   (a) elementwise: out[i] = k(x[i]; nu) over a buffer of scaled
-//       distances, the assembly of a dense K;
-//   (b) product: out_b = K_b @ V_b for a batch of B (scale, nu) points of
+//       distances (no path runs it: the probe of k's accuracy);
+//   (b) assembly: K_b[i, j] = k(|x_i - x_j| / scale_b; nu_b) for a batch
+//       of B (scale, nu) points over one set of points, rows [r0, r0 +
+//       nr) and all n columns, float32 or float64, the dense K of
+//       generate_correlation, MaternOperator.dense, the grid engine's
+//       dense chunk, the (rho, nu) search's spectra and the tapered
+//       blocked rule;
+//   (c) product: out_b = K_b @ V_b for a batch of B (scale, nu) points of
 //       one grid chunk (B = 1: one operator), K_b[i, j] =
 //       k(|x_i - y_j| / scale_b; nu_b), K never stored, float32 FMA sums;
-//   (c) trace: out_b = trace(K_b^2) for a batch of (scale, nu) points,
+//       its band's sums a second entry;
+//   (d) trace: out_b = trace(K_b^2) for a batch of (scale, nu) points,
 //       on the walk of matern_trace.cuh, float64 block partials summed in
 //       order by a second kernel.
 //
@@ -27,16 +34,28 @@
 // FP32 operations and a few MUFU operations per pair, against d + 2r for
 // the distance and the product and 2 for k^2. Device memory moves O(n (d +
 // r)) words against O(n^2) such k: the kernels are bound by FP32 issue,
-// never by HBM, and the tensor cores would bring nothing.
+// never by HBM, and the tensor cores would bring nothing. The assembly
+// writes its n^2 words, which at ~130 FP32 operations a word (k once per
+// unordered pair) still take less time than k.
 //
 // What the design does about it:
 //   * nu is a per-launch (per grid point) constant: everything that depends
 //     on nu alone is computed once on the host in float64, so a pair only
 //     runs its branch's loop and the recurrence, and leaves the loop when
 //     its own series has converged;
-//   * the product fills branch-binned k tiles (matern_general_tile.cuh):
-//     a warp evaluates 32 pairs of one branch and alike trips, where one
-//     row a lane ran both branches in most warps;
+//   * the assembly, the product and the trace fill branch-binned k tiles
+//     (matern_general_tile.cuh): a warp evaluates 32 pairs of one branch
+//     and alike trips, where one row a lane ran both branches in most warps;
+//   * the assembly walks the product's tile pairs (only tj >= ti of a
+//     square K), each tile pair one block in two k tiles of 64 rows that
+//     evaluate only the pairs above K's diagonal: each k is written to
+//     K[i, j] (a warp one row's 32 columns) and, from the same shared tile
+//     read column-wise, to K[j, i] (a warp 32-byte runs of rows), so K is
+//     symmetric bit for bit, and K[i, i] = 1 is written as it stands. A
+//     block of rows (the rectangular form) walks every tile pair of the
+//     block and writes each k once. The same device functions and the same
+//     FMA order of the distance as the product: a pair's k is the
+//     product's k;
 //   * the product walks the tile pairs of 128 x 128 points row tile by
 //     row tile (only tj >= ti of a square K, symmetric bit for bit in the
 //     difference form, as matern_trace.cuh argues), each tile pair one
@@ -54,6 +73,11 @@
 //     so the sum is the same bits however the walk is cut. The product
 //     takes that scratch and O(n r) a point, where one slot per tile pair
 //     would take n^2 r / 32 bytes a point;
+//   * the band's sum is one block per (row tile, point): the block finds
+//     its row tile's slots in the band once, each thread keeps the running
+//     sums of its fixed entries of the tile in registers and reads the
+//     slots as float4, four slots in flight, adding them in the order of
+//     s; a block whose row tile has no slot in the band leaves at once;
 //   * each launch covers the whole batch: grid.y is the point, each block
 //     copies its point's constants (1752 bytes) and scale into shared
 //     memory and divides its points by the scale itself (IEEE division),
@@ -275,44 +299,184 @@ __global__ void __launch_bounds__(kTileThreads, RC == 16 ? 4 : 3)
   }
 }
 
-// The band's sum, one thread an entry (b, row, q) of rows [row0, row1):
-// the slots of the band's pairs g0 <= g < g1 that write the row's tile x,
-// in order of s, added to out_b[row, q] (to 0 where the band holds the
-// tile's first slot). Band after band in the walk's order, this is the
-// one sum over s of the tile's slots, the same bits whatever the bands.
+// The band's sum, block (x - x0, b) for row tile x of point b: the slots
+// s_lo <= s < s_hi of the band's pairs g0 <= g < g1 that write row tile x
+// (found once, by thread 0 and 1), in order of s, added to out_b's rows of
+// the tile (to 0 where the band holds the tile's first slot). A slot is
+// kTraceTile x r floats, row-major; thread x keeps the running sums of its
+// float4 entries f = x + 256 u (u < RC / 8) of the tile in registers and
+// reads four slots' float4 at a time before it adds them, in order. Band
+// after band in the walk's order, this is the one sum over s of the tile's
+// slots, the same bits whatever the bands.
+template <int RC>
 __global__ void __launch_bounds__(256)
     matern_general_product_sum_kernel(const float* __restrict__ slots,
-                                      float* __restrict__ out, int r,
-                                      int ldo, int64_t out_stride, int row0,
-                                      int rows, int tiles_r, int tiles_c,
+                                      float* __restrict__ out, int nr, int r,
+                                      int ldo, int64_t out_stride, int x0,
+                                      int tiles_r, int tiles_c,
                                       bool symmetric, int64_t g0,
-                                      int64_t g1, int64_t slot_pairs,
-                                      int64_t total) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (e >= total) return;
-  const int q = static_cast<int>(e % r);
-  const int64_t br = e / r;
-  const int row = row0 + static_cast<int>(br % rows);
-  const int64_t b = br / rows;
-  const int x = row / kTraceTile;
+                                      int64_t g1, int64_t slot_pairs) {
+  constexpr int U = RC / 8;   // float4 entries a thread: 32 r of a tile
+  constexpr int kAhead = 4;   // slots in flight
+  __shared__ int s_range[2];
+  const int x = x0 + blockIdx.x;
+  const int b = blockIdx.y;
   const int count = symmetric ? tiles_r : tiles_c;
-  const int s_lo =
-      product_first_slot(g0, x, count, tiles_r, tiles_c, symmetric);
-  const int s_hi =
-      product_first_slot(g1, x, count, tiles_r, tiles_c, symmetric);
+  if (threadIdx.x < 2) {
+    s_range[threadIdx.x] = product_first_slot(threadIdx.x == 0 ? g0 : g1, x,
+                                              count, tiles_r, tiles_c,
+                                              symmetric);
+  }
+  __syncthreads();
+  const int s_lo = s_range[0];
+  const int s_hi = s_range[1];
   if (s_lo >= s_hi) return;
   const int sides = symmetric ? 2 : 1;
-  const int64_t slot = static_cast<int64_t>(kTraceTile) * r;
-  const float* src = slots + b * slot_pairs * sides * slot +
-                     (row % kTraceTile) * r + q;
-  float* dst = out + b * out_stride + static_cast<int64_t>(row) * ldo + q;
-  float sum = s_lo == 0 ? 0.0f : *dst;
-  for (int s = s_lo; s < s_hi; ++s) {
-    const int64_t p =
-        product_slot_pair(x, s, tiles_r, tiles_c, symmetric) - g0;
-    sum += src[(p * sides + (symmetric && s < x ? 1 : 0)) * slot];
+  const int64_t slot4 = static_cast<int64_t>(kTraceTile) * r / 4;
+  const int entries = min(kTraceTile, nr - x * kTraceTile) * r;
+  const float4* src = reinterpret_cast<const float4*>(slots) +
+                      static_cast<int64_t>(b) * slot_pairs * sides * slot4;
+  float* dst = out + static_cast<int64_t>(b) * out_stride +
+               static_cast<int64_t>(x) * kTraceTile * ldo;
+  float acc[U][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int f = threadIdx.x + 256 * u;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int e = 4 * f + w;
+      acc[u][w] = (s_lo == 0 || e >= entries)
+                      ? 0.0f
+                      : dst[(e / r) * ldo + e % r];
+    }
   }
-  *dst = sum;
+  for (int s0 = s_lo; s0 < s_hi; s0 += kAhead) {
+    float4 v[kAhead][U] = {};
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int s = s0 + k;
+      if (s < s_hi) {
+        const int64_t p =
+            product_slot_pair(x, s, tiles_r, tiles_c, symmetric) - g0;
+        const float4* slot =
+            src + (p * sides + (symmetric && s < x ? 1 : 0)) * slot4;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int f = threadIdx.x + 256 * u;
+          if (f < slot4) v[k][u] = slot[f];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (s0 + k < s_hi) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          acc[u][0] += v[k][u].x;
+          acc[u][1] += v[k][u].y;
+          acc[u][2] += v[k][u].z;
+          acc[u][3] += v[k][u].w;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int f = threadIdx.x + 256 * u;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int e = 4 * f + w;
+      if (e < entries) dst[(e / r) * ldo + e % r] = acc[u][w];
+    }
+  }
+}
+
+// The assembly, block (p, b): tile pair p of the product's walk
+// (product_pair) for point b, as k tiles of kTileRows rows, written to
+// out_b = out + b nr nc (nr rows of nc entries, T float or double: the
+// float32 k widened). Symmetric (rows are the columns): each k tile
+// evaluates only the pairs above K's diagonal and writes each k to K[i, j]
+// and K[j, i], and 1 to K[i, i]; else every pair of the tile, once.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 4)
+    matern_general_assembly_kernel(
+        const float* __restrict__ rows, const float* __restrict__ cols,
+        const float* __restrict__ scales,
+        const MaternGeneralConsts* __restrict__ consts, T* __restrict__ out,
+        int nr, int nc, int d, int tiles_r, int tiles_c, bool symmetric) {
+  // the mirror's lanes: G consecutive rows of the k tile (one 32-byte run
+  // of a row of K) at each of 32 / G columns, so both stores are coalesced
+  constexpr int G = 32 / static_cast<int>(sizeof(T));
+  extern __shared__ float4 smem_raw[];
+  TraceTileSmem& s = *reinterpret_cast<TraceTileSmem*>(smem_raw);
+  __shared__ TilePoints t;
+  __shared__ MaternGeneralConsts c;
+  __shared__ float s_scale[kMaxD];
+  const int b = blockIdx.y;
+  {
+    const int* src = reinterpret_cast<const int*>(consts + b);
+    int* dst = reinterpret_cast<int*>(&c);
+    for (int w = threadIdx.x; w < static_cast<int>(sizeof(c) / 4);
+         w += kTileThreads) {
+      dst[w] = src[w];
+    }
+  }
+  if (threadIdx.x < kMaxD) {
+    s_scale[threadIdx.x] =
+        threadIdx.x < d ? scales[b * d + threadIdx.x] : 1.0f;
+  }
+  const TilePair tp = product_pair(blockIdx.x, tiles_r, tiles_c, symmetric);
+  const int i0 = tp.ti * kTraceTile;
+  const int j0 = tp.tj * kTraceTile;
+  const int ncols = min(kTraceTile, nc - j0);
+  const int nrows_tile = min(kTraceTile, nr - i0);
+  T* K = out + static_cast<int64_t>(b) * nr * nc;
+  __syncthreads();  // the scale and the constants
+  for (int e = threadIdx.x; e < kMaxD * kTileCols; e += kTileThreads) {
+    const int k = e / kTileCols;
+    const int j = e % kTileCols;
+    t.cx[k][j] = (k < d && j < ncols)
+                     ? cols[static_cast<int64_t>(j0 + j) * d + k] / s_scale[k]
+                     : 0.0f;
+  }
+  for (int r0 = 0; r0 < nrows_tile; r0 += kTileRows) {
+    const int nrows = min(kTileRows, nrows_tile - r0);
+    for (int e = threadIdx.x; e < kMaxD * kTileRows; e += kTileThreads) {
+      const int k = e / kTileRows;
+      const int i = e % kTileRows;
+      t.rx[k][i] =
+          (k < d && i < nrows)
+              ? rows[static_cast<int64_t>(i0 + r0 + i) * d + k] / s_scale[k]
+              : 0.0f;
+    }
+    // the square K: pair (i, j) is evaluated where column j0 + j passes row
+    // i0 + r0 + i (j - i > diag) and is K's diagonal where j - i == diag;
+    // any pair of a block of rows (j - i > -kTileRows)
+    const int diag = symmetric ? i0 + r0 - j0 : -kTileRows;
+    tile_classify<true>(s, t, nrows, ncols, d, kInf, c, diag);
+    tile_evaluate<false>(s, t, c, 0.0f);
+    for (int e = threadIdx.x; e < kTilePairs; e += kTileThreads) {
+      const int i = e / kTileCols;
+      const int j = e % kTileCols;
+      if (i < nrows && j < ncols && j - i >= diag) {
+        const float kv = j - i == diag ? 1.0f : s.k[k_index(i, j)];
+        K[static_cast<int64_t>(i0 + r0 + i) * nc + j0 + j] =
+            static_cast<T>(kv);
+      }
+    }
+    if (symmetric) {
+      for (int e = threadIdx.x; e < kTilePairs; e += kTileThreads) {
+        const int i = (e / (G * kTileCols)) * G + e % G;
+        const int j = (e / G) % kTileCols;
+        if (i < nrows && j < ncols && j - i > diag) {
+          K[static_cast<int64_t>(j0 + j) * nc + i0 + r0 + i] =
+              static_cast<T>(s.k[k_index(i, j)]);
+        }
+      }
+    }
+    // the next k tile's classify starts with a barrier before it writes
+    // the tile; the stores above read nothing of the staged points
+  }
 }
 
 // Block (q, b): tile pairs [q per_block, (q + 1) per_block) of the walk
@@ -456,36 +620,88 @@ extern "C" int gppe_matern_general_elementwise(const void* x, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (b) out_b[:, :r] = K_b @ V_b[:, :r] for b < batch, r <= 32, one band of
-// the walk: rows (nr, d), cols (nc, d) unscaled points; scales (batch, d)
-// float32 and consts (batch structs of gppe_matern_general_consts_bytes
-// bytes), both on the device; V_b at V + b v_stride, rows of stride ldv;
-// out_b at out + b out_stride, rows of stride ldo; `symmetric` (cols is
-// rows) walks tj >= ti. The band is the walk's pairs [g0, g0 +
-// band_pairs), tiles of 128 points (product_pair); the bands of a product
-// are launched in the walk's order, each adding to the rows that earlier
-// ones wrote. slots: a float32 scratch of batch * slot_pairs * sides * 128
-// * r floats, slot_pairs >= band_pairs, sides 2 on the symmetric walk else
-// 1 (ops/cuda_kernels.py, general_product_bands). Launches the tile kernel
-// and the band's sum on `stream` and returns cudaGetLastError() (0 on
-// success); does not synchronise and allocates nothing. The constants are
-// not read on the host: the caller builds them.
+// (b) K_b[i, j] for b < batch, rows row0 <= i < row0 + nr, all n
+// columns j: points (n, d) unscaled; scales (batch, d) float32 and consts
+// (batch structs of gppe_matern_general_consts_bytes bytes), both on the
+// device, as the product takes them; out: batch blocks of nr x n entries,
+// float32, or float64 where out_f64 (the float32 k widened). `symmetric`
+// (row0 = 0, nr = n: the square K) walks tj >= ti and writes each k twice
+// and K[i, i] = 1; else every tile pair of the rows. Launches on `stream`
+// and returns cudaGetLastError() (0 on success); does not synchronise and
+// allocates nothing.
+extern "C" int gppe_matern_general_assemble(const void* points,
+                                            const void* scales,
+                                            const void* consts, void* out,
+                                            int n, int d, int row0, int nr,
+                                            int batch, int symmetric,
+                                            int out_f64, void* stream) {
+  const int tiles_r = (nr + kTraceTile - 1) / kTraceTile;
+  const int tiles_c = (n + kTraceTile - 1) / kTraceTile;
+  const int64_t pairs = trace_pairs(tiles_r, tiles_c, symmetric != 0);
+  if (n <= 0 || nr <= 0 || d < 1 || d > kMaxD || row0 < 0 ||
+      static_cast<int64_t>(row0) + nr > n || batch < 1 || batch > 65535 ||
+      (symmetric && (row0 != 0 || nr != n)) || pairs > 0x7fffffff ||
+      points == nullptr || scales == nullptr || consts == nullptr ||
+      out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* p_points = static_cast<const float*>(points);
+  const float* p_rows = p_points + static_cast<int64_t>(row0) * d;
+  const float* p_scales = static_cast<const float*>(scales);
+  const MaternGeneralConsts* p_consts =
+      static_cast<const MaternGeneralConsts*>(consts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bytes = static_cast<int>(sizeof(TraceTileSmem));
+  const dim3 grid(static_cast<unsigned>(pairs), batch);
+  cudaError_t err;
+  if (out_f64) {
+    err = cudaFuncSetAttribute(matern_general_assembly_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    matern_general_assembly_kernel<double><<<grid, kTileThreads, bytes, s>>>(
+        p_rows, p_points, p_scales, p_consts, static_cast<double*>(out), nr,
+        n, d, tiles_r, tiles_c, symmetric != 0);
+  } else {
+    err = cudaFuncSetAttribute(matern_general_assembly_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    matern_general_assembly_kernel<float><<<grid, kTileThreads, bytes, s>>>(
+        p_rows, p_points, p_scales, p_consts, static_cast<float*>(out), nr,
+        n, d, tiles_r, tiles_c, symmetric != 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (c) the tile kernel of out_b[:, :r] = K_b @ V_b[:, :r] for b < batch,
+// r <= 32, over one band of the walk: rows (nr, d), cols (nc, d) unscaled
+// points; scales (batch, d) float32 and consts (batch structs of
+// gppe_matern_general_consts_bytes bytes), both on the device; V_b at V +
+// b v_stride, rows of stride ldv; `symmetric` (cols is rows) walks tj >=
+// ti. The band is the walk's pairs [g0, g0 + band_pairs), tiles of 128
+// points (product_pair); it writes each pair's sums to its slots: a
+// float32 scratch of batch * slot_pairs * sides * 128 * r floats,
+// slot_pairs >= band_pairs, sides 2 on the symmetric walk else 1
+// (ops/cuda_kernels.py, general_product_bands), which
+// gppe_matern_general_product_sum then adds to out. Launches on `stream`
+// and returns cudaGetLastError() (0 on success); does not synchronise and
+// allocates nothing. The constants are not read on the host: the caller
+// builds them.
 extern "C" int gppe_matern_general_product(
     const void* rows, const void* cols, const void* scales,
-    const void* consts, const void* V, void* out, void* slots, int nr,
-    int nc, int d, int r, int ldv, int ldo, int64_t v_stride,
-    int64_t out_stride, int batch, int symmetric, int64_t g0,
+    const void* consts, const void* V, void* slots, int nr, int nc, int d,
+    int r, int ldv, int64_t v_stride, int batch, int symmetric, int64_t g0,
     int band_pairs, int64_t slot_pairs, void* stream) {
   const int tiles_r = (nr + kTraceTile - 1) / kTraceTile;
   const int tiles_c = (nc + kTraceTile - 1) / kTraceTile;
   if (nr <= 0 || nc <= 0 || d < 1 || d > kMaxD || r < 1 ||
-      r > kProductMaxCols || ldv < r || ldo < r || batch < 1 ||
-      batch > 65535 || (symmetric && (nr != nc || rows != cols)) ||
-      g0 < 0 || band_pairs < 1 || slot_pairs < band_pairs ||
+      r > kProductMaxCols || ldv < r || batch < 1 || batch > 65535 ||
+      (symmetric && (nr != nc || rows != cols)) || g0 < 0 ||
+      band_pairs < 1 || slot_pairs < band_pairs ||
       g0 + band_pairs > trace_pairs(tiles_r, tiles_c, symmetric != 0) ||
       rows == nullptr || cols == nullptr || scales == nullptr ||
-      consts == nullptr || V == nullptr || out == nullptr ||
-      slots == nullptr) {
+      consts == nullptr || V == nullptr || slots == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool sym = symmetric != 0;
@@ -513,7 +729,30 @@ extern "C" int gppe_matern_general_product(
                              tiles_c, band_pairs, batch, sym, g0,
                              slot_pairs, s);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(err);
+}
+
+// (c') the band's sum: the slots that gppe_matern_general_product wrote
+// for the band [g0, g0 + band_pairs) (the same nr, nc, r, batch,
+// symmetric, slot_pairs) added, in the walk's order, to out_b[:, :r] at
+// out + b out_stride, rows of stride ldo; the bands of a product are
+// summed in the walk's order, each adding to the rows that earlier ones
+// wrote. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); does not synchronise and allocates nothing.
+extern "C" int gppe_matern_general_product_sum(
+    const void* slots, void* out, int nr, int nc, int r, int ldo,
+    int64_t out_stride, int batch, int symmetric, int64_t g0,
+    int band_pairs, int64_t slot_pairs, void* stream) {
+  const int tiles_r = (nr + kTraceTile - 1) / kTraceTile;
+  const int tiles_c = (nc + kTraceTile - 1) / kTraceTile;
+  const bool sym = symmetric != 0;
+  if (nr <= 0 || nc <= 0 || r < 1 || r > kProductMaxCols || ldo < r ||
+      batch < 1 || batch > 65535 || (sym && nr != nc) || g0 < 0 ||
+      band_pairs < 1 || slot_pairs < band_pairs ||
+      g0 + band_pairs > trace_pairs(tiles_r, tiles_c, sym) ||
+      slots == nullptr || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the row tiles the band writes: from its first pair's row tile to its
   // last pair's column tile, or to the last tile where it spans a row tile
   // (the mirrors of a whole row tile reach every tile after it)
@@ -523,19 +762,27 @@ extern "C" int gppe_matern_general_product(
   const int x0 = first.ti;
   const int x1 = !sym ? last.ti + 1
                       : (last.ti > first.ti ? tiles_r : last.tj + 1);
-  const int row0 = x0 * kTraceTile;
-  const int rows_sum = min(x1 * kTraceTile, nr) - row0;
-  const int64_t total = static_cast<int64_t>(batch) * rows_sum * r;
-  const int64_t blocks = (total + 255) / 256;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  matern_general_product_sum_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                                      s>>>(
-      p_slots, static_cast<float*>(out), r, ldo, out_stride, row0, rows_sum,
-      tiles_r, tiles_c, sym, g0, g1, slot_pairs, total);
+  const dim3 grid(static_cast<unsigned>(x1 - x0), batch);
+  const float* p_slots = static_cast<const float*>(slots);
+  float* p_out = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (r <= 8) {
+    matern_general_product_sum_kernel<8><<<grid, 256, 0, s>>>(
+        p_slots, p_out, nr, r, ldo, out_stride, x0, tiles_r, tiles_c, sym,
+        g0, g1, slot_pairs);
+  } else if (r <= 16) {
+    matern_general_product_sum_kernel<16><<<grid, 256, 0, s>>>(
+        p_slots, p_out, nr, r, ldo, out_stride, x0, tiles_r, tiles_c, sym,
+        g0, g1, slot_pairs);
+  } else {
+    matern_general_product_sum_kernel<32><<<grid, 256, 0, s>>>(
+        p_slots, p_out, nr, r, ldo, out_stride, x0, tiles_r, tiles_c, sym,
+        g0, g1, slot_pairs);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) out[b] = trace(K_b^2) for b < batch, float64: rows (nr, d), cols
+// (d) out[b] = trace(K_b^2) for b < batch, float64: rows (nr, d), cols
 // (nc, d) unscaled points; scales (batch, d) float32 and consts (batch
 // structs), both on the device, as the product takes them; `symmetric`
 // (cols is rows) walks tj >= ti. partials: a float64 scratch of batch *

@@ -9,8 +9,9 @@ runs the (rho, nu) grid at n = 10^4 through the grid-batched Krylov engine,
 matrix-free, so every product and trace runs the general-nu kernel
 ``csrc/matern_general.cu``.
 
-Each lp(rho, nu) assembles K (the general-nu kernel's elementwise entry on
-the card), takes its float64 eigendecomposition on the card - the
+Each lp(rho, nu) assembles K (on the card the general-nu kernel's assembly
+entry, one launch for a chunk of points, float32 k widened to float64),
+takes its float64 eigendecomposition on the card - the
 reference ran that step on the host CPU on a TPU (``spectral_on_host``) -
 and maximizes over eta on a 29-point log grid plus 25 golden-section
 steps, in float64, for a whole chunk of (rho, nu) points at once. A
@@ -34,7 +35,7 @@ import torch
 from ..models import direct_likelihood
 from ..models.grid_krylov import GridKrylovProfileLikelihood
 from ..models.priors import inverse_square_log_prior, uniform_log_prior
-from ..ops import assembly, kernels
+from ..ops import assembly
 from ..ops.global_opt import differential_evolution
 from ..utils import checkpoint
 from ..utils import data as data_utils
@@ -87,10 +88,10 @@ def build_objective(pts, z, X, with_prior, *, device="cuda"):
     grid = torch.linspace(*ETA_GRID, dtype=torch.float64, device=device)
 
     def spectra(rhos, nus):
-        """(lam (B, n), Xt (B, n, m), zt (B, n)) of the points' K."""
-        K = torch.stack([assembly.correlation_of_distances(
-            kernels.pairwise_scaled_distance(pts_t, pts_t, rho), nu)
-            for rho, nu in zip(rhos, nus)]).to(torch.float64)
+        """(lam (B, n), Xt (B, n, m), zt (B, n)) of the points' K, the
+        chunk's general nus in one assembly launch, straight to float64."""
+        K = assembly.correlations_of_points(pts_t, rhos, nus,
+                                            out_dtype=torch.float64)
         lam, Q = torch.linalg.eigh(K)
         del K
         Qt = Q.transpose(1, 2)

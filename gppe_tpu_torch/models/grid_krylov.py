@@ -27,9 +27,9 @@ all its points (:func:`cuda_kernels.matern_general_matmat_batched`, a
 launch per band of its walk), its traces one batched launch
 (:func:`cuda_kernels.matern_general_trace_batched`), as the reference
 maps its trace over the chunk. The dense chunk of any grid
-assembles each K(rho, nu) once - a general nu with the elementwise entry
-(:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general`) - and multiplies
-with ``torch.matmul``. On the CPU they run their plain versions.
+assembles each K(rho, nu) once - its general nus in one launch of the
+assembly entry (:func:`gppe_tpu_torch.ops.cuda_kernels.matern_general_assemble`)
+- and multiplies with ``torch.matmul``. On the CPU they run their plain versions.
 """
 
 import numpy as np
@@ -42,14 +42,11 @@ from .large_scale import KrylovProfileLikelihood
 
 def _factorize_chunk(points, rhos, nus, AB, k, s):
     """Dense variant (small n): each K(rho, nu) of the chunk assembled
-    ONCE (a closed form in plain PyTorch, a general nu by the general-nu
-    elementwise kernel: ``assembly.correlation_of_distances``), then the
-    shared batched factorization with plain batched matmuls as the
-    matvec."""
-    Ks = torch.stack([
-        assembly.correlation_of_distances(
-            kernels.pairwise_scaled_distance(points, points, rho), nu)
-        for rho, nu in zip(rhos, nus)])                     # (B, n, n)
+    ONCE (a closed form in plain PyTorch, the general nus in one launch of
+    the general-nu kernel's assembly entry:
+    ``assembly.correlations_of_points``), then the shared batched
+    factorization with plain batched matmuls as the matvec."""
+    Ks = assembly.correlations_of_points(points, rhos, nus)  # (B, n, n)
     return _factorize_common(AB, len(rhos), k, s,
                              lambda W: torch.matmul(Ks, W),
                              lambda: torch.sum(Ks * Ks, dim=(1, 2)))

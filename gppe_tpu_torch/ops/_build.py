@@ -151,11 +151,17 @@ def load(path=None):
     lib.gppe_matern_general_elementwise.restype = i32
     lib.gppe_matern_general_elementwise.argtypes = [ptr, ptr, ctypes.c_int64,
                                                     ptr, ptr]
+    lib.gppe_matern_general_assemble.restype = i32
+    lib.gppe_matern_general_assemble.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.gppe_matern_general_product.restype = i32
     lib.gppe_matern_general_product.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        ctypes.c_int64, ctypes.c_int64, i32, i32, ctypes.c_int64, i32,
-        ctypes.c_int64, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        ctypes.c_int64, i32, i32, ctypes.c_int64, i32, ctypes.c_int64, ptr]
+    lib.gppe_matern_general_product_sum.restype = i32
+    lib.gppe_matern_general_product_sum.argtypes = [
+        ptr, ptr, i32, i32, i32, i32, ctypes.c_int64, i32, i32,
+        ctypes.c_int64, i32, ctypes.c_int64, ptr]
     lib.gppe_matern_general_trace.restype = i32
     lib.gppe_matern_general_trace.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                               i32, i32, i32, i32, i32, i32,

@@ -46,18 +46,23 @@ the same way, only those of the tile pairs ti <= tj (and of the sub-tile
 triangle on diagonal tiles) where the list holds its mirror:
 :func:`blocksparse_trace_schedule` builds that walk and mirrors it.
 
-``matern_general`` (elementwise), ``matern_general_matmat`` (the product
-and trace(K^2)), ``matern_general_matmat_batched`` and
+``matern_general`` (elementwise), ``matern_general_assemble`` (the dense
+K of a batch of (scale, nu) points from the points), ``matern_general_matmat``
+(the product and trace(K^2)), ``matern_general_matmat_batched`` and
 ``matern_general_trace_batched`` (the product and the trace for a batch of
 (scale, nu) points) run ``csrc/matern_general.cu``, the Matern
 correlation of a general nu (outside 1/2, 3/2, 5/2 and the Gaussian limit)
 through the Bessel K_nu in registers. It replaces no Pallas kernel: on the
 TPU the general-nu assembly, the row-blocked products and traces of
 ``operators.MaternOperator`` and the general branch of the grid engine ran
-XLA-fused. Its product fills branch-binned k tiles
-(``csrc/matern_general_tile.cuh``) on a symmetric walk of tile pairs, each k
+XLA-fused. Its assembly fills branch-binned k tiles
+(``csrc/matern_general_tile.cuh``) on the tile pairs tj >= ti of a square K
+and writes each k to K[i, j] and K[j, i], one launch for a batch of points;
+the elementwise entry over a buffer of distances is no path's any more.
+Its product fills the same k tiles on a symmetric walk of tile pairs, each k
 serving K[i, j] and K[j, i], and sums each row tile's slots in a fixed
-order; its walk runs in bands whose slots fit :data:`GENERAL_SLOT_BYTES`
+order (:func:`general_product_sum`, a block per row tile); its walk runs in
+bands whose slots fit :data:`GENERAL_SLOT_BYTES`
 (:func:`general_product_bands`), and each band's launch serves a whole
 grid chunk. Its trace fills the same k tiles on the dense traces' walk,
 counting the pairs above K's diagonal of a square K, and one launch
@@ -101,7 +106,9 @@ launch_counts = {"matern_matmat": 0, "matern_matmat_mma": 0,
                  "matern_matmat_blocksparse": 0,
                  "matern_matmat_blocksparse_mma": 0,
                  "matern_general_elementwise": 0,
-                 "matern_general_product": 0, "matern_general_trace": 0,
+                 "matern_general_assembly": 0,
+                 "matern_general_product": 0,
+                 "matern_general_product_sum": 0, "matern_general_trace": 0,
                  "matern_blocksparse_general_product": 0,
                  "matern_blocksparse_general_trace": 0}
 
@@ -131,6 +138,8 @@ _GENERAL_TRACE_PARTIALS = 1 << 22
 # takes: its walk runs in bands of tile pairs whose slots fit (at least
 # one pair a band), and the grid engine counts it in its chunk's budget
 GENERAL_SLOT_BYTES = 256 << 20
+# the most (scale, nu) points one general-nu launch takes (grid.y)
+_GENERAL_MAX_BATCH = 65535
 # the general-nu kernel's k against float64: the reference's own float32
 # error at nu ~ 25 (gppe_tpu/ops/kernels.py:33-36), the bound chip_smoke.py
 # holds it to (9.1e-7 measured); the tapered product's skip radius rests
@@ -553,8 +562,9 @@ def _launch_plan(kernel, r, frobenius):
     never round). ``kernel`` 'general' (a general nu, in
     ``matern_general_matmat`` and ``matern_general_matmat_batched``): the
     product on ``matern_general.cu``, one entry per 32 columns of V for
-    the whole batch (launched once per band of its walk), then its trace
-    entry; ``kernel`` 'blocksparse_general' (a general nu in
+    the whole batch (launched once per band of its walk, each band's tile
+    launch followed by its sum, :func:`general_product_sum`), then its
+    trace entry; ``kernel`` 'blocksparse_general' (a general nu in
     ``matern_matmat_blocksparse``) one launch per 32 columns of
     ``matern_blocksparse_general.cu``'s product, then its trace."""
     if kernel in ("general", "blocksparse_general"):
@@ -1168,7 +1178,10 @@ def matern_general(x, nu):
     CPU tensors take the plain version :func:`kernels.matern` (the
     reference's log-space form over ``special.log_kv``, in the tensor's
     dtype); CUDA tensors must be float32 and contiguous and launch the
-    elementwise entry of ``csrc/matern_general.cu``."""
+    elementwise entry of ``csrc/matern_general.cu``. No path of the port
+    runs it (a dense K comes from the points,
+    :func:`matern_general_assemble`): it probes k's accuracy over any
+    distances."""
     nu = check_nu(nu)
     device = x.device
     if device.type == "cpu":
@@ -1191,6 +1204,78 @@ def _matern_general_cuda(x, nu):
             torch.cuda.current_stream().cuda_stream)
     _raise_on_cuda_error(lib, err, "matern_general_elementwise")
     launch_counts["matern_general_elementwise"] += 1
+    return out
+
+
+def matern_general_assemble(points, scales, nus, rows=None,
+                            out_dtype=torch.float32):
+    """The dense Matern correlations K_b[i, j] = k(|x_i - x_j| / scale_b;
+    nu_b) of a batch of B (scale, nu) points over one set of points, from
+    the points: ``points`` (n, d); ``scales`` and ``nus`` as
+    :func:`matern_general_matmat_batched` takes them; ``rows`` None (the
+    square K) or (r0, r1), the rows r0 <= i < r1 against all n points.
+    Returns (B, r1 - r0, n) in ``out_dtype``, float32 or float64 (on the
+    card the float32 k widened, what ``.to(torch.float64)`` gives).
+
+    CPU tensors take the plain version point by point:
+    :func:`kernels.pairwise_scaled_distance`, then :func:`kernels.matern`,
+    in the points' dtype, cast to ``out_dtype``. CUDA tensors must be
+    float32 and contiguous, d <= 8, and launch the assembly entry of
+    ``csrc/matern_general.cu`` once per ``_GENERAL_MAX_BATCH`` (65535)
+    points, each launch counted under ``matern_general_assembly``: the
+    square K on the symmetric walk
+    (each k once, written to K[i, j] and K[j, i], K[i, i] = 1 as it
+    stands), a block of rows on every tile pair of the block."""
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"out_dtype must be float32 or float64; got "
+                         f"{out_dtype}")
+    nus, scales = _general_batch(points, scales, nus)
+    n, d = points.shape
+    r0, r1 = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"rows must satisfy 0 <= r0 <= r1 <= {n}; got "
+                         f"{(r0, r1)}")
+    device = points.device
+    if device.type == "cpu":
+        Ks = [kernels.matern(kernels.pairwise_scaled_distance(
+            points[r0:r1], points, scales[b]), nu).to(out_dtype)
+            for b, nu in enumerate(nus)]
+        if len(Ks) == 1:
+            return Ks[0][None]
+        return (torch.stack(Ks) if Ks else
+                torch.empty((0, r1 - r0, n), dtype=out_dtype))
+    if device.type != "cuda":
+        raise ValueError(f"matern_general_assemble runs on cpu or cuda, "
+                         f"not {device}")
+    return _matern_general_assemble_cuda(points, scales, nus, r0, r1,
+                                         out_dtype)
+
+
+def _matern_general_assemble_cuda(points, scales, nus, r0, r1, out_dtype):
+    n, d = points.shape
+    device = points.device
+    scales = scales.contiguous()
+    _check_cuda_operands(d, (("points", points), ("scales", scales)))
+    if n >= 2 ** 31:
+        raise ValueError("n must fit in int32")
+    B, nr = len(nus), r1 - r0
+    out = torch.empty((B, nr, n), dtype=out_dtype, device=device)
+    if B == 0 or nr == 0:
+        return out
+    lib = _general_library()
+    consts = _general_consts_device(nus, device)
+    size, word = _CONSTS_DTYPE.itemsize, out.element_size()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for b0 in range(0, B, _GENERAL_MAX_BATCH):
+            err = lib.gppe_matern_general_assemble(
+                points.data_ptr(), scales.data_ptr() + 4 * d * b0,
+                consts.data_ptr() + size * b0,
+                out.data_ptr() + word * b0 * nr * n, n, d, r0, nr,
+                min(_GENERAL_MAX_BATCH, B - b0), int(nr == n),
+                int(out_dtype == torch.float64), stream)
+            _raise_on_cuda_error(lib, err, "matern_general_assembly")
+            launch_counts["matern_general_assembly"] += 1
     return out
 
 
@@ -1231,13 +1316,102 @@ def _general_consts_device(nus, device):
     return torch.from_numpy(host.view(np.uint8).copy()).to(device)
 
 
+def general_product_sum_slots(nr, nc, symmetric, g0, g1):
+    """The slots that the general-nu product's band of walk pairs
+    [g0, g1) adds to each row tile: ``[(x, s_lo, pairs, sides)]`` for
+    every row tile x with a slot in the band, the band's slots s >= s_lo
+    of the tile (its column tiles, or on the symmetric walk for s < x the
+    mirror of pair (s, x)) as the walk's pair index less g0 and the slot
+    side (1 for a mirror), in order of s: the mirror of
+    ``csrc/matern_general.cu``'s ``product_slot_pair`` and
+    ``product_first_slot``."""
+    tiles_r, tiles_c = -(-nr // _TRACE_TILE), -(-nc // _TRACE_TILE)
+    out = []
+    for x in range(tiles_r):
+        s = np.arange(tiles_r if symmetric else tiles_c, dtype=np.int64)
+        if symmetric:
+            lo, hi = np.minimum(s, x), np.maximum(s, x)
+            g = lo * tiles_r - lo * (lo - 1) // 2 + (hi - lo)
+        else:
+            g = x * tiles_c + s
+        s_lo, s_hi = np.searchsorted(g, g0), np.searchsorted(g, g1)
+        if s_lo < s_hi:
+            keep = slice(s_lo, s_hi)
+            out.append((x, int(s_lo), g[keep] - g0,
+                        (symmetric & (s[keep] < x)).astype(np.int64)))
+    return out
+
+
+def general_product_sum_plain(slots, out, nc, symmetric, g0, band_pairs,
+                              slot_pairs):
+    """The plain version of a band's sum (:func:`general_product_sum`), in
+    place: each row tile's slots of the band
+    (:func:`general_product_sum_slots`) added in order of s, in float32, to
+    its rows of ``out`` (from 0 where the band holds the tile's first
+    slot), the kernel's bits."""
+    B, nr, r = out.shape
+    sides = 2 if symmetric else 1
+    grid = slots[:B * slot_pairs * sides * _TRACE_TILE * r].view(
+        B, slot_pairs, sides, _TRACE_TILE, r)
+    for x, s_lo, pairs, side in general_product_sum_slots(
+            nr, nc, symmetric, g0, g0 + band_pairs):
+        rows = slice(_TRACE_TILE * x, min(_TRACE_TILE * (x + 1), nr))
+        m = rows.stop - rows.start
+        acc = (torch.zeros((B, m, r), dtype=out.dtype, device=out.device)
+               if s_lo == 0 else out[:, rows].clone())
+        for p, h in zip(pairs.tolist(), side.tolist()):
+            acc += grid[:, p, h, :m]
+        out[:, rows] = acc
+    return out
+
+
+def general_product_sum(slots, out, nc, symmetric, g0, band_pairs,
+                        slot_pairs):
+    """Add the slots of the general-nu product's band of walk pairs [g0,
+    g0 + band_pairs) to ``out`` (B, nr, r), in place: the second kernel of
+    ``csrc/matern_general.cu``'s product. ``slots``: the flat float32
+    scratch that the band's tile launch filled, B * slot_pairs * sides * 128
+    * r floats; ``out``'s rows may have a stride (a 32-column launch of a
+    wider V), its last dimension must be contiguous.
+
+    CPU tensors take :func:`general_product_sum_plain`; CUDA tensors launch
+    the sum kernel, one block per (row tile, point), counted under
+    ``matern_general_product_sum``."""
+    if out.device.type == "cpu":
+        return general_product_sum_plain(slots, out, nc, symmetric, g0,
+                                         band_pairs, slot_pairs)
+    if out.device.type != "cuda":
+        raise ValueError(f"general_product_sum runs on cpu or cuda, not "
+                         f"{out.device}")
+    return _general_product_sum_cuda(slots, out, nc, symmetric, g0,
+                                     band_pairs, slot_pairs)
+
+
+def _general_product_sum_cuda(slots, out, nc, symmetric, g0, band_pairs,
+                              slot_pairs):
+    B, nr, r = out.shape
+    _check_cuda_operands(1, (("slots", slots),))
+    if out.dtype != torch.float32 or out.stride(2) != 1:
+        raise ValueError("out must be float32 with contiguous rows")
+    lib = _general_library()
+    with torch.cuda.device(out.device):
+        err = lib.gppe_matern_general_product_sum(
+            slots.data_ptr(), out.data_ptr(), nr, nc, r, out.stride(1),
+            out.stride(0), B, int(symmetric), g0, band_pairs, slot_pairs,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_cuda_error(lib, err, "matern_general_product_sum")
+    launch_counts["matern_general_product_sum"] += 1
+    return out
+
+
 def _general_product_cuda(points, cols, scales, V, nus, symmetric):
     """out_b = K_b @ V_b on the card for (B, nc, r) float32 V, B = len(nus)
-    points of (B, d) float32 ``scales``: the product entry of
-    ``csrc/matern_general.cu`` once per band of its walk
-    (:func:`general_product_bands`) and 32 columns, for the whole batch.
-    Each call of the entry launches the tile kernel and its band's sum
-    kernel, and counts once under ``matern_general_product``."""
+    points of (B, d) float32 ``scales``: for each band of its walk
+    (:func:`general_product_bands`) and 32 columns, for the whole batch,
+    the product entry of ``csrc/matern_general.cu`` (the tile kernel,
+    counted under ``matern_general_product``), then the band's sum
+    (:func:`general_product_sum`'s kernel, under
+    ``matern_general_product_sum``)."""
     B, nc, r = V.shape
     nr, d = points.shape
     device = points.device
@@ -1256,15 +1430,17 @@ def _general_product_cuda(points, cols, scales, V, nus, symmetric):
         for entry, counter in _launch_plan("general", r, False):
             width = min(_GENERAL_MAX_COLS, r - c0)
             for g0 in range(0, walk.pairs, walk.band_pairs):
+                band = min(walk.band_pairs, walk.pairs - g0)
                 err = lib.gppe_matern_general_product(
                     points.data_ptr(), cols.data_ptr(), scales.data_ptr(),
                     consts.data_ptr(), V.data_ptr() + 4 * c0,
-                    out.data_ptr() + 4 * c0, slots.data_ptr(), nr, nc, d,
-                    width, r, r, nc * r, nr * r, B, int(symmetric), g0,
-                    min(walk.band_pairs, walk.pairs - g0), walk.band_pairs,
-                    stream)
+                    slots.data_ptr(), nr, nc, d, width, r, nc * r, B,
+                    int(symmetric), g0, band, walk.band_pairs, stream)
                 _raise_on_cuda_error(lib, err, counter)
                 launch_counts[counter] += 1
+                _general_product_sum_cuda(slots, out[:, :, c0:c0 + width],
+                                          nc, symmetric, g0, band,
+                                          walk.band_pairs)
             c0 += width
     return out
 

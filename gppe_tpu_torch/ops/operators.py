@@ -96,10 +96,9 @@ class MaternOperator:
 
     def dense(self):
         """Materialize K (small-n debugging only); a general nu through the
-        elementwise entry of the general-nu kernel on the card."""
-        dist = kernels.pairwise_scaled_distance(self.points, self.points,
-                                                self.scale)
-        return assembly.correlation_of_distances(dist, self.nu)
+        general-nu kernel's assembly entry on the card, one launch."""
+        return assembly.correlation_of_points(self.points, self.scale,
+                                              self.nu)
 
 
 class SparseOperator:

@@ -10,9 +10,9 @@ forms:
   on the host. For a closed-form nu the native C++/OpenMP cell-binned
   builder (:mod:`gppe_tpu_torch.native`) keeps every pair within the taper
   radius; for a general nu the blocked rule keeps k >= threshold, a block
-  of rows at a time: on the card distances in PyTorch and k from the
-  elementwise entry of the general-nu kernel, only the kept entries copied
-  back; on the CPU the plain ``kernels.matern``.
+  of rows at a time: on the card k from the points by the assembly entry
+  of the general-nu kernel, only the kept entries copied back; on the CPU
+  the plain ``kernels.matern`` of the distances.
 * :class:`TaperedMaternOperator`: the scalable form. Points are spatially
   sorted (grid-cell keys) so near points share tiles, a tile-pair adjacency
   mask is computed from tile bounding boxes and the taper radius, and
@@ -123,40 +123,43 @@ def estimate_max_nnz(matrix_size, correlation_scale, dimension, density):
 BLOCK_ROWS = 2048
 
 
-def _tapered_block_rows(n, d, device, dtype):
+def _tapered_block_rows(n, d, nu, device, dtype):
     """Rows per block of the blocked rule on ``device``: the reference's
     BLOCK_ROWS on the CPU; on the card as many as half the free device
-    memory holds at the block's intermediates (the differences, their
-    squares, the distances, k and the mask: 2 d + 3 words and a byte per
-    entry), at most 2^31 - 1 entries a block."""
+    memory holds at what a block holds per entry, at most 2^31 - 1
+    entries a block: a general nu at d <= 8 (the general-nu kernel's
+    assembly entry) its k and the mask, a word and a byte; any other the
+    distance intermediates too (the differences, their squares, the
+    distances, k and the mask: 2 d + 3 words and a byte)."""
     if device.type != "cuda":
         return BLOCK_ROWS
     free, _ = torch.cuda.mem_get_info(device)
-    per_row = n * ((2 * d + 3) * torch.finfo(dtype).bits // 8 + 1)
+    fused = not kernels.is_closed_form(nu) and d <= cuda_kernels._MAX_D
+    words = 1 if fused else 2 * d + 3
+    per_row = n * (words * torch.finfo(dtype).bits // 8 + 1)
     return max(1, min(n, free // 2 // per_row, (2 ** 31 - 1) // n))
 
 
 def _blocked_csr(pts_scaled, nu, tau, block_rows, device, dtype):
-    """The blocked rule: each block of rows against every point, k of its
-    distances (``assembly.correlation_of_distances``: the general-nu
-    kernel's elementwise entry on the card), the entries with k >= tau
-    (compared in ``dtype``) kept in row-major order. Returns host numpy
-    (values float64, indices int64, indptr int64)."""
+    """The blocked rule: each block of rows against every point, k of the
+    pre-scaled points at scale 1 (``assembly.correlation_of_points``: a
+    general nu on the card by the general-nu kernel's assembly entry, the
+    block's rows on every tile pair), the entries with k >= tau (compared
+    in ``dtype``) kept in row-major order. Returns host numpy (values
+    float64, indices int64, indptr int64)."""
     n, d = pts_scaled.shape
-    pts = torch.as_tensor(pts_scaled, dtype=dtype, device=device)
+    pts = torch.as_tensor(pts_scaled, dtype=dtype, device=device).contiguous()
     if block_rows is None:
-        block_rows = _tapered_block_rows(n, d, device, dtype)
+        block_rows = _tapered_block_rows(n, d, nu, device, dtype)
     rows, cols, vals = [], [], []
     for start in range(0, n, block_rows):
-        dist = kernels.pairwise_scaled_distance(pts[start:start + block_rows],
-                                                pts, 1.0)
-        kblk = assembly.correlation_of_distances(dist, nu)
-        del dist  # a block fills half the free device memory: free early
+        kblk = assembly.correlation_of_points(
+            pts, 1.0, nu, rows=(start, min(start + block_rows, n)))
         r, c = torch.nonzero(kblk >= tau, as_tuple=True)
         vals.append(kblk[r, c].cpu().numpy().astype(np.float64))
         rows.append(r.cpu().numpy() + start)
         cols.append(c.cpu().numpy())
-        del kblk, r, c
+        del kblk, r, c  # a block fills half the free device memory
     rows = np.concatenate(rows)
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
@@ -174,10 +177,10 @@ def generate_tapered_correlation(points, scale, nu, density, verbose=False,
     ``dtype`` are not used). Any other nu takes the blocked rule, which
     keeps k >= threshold: ``block_rows`` rows at a time (default: the
     reference's 2048 on the CPU, sized to free device memory on the card),
-    distances and k in ``dtype`` on ``device``: on the card k comes from the
-    general-nu kernel's elementwise entry (float32 only) and only the kept
+    k in ``dtype`` on ``device``: on the card a general nu's k comes from
+    the general-nu kernel's assembly entry (float32 only) and only the kept
     entries are copied to the host; on the CPU from the plain
-    ``kernels.matern``."""
+    ``kernels.matern`` of the distances."""
     import scipy.sparse
 
     points = np.asarray(points, dtype=float)

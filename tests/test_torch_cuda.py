@@ -1369,18 +1369,93 @@ def test_general_through_the_public_entry_points(dev):
 
 
 def test_general_operator_dense_runs_the_elementwise_kernel(dev):
-    """MaternOperator.dense() at a general nu: one elementwise launch (no
-    plain Bessel on the card), K within 3e-5 of float64."""
+    """MaternOperator.dense() at a general nu: one launch of the general-nu
+    kernel's assembly entry (no plain Bessel on the card, no elementwise
+    launch), K within 3e-5 of float64."""
     pts = np.random.RandomState(6).rand(500, 2)
     op = MaternOperator(pts, 0.1, nu=3.7, device=dev)
     cuda_kernels.reset_launch_counts()
     K = op.dense()
     torch.cuda.synchronize()
-    assert cuda_kernels.launch_counts["matern_general_elementwise"] == 1
+    assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} == {
+        "matern_general_assembly": 1}
     P = torch.as_tensor(pts, dtype=F64, device=dev)
     want = kernels.matern(kernels.pairwise_scaled_distance(P, P, 0.1), 3.7)
     assert K.dtype == F32
     assert float((K.double() - want).abs().max()) < 3e-5
+
+
+@pytest.mark.parametrize("n, d", [(1000, 2), (3001, 2), (700, 3),
+                                  (257, 1)])
+def test_general_assembly(dev, n, d):
+    """The general-nu assembly entry at ragged n over phase 21's nus (a
+    closed form among them through the kernel's own branch): K within 3e-5
+    of float64, symmetric bit for bit, a diagonal of exactly 1; one launch
+    for the batch, which equals its single calls bit for bit; float64
+    output the float32 output widened bit for bit; a block of rows the
+    square's rows bit for bit (each k of the rectangular walk has the bits
+    of its mirror's on the symmetric one)."""
+    rng = np.random.RandomState(n + d)
+    P = torch.as_tensor(rng.rand(n, d), dtype=F32, device=dev)
+    nus = tuple(GENERAL_NUS) + (1.5,)
+    scales = torch.as_tensor(0.05 + 0.2 * rng.rand(len(nus), d), dtype=F32,
+                             device=dev)
+    cuda_kernels.reset_launch_counts()
+    K = cuda_kernels.matern_general_assemble(P, scales, nus)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} == {
+        "matern_general_assembly": 1}
+    assert K.shape == (len(nus), n, n) and K.dtype == F32
+    K64 = cuda_kernels.matern_general_assemble(P, scales, nus,
+                                               out_dtype=F64)
+    assert K64.dtype == F64 and torch.equal(K64, K.double())
+    for b, nu in enumerate(nus):
+        assert torch.equal(K[b], K[b].T)
+        assert bool(torch.all(torch.diagonal(K[b]) == 1.0))
+        # float64 on the kernel's own float32 scaled points: at nu = 0.01
+        # the ulp that float32 scaling moves a near 1-D pair by moved k
+        # by 1.3e-4 (n = 257)
+        S = (P / scales[b]).double()
+        want = kernels.matern(kernels.pairwise_scaled_distance(S, S, 1.0),
+                              nu)
+        assert float((K[b].double() - want).abs().max()) < 3e-5, nu
+        one = cuda_kernels.matern_general_assemble(P, scales[b:b + 1], (nu,))
+        assert torch.equal(one[0], K[b])
+    for rows in ((0, 129), (n // 3, n), (n - 1, n)):
+        block = cuda_kernels.matern_general_assemble(P, scales, nus,
+                                                     rows=rows)
+        assert torch.equal(block, K[:, rows[0]:rows[1]])
+
+
+@pytest.mark.parametrize("nr, nc, symmetric", [(3001, 3001, True),
+                                               (1000, 1000, True),
+                                               (700, 450, False)])
+@pytest.mark.parametrize("r", [1, 7, 16, 24, 32])
+def test_general_product_sum_kernel_equals_plain(dev, nr, nc, symmetric, r):
+    """The product's band-sum kernel against its plain version bit for
+    bit, band after band (bands of 5 tile pairs, each adding to what the
+    bands before wrote) on random slots, into the columns of a wider out:
+    every width instance (8, 16, 32 columns)."""
+    g = torch.Generator(device=dev).manual_seed(nr + r)
+    B, band_pairs = 3, 5
+    sides = 2 if symmetric else 1
+    tiles_r, tiles_c = -(-nr // 128), -(-nc // 128)
+    pairs = tiles_r * (tiles_r + 1) // 2 if symmetric else tiles_r * tiles_c
+    out = torch.randn((B, nr, r + 9), generator=g, device=dev)
+    want = out.clone()
+    cuda_kernels.reset_launch_counts()
+    for g0 in range(0, pairs, band_pairs):
+        band = min(band_pairs, pairs - g0)
+        slots = torch.randn(B * band_pairs * sides * 128 * r, generator=g,
+                            device=dev)
+        cuda_kernels.general_product_sum(slots, out[:, :, 4:4 + r], nc,
+                                         symmetric, g0, band, band_pairs)
+        cuda_kernels.general_product_sum_plain(
+            slots, want[:, :, 4:4 + r], nc, symmetric, g0, band, band_pairs)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts["matern_general_product_sum"] == (
+        -(-pairs // band_pairs))
+    assert torch.equal(out, want)
 
 
 def test_general_grid_engine_cuda_matches_cpu(dev):
@@ -1629,7 +1704,7 @@ def test_tapered_general_engine_cuda_matches_cpu(dev):
 def test_sparse_operator_and_csr_route_on_the_card(dev):
     """A scipy CSR on the card: SparseOperator (float32 and float64, one
     torch.sparse.mm a product) against the host product; the general-nu CSR
-    builder on the card (the elementwise entry) against the same builder on
+    builder on the card (the assembly entry) against the same builder on
     the CPU in float64, the kept entries equal apart from those within
     1e-5 of the threshold; GaussianProcess over a CSR above the dense
     threshold runs the Krylov route."""
@@ -1650,7 +1725,8 @@ def test_sparse_operator_and_csr_route_on_the_card(dev):
         assert np.linalg.norm(got - want) / np.linalg.norm(want) < tol
     cuda_kernels.reset_launch_counts()
     G = taper.generate_tapered_correlation(pts, 0.03, 1.2, 0.05, device=dev)
-    assert cuda_kernels.launch_counts["matern_general_elementwise"] > 0
+    assert cuda_kernels.launch_counts["matern_general_assembly"] > 0
+    assert cuda_kernels.launch_counts["matern_general_elementwise"] == 0
     H = taper.generate_tapered_correlation(pts, 0.03, 1.2, 0.05,
                                            device="cpu", dtype=F64)
     tau = taper.estimate_kernel_threshold(len(pts), 2, 0.05, [0.03] * 2, 1.2)

@@ -176,18 +176,20 @@ def test_operator_matmat_and_trace(points, nu):
 @pytest.mark.parametrize("nu", [0.5, 1.2, 10.0])
 def test_operator_dense(points, nu, monkeypatch):
     """MaternOperator.dense() against the reference's, rtol 1e-11; a
-    general nu goes through the general-nu entry point (the elementwise
+    general nu goes through the general-nu assembly entry point (the fused
     kernel on the card), a closed form does not."""
     jop = jops.MaternOperator(points, 0.1, nu=nu, dtype=jnp.float64,
                               use_pallas=False)
     top = tops.MaternOperator(points, 0.1, nu=nu, **CPU)
     calls = []
-    entry = cuda_kernels.matern_general
-    monkeypatch.setattr(cuda_kernels, "matern_general",
-                        lambda x, nu: calls.append(nu) or entry(x, nu))
+    entry = cuda_kernels.matern_general_assemble
+    monkeypatch.setattr(
+        cuda_kernels, "matern_general_assemble",
+        lambda p, s, nus, **kw: calls.append(list(nus)) or entry(p, s, nus,
+                                                                 **kw))
     np.testing.assert_allclose(top.dense().numpy(), np.asarray(jop.dense()),
                                rtol=1e-11, atol=1e-15)
-    assert calls == ([] if tk.is_closed_form(nu) else [nu])
+    assert calls == ([] if tk.is_closed_form(nu) else [[nu]])
 
 
 def test_general_matmat_rectangular_and_modes(points):
@@ -363,14 +365,16 @@ class _GeneralLibrary:
     each launch from the pointers it is handed, in float64 on the kernel's
     own float32 inputs, and records the calls. The product fills the
     band's slots pair by pair of the walk as the kernel's blocks do (each
-    slot once, NaN where none wrote) and adds each row tile's slots of the
-    band to its rows in order of s, in float32, from 0 where the band holds
-    the tile's first slot, as the kernel's second pass does; it checks
-    each point's constants against _general_consts and keeps the scales
-    it was handed. The trace takes each point's nu from its constants,
-    fills the launch's whole partials scratch, and sums, as the kernels
-    do, on a square K only the pairs above the diagonal, twice, and its
-    n ones."""
+    slot once, NaN where none wrote); the band's sum runs the plain
+    version, cuda_kernels.general_product_sum_plain, on the memory it is
+    handed (tests/test_torch_general_assembly.py holds that to the sum
+    written out). It checks each point's constants against
+    _general_consts and keeps the scales it was handed. The assembly takes
+    each point's nu from its constants and writes each point's K (its
+    block of rows) in the output's dtype. The trace takes each point's nu
+    from its constants, fills the launch's whole partials scratch, and
+    sums, as the kernels do, on a square K only the pairs above the
+    diagonal, twice, and its n ones."""
 
     def __init__(self, nus):
         self.nus = tuple(nus)
@@ -381,10 +385,16 @@ class _GeneralLibrary:
     def gppe_matern_general_consts_bytes(self):
         return 1752
 
+    def _point_nu(self, table, b):
+        nu, = {nu for nu in self.nus
+               if cuda_kernels._general_consts(nu).tobytes()
+               == table[1752 * b:1752 * (b + 1)].tobytes()}
+        return nu
+
     def gppe_matern_general_product(self, rows, cols, scales, consts, V,
-                                    out, slots, nr, nc, d, r, ldv, ldo,
-                                    v_stride, out_stride, batch, symmetric,
-                                    g0, band_pairs, slot_pairs, stream):
+                                    slots, nr, nc, d, r, ldv, v_stride,
+                                    batch, symmetric, g0, band_pairs,
+                                    slot_pairs, stream):
         assert batch == len(self.nus) and 1 <= band_pairs <= slot_pairs
         symmetric = bool(symmetric)
         x = _floats(rows, nr * d).reshape(nr, d)
@@ -401,7 +411,6 @@ class _GeneralLibrary:
         tiles_r, tiles_c = -(-nr // T), -(-nc // T)
         sides = 2 if symmetric else 1
         walk = _walk(tiles_r, tiles_c, symmetric)
-        index = {pair: g for g, pair in enumerate(walk)}
         assert g0 + band_pairs <= len(walk)
         grid = _floats(slots, batch * slot_pairs * sides * T * r).reshape(
             batch, slot_pairs, sides, T, r)
@@ -419,26 +428,46 @@ class _GeneralLibrary:
                 if symmetric and ti != tj:
                     grid[b, p, 1, :Kt.shape[1]] = (
                         Kt.T @ v[T * ti:T * (ti + 1)])
-            o = _strided(out + 4 * b * out_stride, nr, r, ldo)
-            for t in range(tiles_r):
-                rows_t = slice(T * t, min(T * (t + 1), nr))
-                m = rows_t.stop - rows_t.start
-                ss = [s_ for s_ in range(tiles_r if symmetric else tiles_c)
-                      if g0 <= index[(min(s_, t), max(s_, t)) if symmetric
-                                     else (t, s_)] < g0 + band_pairs]
-                if not ss:
-                    continue
-                total = (np.zeros((m, r), np.float32) if ss[0] == 0
-                         else o[rows_t].copy())
-                for s_ in ss:
-                    g = index[(min(s_, t), max(s_, t)) if symmetric
-                              else (t, s_)]
-                    side = int(symmetric and s_ < t)
-                    slot = grid[b, g - g0, side, :m]
-                    assert not np.isnan(slot).any()
-                    total += slot
-                o[rows_t] = total
         self.calls.append(("product", r, batch, int(symmetric)))
+        return 0
+
+    def gppe_matern_general_product_sum(self, slots, out, nr, nc, r, ldo,
+                                        out_stride, batch, symmetric, g0,
+                                        band_pairs, slot_pairs, stream):
+        assert batch == len(self.nus) and 1 <= band_pairs <= slot_pairs
+        sides = 2 if symmetric else 1
+        grid = torch.from_numpy(
+            _floats(slots, batch * slot_pairs * sides * 128 * r))
+        o = torch.from_numpy(np.lib.stride_tricks.as_strided(
+            _floats(out, (batch - 1) * out_stride + (nr - 1) * ldo + r),
+            (batch, nr, r), (4 * out_stride, 4 * ldo, 4), writeable=True))
+        cuda_kernels.general_product_sum_plain(
+            grid, o, nc, bool(symmetric), g0, band_pairs, slot_pairs)
+        self.calls.append(("product_sum", r, batch, int(symmetric)))
+        return 0
+
+    def gppe_matern_general_assemble(self, points, scales, consts, out, n, d,
+                                     row0, nr, batch, symmetric, out_f64,
+                                     stream):
+        assert bool(symmetric) == (row0 == 0 and nr == n)
+        x = _floats(points, n * d).reshape(n, d)
+        sc = _floats(scales, batch * d).reshape(batch, d).copy()
+        self.scales.append(sc)
+        table = np.ctypeslib.as_array(
+            ctypes.cast(consts, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(batch * 1752,))
+        ctype, dtype = ((ctypes.c_double, np.float64) if out_f64
+                        else (ctypes.c_float, np.float32))
+        K = np.ctypeslib.as_array(ctypes.cast(out, ctypes.POINTER(ctype)),
+                                  shape=(batch * nr * n,)).reshape(
+                                      batch, nr, n)
+        for b in range(batch):
+            xs = _t(x / sc[b])
+            K[b] = tk.matern(tk.pairwise_scaled_distance(
+                xs[row0:row0 + nr], xs, 1.0),
+                self._point_nu(table, b)).numpy().astype(np.float32)
+        self.calls.append(("assemble", n, row0, nr, batch, int(symmetric),
+                           np.dtype(dtype).name))
         return 0
 
     def gppe_matern_general_trace(self, rows, cols, scales, consts, partials,
@@ -510,7 +539,8 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     got = cuda_kernels._matern_general_matmat_cuda(
         pts, _t([0.1, 0.1], F32), V, 3.7, None, frobenius)
     widths = [min(32, r - c) for c in range(0, r, 32)]
-    want_calls = [("product", w, 1, 1) for w in widths]
+    want_calls = [(entry, w, 1, 1) for w in widths
+                  for entry in ("product", "product_sum")]
     if frobenius:
         want_calls.append(("trace", 1,
                            cuda_kernels.trace_schedule(n, n, True)[4], 1))
@@ -520,6 +550,7 @@ def test_card_path_launches_and_sums(general_library, n, r, frobenius):
     assert cuda_kernels.launch_counts == {
         **dict.fromkeys(cuda_kernels.launch_counts, 0),
         "matern_general_product": len(widths),
+        "matern_general_product_sum": len(widths),
         "matern_general_trace": int(frobenius)}
     want = cuda_kernels.matern_matmat_plain(
         pts.double(), _t([0.1, 0.1]), None if V is None else V.double(),
@@ -570,9 +601,12 @@ def test_card_path_batched(monkeypatch, B, n, r, cap_pairs):
     assert bands[0] == (1 if cap_pairs is None
                         else -(-(-(-n // 128) * (-(-n // 128) + 1) // 2)
                                // cap_pairs))
-    assert lib.calls == [("product", w, B, 1)
-                         for w, k in zip(widths, bands) for _ in range(k)]
+    assert lib.calls == [(entry, w, B, 1)
+                         for w, k in zip(widths, bands) for _ in range(k)
+                         for entry in ("product", "product_sum")]
     assert cuda_kernels.launch_counts["matern_general_product"] == sum(bands)
+    assert cuda_kernels.launch_counts["matern_general_product_sum"] == (
+        sum(bands))
     for sc in lib.scales:
         np.testing.assert_array_equal(sc, np.repeat(
             np.float32(rhos)[:, None], 2, axis=1))
@@ -586,7 +620,8 @@ def test_card_path_batched(monkeypatch, B, n, r, cap_pairs):
         one = cuda_kernels._matern_general_matmat_cuda(
             pts, _t([rhos[b]] * 2, F32), V[b], nus[b], None, False)
         assert {c[:3] for c in single.calls} == {
-            ("product", w, 1) for w in widths}
+            (entry, w, 1) for w in widths
+            for entry in ("product", "product_sum")}
         np.testing.assert_array_equal(one.numpy(), got[b].numpy())
 
 
@@ -645,6 +680,7 @@ def test_grid_chunk_one_product_launch_per_step(monkeypatch, problem,
     assert [c for c in lib.calls if c[0] == "product"] == [
         ("product", 14, len(RHOS), 1)] * STEPS
     assert cuda_kernels.launch_counts["matern_general_product"] == STEPS
+    assert cuda_kernels.launch_counts["matern_general_product_sum"] == STEPS
     assert [c for c in lib.calls if c[0] == "trace"] == [
         ("trace", 1, cuda_kernels.trace_schedule(N, N, True)[4], len(RHOS))]
     assert cuda_kernels.launch_counts["matern_general_trace"] == 1

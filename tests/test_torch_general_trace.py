@@ -493,6 +493,8 @@ def test_entry_signatures_match_the_sources(monkeypatch):
                 _C_TYPES[re.sub(r"\s*\w+$", "", arg.strip())]
                 for arg in args.split(",") if arg.strip()]
     assert {"gppe_matern_general_trace",
-            "gppe_matern_blocksparse_general_trace"} <= set(entries)
+            "gppe_matern_blocksparse_general_trace",
+            "gppe_matern_general_assemble", "gppe_matern_general_product",
+            "gppe_matern_general_product_sum"} <= set(entries)
     for name, types in entries.items():
         assert getattr(lib, name).argtypes == types, name

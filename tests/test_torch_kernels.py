@@ -221,6 +221,9 @@ def test_cpu_path_launches_no_kernel():
     gop.matmat(V)
     gop.trace_pow(2)
     cuda_kernels.matern_general(_t(np.linspace(0.0, 3.0, 7)), 3.7)
+    gop.dense()
+    cuda_kernels.matern_general_assemble(_t(pts), [0.1, 0.2], (1.3, 3.7),
+                                         out_dtype=F64)
     gtop = ttaper.TaperedMaternOperator(pts, 0.1, nu=1.3, density=0.1,
                                         tile=16, device="cpu", dtype=F64)
     gtop.matmat(V)
@@ -229,7 +232,8 @@ def test_cpu_path_launches_no_kernel():
         "matern_matmat": 0, "matern_matmat_mma": 0,
         "matern_matmat_multirho": 0, "matern_matmat_multirho_mma": 0,
         "matern_matmat_blocksparse": 0, "matern_matmat_blocksparse_mma": 0,
-        "matern_general_elementwise": 0, "matern_general_product": 0,
+        "matern_general_elementwise": 0, "matern_general_assembly": 0,
+        "matern_general_product": 0, "matern_general_product_sum": 0,
         "matern_general_trace": 0, "matern_blocksparse_general_product": 0,
         "matern_blocksparse_general_trace": 0}
 

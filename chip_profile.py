@@ -18,6 +18,10 @@
     python3 chip_profile.py --parent DIR general-levers  # G1, G2 by lever
     python3 chip_profile.py --parent DIR general-traces  # their traces
     python3 chip_profile.py assembly-levers # G1's assembly with, without bins
+    python3 chip_profile.py fft             # the FFT grid and (rho, nu) surface
+    python3 chip_profile.py fft-tables      # float32 surface gaps, split
+    python3 chip_profile.py fft-table-costs # the offset tables' two routes
+    python3 chip_profile.py fft-keys        # main_fft_grid rows over 4 keys
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -37,6 +41,28 @@ step through both packages' products (the same bits, and this package's
 band sums on a second stream, two_stream_product), in turns, then
 main_large's 64 etas through both. ``--dot-mode`` makes that tile-dot
 mode the module default for the profiled setups.
+
+``fft`` profiles the same way one construction of the 2^20 FFT grid path
+(chip_smoke.py phase 30 at nu = 2.2: the GridMaternOperator, its host grid
+geometry, its table on the general-nu kernel's elementwise entry, and
+KrylovProfileLikelihood's 48 cuFFT products at r = 20), then the engine
+alone on a built operator, and one node chunk of phase 32's (rho, nu)
+surface at n = 100,489 (2 x 3 nodes, the six that one chunk of the 3 GiB
+basis budget holds at k = 48 and 16 probes: the tables, one batched FFT
+Lanczos pass, the host Ritz step).
+
+``fft-tables`` splits the gap between float32 and float64 nodes of the
+(rho, nu) surface (chip_smoke.py phase 32's 3 x 3 nodes at n = 100,489, one
+random block for all): float32 nodes with their general-nu tables on the
+general-nu kernel (the port's rule), float32 nodes with float64 tables
+(kernels.matern), float64 nodes; each float32 surface's gap to the float64
+one at the 9 nodes and log10 eta in {0.5, 1, 2, 3}, and each node's
+float32 table against the float64 one (max abs, mean, sum).
+
+``fft-table-costs`` times the general-nu offset tables of the FFT grid
+paths through both routes (fft_table_costs); ``fft-keys`` refits
+chip_smoke.py phase 31's three rows of main_fft_grid on four random blocks
+in float64 and float32 (fft_keys).
 
 ``--parent DIR`` loads a second copy of the package, ``DIR/gppe_tpu_torch``
 (the parent commit, unpacked under the git-ignored ``build/``), beside this
@@ -180,9 +206,11 @@ import chip_smoke as cs
 REPS = 8
 from gppe_tpu_torch.drivers import find_optimal_covariance
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
+from gppe_tpu_torch.models.krylov_posterior import (
+    KrylovPosteriorSurfaceRhoNu)
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
-from gppe_tpu_torch.ops.operators import MaternOperator
+from gppe_tpu_torch.ops.operators import GridMaternOperator, MaternOperator
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
 
 
@@ -1418,6 +1446,157 @@ def search_vs_parent(dev, pkgs):
     print(json.dumps({"phase": "search_vs_parent", **out}), flush=True)
 
 
+def fft_table_split(dev):
+    """The (rho, nu) surface's float32-node gap, split between the tables
+    and the Lanczos passes (see the module docstring, ``fft-tables``)."""
+    import math
+
+    from gppe_tpu_torch.ops import operators, stochastic
+
+    pts, z, X = cs.grid_problem(cs.RHO_NU_SIDE)
+    block = dict(zip(("probes", "v_defl"), stochastic.random_block(
+        len(pts), cs.RHO_NU_CONFIG["num_probes"], 0, dev, torch.float64)))
+    cfg = {**cs.RHO_NU_CONFIG, "num_rho_nodes": 3, "num_nu_nodes": 3}
+
+    def surface(**kw):
+        return KrylovPosteriorSurfaceRhoNu(pts, z, X, device=dev, **block,
+                                           **cfg, **kw)
+    g1_tables = surface()
+    rule = operators.grid_kernel_table
+    operators.grid_kernel_table = (
+        lambda dist, nu, dtype: kernels.matern(dist.double(), nu))
+    try:
+        f64_tables = surface()
+    finally:
+        operators.grid_kernel_table = rule
+    f64 = surface(node_dtype=torch.float64)
+    gaps = {"g1_tables": {}, "f64_tables": {}}
+    for le in (0.5, 1.0, 2.0, 3.0):
+        for name, s in (("g1_tables", g1_tables),
+                        ("f64_tables", f64_tables)):
+            gaps[name][le] = max(
+                abs(float(s.profile_loglik(le, lr, math.exp(t)))
+                    - float(f64.profile_loglik(le, lr, math.exp(t))))
+                for lr in f64.log10_rho_nodes for t in f64.log_nu_nodes)
+    base = torch.as_tensor(operators.grid_distance_table(
+        *operators.grid_geometry(pts)[:2], 1.0), device=dev)
+    tables = []
+    for lr in f64.log10_rho_nodes:
+        for t in f64.log_nu_nodes:
+            d = base / 10.0 ** lr
+            e = (rule(d, math.exp(t), torch.float32)
+                 - rule(d, math.exp(t), torch.float64))
+            tables.append({"rho": 10.0 ** lr, "nu": math.exp(t),
+                           "max_abs": float(e.abs().max()),
+                           "mean": float(e.mean()), "sum": float(e.sum())})
+    print(json.dumps({"phase": "fft_table_split",
+                      "nvidia_smi": cs.nvidia_smi(), "n": len(pts),
+                      "max_abs_gap_to_f64_nodes_by_log10_eta": gaps,
+                      "g1_table_vs_f64": tables}), flush=True)
+
+
+def fft_table_costs(dev):
+    """The general-nu offset tables of the FFT grid paths, timed on the
+    card through each route (median of 5, in turns): the float64 plain
+    ``kernels.matern`` and the general-nu kernel's float32 elementwise
+    entry, over phase 30's 2^20 table (nu = 2.2) and over phase 32's 81
+    node tables at n = 100,489 (one call per nu over its 9 rhos' stacked
+    tables), with each route's largest gap to the other."""
+    from gppe_tpu_torch.models.krylov_posterior import _chebyshev_lobatto
+    from gppe_tpu_torch.ops import operators
+
+    def table_fns(base, rhos, nus):
+        dists = {nu: torch.stack([base / r for r in rhos]) for nu in nus}
+        return {"float64": lambda: [kernels.matern(d, nu)
+                                    for nu, d in dists.items()],
+                "general_f32": lambda: [cuda_kernels.matern_general(
+                    d.float().contiguous(), nu) for nu, d in dists.items()]}
+
+    out = {"nvidia_smi": cs.nvidia_smi()}
+    cases = {}
+    pts = cs.grid_problem(cs.FFT_SIDE)[0]
+    base = torch.as_tensor(operators.grid_distance_table(
+        *operators.grid_geometry(pts)[:2], 1.0), device=dev)
+    cases["table_2e20"] = table_fns(base, [cs.FFT_RHO], [2.2])
+    pts = cs.grid_problem(cs.RHO_NU_SIDE)[0]
+    base = torch.as_tensor(operators.grid_distance_table(
+        *operators.grid_geometry(pts)[:2], 1.0), device=dev)
+    rho_nodes = _chebyshev_lobatto(*cs.RHO_NU_CONFIG["log10_rho_bounds"],
+                                   9)[0]
+    t_nodes = _chebyshev_lobatto(*np.log(cs.RHO_NU_CONFIG["nu_bounds"]),
+                                 9)[0]
+    cases["tables_rho_nu_81"] = table_fns(base, (10.0 ** rho_nodes).tolist(),
+                                          np.exp(t_nodes).tolist())
+    for name, fns in cases.items():
+        med, all_ms = cs.median_in_turns(fns, 5)
+        a, b = fns["float64"](), fns["general_f32"]()
+        out[name] = {"ms": med, "ms_all": all_ms, "entries": sum(
+            t.numel() for t in a), "max_abs_gap": max(
+            float((x - y.double()).abs().max()) for x, y in zip(a, b))}
+    print(json.dumps({"phase": "fft_table_costs", **out}), flush=True)
+
+
+def fft_keys(dev):
+    """How far main_fft_grid's fits move with the random block: chip_smoke
+    phase 31's three rows (FFT_GRID_F64_ROWS) at n = 2^20, each fitted on
+    the blocks of keys 0-3 (key 0 is main_fft_grid's own), in float64
+    (operator and Lanczos pass) and in float32, the priors on; each row's
+    spread of eta over the keys (max / min - 1) beside the committed
+    reference result's eta, and each fit's smallest Lanczos beta of X's
+    columns over that column's first (how far their Krylov spaces ran
+    out)."""
+    import pickle
+
+    from gppe_tpu_torch.models.priors import inverse_square_log_prior
+    from gppe_tpu_torch.ops import stochastic
+
+    with open(cs.FFT_GRID_PICKLE, "rb") as f:
+        ref = pickle.load(f)
+    pts, z, X = cs.grid_problem(cs.FFT_SIDE)
+    rhos, nus = np.geomspace(0.003, 0.03, 5), [0.5, 1.0, 2.0, 4.0, 8.0]
+    rows = []
+    for i, j in cs.FFT_GRID_F64_ROWS:
+        rho, nu = float(rhos[i]), nus[j]
+        want = ref["rows"][i * 5 + j]
+        row = {"rho": rho, "nu": nu, "reference_eta": want["eta"],
+               "reference_sigma0": want["sigma0"], "fits": []}
+        for key in range(4):
+            probes, v_defl = stochastic.random_block(len(pts), 16, key, dev,
+                                                     torch.float32)
+            for dtype in (torch.float64, torch.float32):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng = KrylovProfileLikelihood(
+                    GridMaternOperator(pts, rho, nu=nu, device=dev,
+                                       dtype=dtype), X, z,
+                    lanczos_steps=48, num_probes=16, device=dev, dtype=dtype,
+                    probes=probes.to(dtype), v_defl=v_defl.to(dtype))
+                fit = eng.fit()
+                # how far the Krylov spaces of X's columns ran down: each
+                # column's smallest beta over its first
+                betas = np.abs(np.asarray(eng.betas)[1:1 + X.shape[1]])
+                beta_ratio = float((betas.min(axis=1) / betas[:, 0]).min())
+                lp = (eng.log_likelihood(fit["sigma"], fit["eta"])
+                      + float(inverse_square_log_prior(rho))
+                      + float(inverse_square_log_prior(nu, scale=25.0))
+                      if np.isfinite(fit["eta"]) and fit["sigma"] > 0
+                      else -np.inf)
+                del eng
+                row["fits"].append({
+                    "key": key, "dtype": str(dtype), "eta": fit["eta"],
+                    "sigma0": fit["sigma0"], "lp": lp,
+                    "x_min_beta_ratio": beta_ratio,
+                    "seconds": cs.sync_seconds(t0)})
+        for dtype in ("torch.float64", "torch.float32"):
+            etas = [f["eta"] for f in row["fits"] if f["dtype"] == dtype]
+            row[f"eta_spread_{dtype[6:]}"] = max(etas) / min(etas) - 1
+            row[f"reference_eta_gap_to_mean_{dtype[6:]}"] = (
+                want["eta"] / float(np.mean(etas)) - 1)
+        rows.append(row)
+    print(json.dumps({"phase": "fft_keys", "nvidia_smi": cs.nvidia_smi(),
+                      "n": len(pts), "rows": rows}), flush=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: needs an NVIDIA GPU")
@@ -1478,6 +1657,31 @@ def main(argv):
             verbose=False, device=dev, **cs.MAIN_CUTS))
         if pkgs is not None:
             search_vs_parent(dev, pkgs)
+    if "fft" in argv:
+        pts, z, X = cs.grid_problem(cs.FFT_SIDE)
+
+        def fft_construction():
+            op = GridMaternOperator(pts, cs.FFT_RHO, nu=2.2, device=dev)
+            return KrylovProfileLikelihood(
+                op, X, z, lanczos_steps=cs.FFT_STEPS,
+                num_probes=cs.FFT_PROBES, device=dev)
+        profile_setup("fft_2e20", fft_construction)
+        op = GridMaternOperator(pts, cs.FFT_RHO, nu=2.2, device=dev)
+        profile_setup("fft_2e20_engine", lambda: KrylovProfileLikelihood(
+            op, X, z, lanczos_steps=cs.FFT_STEPS, num_probes=cs.FFT_PROBES,
+            device=dev))
+        del op
+        pts, z, X = cs.grid_problem(cs.RHO_NU_SIDE)
+        profile_setup("rho_nu_chunk", lambda: KrylovPosteriorSurfaceRhoNu(
+            pts, z, X, device=dev, **{**cs.RHO_NU_CONFIG,
+                                      "num_rho_nodes": 2,
+                                      "num_nu_nodes": 3}))
+    if "fft-tables" in argv:
+        fft_table_split(dev)
+    if "fft-table-costs" in argv:
+        fft_table_costs(dev)
+    if "fft-keys" in argv:
+        fft_keys(dev)
     if "taper" in argv:
         pts, z, X = cs.tapered_problem(cs.TAPER_SIDE)
         op = TaperedMaternOperator(pts, cs.TAPER_SCALE, nu=cs.NU,

@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are six paths; the
+counterpart sits at the same path. Ported so far are seven paths; the
 first four run hand-written CUDA kernels behind the wrappers of
 ``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
 tile-dot mode), the fifth reaches them through a matrix-free K:
@@ -33,7 +33,17 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   (rho, nu), on the general-nu kernel ``matern_general`` (the fused
   assembly from the points, K @ V, trace(K^2)); drivers.find_optimal_covariance runs the
   (rho, nu) search over it (ops.global_opt.differential_evolution,
-  models.priors).
+  models.priors);
+* structured grids and the posterior surfaces: ops.operators
+  .GridMaternOperator (the exact operator of a regular grid, its products
+  ``torch.fft`` transforms, its general-nu offset table on
+  ``matern_general``'s elementwise entry) through KrylovProfileLikelihood,
+  drivers.find_optimal_covariance.main_fft_grid and
+  drivers.compare_various_num_points; models.krylov_posterior
+  .KrylovPosteriorSurface (lp(eta, rho) from nodes factorized on
+  ``matern_matmat_multirho`` or ``matern_general``) and
+  KrylovPosteriorSurfaceRhoNu (lp(eta, rho, nu) from batched FFT Lanczos
+  passes), differentiable float64 targets for the samplers.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 
@@ -53,16 +63,20 @@ The package imports neither ``jax`` nor ``gppe_tpu``.
 
 from .models.gaussian_process import GaussianProcess
 from .models.grid_krylov import GridKrylovProfileLikelihood
+from .models.krylov_posterior import (KrylovPosteriorSurface,
+                                      KrylovPosteriorSurfaceRhoNu)
 from .models.large_scale import KrylovProfileLikelihood
 from .ops import special
 from .ops.assembly import generate_correlation
 from .ops.global_opt import differential_evolution
-from .ops.operators import MaternOperator
+from .ops.operators import GridMaternOperator, MaternOperator
 from .ops.taper import TaperedMaternOperator
 
 __version__ = "0.1.0"
 
 __all__ = ["GaussianProcess", "GridKrylovProfileLikelihood",
-           "KrylovProfileLikelihood", "MaternOperator",
+           "GridMaternOperator", "KrylovPosteriorSurface",
+           "KrylovPosteriorSurfaceRhoNu", "KrylovProfileLikelihood",
+           "MaternOperator",
            "TaperedMaternOperator", "differential_evolution",
            "generate_correlation", "special", "__version__"]

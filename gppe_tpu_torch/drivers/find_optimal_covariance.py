@@ -19,10 +19,16 @@ generation of differential evolution is one such chunk.
 
     python -m gppe_tpu_torch.drivers.find_optimal_covariance [--large]
 
+``main_fft_grid`` runs the (rho, nu) MAP sweep at n = 2^20 grid points
+through the exact FFT grid operator (``ops.operators.GridMaternOperator``:
+cuFFT products, its general-nu offset tables on the general-nu kernel's
+elementwise entry), one ``KrylovProfileLikelihood`` fit a point.
+
+    python -m gppe_tpu_torch.drivers.find_optimal_covariance [--large | --fft-grid]
+
 runs on the card (``device="cpu"`` for a rehearsal) and writes a file only
 when given ``results_path``. Not ported yet, and refused with the ROADMAP
-item that brings them: ``main_fft_grid`` / ``--fft-grid`` (the FFT grid
-operator, A10) and ``plot=True`` (A15).
+item that brings it: ``plot=True`` (A15).
 """
 
 import argparse
@@ -34,9 +40,11 @@ import torch
 
 from ..models import direct_likelihood
 from ..models.grid_krylov import GridKrylovProfileLikelihood
+from ..models.large_scale import KrylovProfileLikelihood
 from ..models.priors import inverse_square_log_prior, uniform_log_prior
 from ..ops import assembly
 from ..ops.global_opt import differential_evolution
+from ..ops.operators import GridMaternOperator
 from ..utils import checkpoint
 from ..utils import data as data_utils
 from ..utils.config import resolve_device, setup
@@ -329,12 +337,74 @@ def main_large(n=10_000, noise=0.1, grid_rho=8, grid_nu=8,
                                     use_saved=use_saved, verbose=verbose)
 
 
-def main_fft_grid(*args, **kwargs):
-    """The (rho, nu) MAP sweep at n = 2^20 through the FFT grid operator
-    (reference :342): not ported yet."""
-    raise NotImplementedError(
-        "find_optimal_covariance.main_fft_grid: the FFT grid operator "
-        "(GridMaternOperator) comes with ROADMAP A10")
+def main_fft_grid(side=1024, noise=0.2, rhos=None, nus=None,
+                  lanczos_steps=48, num_probes=16, with_prior=True,
+                  verbose=True, results_path=None, use_saved=False, *,
+                  device="cuda"):
+    """The (rho, nu) MAP sweep at n = side^2 through the exact FFT grid
+    operator, general nu included (reference :342-415): the reference's
+    grid points (``generate_points(side)``), rhos ``geomspace(0.003, 0.03,
+    5)`` x nus (0.5, 1, 2, 4, 8) by default; each point one
+    ``GridMaternOperator`` (its general-nu offset table on the general-nu
+    kernel's elementwise entry, its products on cuFFT) and one
+    ``KrylovProfileLikelihood`` fit, lp at the optimum plus, with
+    ``with_prior``, the inverse-square priors on rho and nu / 25. Float32
+    on the card, float64 on the CPU (as :func:`build_objective`). Each
+    row's seconds end with a device synchronise. Returns the reference's
+    result dict."""
+    device = resolve_device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    rhos = np.geomspace(0.003, 0.03, 5) if rhos is None else rhos
+    nus = np.asarray([0.5, 1.0, 2.0, 4.0, 8.0]) if nus is None else nus
+
+    def compute():
+        pts = data_utils.generate_points(side, dimension=2)
+        n = pts.shape[0]
+        z = data_utils.generate_data(pts, noise)
+        X = data_utils.generate_basis_functions(pts, 2)
+        rows = []
+        _sync(device)
+        t_all = time.perf_counter()
+        for rho in rhos:
+            for nu in nus:
+                t0 = time.perf_counter()
+                op = GridMaternOperator(pts, float(rho), nu=float(nu),
+                                        device=device, dtype=dtype)
+                eng = KrylovProfileLikelihood(
+                    op, X, z, lanczos_steps=lanczos_steps,
+                    num_probes=num_probes, device=device, dtype=dtype)
+                r = eng.fit()
+                lp = (eng.log_likelihood(r["sigma"], r["eta"])
+                      if np.isfinite(r["eta"]) and r["sigma"] > 0
+                      else -np.inf)
+                if with_prior and np.isfinite(lp):
+                    lp += float(inverse_square_log_prior(float(rho)))
+                    lp += float(inverse_square_log_prior(float(nu),
+                                                         scale=25.0))
+                _sync(device)
+                secs = time.perf_counter() - t0
+                rows.append({"rho": float(rho), "nu": float(nu),
+                             "lp": float(lp), "seconds": secs, **r})
+                if verbose:
+                    print(f"  rho={rho:.4g} nu={nu:.3g}: lp={lp:.2f} "
+                          f"eta={r['eta']:.4g} ({secs:.1f}s)", flush=True)
+        total = time.perf_counter() - t_all
+        best = max(rows, key=lambda r: r["lp"])
+        out = {"n": n, "rhos": np.asarray(rhos), "nus": np.asarray(nus),
+               "rows": rows, "optimal_rho": best["rho"],
+               "optimal_nu": best["nu"], "max_lp": best["lp"],
+               "total_seconds": total,
+               "seconds_per_point": total / len(rows),
+               "with_prior": bool(with_prior)}
+        if verbose:
+            print(f"fft grid: {len(rows)} exact fits at n={n} in "
+                  f"{total:.0f}s ({out['seconds_per_point']:.1f} s/point); "
+                  f"MAP rho={best['rho']:.4g} nu={best['nu']:.3g} "
+                  f"lp={best['lp']:.2f}")
+        return out
+
+    return checkpoint.run_or_resume(results_path, compute,
+                                    use_saved=use_saved, verbose=verbose)
 
 
 if __name__ == "__main__":
@@ -354,7 +424,8 @@ if __name__ == "__main__":
     p.add_argument("--device", default="cuda")
     a = p.parse_args()
     if a.fft_grid:
-        main_fft_grid()
+        main_fft_grid(results_path=a.results_path, use_saved=a.use_saved,
+                      device=a.device)
     elif a.large:
         main_large(n=a.large_n, grid_rho=a.grid, grid_nu=a.grid,
                    results_path=a.results_path, use_saved=a.use_saved,

@@ -58,7 +58,9 @@ TPU the general-nu assembly, the row-blocked products and traces of
 XLA-fused. Its assembly fills branch-binned k tiles
 (``csrc/matern_general_tile.cuh``) on the tile pairs tj >= ti of a square K
 and writes each k to K[i, j] and K[j, i], one launch for a batch of points;
-the elementwise entry over a buffer of distances is no path's any more.
+the elementwise entry evaluates k over a tensor of distances: the offset
+tables of the FFT grid operator and of the (rho, nu) surface
+(``operators.grid_kernel_table``), one launch per table or per nu.
 Its product fills the same k tiles on a symmetric walk of tile pairs, each k
 serving K[i, j] and K[j, i], and sums each row tile's slots in a fixed
 order (:func:`general_product_sum`, a block per row tile); its walk runs in
@@ -1178,10 +1180,12 @@ def matern_general(x, nu):
     CPU tensors take the plain version :func:`kernels.matern` (the
     reference's log-space form over ``special.log_kv``, in the tensor's
     dtype); CUDA tensors must be float32 and contiguous and launch the
-    elementwise entry of ``csrc/matern_general.cu``. No path of the port
-    runs it (a dense K comes from the points,
-    :func:`matern_general_assemble`): it probes k's accuracy over any
-    distances."""
+    elementwise entry of ``csrc/matern_general.cu``, one launch. Its
+    paths are the general-nu offset tables of a float32
+    ``operators.GridMaternOperator`` and of the float32 nodes of
+    ``models.krylov_posterior.KrylovPosteriorSurfaceRhoNu``
+    (``operators.grid_kernel_table``); a dense K comes from the points
+    (:func:`matern_general_assemble`)."""
     nu = check_nu(nu)
     device = x.device
     if device.type == "cpu":

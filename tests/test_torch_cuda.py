@@ -45,10 +45,13 @@ from gppe_tpu_torch.drivers import (  # noqa: E402
     profile_kernel_matrix, roofline_matvec)
 from gppe_tpu_torch.models.grid_krylov import (  # noqa: E402
     GridKrylovProfileLikelihood)
+from gppe_tpu_torch.models.krylov_posterior import (  # noqa: E402
+    KrylovPosteriorSurface, KrylovPosteriorSurfaceRhoNu)
 from gppe_tpu_torch.models.large_scale import (  # noqa: E402
     KrylovProfileLikelihood)
 from gppe_tpu_torch.ops import cuda_kernels, kernels, linalg  # noqa: E402
-from gppe_tpu_torch.ops.operators import MaternOperator  # noqa: E402
+from gppe_tpu_torch.ops.operators import (  # noqa: E402
+    GridMaternOperator, MaternOperator)
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator  # noqa: E402
 from gppe_tpu_torch.utils import data as data_utils  # noqa: E402
 
@@ -1745,3 +1748,96 @@ def test_sparse_operator_and_csr_route_on_the_card(dev):
     assert gp.likelihood.operator_mode
     res = gp.train(z)
     assert res["success"] and 0.15 < res["sigma0"] < 0.25
+
+
+# -- the structured-grid slice: the FFT grid operator and the surfaces -------
+
+@pytest.mark.parametrize("nu", [0.5, 2.2])
+def test_grid_fft_operator_against_float64(dev, nu):
+    """GridMaternOperator at n = 1024 (a 32 x 32 grid, rho 0.1; the
+    reference's on-chip case, tests_tpu/test_onchip.py:159-199): matmat
+    of 5 columns (cuFFT, complex64 spectra) within 2e-5 (Frobenius) of
+    float64 dense K @ V, trace(K^2) rtol 1e-6; at a general nu the table
+    one elementwise launch of the general-nu kernel (no other kernel)."""
+    pts = data_utils.generate_points(32, dimension=2)
+    cuda_kernels.reset_launch_counts()
+    op = GridMaternOperator(pts, 0.1, nu=nu, device=dev)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} == (
+        {} if nu == 0.5 else {"matern_general_elementwise": 1})
+    P = torch.as_tensor(pts, dtype=F64, device=dev)
+    K = kernels.matern(kernels.pairwise_scaled_distance(P, P, 0.1), nu)
+    V = torch.as_tensor(np.random.RandomState(0).standard_normal((1024, 5)),
+                        device=dev)
+    got = op.matmat(V.float())
+    assert got.dtype == F32 and got.shape == (1024, 5)
+    want = K @ V
+    assert float(torch.linalg.norm(got.double() - want)
+                 / torch.linalg.norm(want)) < 2e-5
+    assert abs(float(op.trace_pow(2)) / float(torch.sum(K * K)) - 1) < 1e-6
+
+
+def test_grid_fft_general_table_against_float64(dev):
+    """The float32 operator's general-nu table (the elementwise entry,
+    widened) within 3e-5 of the float64 operator's (kernels.matern in
+    float64), at nu in {0.3, 2.2, 24.9} on a 64 x 64 grid; the float64
+    operator launches no kernel."""
+    pts = data_utils.generate_points(64, dimension=2)
+    for nu in (0.3, 2.2, 24.9):
+        cuda_kernels.reset_launch_counts()
+        op64 = GridMaternOperator(pts, 0.05, nu=nu, device=dev, dtype=F64)
+        assert not any(cuda_kernels.launch_counts.values())
+        op32 = GridMaternOperator(pts, 0.05, nu=nu, device=dev)
+        assert cuda_kernels.launch_counts["matern_general_elementwise"] == 1
+        gap = float(torch.max(torch.abs(op32._k_tab - op64._k_tab)))
+        assert gap < cuda_kernels.GENERAL_K_ATOL, (nu, gap)
+
+
+def test_posterior_surface_cuda_matches_cpu(dev):
+    """A float32 KrylovPosteriorSurface on the card (the multi-rho kernel,
+    nu = 1/2) against the same float32 surface on the CPU (its plain
+    version) at n = 400 random points, from the same random block: within
+    0.5 nats at three (eta, rho) (the reference's envelope for two routes
+    with the same probes, tests/test_krylov_posterior.py:156-185)."""
+    rng = np.random.RandomState(0)
+    pts = rng.rand(400, 2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    probes = np.sign(rng.standard_normal((400, 12)))
+    v_defl = rng.standard_normal((400, 1))
+    kw = dict(nu=0.5, log10_rho_bounds=(-1.5, -0.5), num_nodes=12,
+              lanczos_steps=32, num_probes=12, probes=probes, v_defl=v_defl,
+              dtype=F32)
+    cuda_kernels.reset_launch_counts()
+    card = KrylovPosteriorSurface(pts, z, X, device=dev, **kw)
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] == 32
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] == 1
+    cpu = KrylovPosteriorSurface(pts, z, X, device="cpu", **kw)
+    for th in ((0.0, -1.2), (1.0, -0.9), (2.0, -0.6)):
+        assert abs(float(card.profile_loglik(*th))
+                   - float(cpu.profile_loglik(*th))) < 0.5, th
+
+
+def test_rho_nu_surface_on_the_card(dev):
+    """KrylovPosteriorSurfaceRhoNu on a 24 x 24 grid, 3 x 3 nodes: float32
+    nodes take one elementwise launch per nu (3), float64 nodes none, and
+    the two surfaces agree within 3 nats at the 9 nodes (log10 eta in {1,
+    2, 3}), where the surface needs no interpolation."""
+    pts = data_utils.generate_points(24, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    kw = dict(log10_rho_bounds=(-1.2, -0.6), num_rho_nodes=3,
+              num_nu_nodes=3, lanczos_steps=24, num_probes=8, device=dev)
+    cuda_kernels.reset_launch_counts()
+    f32 = KrylovPosteriorSurfaceRhoNu(pts, z, X, **kw)
+    assert {k: v for k, v in cuda_kernels.launch_counts.items() if v} == {
+        "matern_general_elementwise": 3}
+    cuda_kernels.reset_launch_counts()
+    f64 = KrylovPosteriorSurfaceRhoNu(pts, z, X, node_dtype=F64, **kw)
+    assert not any(cuda_kernels.launch_counts.values())
+    for lr in f32.log10_rho_nodes:
+        for nu in np.exp(f32.log_nu_nodes):
+            for le in (1.0, 2.0, 3.0):
+                a = float(f32.profile_loglik(le, lr, nu))
+                b = float(f64.profile_loglik(le, lr, nu))
+                assert np.isfinite(a) and abs(a - b) < 3.0, (le, lr, nu)

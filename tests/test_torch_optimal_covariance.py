@@ -22,6 +22,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from drivers import find_optimal_covariance as jdrv  # noqa: E402
 from gppe_tpu.models import priors as jpriors  # noqa: E402
+from gppe_tpu_torch.drivers import (  # noqa: E402
+    compare_various_num_points as tcmp)
 from gppe_tpu_torch.drivers import find_optimal_covariance as tdrv  # noqa
 from gppe_tpu_torch.models import priors  # noqa: E402
 from gppe_tpu_torch.ops import cuda_kernels  # noqa: E402
@@ -238,8 +240,26 @@ def test_main_large_general_nu_grid(monkeypatch):
     assert not any(cuda_kernels.launch_counts.values())
 
 
+def test_main_fft_grid_runs():
+    """main_fft_grid is ported (tests/test_torch_grid_fft.py holds it
+    against the reference): at side 10 on the CPU one general-nu point
+    fits, its lp finite with the priors added."""
+    cuda_kernels.reset_launch_counts()
+    res = tdrv.main_fft_grid(side=10, noise=0.05, rhos=[0.15], nus=[1.2],
+                             lanczos_steps=6, num_probes=4, verbose=False,
+                             device="cpu")
+    row, = res["rows"]
+    assert res["n"] == 100 and (row["rho"], row["nu"]) == (0.15, 1.2)
+    assert row["success"] and np.isfinite(row["lp"]) and row["eta"] > 0
+    assert res["max_lp"] == row["lp"]
+    assert not any(cuda_kernels.launch_counts.values())
+
+
 def test_unported_entry_points_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tdrv.main_fft_grid()
     with pytest.raises(NotImplementedError, match="A15"):
         tdrv.main(num_points=4, plot=True, device="cpu")
+    for call in (lambda: tcmp.main(plot=True, device="cpu"),
+                 lambda: tcmp.main_sparse(plot=True, device="cpu"),
+                 lambda: tcmp.plot_results({})):
+        with pytest.raises(NotImplementedError, match="A15"):
+            call()

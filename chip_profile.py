@@ -22,6 +22,8 @@
     python3 chip_profile.py fft-tables      # float32 surface gaps, split
     python3 chip_profile.py fft-table-costs # the offset tables' two routes
     python3 chip_profile.py fft-keys        # main_fft_grid rows over 4 keys
+    python3 chip_profile.py hmc             # a chunk of each HMC sampler
+    python3 chip_profile.py --parent DIR solve-turns  # the surfaces' solve
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
 prints, per template instance, the registers, spills and shared memory the
@@ -50,6 +52,21 @@ alone on a built operator, and one node chunk of phase 32's (rho, nu)
 surface at n = 100,489 (2 x 3 nodes, the six that one chunk of the 3 GiB
 basis budget holds at k = 48 and 16 probes: the tables, one batched FFT
 Lanczos pass, the host Ritz step).
+
+``hmc`` profiles the same way one warm chunk of 10 steps (``resume_hmc``
+from an adapted state: 20 warmup steps first) of chip_smoke.py phase 35's
+sampler (64 chains on the n = 100,000 KrylovPosteriorSurface of phase 33)
+and of phase 36's (64 chains on the n = 100,489 (rho, nu) surface of phase
+32), and adds the kernel launches and ms per step (each step 17 vmapped
+gradients at 16 leapfrog steps).
+
+``solve-turns`` (with ``--parent``) times the vmapped gradient at 64
+chains of phase 35's and phase 36's targets with this package's
+``krylov_posterior._cholesky_solve_small`` and with the parent's, in
+turns on the same surfaces (median of 10), the largest gap of the two
+solves' values and gradients, and with each solve the largest gap of a
+chain's lone evaluation from its row of the batch (solve_turns); the
+parent's copy is imported for its Python only, its kernels are not built.
 
 ``fft-tables`` splits the gap between float32 and float64 nodes of the
 (rho, nu) surface (chip_smoke.py phase 32's 3 x 3 nodes at n = 100,489, one
@@ -205,9 +222,10 @@ import chip_smoke as cs
 # half of them
 REPS = 8
 from gppe_tpu_torch.drivers import find_optimal_covariance
+from gppe_tpu_torch.models import hmc
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.krylov_posterior import (
-    KrylovPosteriorSurfaceRhoNu)
+    KrylovPosteriorSurface, KrylovPosteriorSurfaceRhoNu)
 from gppe_tpu_torch.models.large_scale import KrylovProfileLikelihood
 from gppe_tpu_torch.ops import _build, cuda_kernels, kernels
 from gppe_tpu_torch.ops.operators import GridMaternOperator, MaternOperator
@@ -561,16 +579,120 @@ def profile_setup(name, build):
             end = b
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    print(json.dumps({
+    rec = {
         "phase": f"profile_{name}", "nvidia_smi": cs.nvidia_smi(),
         "dot_mode": cuda_kernels.DEFAULT_DOT_MODE,
         "window_ms_profiled": window_ms,
         "window_ms_unprofiled": plain_window_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share_of_profiled_window": 1.0 - busy_ms / window_ms,
+        "device_events": len(spans),
         "kernels": [{"name": k, "calls": n, "ms": t} for k, (n, t) in top],
         "other_kernels_ms": sum(t for _, t in by_name.values())
-        - sum(t for _, (_, t) in top)}), flush=True)
+        - sum(t for _, (_, t) in top)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+HMC_PROFILE_STEPS, HMC_PROFILE_WARMUP = 10, 20
+
+
+def profile_hmc(name, log_post, dim, dev):
+    """One warm chunk of HMC_PROFILE_STEPS steps at 64 chains from an
+    adapted state, under torch.profiler (profile_setup), and its launches
+    and ms per step."""
+    res = hmc.hmc_sample(
+        log_post, 0.5 * torch.randn((cs.HMC_CHAINS, dim), dtype=torch.float64,
+                                    device=dev), 0,
+        num_samples=1, num_warmup=HMC_PROFILE_WARMUP,
+        num_leapfrog=cs.HMC_LEAPFROG)
+    rec = profile_setup(name, lambda: hmc.resume_hmc(
+        log_post, res.state(), HMC_PROFILE_STEPS,
+        num_leapfrog=cs.HMC_LEAPFROG, device=dev))
+    print(json.dumps({
+        "phase": f"profile_{name}_per_step", "steps": HMC_PROFILE_STEPS,
+        "chains": cs.HMC_CHAINS, "gradients_per_step": cs.HMC_LEAPFROG + 1,
+        "launches_per_step": rec["device_events"] / HMC_PROFILE_STEPS,
+        "ms_per_step_unprofiled":
+            rec["window_ms_unprofiled"] / HMC_PROFILE_STEPS,
+        "device_busy_ms_per_step": rec["device_busy_ms"] / HMC_PROFILE_STEPS,
+        "device_idle_share": rec["device_idle_share_of_profiled_window"]}),
+        flush=True)
+
+
+SOLVE_TURNS = 10
+
+
+def solve_turns(dev, root):
+    """The vmapped gradient and value at 64 chains of phase 35's and phase
+    36's bounded targets, once with this package's _cholesky_solve_small
+    and once with the copy's under ``root`` (swapped into this package's
+    module between calls: the same surfaces, the same points), in turns;
+    each one's median ms and the largest relative gap of the two."""
+    from gppe_tpu_torch.models import krylov_posterior as kp
+    parent = importlib.import_module(
+        f"{load_package(root)}.models.krylov_posterior")
+    solves = {"change": kp._cholesky_solve_small,
+              "parent": parent._cholesky_solve_small}
+
+    def targets():
+        pts, z, X = cs.make_problem(cs.N_MAIN, 7)
+        surface = KrylovPosteriorSurface(
+            pts, z, X, nu=cs.NU, num_nodes=cs.SURFACE_NODES,
+            lanczos_steps=cs.SURFACE_STEPS, num_probes=cs.SURFACE_PROBES,
+            device=dev)
+        yield "posterior_large", 2, surface.make_bounded_log_posterior(
+            log10_eta_bounds=cs.LARGE_BOX[0])[0]
+        del surface
+        pts, z, X = cs.grid_problem(cs.RHO_NU_SIDE)
+        surface = KrylovPosteriorSurfaceRhoNu(pts, z, X, device=dev,
+                                              **cs.RHO_NU_CONFIG)
+        yield "rho_nu_large", 3, surface.make_bounded_log_posterior(
+            log10_eta_bounds=cs.RHO_NU_ETA_BOX,
+            log_prior=hmc._reference_prior)[0]
+
+    try:
+        for name, dim, log_post in targets():
+            g = torch.Generator(device=dev).manual_seed(0)
+            u = 0.5 * torch.randn((cs.HMC_CHAINS, dim), generator=g,
+                                  dtype=torch.float64, device=dev)
+            gv = torch.func.vmap(torch.func.grad_and_value(log_post))
+
+            def call(label):
+                def fn():
+                    kp._cholesky_solve_small = solves[label]
+                    return gv(u)
+                return fn
+            outs = {k: call(k)() for k in solves}
+            med, times = cs.median_in_turns({k: call(k) for k in solves},
+                                            reps=SOLVE_TURNS)
+            gap = {}
+            for i, what in enumerate(("gradient", "value")):
+                a, b = outs["change"][i], outs["parent"][i]
+                gap[what] = float(torch.max(torch.abs(a - b))
+                                  / torch.max(torch.abs(b)))
+            # each chain's lone evaluation against its row of the batch,
+            # relative to the chain's largest gradient component
+            lone_gap = {}
+            for k in solves:
+                kp._cholesky_solve_small = solves[k]
+                worst = [0.0, 0.0]
+                for c in range(cs.HMC_CHAINS):
+                    grad, val = torch.func.grad_and_value(log_post)(u[c])
+                    scale = torch.max(torch.abs(grad))
+                    worst[0] = max(worst[0], float(torch.max(torch.abs(
+                        outs[k][0][c] - grad)) / scale))
+                    worst[1] = max(worst[1], float(torch.abs(
+                        outs[k][1][c] - val) / torch.abs(val)))
+                lone_gap[k] = {"gradient": worst[0], "value": worst[1]}
+            print(json.dumps({
+                "phase": f"solve_turns_{name}", "nvidia_smi": cs.nvidia_smi(),
+                "chains": cs.HMC_CHAINS,
+                "ms_vmapped_grad_and_value": med, "ms_turns": times,
+                "max_rel_gap_change_vs_parent": gap,
+                "max_rel_gap_vmapped_vs_lone": lone_gap}), flush=True)
+    finally:
+        kp._cholesky_solve_small = solves["change"]
 
 
 def load_package(root):
@@ -1676,6 +1798,23 @@ def main(argv):
             pts, z, X, device=dev, **{**cs.RHO_NU_CONFIG,
                                       "num_rho_nodes": 2,
                                       "num_nu_nodes": 3}))
+    if "hmc" in argv:
+        pts, z, X = cs.make_problem(cs.N_MAIN, 7)
+        surface = KrylovPosteriorSurface(
+            pts, z, X, nu=cs.NU, num_nodes=cs.SURFACE_NODES,
+            lanczos_steps=cs.SURFACE_STEPS, num_probes=cs.SURFACE_PROBES,
+            device=dev)
+        profile_hmc("hmc_posterior_large", surface.make_bounded_log_posterior(
+            log10_eta_bounds=cs.LARGE_BOX[0])[0], 2, dev)
+        del surface
+        pts, z, X = cs.grid_problem(cs.RHO_NU_SIDE)
+        surface = KrylovPosteriorSurfaceRhoNu(pts, z, X, device=dev,
+                                              **cs.RHO_NU_CONFIG)
+        profile_hmc("hmc_rho_nu_large", surface.make_bounded_log_posterior(
+            log10_eta_bounds=cs.RHO_NU_ETA_BOX,
+            log_prior=hmc._reference_prior)[0], 3, dev)
+    if "solve-turns" in argv:
+        solve_turns(dev, argv[argv.index("--parent") + 1])
     if "fft-tables" in argv:
         fft_table_split(dev)
     if "fft-table-costs" in argv:

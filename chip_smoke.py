@@ -40,6 +40,8 @@ each against its plain PyTorch version on the card:
     GaussianProcess over a SparseOperator on cuSPARSE's SpMM) at
     n = 2^18, and the tapered path at a general nu at n = 2^20 on the
     tapered general-nu kernel matern_blocksparse_general.cu;
+  * the HMC posterior slice: models.hmc's samplers on the dense n = 900
+    target and on the two posterior surfaces at n ~ 10^5, 64 chains each;
   * the structured-grid slice: the exact FFT grid operator
     GridMaternOperator (cuFFT products; its general-nu offset table on
     the general-nu kernel's elementwise entry) through
@@ -155,7 +157,8 @@ Phases, each raising on failure:
      within 1e-5 of the CPU's float64 build_objective.
  25. the tapered general-nu kernel (matern_blocksparse_general.cu, G2)
      against plain float64: products at r in {1, 7, 24} and traces at
-     n = 1000 and 4096 (2-D) and 1000 (3-D), nu in {0.3, 1.2, 3.7, 24.9},
+     n = 1000 (2-D and 3-D), nu in {0.3, 1.2, 3.7, 24.9}, and n = 4096
+     (2-D) at nu 1.2 and 24.9,
      at thresholds clear of every pair, within 1e-5; the trace the same
      bits twice and with and without the taper skip; a closed-form nu
      through the same entry point launching the closed-form tapered
@@ -214,7 +217,29 @@ Phases, each raising on failure:
      with the same random block within 0.5 nats at three points: the
      multi-rho kernel against MaternOperator's at n = 100,000, the
      general-nu kernel's batched calls against its single ones at
-     n = 10^4, nu = 1.2.
+     n = 10^4, nu = 1.2;
+ 34. the HMC posterior slice's dense anchor at n = 900 (bench.py:261-323:
+     a 30 x 30 grid, noise 0.2, nu = 1/2, the box ((-3, 4), (-1.5,
+     -0.5)), 8 chains, 50 warmup + 50 samples, cut): models.hmc
+     .sample_posterior (a float64 Cholesky per gradient, no hand kernel),
+     then sample_posterior_large on a KrylovPosteriorSurface of the same
+     data (the multi-rho kernel) over the same box and budget; the two
+     means of log10 eta within the dense samples' sd;
+ 35. sample_posterior_large on phase 33's surface (n = 100,000, 64
+     chains, 16 leapfrog steps, the box ((-3, 3), (-1.5, -0.5));
+     bench.py:557-606; 100 warmup, samples cut to 100): samples finite
+     and in the box, mean accept above
+     0.5, split R-hat under 1.1; resume_hmc from a state for 10 steps equal
+     bit for bit to 10 more steps of the run it continues, also through
+     save_hmc_state / load_hmc_state; ms a vmapped gradient at 64 chains;
+ 36. sample_posterior_rho_nu_large on phase 32's surface (n = 100,489, 64
+     chains, 16 leapfrog steps, log10 eta in (0.5, 4), the reference's
+     priors; main_rho_nu_large's configuration) against the committed
+     data/posterior_rho_nu_n100k.pickle's moments (mean log10 eta within
+     0.05, mean log10 rho within 0.1, the nu median inside its
+     interquartile range, mean accept above 0.6), split R-hat logged.
+     Phases 34-36 run warmup and samples cut from the reference's to keep
+     them near 180 s together; each lists its cuts as "reduced".
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -233,6 +258,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -244,7 +270,8 @@ import gppe_tpu_torch
 from gppe_tpu_torch.drivers import (compare_various_num_points,
                                     find_optimal_covariance,
                                     profile_kernel_matrix, roofline_matvec)
-from gppe_tpu_torch.models import direct_likelihood, profile_likelihood
+from gppe_tpu_torch.models import (diagnostics, direct_likelihood, hmc,
+                                   profile_likelihood)
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
 from gppe_tpu_torch.models.krylov_posterior import (
     SURFACE_CHUNK_BYTES, KrylovPosteriorSurface, KrylovPosteriorSurfaceRhoNu)
@@ -257,7 +284,7 @@ from gppe_tpu_torch.ops import stochastic, taper
 from gppe_tpu_torch.ops.operators import (GridMaternOperator, MaternOperator,
                                           SparseOperator)
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
-from gppe_tpu_torch.utils import config
+from gppe_tpu_torch.utils import checkpoint, config
 from gppe_tpu_torch.utils import data as data_utils
 
 F32, F64 = torch.float32, torch.float64
@@ -311,8 +338,13 @@ FROB_TOL, MAXABS_TOL, TRACE_RTOL, SYM_TOL = 2e-5, 5e-4, 1e-5, 1e-6
 DENSE_TRACE_RTOL = 1e-6
 
 
+_T0 = time.perf_counter()
+
+
 def log(**kv):
-    print(json.dumps(kv), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**kv, "elapsed_s": time.perf_counter() - _T0}),
+          flush=True)
 
 
 def nvidia_smi():
@@ -680,19 +712,27 @@ def nu_mufu(nu):
     return 2 if nu in NU_OPS else 1
 
 
+# a function whose first timed turn takes longer than this (a plain
+# PyTorch version: 0.5-3.3 s a call on an H100) is timed in SLOW_REPS turns
+# only; the kernels, each under 200 ms, keep all of them
+SLOW_MS, SLOW_REPS = 200.0, 3
+
+
 def median_in_turns(fns, reps=7):
     """Median ms of each function, timed in turns after one warm-up; every
     other turn runs them in reverse order (a, b, b, a), so that no function
     always runs right after a call of another kernel, nor always right
     after a call of its own (two copies of one kernel timed in a fixed
-    order have read 3-7% apart on an H100)."""
+    order have read 3-7% apart on an H100). A function slower than SLOW_MS
+    in the first turn drops out after SLOW_REPS turns."""
     for f in fns.values():
         f()
     times = {k: [] for k in fns}
     order = list(fns)
     for rep in range(reps):
         for k in order if rep % 2 == 0 else order[::-1]:
-            times[k] += timed(fns[k], 1)
+            if rep < SLOW_REPS or times[k][0] <= SLOW_MS:
+                times[k] += timed(fns[k], 1)
     return {k: statistics.median(v) for k, v in times.items()}, times
 
 
@@ -3261,6 +3301,9 @@ G2_COUNTERS = ("matern_blocksparse_general_product",
 # 0.02) 1.6 to 3 scales out, where a threshold clear of every pair by 1e-5
 # exists (tests/test_torch_cuda.py)
 G2_NUS = (0.3, 1.2, 3.7, 24.9)
+# n = 4096 at the tapered path's nu and the longest recurrence only (its
+# float64 plain version is the phase's cost; every nu at n = 1000)
+G2_NUS_4096 = (1.2, 24.9)
 G2_SCALES = {2: 0.05, 3: 0.05 * np.sqrt(1.5)}
 TAPER_GENERAL_NU = 1.2
 # phase 26: the scipy-sparse route at n = 2^18 (a 512 x 512 grid), and the
@@ -3344,15 +3387,18 @@ def g2_case(dev, n, d, tile, nu, seed):
 
 def phase_g2_parity(dev):
     """Phase 25: the tapered general-nu kernel (matern_blocksparse_general.cu)
-    against plain float64 on the card, at n = 1000 and 4096 random 2-D
-    points and n = 1000 3-D points, each nu of G2_NUS, at thresholds from
+    against plain float64 on the card, at n = 1000 random 2-D and 3-D
+    points at each nu of G2_NUS and n = 4096 2-D at G2_NUS_4096, at
+    thresholds from
     blocksparse_clear_threshold: products (r 1, 7, 24) and traces within
     GENERAL_FROB_TOL and GENERAL_TRACE_RTOL, the trace the same bits twice
     and with and without the taper skip; then a closed-form nu through the
     same entry point launches B3 only."""
     cases, ok = [], True
-    for n, d, tile in ((1000, 2, 128), (4096, 2, 512), (1000, 3, 128)):
-        for nu in G2_NUS:
+    for n, d, tile, nus in ((1000, 2, 128, G2_NUS),
+                            (4096, 2, 512, G2_NUS_4096),
+                            (1000, 3, 128, G2_NUS)):
+        for nu in nus:
             case_ok, rec = g2_case(dev, n, d, tile, nu, seed=n + d)
             ok = ok and case_ok
             cases.append(rec)
@@ -4211,7 +4257,7 @@ def phase_rho_nu_surface(dev):
                                   for le in RHO_NU_F64_NATS})
     if not ok:
         raise AssertionError(f"the (rho, nu) surface failed: {probes}")
-    return surface_window, probes_window
+    return surface_window, probes_window, surface
 
 
 def surface_gaps(a, b, points):
@@ -4310,7 +4356,281 @@ def phase_posterior_surface(dev):
         routes=routes, route_bound_nats=SURFACE_ROUTE_NATS)
     if not ok:
         raise AssertionError(f"the posterior surface failed: {routes}")
-    return (default_window, routes["g1_batched_vs_single"]["default_launches"])
+    return (default_window, routes["g1_batched_vs_single"]["default_launches"],
+            surface)
+
+
+# phases 34-36: the HMC posterior slice. Chains and n are the reference's
+# (bench.py:261-323, :557-606; drivers/sample_posterior.py:358-371).
+# Phase 34 keeps the reference's 50 + 50 (at 20 + 20 its dense chains had
+# not met: split R-hat 1.32, which swelled the sd its check is bounded
+# by), phase 35 its 100 warmup steps (at 40 + 80 its chains had not met:
+# split R-hat 3.9); samples are otherwise cut from the reference's
+# (100 + 200, 150 + 200) so that phases 34-36 stay near 180 s on the
+# card: a step is 17 vmapped gradients of eager torch, launch-bound
+# (chip_profile.py hmc), 0.27-0.57 s on an H100
+HMC_CHAINS, HMC_LEAPFROG = 64, 16
+ANCHOR_SIDE, ANCHOR_CHAINS = 30, 8
+ANCHOR_WARMUP, ANCHOR_SAMPLES = 50, 50            # the reference's
+ANCHOR_RUN = (ANCHOR_WARMUP, ANCHOR_SAMPLES)       # this run's (uncut)
+ANCHOR_BOX = ((-3.0, 4.0), (-1.5, -0.5))
+# the means' gap also within this many Monte Carlo standard errors of the
+# difference, sqrt(sd_d^2 / ESS_d + sd_s^2 / ESS_s): at 50 + 50 the gap
+# read 0.059 against 3 MCSE = 0.375 and the dense sd 0.828 (H100 80GB
+# HBM3, 700 W)
+ANCHOR_MCSE = 3.0
+LARGE_WARMUP, LARGE_SAMPLES = 100, 200            # the reference's
+LARGE_RUN = (100, 100)                            # this run's (cut)
+LARGE_BOX = ((-3.0, 3.0), (-1.5, -0.5))
+LARGE_RHAT, LARGE_ACCEPT = 1.1, 0.5
+RESUME_STEPS = 10
+RHO_NU_WARMUP, RHO_NU_SAMPLES = 150, 200          # the reference's
+RHO_NU_RUN = (40, 40)                             # this run's (cut)
+RHO_NU_ETA_BOX = (0.5, 4.0)
+# the committed artifact's moments are a numeric reference (a float32
+# surface on a TPU; ROADMAP's watch list: the float32 surface's bias at
+# small eta): bounds on moments, not on bits
+RHO_NU_ETA_TOL, RHO_NU_RHO_TOL, RHO_NU_ACCEPT = 0.05, 0.1, 0.6
+
+
+def reduced(run, reference):
+    """The phase's cuts of (warmup, samples) from the reference's."""
+    return [f"{name} {ref} -> {got}" for name, got, ref in zip(
+        ("warmup", "samples"), run, reference) if got != ref]
+
+
+def in_box(samples, box):
+    lo = torch.tensor([b[0] for b in box], dtype=F64, device=samples.device)
+    hi = torch.tensor([b[1] for b in box], dtype=F64, device=samples.device)
+    return bool(torch.isfinite(samples).all()
+                and ((samples > lo) & (samples < hi)).all())
+
+
+def sample_summary(res, names, seconds):
+    """Samples/s, accept rate, step size and the diagnostics (mean, sd,
+    quantiles, split R-hat, ESS) of an HMCResult."""
+    S, C = res.samples.shape[:2]
+    return {"seconds": seconds, "samples_per_second": S * C / seconds,
+            "accept_rate_mean": float(res.accept_rate.mean()),
+            "step_size_mean": float(res.step_size.mean()),
+            "diagnostics": diagnostics.summarize(res.samples, names)}
+
+
+def vmapped_grad_ms(log_post, state):
+    """ms of one vmapped gradient and value of ``log_post`` at the chains'
+    final (unconstrained) points: median of 5, synchronised."""
+    gv = torch.func.vmap(torch.func.grad_and_value(log_post))
+    theta = state["theta"]
+    gv(theta)
+    return statistics.median(timed(lambda: gv(theta), 5))
+
+
+def phase_hmc_dense_anchor(dev):
+    """Phase 34: bench.py:261-323's anchor. sample_posterior on the dense
+    profile likelihood of a 30 x 30 grid (n = 900, noise 0.2, nu = 1/2;
+    float64 Cholesky per gradient, plain torch, no hand kernel: its window
+    must stay empty), 8 chains, the reference's 50 + 50 steps, in the box
+    ((-3, 4), (-1.5, -0.5)); then a KrylovPosteriorSurface of the same
+    data (12 nodes over log10 rho in (-1.5, -0.5), k = 64, 24 probes: the
+    multi-rho kernel, its launches counted) sampled over the same box and
+    budget. Pass: every sample finite and in the box, and |mean log10 eta
+    (dense) - mean (surface)| <= the dense samples' sd (the reference's
+    moment cross-check) and <= ANCHOR_MCSE Monte Carlo standard errors of
+    the difference (each route's sd over the root of its ESS). Logs
+    samples/s of both routes and both routes' split R-hat."""
+    pts, z, X = grid_problem(ANCHOR_SIDE)
+    warmup, samples = ANCHOR_RUN
+    budget = dict(num_chains=ANCHOR_CHAINS, num_warmup=warmup,
+                  num_samples=samples, key=0)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    dense = hmc.sample_posterior(pts, z, X, nu=NU, support_log10=ANCHOR_BOX,
+                                 chunk_steps=25, device=dev, **budget)
+    dense_s = sync_seconds(t0)
+    dense_window = window()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    surface = KrylovPosteriorSurface(pts, z, X, nu=NU,
+                                     log10_rho_bounds=ANCHOR_BOX[1],
+                                     device=dev)
+    surface_build_s = sync_seconds(t0)
+    surface_window = window()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    approx, _ = hmc.sample_posterior_large(
+        pts, z, X, nu=NU, surface=surface,
+        log10_eta_bounds=ANCHOR_BOX[0], **budget)
+    surface_s = sync_seconds(t0)
+    sampling_window = window()
+    names = ["log10_eta", "log10_rho"]
+    d = sample_summary(dense, names, dense_s)
+    a = sample_summary(approx, names, surface_s)
+    de, ae = d["diagnostics"]["log10_eta"], a["diagnostics"]["log10_eta"]
+    gap = abs(de["mean"] - ae["mean"])
+    sd = de["std"]
+    mcse = math.sqrt(de["std"] ** 2 / de["ess"] + ae["std"] ** 2 / ae["ess"])
+    ok = (in_box(dense.samples, ANCHOR_BOX)
+          and in_box(approx.samples, ANCHOR_BOX)
+          and gap <= sd and gap <= ANCHOR_MCSE * mcse
+          and dense_window == {} and sampling_window == {}
+          and surface_window.get("matern_matmat_multirho_mma", 0) > 0
+          and surface_window.get("matern_matmat_multirho", 0) > 0)
+    log(phase="hmc_dense_anchor", ok=ok, n=len(pts), nu=NU,
+        box=ANCHOR_BOX, chains=ANCHOR_CHAINS, warmup=warmup,
+        samples=samples,
+        reduced=reduced(ANCHOR_RUN, (ANCHOR_WARMUP, ANCHOR_SAMPLES)),
+        dense=d, dense_launches=dense_window,
+        surface=a, surface_build_seconds=surface_build_s,
+        surface_launches=surface_window,
+        surface_sampling_launches=sampling_window,
+        log10_eta_mean_gap=gap, bound_dense_sd=sd,
+        bound_mcse=ANCHOR_MCSE * mcse,
+        split_rhat_log10_eta={"dense": de["rhat"], "surface": ae["rhat"]})
+    if not ok:
+        raise AssertionError(f"the dense HMC anchor failed: gap {gap}, sd "
+                             f"{sd}, {ANCHOR_MCSE} MCSE {ANCHOR_MCSE * mcse}")
+    return surface_window
+
+
+def phase_hmc_posterior_large(dev, surface):
+    """Phase 35: bench.py:557-606. sample_posterior_large on phase 33's
+    surface (n = 100,000 random points, RandomState(7), nu = 1/2, 12
+    nodes): 64 chains, 16 leapfrog steps, the box ((-3, 3), (-1.5, -0.5)),
+    warmup and samples cut from 100 + 200 (``reduced``). The sampling runs
+    no hand kernel (its window must stay empty; the surface's B2 launches
+    are phase 33's). Pass: every sample finite and in the box, mean accept
+    rate above 0.5, split R-hat under 1.1 on both coordinates. Resume:
+    from the run's state, resume_hmc for 20 steps is the unbroken run;
+    resume_hmc for 10 steps must equal its first 10 steps, and from that
+    state, in memory and through save_hmc_state / load_hmc_state, 10 more
+    its last 10, bit for bit (samples, log probs, the generator's state).
+    Logs samples/s and ms a vmapped gradient at 64 chains."""
+    warmup, samples = LARGE_RUN
+    P, z, X = make_problem(N_MAIN, 7)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = hmc.sample_posterior_large(
+        P, z, X, num_chains=HMC_CHAINS, num_warmup=warmup,
+        num_samples=samples, num_leapfrog=HMC_LEAPFROG, key=0,
+        surface=surface, log10_eta_bounds=LARGE_BOX[0])
+    seconds = sync_seconds(t0)
+    sampling_window = window()
+    summary = sample_summary(res, ["log10_eta", "log10_rho"], seconds)
+    rhat = diagnostics.split_rhat(res.samples)
+
+    log_post, _ = surface.make_bounded_log_posterior(
+        log10_eta_bounds=LARGE_BOX[0])
+    grad_ms = vmapped_grad_ms(log_post, res.state())
+
+    def resume(state, steps):
+        return hmc.resume_hmc(log_post, state, steps,
+                              num_leapfrog=HMC_LEAPFROG, device=dev)
+    t0 = time.perf_counter()
+    unbroken = resume(res.state(), 2 * RESUME_STEPS)
+    first = resume(res.state(), RESUME_STEPS)
+    again = resume(first.state(), RESUME_STEPS)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/hmc_state.pickle"
+        checkpoint.save_hmc_state(first, path)
+        loaded = resume(checkpoint.load_hmc_state(path), RESUME_STEPS)
+    resume_s = sync_seconds(t0)
+    tail = unbroken.samples[RESUME_STEPS:]
+    resume_ok = (torch.equal(first.samples, unbroken.samples[:RESUME_STEPS])
+                 and torch.equal(again.samples, tail)
+                 and torch.equal(loaded.samples, tail)
+                 and torch.equal(loaded.log_probs,
+                                 unbroken.log_probs[RESUME_STEPS:])
+                 and again.final_generator_state
+                 == unbroken.final_generator_state
+                 and loaded.final_generator_state
+                 == unbroken.final_generator_state)
+    ok = (in_box(res.samples, LARGE_BOX)
+          and summary["accept_rate_mean"] > LARGE_ACCEPT
+          and bool(np.all(rhat < LARGE_RHAT)) and sampling_window == {}
+          and resume_ok)
+    log(phase="hmc_posterior_large", ok=ok, n=N_MAIN, nu=NU,
+        chains=HMC_CHAINS, leapfrog=HMC_LEAPFROG, warmup=warmup,
+        samples=samples, box=LARGE_BOX,
+        reduced=reduced(LARGE_RUN, (LARGE_WARMUP, LARGE_SAMPLES)),
+        **summary, split_rhat=rhat.tolist(), bound_rhat=LARGE_RHAT,
+        bound_accept=LARGE_ACCEPT, vmapped_grad_ms_64_chains=grad_ms,
+        ms_per_step=seconds / (warmup + samples) * 1e3,
+        sampling_launches=sampling_window,
+        resume={"ok": resume_ok, "steps": RESUME_STEPS,
+                "seconds": resume_s})
+    if not ok:
+        raise AssertionError(f"the large-n HMC phase failed: rhat {rhat}, "
+                             f"resume {resume_ok}")
+    return sampling_window
+
+
+def phase_hmc_rho_nu_large(dev, surface):
+    """Phase 36: drivers/sample_posterior.py:358-371's main_rho_nu_large
+    configuration on phase 32's float32-node surface (a 317 x 317 grid,
+    n = 100,489, 9 x 9 nodes): sample_posterior_rho_nu_large, 64 chains,
+    16 leapfrog steps, log10 eta in (0.5, 4), the reference's priors,
+    warmup and samples cut from 150 + 200 (``reduced``). The sampling runs
+    no hand kernel (the surface's elementwise launches are phase 32's).
+    Against the committed data/posterior_rho_nu_n100k.pickle (a numeric
+    reference only; its wall times are no target): mean log10 eta within
+    0.05 of its 0.522, mean log10 rho within 0.1 of its -0.409, the nu
+    median inside its interquartile range (7.89, 21.01), mean accept rate
+    above 0.6; every coordinate's split R-hat logged. The float32
+    surface's bias at small eta (ROADMAP's watch list) is why these bound
+    moments, not bits."""
+    import pickle
+
+    warmup, samples = RHO_NU_RUN
+    with open(RHO_NU_PICKLE, "rb") as f:
+        ref = pickle.load(f)["diagnostics"]
+    pts, z, X = grid_problem(RHO_NU_SIDE)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = hmc.sample_posterior_rho_nu_large(
+        pts, z, X, num_chains=HMC_CHAINS, num_warmup=warmup,
+        num_samples=samples, num_leapfrog=HMC_LEAPFROG, key=0,
+        surface=surface, log10_eta_bounds=RHO_NU_ETA_BOX)
+    seconds = sync_seconds(t0)
+    sampling_window = window()
+    names = ["log10_eta", "log10_rho", "nu"]
+    summary = sample_summary(res, names, seconds)
+    got = summary["diagnostics"]
+    log_post, _ = surface.make_bounded_log_posterior(
+        log10_eta_bounds=RHO_NU_ETA_BOX, log_prior=hmc._reference_prior)
+    grad_ms = vmapped_grad_ms(log_post, res.state())
+    box = (RHO_NU_ETA_BOX, surface.log10_rho_bounds, surface.nu_bounds)
+    checks = {
+        "log10_eta_mean": abs(got["log10_eta"]["mean"]
+                              - ref["log10_eta"]["mean"]) <= RHO_NU_ETA_TOL,
+        "log10_rho_mean": abs(got["log10_rho"]["mean"]
+                              - ref["log10_rho"]["mean"]) <= RHO_NU_RHO_TOL,
+        "nu_median": ref["nu"]["q25"] < got["nu"]["median"] < ref["nu"][
+            "q75"],
+        "accept": summary["accept_rate_mean"] > RHO_NU_ACCEPT,
+        "in_box": in_box(res.samples, box),
+        "no_kernel_launch": sampling_window == {}}
+    ok = all(checks.values())
+    log(phase="hmc_rho_nu_large", ok=ok, n=len(pts), chains=HMC_CHAINS,
+        leapfrog=HMC_LEAPFROG, warmup=warmup, samples=samples,
+        log10_eta_box=RHO_NU_ETA_BOX,
+        reduced=reduced(RHO_NU_RUN, (RHO_NU_WARMUP, RHO_NU_SAMPLES)),
+        **summary, checks=checks,
+        artifact={k: {q: ref[k][q] for q in ("mean", "std", "q25", "median",
+                                             "q75", "rhat")}
+                  for k in names},
+        bounds={"log10_eta_mean": RHO_NU_ETA_TOL,
+                "log10_rho_mean": RHO_NU_RHO_TOL,
+                "nu_median": "inside the artifact's (q25, q75)",
+                "accept": RHO_NU_ACCEPT},
+        vmapped_grad_ms_64_chains=grad_ms,
+        ms_per_step=seconds / (warmup + samples) * 1e3,
+        sampling_launches=sampling_window)
+    if not ok:
+        raise AssertionError(f"the (rho, nu) HMC phase failed: {checks}")
+    return sampling_window
 
 
 def kernel_record(name, source, replaces, launches, measured,
@@ -4375,9 +4695,14 @@ def main():
     fft_parity = phase_grid_fft_parity(dev)
     launches_fft_fit, fft_product = phase_grid_fft_fits(dev)
     launches_fft_grid = phase_fft_grid_search(dev)
-    launches_rho_nu, launches_probes = phase_rho_nu_surface(dev)
-    launches_surface, launches_surface_general = \
+    launches_rho_nu, launches_probes, rho_nu_surface = \
+        phase_rho_nu_surface(dev)
+    launches_surface, launches_surface_general, large_surface = \
         phase_posterior_surface(dev)
+    launches_anchor = phase_hmc_dense_anchor(dev)
+    launches_hmc_large = phase_hmc_posterior_large(dev, large_surface)
+    launches_hmc_rho_nu = phase_hmc_rho_nu_large(dev, rho_nu_surface)
+    del large_surface, rho_nu_surface
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
@@ -4387,7 +4712,9 @@ def main():
                "main_fft_grid": launches_fft_grid,
                "rho_nu_surface": launches_rho_nu,
                "rho_nu_probe_engines": launches_probes,
-               "posterior_surface_nu1.2": launches_surface_general}
+               "posterior_surface_nu1.2": launches_surface_general,
+               # phase 36's sampling on phase 32's surface: no launch
+               "hmc_rho_nu_large_sampling": launches_hmc_rho_nu}
     dense = ("dense_api_nu1.2", "dense_api_nu3.7", "main",
              "general_csr_2e16")
     # the offset tables of the FFT grid paths: the elementwise entry's
@@ -4430,9 +4757,14 @@ def main():
             rec["ms_includes"] = "matern_general[product_sum]"
         return rec
     def multirho_paths(counter):
-        # the grid path (phase 10) and the posterior surface (phase 33)
+        # the grid path (phase 10), the posterior surface (phase 33), the
+        # HMC anchor's n = 900 surface (phase 34) and phase 35's sampling
+        # on phase 33's surface (no launch)
         return {"grid_path": launches_2[counter],
-                "posterior_surface_1e5": launches_surface[counter]}
+                "posterior_surface_1e5": launches_surface[counter],
+                "hmc_dense_anchor_surface_n900": launches_anchor[counter],
+                "hmc_posterior_large_sampling":
+                    launches_hmc_large.get(counter, 0)}
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
                   for k in ("matern_matmat_mma", "matern_matmat")),

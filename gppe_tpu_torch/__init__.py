@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are seven paths; the
+counterpart sits at the same path. Ported so far are eight paths; the
 first four run hand-written CUDA kernels behind the wrappers of
 ``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
 tile-dot mode), the fifth reaches them through a matrix-free K:
@@ -43,7 +43,13 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   .KrylovPosteriorSurface (lp(eta, rho) from nodes factorized on
   ``matern_matmat_multirho`` or ``matern_general``) and
   KrylovPosteriorSurfaceRhoNu (lp(eta, rho, nu) from batched FFT Lanczos
-  passes), differentiable float64 targets for the samplers.
+  passes), differentiable float64 targets for the samplers;
+* the HMC posterior slice: models.hmc (chains as one torch.func.vmap
+  batch, dual averaging and a diagonal mass matrix, exact resume from a
+  saved state, utils.checkpoint.save_hmc_state) over the dense targets of
+  models.kernel_posterior (a float64 Cholesky per gradient, nu through
+  the fixed-trip Bessel K_nu) and over both posterior surfaces;
+  models.diagnostics (split R-hat, ESS); drivers.sample_posterior.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 

@@ -54,51 +54,42 @@ SURFACE_CHUNK_BYTES = 3 << 30
 
 
 def _cholesky_solve_small(A, b):
-    """Batched SPD solve A x = b and log det A by an unrolled Cholesky.
+    """Batched SPD solve A x = b and log det A by a Cholesky factorization
+    column by column.
 
     ``A``: (..., m, m) SPD with m small (the mean model's basis Gram, m ~
-    6); ``b``: (..., m). Returns (x, logdet). Plain arithmetic with Python
-    loops over m: differentiable, and valid under ``torch.func``
-    transforms.
+    6); ``b``: (..., m). Returns (x, logdet). Each column of L is a few
+    batched operations (its sums over the earlier columns one product and
+    sum), the two triangular solves ``torch.linalg.solve_triangular``:
+    differentiable, valid under ``torch.func`` transforms, and few
+    launches, which the samplers' gradients pay for on the card.
 
     A relative pivot floor, 1e-12 of the largest diagonal entry: a
     Krylov-approximated Gram at a numerically sick node can lose
     definiteness to float32 truncation noise, and one NaN node would
     poison every evaluation through the global barycentric interpolation.
-    Healthy pivots sit far above the floor (bit-identical results); a sick
-    node gets a finite, local error. ``torch.linalg.cholesky`` raises
-    there instead, so it is no substitute."""
+    Healthy pivots sit far above the floor; a sick node gets a finite,
+    local error. ``torch.linalg.cholesky`` raises there instead, so it is
+    no substitute."""
     m = A.shape[-1]
     diag_max = torch.amax(torch.abs(torch.diagonal(A, dim1=-2, dim2=-1)),
                           dim=-1)
     floor = 1e-12 * torch.clamp(diag_max, min=1e-300)
-    cols = []
+    cols = []                                # columns of L, each (..., m)
     for j in range(m):
-        d = A[..., j, j]
-        for i in range(j):
-            d = d - cols[i][j] * cols[i][j]
-        d = torch.sqrt(torch.maximum(d, floor))
-        col = [torch.zeros_like(d)] * j + [d]
-        for r in range(j + 1, m):
-            off = A[..., r, j]
-            for i in range(j):
-                off = off - cols[i][r] * cols[i][j]
-            col.append(off / d)
-        cols.append(col)                     # column j of L, entry by row
-    logdet = 2.0 * sum(torch.log(cols[j][j]) for j in range(m))
-    y = []                                   # forward substitution L y = b
-    for j in range(m):
-        v = b[..., j]
-        for i in range(j):
-            v = v - cols[i][j] * y[i]
-        y.append(v / cols[j][j])
-    x = [None] * m                           # back substitution L^T x = y
-    for j in range(m - 1, -1, -1):
-        v = y[j]
-        for i in range(j + 1, m):
-            v = v - cols[j][i] * x[i]
-        x[j] = v / cols[j][j]
-    return torch.stack(x, dim=-1), logdet
+        v = A[..., j:, j]                    # rows j.. of column j
+        if j:
+            prev = torch.stack(cols, dim=-1)[..., j:, :]   # (..., m - j, j)
+            v = v - torch.sum(prev * prev[..., :1, :], dim=-1)
+        d = torch.sqrt(torch.maximum(v[..., 0], floor))
+        cols.append(F.pad(torch.cat([d[..., None], v[..., 1:] / d[..., None]],
+                                    dim=-1), (j, 0)))
+    L = torch.stack(cols, dim=-1)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                             dim=-1)
+    return x, logdet
 
 
 def _chebyshev_lobatto(lo, hi, num):
@@ -397,7 +388,11 @@ class KrylovPosteriorSurface:
         """Per-node ingredients at one eta, all (B, ...): zMz, the SLQ
         logdet of K + eta I and the logdet of the basis Gram B."""
         c1 = self._e1w / (self._lam_s + eta)                  # (B, s, k)
-        Cm = torch.einsum("bjkt,bjk->btj", self._Ut, c1)      # (B, s, s)
+        # Cm[b, t, j] = sum_k Ut[b, j, k, t] c1[b, j, k] as a product and
+        # sum, not an einsum: under vmap the einsum becomes a batched GEMM
+        # (and its backward another) that sums in another order than the
+        # lone evaluation's matrix-vector products
+        Cm = torch.sum(self._Ut * c1[..., None], dim=2).transpose(1, 2)
         Bm = Cm[:, 1:, 1:]
         Bm = 0.5 * (Bm + Bm.transpose(1, 2))                  # (B, m, m)
         Ytz = Cm[:, 0, 1:]                                    # (B, m)
@@ -637,7 +632,10 @@ class KrylovPosteriorSurfaceRhoNu(KrylovPosteriorSurface):
         V = vals.reshape(self.Br, self.Bn)
         w_t = _barycentric_weights(self._bary_w_nu, torch.log(self._f64(nu)),
                                    self._t_nodes)
-        rows = (V @ w_t) / torch.sum(w_t)                  # (Br,)
+        # an elementwise product and sum, not V @ w_t: under vmap the
+        # backward of a matrix-vector product becomes a batched GEMM that
+        # sums in another order than a lone evaluation's
+        rows = torch.sum(V * w_t, dim=1) / torch.sum(w_t)  # (Br,)
         w_x = _barycentric_weights(self._bary_w_rho, self._f64(log10_rho),
                                    self._rho_nodes)
         return torch.sum(w_x * rows) / torch.sum(w_x)

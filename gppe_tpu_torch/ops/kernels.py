@@ -32,27 +32,32 @@ def is_closed_form(nu):
     return nu in CLOSED_FORM_NUS or nu >= _GAUSSIAN_NU_CUTOFF
 
 
-def _matern_general(x, nu):
+def _matern_general(x, nu, max_order=128):
     """2^{1-nu}/Gamma(nu) (sqrt(2 nu) x)^nu K_nu(sqrt(2 nu) x) for x > 0,
     in log space: the prefactor underflows and K_nu overflows float32
     separately around nu ~ 10, while their product is a correlation in
     (0, 1]. The two logs (~ +-nu |log z|) cancel, and the float32 error of
     their sum (~1e-5 at nu ~ 25) can push the result above its bound 1:
-    clamped."""
+    clamped. ``max_order``: as :func:`matern`'s."""
     z = torch.sqrt(2.0 * nu) * x
     z = torch.clamp(z, min=1e-30)
     log_pref = ((1.0 - nu) * math.log(2.0) - torch.lgamma(nu)
                 + nu * torch.log(z))
-    return torch.clamp(torch.exp(log_pref + special.log_kv(nu, z)), max=1.0)
+    return torch.clamp(torch.exp(log_pref + special.log_kv(
+        nu, z, max_order=max_order)), max=1.0)
 
 
-def matern(x, nu):
+def matern(x, nu, max_order=128):
     """Matern correlation k(x; nu) of the scaled distance x = r / rho.
 
     ``nu`` a Python or numpy number evaluates one branch (the recurrence of
     the general form runs exactly round(nu) steps); a tensor nu evaluates
     every branch and selects elementwise, the reference's traced nu (the
-    form to differentiate or batch over nu)."""
+    form to differentiate or batch over nu). ``max_order`` caps the
+    recurrence of a tensor nu, as :func:`special.kv`'s: inside a
+    ``torch.func`` transform, where the Bessel loops run fixed trips, it
+    runs exactly that many steps, so a target over nu <= nu_max passes
+    round(nu_max)."""
     if not torch.is_tensor(nu):
         nu = float(nu)
         if nu == 0.5:
@@ -79,7 +84,8 @@ def matern(x, nu):
         -sqrt5 * x)
     k_gauss = torch.exp(-0.5 * x * x)
     k_general = _matern_general(
-        x, torch.where(nu < _GAUSSIAN_NU_CUTOFF, nu, torch.ones_like(nu)))
+        x, torch.where(nu < _GAUSSIAN_NU_CUTOFF, nu, torch.ones_like(nu)),
+        max_order)
 
     k = k_general
     k = torch.where(nu >= _GAUSSIAN_NU_CUTOFF, k_gauss, k)

@@ -13,7 +13,12 @@ Thompson-Barnett, as in Numerical Recipes' ``bessik``):
 
 A converged lane leaves its series loop with the state of the step where it
 converged, as the reference's freeze keeps it, and the loop stops once
-every lane has left: the same values and derivatives. Everything is
+every lane has left: the same values and derivatives. Inside a
+``torch.func`` transform (``vmap``, ``jacfwd``, ``jvp``, ``grad``) every loop
+runs its full count instead, converged lanes frozen by ``torch.where`` and
+both branches evaluated on clamped arguments, as the reference runs them:
+no Python branch reads a tensor's value, so ``vmap`` (and ``jacfwd``,
+which is a vmap) can batch it; the values are the same. Everything is
 differentiable in nu and x, by autograd and by ``torch.func.jvp`` (forward
 mode, which the posterior over nu needs: reverse mode through ~200 loop
 steps is what blew up memory on the TPU).
@@ -64,7 +69,7 @@ def _safe_ratio(num_fn, arg):
     return torch.where(tiny, torch.ones_like(arg), num_fn(safe) / safe)
 
 
-def _run_series(state, consts, step, first, last):
+def _run_series(state, consts, step, first, last, fixed_trips=False):
     """Run ``step(i, state, consts) -> (state, converged)`` for i = first ..
     last over lanes and return each lane's state from the step where it
     converged, or after the last step. ``state`` and ``consts`` (per-lane
@@ -73,7 +78,17 @@ def _run_series(state, consts, step, first, last):
     A converged lane leaves: its state goes into the result and the steps
     run on the other lanes only. That is the reference's freeze (a
     converged lane keeps its state) at the cost of the lanes still
-    running; values and derivatives are the same."""
+    running; values and derivatives are the same. ``fixed_trips``: every
+    lane runs every step, the ones converged before it keeping their state
+    through ``torch.where`` (the reference's form, batchable by vmap)."""
+    if fixed_trips:
+        done = torch.zeros_like(state[0], dtype=torch.bool)
+        for i in range(first, last + 1):
+            new, converged = step(i, state, consts)
+            state = tuple(torch.where(done, old, v)
+                          for old, v in zip(state, new))
+            done = done | converged
+        return list(state)
     idx = torch.arange(state[0].shape[0], device=state[0].device)
     out = list(state)
     for i in range(first, last + 1):
@@ -90,9 +105,9 @@ def _run_series(state, consts, step, first, last):
     return [o.index_put((idx,), v) for o, v in zip(out, state)]
 
 
-def _kv_temme_small(mu, x, n_terms=30):
+def _kv_temme_small(mu, x, n_terms=30, fixed_trips=False):
     """Temme series: K_mu(x), K_{mu+1}(x) for x < 2, |mu| <= 1/2; mu and x
-    are 1-D tensors of the lanes."""
+    are tensors of the lanes (1-D, or any shape with ``fixed_trips``)."""
     x2 = 0.5 * x
     pimu = math.pi * mu
     fact = 1.0 / _safe_ratio(torch.sin, pimu)   # pimu / sin(pimu), 1 at 0
@@ -126,14 +141,15 @@ def _kv_temme_small(mu, x, n_terms=30):
         return (ff, p, q, c, s, s1), converged
 
     state = (ff, p, q, torch.ones_like(ff), ff, p)
-    *_, s, s1 = _run_series(state, (mu, x2 * x2), step, 1, n_terms)
+    *_, s, s1 = _run_series(state, (mu, x2 * x2), step, 1, n_terms,
+                            fixed_trips)
     return s, s1 * 2.0 / x
 
 
-def _kv_cf2_large(mu, x, n_iters=60):
+def _kv_cf2_large(mu, x, n_iters=60, fixed_trips=False):
     """Steed's CF2: e^x-scaled K_mu(x), K_{mu+1}(x) for x >= 2,
-    |mu| <= 1/2 (the true K are these times e^{-x}); mu and x are 1-D
-    tensors of the lanes."""
+    |mu| <= 1/2 (the true K are these times e^{-x}); mu and x are tensors
+    of the lanes (1-D, or any shape with ``fixed_trips``)."""
     b = 2.0 * (1.0 + x)
     d = 1.0 / b
     a1 = 0.25 - mu * mu
@@ -161,11 +177,18 @@ def _kv_cf2_large(mu, x, n_iters=60):
 
     state = (-a1, b, a1, d, d, d, a1, torch.zeros_like(x), torch.ones_like(x),
              s)
-    _, _, _, _, h, _, _, _, _, s = _run_series(state, (), step, 2, n_iters)
+    _, _, _, _, h, _, _, _, _, s = _run_series(state, (), step, 2, n_iters,
+                                               fixed_trips)
     h = a1 * h
     k_mu = torch.sqrt(math.pi / (2.0 * x)) / s
     k_mu1 = k_mu * (mu + x + 0.5 - h) / x
     return k_mu, k_mu1
+
+
+def _under_transform():
+    """Whether a ``torch.func`` transform is active: there the Bessel loops
+    run their fixed trips, which read no tensor's value."""
+    return torch._C._functorch.maybe_current_level() is not None
 
 
 def _kv_parts(nu, x, max_order: int = 128):
@@ -175,7 +198,9 @@ def _kv_parts(nu, x, max_order: int = 128):
     the large-x branch keeps its e^{-x} in the scale, so every intermediate
     stays O(1) in float32 (K_25(1e-3) ~ 10^100). For a Python number nu
     the recurrence runs exactly round(nu) steps; for a tensor nu, up to
-    the largest round(nu), capped at ``max_order``."""
+    the largest round(nu), capped at ``max_order`` (inside a ``torch.func``
+    transform: ``max_order`` steps, each lane's last round(nu) of them
+    kept)."""
     x = torch.as_tensor(x)
     if not x.is_floating_point():
         x = x.double()
@@ -192,14 +217,24 @@ def _kv_parts(nu, x, max_order: int = 128):
     x_safe = torch.clamp(x, min=1e-30)
     small = x_safe < 2.0
     xl = torch.clamp(x_safe, min=2.0)
+    fixed_trips = _under_transform()
     # each lane through its own branch (the reference evaluates both on
     # clamped arguments and selects: the same values, at twice the work)
-    k_mu, k_mu1 = (torch.zeros_like(x_safe * mu) for _ in range(2))
-    for lanes, branch in ((small, _kv_temme_small), (~small, _kv_cf2_large)):
-        if bool(lanes.any()):
-            k_a, k_b = branch(mu[lanes], x_safe[lanes])
-            k_mu = k_mu.masked_scatter(lanes, k_a)
-            k_mu1 = k_mu1.masked_scatter(lanes, k_b)
+    if fixed_trips:
+        # both branches on clamped arguments, selected (the reference's)
+        k_mu_s, k_mu1_s = _kv_temme_small(mu, torch.clamp(x_safe, max=2.0),
+                                          fixed_trips=True)
+        k_mu_l, k_mu1_l = _kv_cf2_large(mu, xl, fixed_trips=True)
+        k_mu = torch.where(small, k_mu_s, k_mu_l)
+        k_mu1 = torch.where(small, k_mu1_s, k_mu1_l)
+    else:
+        k_mu, k_mu1 = (torch.zeros_like(x_safe * mu) for _ in range(2))
+        for lanes, branch in ((small, _kv_temme_small),
+                              (~small, _kv_cf2_large)):
+            if bool(lanes.any()):
+                k_a, k_b = branch(mu[lanes], x_safe[lanes])
+                k_mu = k_mu.masked_scatter(lanes, k_a)
+                k_mu1 = k_mu1.masked_scatter(lanes, k_b)
     sc = torch.where(small, torch.zeros_like(x_safe), -xl)
 
     # invariant before step j: k_lo = K_{mu+j} e^{-sc}, k_hi = K_{mu+j+1}
@@ -207,8 +242,12 @@ def _kv_parts(nu, x, max_order: int = 128):
     xi2 = 2.0 / x_safe
     k_lo, k_hi = k_mu, k_mu1
     sc_rec = sc
-    steps = (static_nl if static_nl is not None
-             else min(int(nl.max()) if nl.numel() else 0, max_order))
+    if static_nl is not None:
+        steps = static_nl
+    elif fixed_trips:
+        steps = max_order
+    else:
+        steps = min(int(nl.max()) if nl.numel() else 0, max_order)
     for j in range(steps):
         mag = torch.abs(k_hi)
         mag = torch.where(mag > 0, mag, torch.ones_like(mag))

@@ -1841,3 +1841,100 @@ def test_rho_nu_surface_on_the_card(dev):
                 a = float(f32.profile_loglik(le, lr, nu))
                 b = float(f64.profile_loglik(le, lr, nu))
                 assert np.isfinite(a) and abs(a - b) < 3.0, (le, lr, nu)
+
+
+@pytest.mark.parametrize("kind", ["eta_rho", "rho_nu"])
+def test_surface_vmap_equals_pointwise_at_64_chains(dev, kind):
+    """The bounded targets of both Krylov surfaces on the card (float32
+    nodes: n = 400 random points at nu = 1/2, 12 nodes; a 24 x 24 grid,
+    3 x 3 (rho, nu) nodes), their values and gradients vmapped over 64
+    points as the samplers' chains see them, against each point's lone
+    evaluation: values at rtol 1e-14, gradients within 1e-10 of the
+    point's largest component. Not bit for bit: at 64 chains the batch's
+    gradients part from the lone ones by up to 5e-12 with the surfaces'
+    column solve and with an unrolled one alike (chip_profile.py
+    solve-turns: 1.7e-12 and 5.8e-13 on phase 35's target, 5.0e-12 with
+    either on phase 36's)."""
+    from gppe_tpu_torch.models import hmc
+    if kind == "eta_rho":
+        pts = np.random.RandomState(0).rand(400, 2)
+        surface_cls, dim = KrylovPosteriorSurface, 2
+        kw = dict(nu=0.5, log10_rho_bounds=(-1.5, -0.5), num_nodes=12,
+                  lanczos_steps=32, num_probes=12)
+        target = dict(log10_eta_bounds=(-3.0, 3.0))
+    else:
+        pts = data_utils.generate_points(24, dimension=2)
+        surface_cls, dim = KrylovPosteriorSurfaceRhoNu, 3
+        kw = dict(log10_rho_bounds=(-1.2, -0.6), num_rho_nodes=3,
+                  num_nu_nodes=3, lanczos_steps=24, num_probes=8)
+        target = dict(log10_eta_bounds=(0.5, 4.0),
+                      log_prior=hmc._reference_prior)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    surface = surface_cls(pts, z, X, device=dev, **kw)
+    f = surface.make_bounded_log_posterior(**target)[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    u = 0.5 * torch.randn((64, dim), generator=g, dtype=F64, device=dev)
+    grads, vals = torch.func.vmap(torch.func.grad_and_value(f))(u)
+    for c in range(64):
+        grad, val = torch.func.grad_and_value(f)(u[c])
+        np.testing.assert_allclose(vals[c].item(), val.item(), rtol=1e-14,
+                                   atol=1e-14)
+        np.testing.assert_allclose(
+            grads[c].cpu().numpy(), grad.cpu().numpy(), rtol=0,
+            atol=1e-10 * float(torch.max(torch.abs(grad))))
+
+
+def test_hmc_chunked_resume_bits_on_the_card(dev):
+    """models.hmc on the card: the dense (eta, rho) sampler at n = 64, 4
+    chains, its generator on the card: chunk_steps never changes the bits,
+    and a resume from a saved state (a CUDA generator's state through a
+    pickle) equals the unbroken run's last steps bit for bit."""
+    from gppe_tpu_torch.models import hmc
+    from gppe_tpu_torch.utils import checkpoint
+    pts = data_utils.generate_points(8, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    kw = dict(num_chains=4, num_warmup=10, num_leapfrog=5,
+              support_log10=((-3.0, 4.0), (-2.0, 0.0)), device=dev)
+    whole = hmc.sample_posterior(pts, z, X, num_samples=12, **kw)
+    assert whole.samples.is_cuda and bool(torch.isfinite(whole.samples).all())
+    chunked = hmc.sample_posterior(pts, z, X, num_samples=12, chunk_steps=7,
+                                   **kw)
+    assert torch.equal(chunked.samples, whole.samples)
+    first = hmc.sample_posterior(pts, z, X, num_samples=6, **kw)
+    import pickle
+    state = pickle.loads(pickle.dumps({
+        k: (v if isinstance(v, bytes) else v.cpu().numpy())
+        for k, v in first.state().items()}))
+    more = hmc.sample_posterior(pts, z, X, num_samples=6,
+                                resume_state=state, **kw)
+    assert torch.equal(more.samples, whole.samples[6:])
+
+
+def test_sample_posterior_large_on_b2(dev):
+    """sample_posterior_large at n = 4096 random points on the card: the
+    surface's nodes on the multi-rho kernel (its launches counted), 16
+    chains sampled with no kernel launch, finite samples in the box,
+    accept rate above 0.5."""
+    from gppe_tpu_torch.models import hmc
+    rng = np.random.RandomState(7)
+    pts = rng.rand(4096, 2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    cuda_kernels.reset_launch_counts()
+    surface = KrylovPosteriorSurface(pts, z, X, nu=0.5, num_nodes=8,
+                                     lanczos_steps=32, num_probes=12,
+                                     device=dev)
+    assert cuda_kernels.launch_counts["matern_matmat_multirho_mma"] > 0
+    assert cuda_kernels.launch_counts["matern_matmat_multirho"] > 0
+    cuda_kernels.reset_launch_counts()
+    res, _ = hmc.sample_posterior_large(pts, z, X, num_chains=16,
+                                        num_samples=30, num_warmup=30,
+                                        surface=surface)
+    assert not any(cuda_kernels.launch_counts.values())
+    s = res.samples
+    assert s.is_cuda and bool(torch.isfinite(s).all())
+    assert bool(((s[..., 0] > -3) & (s[..., 0] < 3)).all())
+    assert bool(((s[..., 1] > -1.5) & (s[..., 1] < -0.5)).all())
+    assert float(res.accept_rate.mean()) > 0.5

@@ -23,7 +23,8 @@ exact answer (tests/test_krylov_posterior.py:39-63: 0.1 nat at eta >= 1,
 
 Run as a script, ``python tests/test_torch_grid_long_lanczos.py SIDE``
 prints the float32-vs-float64-node gaps of both packages on a SIDE x SIDE
-grid.
+grid; ``python tests/test_torch_grid_long_lanczos.py SIDE c1`` prints
+where the two packages' float64 surfaces part (:func:`c1_attribution`).
 """
 
 import math
@@ -152,8 +153,116 @@ def test_float32_node_gap_as_reference():
         assert np.abs(f64).max() < nats_envelope(le), (le, f64)
 
 
+def _first_parting_step(a, b, rtol=1e-8):
+    """The median over columns of the first Lanczos step at which the
+    alphas ``a`` and ``b`` (C, k) part by more than ``rtol``."""
+    r = np.abs(a - b) / np.abs(b)
+    return int(np.median([np.argmax(c > rtol) if (c > rtol).any()
+                          else len(c) for c in r]))
+
+
+def c1_attribution(side):
+    """Where the two packages' float64 (rho, nu) surfaces part (3 x 3
+    nodes over main_rho_nu_large's box, k = 48, 16 probes, the reference's
+    block in both), printed per node: the offset tables' and trace(K^2)'s
+    largest gaps; the Lanczos step at which the alphas part beyond 1e-8
+    between the packages and between each package and itself on a block
+    perturbed by 1e-15 relative; the node lp gap split into its zMz,
+    logdet(K + eta I) and logdet(B) parts; the deflation pairs each keeps;
+    and the port against itself with every FFT product perturbed by 1e-16
+    relative."""
+    from gppe_tpu.ops import operators as jops
+    from gppe_tpu_torch.ops import operators as tops
+    pts, z, X = grid_problem(side)
+    n, m = X.shape
+    probes, v_defl = jax_block(n, PROBES)
+    cfg = dict(log10_rho_bounds=(-1.2, -0.3), nu_bounds=(1.0, 25.0),
+               num_rho_nodes=3, num_nu_nodes=3, lanczos_steps=STEPS,
+               num_probes=PROBES)
+    port = tkp.KrylovPosteriorSurfaceRhoNu(
+        pts, z, X, device="cpu", node_dtype=torch.float64, probes=probes,
+        v_defl=v_defl, **cfg)
+    ref = jkp.KrylovPosteriorSurfaceRhoNu(pts, z, X, key=0,
+                                          dtype=jnp.float64, **cfg)
+    rho = np.repeat(10.0 ** port.log10_rho_nodes, 3)
+    nu = np.tile(np.exp(port.log_nu_nodes), 3)
+    ms, hs, to_r, from_r = jops.grid_geometry(pts)
+    k_ref = jkp._matern_tables_host(jops.grid_distance_table(ms, hs, 1.0),
+                                    rho, nu)
+    k_port = tkp._matern_tables(torch.as_tensor(
+        tops.grid_distance_table(ms, hs, 1.0)), rho, nu,
+        torch.float64).numpy()
+    tk2_ref = jops.grid_trace_pow2(k_ref, ms)
+    tk2_port = tops.grid_trace_pow2(torch.as_tensor(k_port), ms).numpy()
+    AB = np.concatenate([z[:, None], X, v_defl, probes], axis=1)
+    ABp = AB * (1.0 + 1e-15 * np.random.RandomState(0).standard_normal(
+        AB.shape))
+
+    def alphas_ref(block):
+        return np.asarray(jkp._factorize_fft_chunk(
+            jops.circulant_rfft(k_ref, ms, jnp.float64), jnp.asarray(to_r),
+            jnp.asarray(from_r), jnp.asarray(tk2_ref), jnp.asarray(block),
+            STEPS, m + 1, ms)[0])
+
+    def alphas_port(block):
+        return tkp._factorize_fft_chunk(
+            tops.circulant_rfft(torch.as_tensor(k_port), ms),
+            torch.as_tensor(to_r), torch.as_tensor(from_r),
+            torch.as_tensor(tk2_port), torch.as_tensor(block), STEPS, m + 1,
+            ms)[0].numpy()
+    a_ref, a_port = alphas_ref(AB), alphas_port(AB)
+    a_ref_p, a_port_p = alphas_ref(ABp), alphas_port(ABp)
+
+    real = tops._grid_matern_matmat_fft
+    g = torch.Generator().manual_seed(0)
+
+    def noisy(*args, **kw):
+        out = real(*args, **kw)
+        return out * (1 + 1e-16 * torch.randn(out.shape, generator=g,
+                                              dtype=out.dtype))
+    tops._grid_matern_matmat_fft = noisy
+    try:
+        port_noisy = tkp.KrylovPosteriorSurfaceRhoNu(
+            pts, z, X, device="cpu", node_dtype=torch.float64,
+            probes=probes, v_defl=v_defl, **cfg)
+    finally:
+        tops._grid_matern_matmat_fft = real
+    pk = PROBES * STEPS
+    kept_port = (port._qweights.numpy()[:, pk:] != 0).sum(1)
+    kept_ref = (np.asarray(ref._qweights)[:, pk:] != 0).sum(1)
+    print(f"side {side}: tables {np.abs(k_ref - k_port).max():.1e} max abs, "
+          f"trace(K^2) {np.max(np.abs(tk2_ref - tk2_port) / tk2_ref):.1e} "
+          f"max rel")
+    for b in range(9):
+        print(f"node {b} (rho {rho[b]:.4f}, nu {nu[b]:.3f}): alphas part "
+              f"at step {_first_parting_step(a_port[b], a_ref[b])} (port vs "
+              f"reference), {_first_parting_step(a_ref_p[b], a_ref[b])} "
+              f"(reference vs itself perturbed), "
+              f"{_first_parting_step(a_port_p[b], a_port[b])} (port vs "
+              f"itself perturbed); deflation pairs kept {kept_port[b]} "
+              f"(port), {kept_ref[b]} (reference)")
+    for le in LOG10_ETAS:
+        eta = 10.0 ** le
+        zt, lt, bt = (np.asarray(v) for v in port._node_stats(
+            torch.tensor(eta, dtype=torch.float64)))
+        zj, lj, bj = (np.asarray(v) for v in ref._node_stats(
+            jnp.asarray(eta)))
+        noise = max(abs(float(port.profile_loglik(le, lr, math.exp(t)))
+                        - float(port_noisy.profile_loglik(le, lr,
+                                                          math.exp(t))))
+                    for lr in port.log10_rho_nodes for t in port.log_nu_nodes)
+        print(f"log10 eta {le}: node lp gap (port - reference) by node, its "
+              f"zMz part {np.round(-0.5 * (n - m) * np.log(zt / zj), 3)}, "
+              f"logdet(K + eta I) part {np.round(-0.5 * (lt - lj), 3)}, "
+              f"logdet(B) part {np.round(-0.5 * (bt - bj), 3)}; port vs "
+              f"itself with each product perturbed: {noise:.3f} at most")
+
+
 if __name__ == "__main__":
     side = int(sys.argv[1]) if len(sys.argv) > 1 else 64
+    if sys.argv[2:] == ["c1"]:
+        c1_attribution(side)
+        sys.exit()
     print(f"side {side}, n = {side * side}: largest |gap| over the 9 nodes "
           "(nats)")
     for le, (ref, port, f64) in float32_node_gaps(side).items():

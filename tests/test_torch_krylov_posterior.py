@@ -226,6 +226,25 @@ def test_surface_targets(random_surfaces):
         np.asarray(jax.jit(jax.vmap(lpu_j))(u)), rtol=RTOL)
 
 
+
+def test_surface_vmap_equals_pointwise(random_surfaces):
+    """The (eta, rho) surface and its gradient under torch.func.vmap over
+    a batch of points equal the pointwise ones: the values bit for bit,
+    the gradients at rtol and atol 1e-14 (the samplers' chains see what a
+    lone evaluation sees)."""
+    _, ts = random_surfaces
+    thetas = torch.as_tensor(POINTS_2D, dtype=F64)
+
+    def f(t):
+        return ts.profile_loglik(t[0], t[1])
+
+    vals = torch.func.vmap(f)(thetas)
+    grads = torch.func.vmap(torch.func.grad(f))(thetas)
+    for t, v, g in zip(thetas, vals, grads):
+        assert float(v) == float(f(t))
+        np.testing.assert_allclose(g.numpy(), torch.func.grad(f)(t).numpy(),
+                                   rtol=1e-14, atol=1e-14)
+
 # -- KrylovPosteriorSurfaceRhoNu ----------------------------------------------
 
 RHO_NU = dict(log10_rho_bounds=(-1.2, -0.6), nu_bounds=(1.0, 25.0),

@@ -23,6 +23,7 @@
     python3 chip_profile.py fft-table-costs # the offset tables' two routes
     python3 chip_profile.py fft-keys        # main_fft_grid rows over 4 keys
     python3 chip_profile.py hmc             # a chunk of each HMC sampler
+    python3 chip_profile.py nuts            # a chunk of phase 38's NUTS
     python3 chip_profile.py --parent DIR solve-turns  # the surfaces' solve
 
 ``ptxas`` compiles the kernel sources once more with ``-Xptxas -v`` and
@@ -59,6 +60,13 @@ sampler (64 chains on the n = 100,000 KrylovPosteriorSurface of phase 33)
 and of phase 36's (64 chains on the n = 100,489 (rho, nu) surface of phase
 32), and adds the kernel launches and ms per step (each step 17 vmapped
 gradients at 16 leapfrog steps).
+
+``nuts`` times one warm chunk of 10 NUTS steps (``resume_nuts`` from the
+state after 100 HMC warmup steps, phase 35's, max_depth 8) of
+chip_smoke.py phase 38's sampler (64 chains on phase 33's surface), with
+each step's leaves (vmapped gradients) and host reads, and profiles the
+same way its first 2 steps (the same trees): the kernel launches per step
+and per leaf, device time by kernel, the idle share.
 
 ``solve-turns`` (with ``--parent``) times the vmapped gradient at 64
 chains of phase 35's and phase 36's targets with this package's
@@ -616,6 +624,59 @@ def profile_hmc(name, log_post, dim, dev):
         "ms_per_step_unprofiled":
             rec["window_ms_unprofiled"] / HMC_PROFILE_STEPS,
         "device_busy_ms_per_step": rec["device_busy_ms"] / HMC_PROFILE_STEPS,
+        "device_idle_share": rec["device_idle_share_of_profiled_window"]}),
+        flush=True)
+
+
+NUTS_PROFILE_STEPS, NUTS_PROFILE_WARMUP, NUTS_PROFILED_STEPS = 10, 100, 2
+
+
+def profile_nuts(name, log_post, dim, dev):
+    """One warm chunk of NUTS_PROFILE_STEPS NUTS steps at 64 chains from an
+    adapted state (NUTS_PROFILE_WARMUP HMC warmup steps, then
+    ``resume_nuts``, as chip_smoke.py phase 38 continues phase 35's
+    chains), timed unprofiled, with its leaves (vmapped gradients) and host
+    reads per step; then its first NUTS_PROFILED_STEPS steps (the same
+    trees, the same bits) under torch.profiler (profile_setup): device time
+    by kernel name, the idle share, launches per step and per leaf. A step
+    here builds 127-255 leaves of ~560 launches each, and the profiler's
+    events of the whole chunk (~10^6) take longer to gather than a chip
+    call allows."""
+    from gppe_tpu_torch.models import nuts
+    res = hmc.hmc_sample(
+        log_post, 0.5 * torch.randn((cs.HMC_CHAINS, dim), dtype=torch.float64,
+                                    device=dev), 0,
+        num_samples=1, num_warmup=NUTS_PROFILE_WARMUP,
+        num_leapfrog=cs.HMC_LEAPFROG)
+
+    def chunk(steps):
+        return nuts.resume_nuts(log_post, res.state(), steps,
+                                max_depth=cs.NUTS_DEPTH, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = chunk(NUTS_PROFILE_STEPS)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    leaves = sum(whole.leaves_per_step)
+    print(json.dumps({
+        "phase": f"profile_{name}_chunk", "nvidia_smi": cs.nvidia_smi(),
+        "steps": NUTS_PROFILE_STEPS, "chains": cs.HMC_CHAINS,
+        "max_depth": cs.NUTS_DEPTH,
+        "leaves_per_step": list(whole.leaves_per_step),
+        "host_reads_per_step": list(whole.host_reads_per_step),
+        "ms_per_step": chunk_ms / NUTS_PROFILE_STEPS,
+        "ms_per_leaf": chunk_ms / leaves}), flush=True)
+    last = {}
+    rec = profile_setup(name, lambda: last.update(
+        res=chunk(NUTS_PROFILED_STEPS)))
+    leaves = sum(last["res"].leaves_per_step)
+    print(json.dumps({
+        "phase": f"profile_{name}_per_step", "steps": NUTS_PROFILED_STEPS,
+        "leaves_per_step": list(last["res"].leaves_per_step),
+        "launches_per_step": rec["device_events"] / NUTS_PROFILED_STEPS,
+        "launches_per_leaf": rec["device_events"] / leaves,
+        "device_busy_ms_per_leaf": rec["device_busy_ms"] / leaves,
+        "ms_per_leaf_unprofiled": rec["window_ms_unprofiled"] / leaves,
         "device_idle_share": rec["device_idle_share_of_profiled_window"]}),
         flush=True)
 
@@ -1813,6 +1874,16 @@ def main(argv):
         profile_hmc("hmc_rho_nu_large", surface.make_bounded_log_posterior(
             log10_eta_bounds=cs.RHO_NU_ETA_BOX,
             log_prior=hmc._reference_prior)[0], 3, dev)
+    if "nuts" in argv:
+        pts, z, X = cs.make_problem(cs.N_MAIN, 7)
+        surface = KrylovPosteriorSurface(
+            pts, z, X, nu=cs.NU, num_nodes=cs.SURFACE_NODES,
+            lanczos_steps=cs.SURFACE_STEPS, num_probes=cs.SURFACE_PROBES,
+            device=dev)
+        profile_nuts("nuts_posterior_large",
+                     surface.make_bounded_log_posterior(
+                         log10_eta_bounds=cs.LARGE_BOX[0])[0], 2, dev)
+        del surface
     if "solve-turns" in argv:
         solve_turns(dev, argv[argv.index("--parent") + 1])
     if "fft-tables" in argv:

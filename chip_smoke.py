@@ -40,8 +40,11 @@ each against its plain PyTorch version on the card:
     GaussianProcess over a SparseOperator on cuSPARSE's SpMM) at
     n = 2^18, and the tapered path at a general nu at n = 2^20 on the
     tapered general-nu kernel matern_blocksparse_general.cu;
-  * the HMC posterior slice: models.hmc's samplers on the dense n = 900
-    target and on the two posterior surfaces at n ~ 10^5, 64 chains each;
+  * the posterior slice: models.hmc's and models.nuts's samplers on the
+    dense n = 900 target and on the two posterior surfaces at n ~ 10^5,
+    64 chains each, and the drivers.sample_posterior twin at the golden
+    configuration (NUTS, the traced-nu samplers, the MAP refinement on the
+    general-nu kernel's assembly entry);
   * the structured-grid slice: the exact FFT grid operator
     GridMaternOperator (cuFFT products; its general-nu offset table on
     the general-nu kernel's elementwise entry) through
@@ -240,6 +243,30 @@ Phases, each raising on failure:
      interquartile range, mean accept above 0.6), split R-hat logged.
      Phases 34-36 run warmup and samples cut from the reference's to keep
      them near 180 s together; each lists its cuts as "reduced".
+ 37. models.nuts.sample_posterior on phase 34's dense target (n = 900, 8
+     chains, max_depth 8, from cold; no hand kernel): samples finite and
+     in the box, the mean of log10 eta within phase 34's dense HMC sd and
+     3 MCSE of its mean; the mean tree depth, leaves and host reads a step
+     logged;
+ 38. nuts.sample_posterior_large on phase 33's surface (64 chains),
+     continuing phase 35's adapted chains: in the box, mean accept
+     statistic above 0.5, both means within 3 MCSE of phase 35's, split
+     R-hat logged; resume_nuts equal bit for bit to the run's last steps,
+     in memory and through save_hmc_state / load_hmc_state; ms a step and
+     a leaf;
+ 39. nuts.sample_posterior_rho_nu_large on phase 32's surface (64
+     chains), continuing phase 36's adapted chains, against phase 36's
+     bounds on the committed pickle's moments;
+ 40. the sample_posterior twin at n = 900, noise 0.2: main(sampler=
+     "nuts"), main_nu (the joint and eta-profiled traced-nu HMC, then the
+     MAP refinement) and main_profile_rho_nu, each in its own launch
+     window: samples in their boxes, each refined MAP within 0.005 of rho
+     0.1767, 0.5 of nu 3.034 and 0.1 nat of 957.779, each rho median
+     within 0.08 of 0.1767; ms a vmapped jacfwd gradient of both traced-nu
+     targets.
+     Phases 37-40 cut warmup and samples (listed as "reduced"): a NUTS
+     step on the surfaces builds 127-255 leaves of one vmapped gradient
+     each, and a traced-nu gradient takes 0.4-1.1 s.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -4490,7 +4517,7 @@ def phase_hmc_dense_anchor(dev):
     if not ok:
         raise AssertionError(f"the dense HMC anchor failed: gap {gap}, sd "
                              f"{sd}, {ANCHOR_MCSE} MCSE {ANCHOR_MCSE * mcse}")
-    return surface_window
+    return surface_window, d["diagnostics"]
 
 
 def phase_hmc_posterior_large(dev, surface):
@@ -4563,7 +4590,7 @@ def phase_hmc_posterior_large(dev, surface):
     if not ok:
         raise AssertionError(f"the large-n HMC phase failed: rhat {rhat}, "
                              f"resume {resume_ok}")
-    return sampling_window
+    return sampling_window, summary["diagnostics"], res.state()
 
 
 def phase_hmc_rho_nu_large(dev, surface):
@@ -4630,7 +4657,380 @@ def phase_hmc_rho_nu_large(dev, surface):
         sampling_launches=sampling_window)
     if not ok:
         raise AssertionError(f"the (rho, nu) HMC phase failed: {checks}")
+    return sampling_window, res.state()
+
+
+# phases 37-40: NUTS and the rest of the sample_posterior twin. Chains, n
+# and max_depth are the reference's; warmup and samples are cut from the
+# reference's (listed as "reduced"). A NUTS leaf is one vmapped gradient
+# (12-28 ms at 64 chains on the surfaces, 27-35 ms at 8 chains dense on an
+# H100 80GB HBM3 at 700 W, by the machine's host; launch-bound like HMC's),
+# and the slowest chain sets a step's leaves: after the reference's warmup,
+# whose step size is adapted before the mass matrix is switched in, the
+# 64-chain steps on phase 33's surface build 127-255 leaves, 2-3.5 s a step.
+# So phase 37 runs NUTS's own warmup from cold on the dense target, and
+# phases 38 and 39 continue phases 35's and 36's adapted HMC chains (their
+# state is NUTS's resume contract: theta, generator, step size, inverse
+# mass) without warmup
+NUTS_DEPTH = 8
+NUTS_REF = (300, 500)                 # the NUTS samplers' defaults
+NUTS_DENSE_RUN = (10, 10)             # this run's (cut)
+NUTS_LARGE_RUN = (0, 5)               # this run's (cut; from phase 35)
+NUTS_RHO_NU_RUN = (0, 6)              # this run's (cut; from phase 36)
+# the resume check's steps: the last of phase 38's samples (cut from 5)
+NUTS_RESUME_STEPS = 2
+# phase 40: the twin at the golden configuration (n = 900, noise 0.2, the
+# entry points' default chains). main's defaults are 400 + 500, main_nu's
+# 300 + 400 (its profiled stage takes half of each, rounded down),
+# main_profile_rho_nu's 150 + 250. A traced-nu gradient (jacfwd through the
+# fixed-trip Bessel loops) takes ~0.4 s (joint, 8 chains) and ~1.1 s
+# (eta-profiled, 4 chains), so the nu samplers run the fewest steps their
+# results need: main_nu's profiled stage 0 + 1
+TWIN_MAIN_REF, TWIN_MAIN_RUN = (400, 500), (3, 3)
+TWIN_NU_REF, TWIN_NU_RUN = (300, 400), (1, 2)
+TWIN_PROFILE_REF, TWIN_PROFILE_RUN = (150, 250), (0, 1)
+# the golden with-prior MAP (examples/FindOptimalCovarianceParameters.py
+# :664-666, OptimalCovariance_WithPrior.pickle) and the refinement's
+# bounds around it: its second grid's spacing is 0.005 in rho and 0.5 in
+# nu, and the committed data/profile_posterior_rho_nu.pickle reached
+# (0.17664, 3.0) at log_post 957.7785; the coarse grid is centred on the
+# sampled rho median, which must lie within its half-width 0.08
+GOLDEN_MAP = {"rho": 0.1767, "nu": 3.034, "log_post": 957.779}
+MAP_TOLS = {"rho": 0.005, "nu": 0.5, "log_post": 0.1}
+RHO_MEDIAN_TOL = 0.08
+
+
+def mean_gap_check(got, ref):
+    """|mean(got) - mean(ref)| of one coordinate's diagnostics beside the
+    ref's sd and ANCHOR_MCSE Monte Carlo standard errors of the
+    difference."""
+    gap = abs(got["mean"] - ref["mean"])
+    mcse = math.sqrt(got["std"] ** 2 / got["ess"]
+                     + ref["std"] ** 2 / ref["ess"])
+    return gap, ref["std"], ANCHOR_MCSE * mcse
+
+
+def nuts_summary(res, names, seconds):
+    """sample_summary plus NUTS's own: mean tree depth, divergences, the
+    leaves (vmapped gradients) and host reads a step, ms a step and a
+    leaf."""
+    steps = len(res.leaves_per_step)
+    leaves = sum(res.leaves_per_step)
+    return {**sample_summary(res, names, seconds),
+            "mean_tree_depth": float(res.mean_tree_depth.mean()),
+            "divergences": float(res.divergences.sum()),
+            "leaves_per_step": leaves / steps,
+            "leaves_per_step_max": max(res.leaves_per_step),
+            "host_reads_per_step": sum(res.host_reads_per_step) / steps,
+            "ms_per_step": seconds / steps * 1e3,
+            "ms_per_leaf": seconds / leaves * 1e3}
+
+
+def phase_nuts_dense(dev, hmc_dense):
+    """Phase 37: nuts.sample_posterior on phase 34's dense target (a 30 x
+    30 grid, n = 900, noise 0.2, nu = 1/2; a float64 Cholesky per
+    gradient, no hand kernel: its window must stay empty), the box ((-3,
+    4), (-1.5, -0.5)), 8 chains, max_depth 8 (the reference's default),
+    warmup and samples cut from 300 + 500 (``reduced``). Pass: every
+    sample finite and in the box; |mean log10 eta (NUTS) - phase 34's
+    dense HMC mean| within the HMC samples' sd and within ANCHOR_MCSE (3)
+    Monte Carlo standard errors of the difference. Logs the mean tree
+    depth, leaves and host reads a step, divergences, samples/s."""
+    from gppe_tpu_torch.models import nuts
+
+    pts, z, X = grid_problem(ANCHOR_SIDE)
+    warmup, samples = NUTS_DENSE_RUN
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nuts.sample_posterior(pts, z, X, nu=NU, num_chains=ANCHOR_CHAINS,
+                                num_warmup=warmup, num_samples=samples,
+                                max_depth=NUTS_DEPTH, key=0,
+                                support_log10=ANCHOR_BOX, device=dev)
+    seconds = sync_seconds(t0)
+    sampling_window = window()
+    summary = nuts_summary(res, ["log10_eta", "log10_rho"], seconds)
+    gap, sd, mcse = mean_gap_check(summary["diagnostics"]["log10_eta"],
+                                   hmc_dense["log10_eta"])
+    ok = (in_box(res.samples, ANCHOR_BOX) and gap <= sd and gap <= mcse
+          and sampling_window == {})
+    log(phase="nuts_dense", ok=ok, n=len(pts), nu=NU, box=ANCHOR_BOX,
+        chains=ANCHOR_CHAINS, max_depth=NUTS_DEPTH, warmup=warmup,
+        samples=samples, reduced=reduced(NUTS_DENSE_RUN, NUTS_REF),
+        **summary, log10_eta_mean_gap=gap, bound_hmc_sd=sd,
+        bound_mcse=mcse, hmc_log10_eta_mean=hmc_dense["log10_eta"]["mean"],
+        sampling_launches=sampling_window)
+    if not ok:
+        raise AssertionError(f"the dense NUTS phase failed: gap {gap}, sd "
+                             f"{sd}, MCSE bound {mcse}")
     return sampling_window
+
+
+def phase_nuts_posterior_large(dev, surface, hmc_large, hmc_state):
+    """Phase 38: nuts.sample_posterior_large on phase 33's surface (n =
+    100,000, nu = 1/2, 12 nodes): 64 chains, max_depth 8, the box ((-3,
+    3), (-1.5, -0.5)), continuing phase 35's adapted chains through
+    ``resume_state`` (no warmup; samples cut from 500, ``reduced``); the
+    sampling runs no hand kernel. Pass: every sample finite and in the
+    box, mean accept statistic above 0.5, both means within ANCHOR_MCSE (3)
+    Monte Carlo standard errors of the difference from phase 35's HMC
+    means. Split R-hat is logged beside LARGE_RHAT, not bounded: over this
+    run's few samples it read 1.43 / 1.43 (5-6 samples from phase 35's
+    state) and 1.08 / 1.13 (20 samples after 30 cold warmup steps), and a
+    run long enough to bring it under 1.1 costs minutes. Resume: from the
+    state after the run's first S - NUTS_RESUME_STEPS samples,
+    resume_nuts (through the sampler's ``resume_state``), in memory and
+    through save_hmc_state / load_hmc_state, gives the run's last
+    NUTS_RESUME_STEPS samples bit for bit (samples, log probs, the
+    generator's state). Logs ms a step and a leaf."""
+    from gppe_tpu_torch.models import nuts
+
+    _, samples = NUTS_LARGE_RUN
+    k = NUTS_RESUME_STEPS
+    P, z, X = make_problem(N_MAIN, 7)
+
+    def sample(state, steps):
+        return nuts.sample_posterior_large(
+            P, z, X, num_chains=HMC_CHAINS, num_samples=steps,
+            max_depth=NUTS_DEPTH, surface=surface,
+            log10_eta_bounds=LARGE_BOX[0], resume_state=state)[0]
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sample(hmc_state, samples)
+    seconds = sync_seconds(t0)
+    sampling_window = window()
+    names = ["log10_eta", "log10_rho"]
+    summary = nuts_summary(res, names, seconds)
+    rhat = diagnostics.split_rhat(res.samples)
+    gaps = {c: mean_gap_check(summary["diagnostics"][c], hmc_large[c])
+            for c in names}
+
+    t0 = time.perf_counter()
+    first = sample(hmc_state, samples - k)
+    again = sample(first.state(), k)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/nuts_state.pickle"
+        checkpoint.save_hmc_state(first, path)
+        loaded = sample(checkpoint.load_hmc_state(path), k)
+    resume_s = sync_seconds(t0)
+    tail = res.samples[samples - k:]
+    resume_ok = (torch.equal(first.samples, res.samples[:samples - k])
+                 and torch.equal(again.samples, tail)
+                 and torch.equal(loaded.samples, tail)
+                 and torch.equal(loaded.log_probs,
+                                 res.log_probs[samples - k:])
+                 and again.final_generator_state == res.final_generator_state
+                 and loaded.final_generator_state
+                 == res.final_generator_state)
+    ok = (in_box(res.samples, LARGE_BOX)
+          and summary["accept_rate_mean"] > LARGE_ACCEPT
+          and all(gap <= mcse for gap, _, mcse in gaps.values())
+          and sampling_window == {} and resume_ok)
+    log(phase="nuts_posterior_large", ok=ok, n=N_MAIN, nu=NU,
+        chains=HMC_CHAINS, max_depth=NUTS_DEPTH, warmup=0, samples=samples,
+        box=LARGE_BOX, start="phase 35's adapted HMC state",
+        reduced=reduced(NUTS_LARGE_RUN, NUTS_REF) + [
+            f"resume steps 5 -> {k}"], **summary,
+        split_rhat=rhat.tolist(), split_rhat_bounded=False,
+        phase_35_rhat_bound=LARGE_RHAT, bound_accept=LARGE_ACCEPT,
+        hmc_mean_gaps={c: {"gap": g, "hmc_sd": sd, "bound_mcse": m}
+                       for c, (g, sd, m) in gaps.items()},
+        sampling_launches=sampling_window,
+        resume={"ok": resume_ok, "steps": k, "seconds": resume_s})
+    if not ok:
+        raise AssertionError(f"the large-n NUTS phase failed: rhat {rhat}, "
+                             f"gaps {gaps}, resume {resume_ok}")
+    return sampling_window
+
+
+def phase_nuts_rho_nu_large(dev, surface, hmc_state):
+    """Phase 39: nuts.sample_posterior_rho_nu_large on phase 32's
+    float32-node surface (n = 100,489, 9 x 9 nodes): 64 chains, max_depth
+    8, log10 eta in (0.5, 4), the reference's priors, continuing phase
+    36's adapted chains through ``resume_state`` (no warmup; samples cut
+    from 500, ``reduced``); the sampling runs no hand kernel.
+    Phase 36's bounds against the committed
+    data/posterior_rho_nu_n100k.pickle: mean log10 eta within 0.05 of its
+    0.522, mean log10 rho within 0.1 of its -0.409, the nu median inside
+    its interquartile range (7.89, 21.01), mean accept statistic above
+    0.6; every coordinate's split R-hat logged."""
+    import pickle
+
+    from gppe_tpu_torch.models import nuts
+
+    warmup, samples = NUTS_RHO_NU_RUN
+    with open(RHO_NU_PICKLE, "rb") as f:
+        ref = pickle.load(f)["diagnostics"]
+    pts, z, X = grid_problem(RHO_NU_SIDE)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = nuts.sample_posterior_rho_nu_large(
+        pts, z, X, num_chains=HMC_CHAINS, num_samples=samples,
+        max_depth=NUTS_DEPTH, surface=surface,
+        log10_eta_bounds=RHO_NU_ETA_BOX, resume_state=hmc_state)
+    seconds = sync_seconds(t0)
+    sampling_window = window()
+    names = ["log10_eta", "log10_rho", "nu"]
+    summary = nuts_summary(res, names, seconds)
+    got = summary["diagnostics"]
+    box = (RHO_NU_ETA_BOX, surface.log10_rho_bounds, surface.nu_bounds)
+    checks = {
+        "log10_eta_mean": abs(got["log10_eta"]["mean"]
+                              - ref["log10_eta"]["mean"]) <= RHO_NU_ETA_TOL,
+        "log10_rho_mean": abs(got["log10_rho"]["mean"]
+                              - ref["log10_rho"]["mean"]) <= RHO_NU_RHO_TOL,
+        "nu_median": ref["nu"]["q25"] < got["nu"]["median"] < ref["nu"][
+            "q75"],
+        "accept": summary["accept_rate_mean"] > RHO_NU_ACCEPT,
+        "in_box": in_box(res.samples, box),
+        "no_kernel_launch": sampling_window == {}}
+    ok = all(checks.values())
+    log(phase="nuts_rho_nu_large", ok=ok, n=len(pts), chains=HMC_CHAINS,
+        max_depth=NUTS_DEPTH, warmup=warmup, samples=samples,
+        log10_eta_box=RHO_NU_ETA_BOX, start="phase 36's adapted HMC state",
+        reduced=reduced(NUTS_RHO_NU_RUN, NUTS_REF), **summary,
+        checks=checks,
+        split_rhat={k: got[k]["rhat"] for k in names},
+        artifact={k: {q: ref[k][q] for q in ("mean", "q25", "median", "q75")}
+                  for k in names},
+        sampling_launches=sampling_window)
+    if not ok:
+        raise AssertionError(f"the (rho, nu) NUTS phase failed: {checks}")
+    return sampling_window
+
+
+def traced_nu_grad_ms(dev, pts, z, X):
+    """ms of one vmapped forward-mode gradient (jacfwd) of main_nu's two
+    traced-nu targets at their chains (8 joint, 4 profiled) at the
+    samplers' initial points: median of 2, synchronised (the phase's
+    samplers have run both targets' operations before)."""
+    from gppe_tpu_torch.models import kernel_posterior
+
+    joint, _ = kernel_posterior.make_bounded_log_posterior_nu(
+        pts, z, X, log10_bounds=((-3.0, 4.0), (-1.3, -0.3)),
+        nu_bounds=(1.0, 25.0), log_prior=hmc._reference_prior, device=dev)
+    profiled, _ = kernel_posterior.make_profiled_rho_nu_posterior(
+        pts, z, X, log10_eta_bounds=(-3.0, 4.0),
+        log10_rho_bounds=(-1.3, -0.3), nu_bounds=(1.0, 25.0),
+        log_prior=lambda rho, nu: hmc._reference_prior(None, rho, nu),
+        eta_grid=15, golden_iters=12, device=dev)
+    out = {}
+    for name, target, chains, dim in (("joint", joint, 8, 3),
+                                      ("profiled", profiled, 4, 2)):
+        gv = hmc._batched(target, "fwd", F64)
+        theta = hmc._init_draws(0, chains, dim, dev)[1]
+        out[name] = statistics.median(timed(lambda: gv(theta), 2))
+    return out
+
+
+def phase_sample_posterior_twin(dev):
+    """Phase 40: the sample_posterior twin at the golden configuration
+    (n = 900, noise 0.2, the entry points' default chains), each entry
+    point in its own launch window: main(sampler="nuts", use_mesh=False)
+    (8 chains, max_depth 8; no hand kernel; the one cold NUTS warmup besides
+    phase 37's), main_nu (8 joint chains, 10 leapfrog steps; 4 profiled
+    chains at 15 eta grid points and 12 golden steps; then the refinement,
+    on the general-nu kernel's assembly entry)
+    and main_profile_rho_nu (4 chains, 6 leapfrog steps, the golden grid's
+    box; no golden pickle), warmup and samples cut (``reduced``). Pass:
+    every sample finite and inside its box; NUTS's divergences and mean
+    tree depth present; each refined MAP within 0.005 of rho 0.1767 and
+    0.5 of nu 3.034 and its log_post within 0.1 nat of 957.779; each
+    sampled rho median, the refinement's seed, within 0.08 of 0.1767. Logs
+    the seconds of each stage and the ms a vmapped gradient of both
+    traced-nu targets."""
+    from gppe_tpu_torch.drivers import sample_posterior as twin
+
+    windows, seconds = {}, {}
+
+    def run(name, fn, **kw):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(verbose=False, device=dev, **kw)
+        seconds[name] = sync_seconds(t0)
+        windows[name] = window()
+        return out
+
+    main_out = run("main_nuts", twin.main, num_points=ANCHOR_SIDE,
+                   num_warmup=TWIN_MAIN_RUN[0], num_samples=TWIN_MAIN_RUN[1],
+                   use_mesh=False, sampler="nuts")
+    nu_out = run("main_nu", twin.main_nu, num_points=ANCHOR_SIDE,
+                 num_warmup=TWIN_NU_RUN[0], num_samples=TWIN_NU_RUN[1])
+    prof_out = run("main_profile_rho_nu", twin.main_profile_rho_nu,
+                   num_points=ANCHOR_SIDE, num_warmup=TWIN_PROFILE_RUN[0],
+                   num_samples=TWIN_PROFILE_RUN[1])
+    pts, z, X = grid_problem(ANCHOR_SIDE)
+    grad_ms = traced_nu_grad_ms(dev, pts, z, X)
+
+    def inside(a, box):
+        a = np.asarray(a)
+        lo, hi = np.array([b[0] for b in box]), np.array([b[1] for b in box])
+        return bool(np.isfinite(a).all() and np.all(a > lo)
+                    and np.all(a < hi))
+
+    def map_ok(m):
+        return all(abs(m[k] - GOLDEN_MAP[k]) <= MAP_TOLS[k]
+                   for k in MAP_TOLS)
+    nu_box, rho_box_nu = (1.0, 25.0), (-1.3, -0.3)
+    checks = {
+        "main_nuts_in_box": inside(main_out["samples"],
+                                   ((-3.0, 4.0), (math.log10(0.02),
+                                                  math.log10(0.6)))),
+        "main_nuts_diagnostics": all(
+            np.isfinite(main_out[k]).all() and main_out[k].shape
+            == main_out["samples"].shape[1:2]
+            for k in ("divergences", "mean_tree_depth")),
+        "main_nu_joint_in_box": inside(nu_out["joint_samples"],
+                                       ((-3.0, 4.0), rho_box_nu, nu_box)),
+        "main_nu_profile_in_box": inside(nu_out["profile_samples"],
+                                         (rho_box_nu, nu_box)),
+        "main_nu_map": map_ok(nu_out["map_refined"]),
+        "main_nu_rho_median": abs(nu_out["profile_rho_median"]
+                                  - GOLDEN_MAP["rho"]) <= RHO_MEDIAN_TOL,
+        "profile_in_box": inside(prof_out["samples"],
+                                 ((-1.0, math.log10(0.3)), nu_box)),
+        "profile_map": map_ok(prof_out["map_refined"]),
+        "profile_rho_median": abs(prof_out["rho_median"]
+                                  - GOLDEN_MAP["rho"]) <= RHO_MEDIAN_TOL,
+        "samplers_launch_nothing": windows["main_nuts"] == {}}
+    ok = all(checks.values())
+    log(phase="sample_posterior_twin", ok=ok, n=len(pts), checks=checks,
+        reduced={
+            "main_nuts": reduced(TWIN_MAIN_RUN, TWIN_MAIN_REF),
+            "main_nu": reduced(TWIN_NU_RUN, TWIN_NU_REF),
+            "main_profile_rho_nu": reduced(TWIN_PROFILE_RUN,
+                                           TWIN_PROFILE_REF)},
+        seconds=seconds,
+        stage_seconds={"main_nu": nu_out["wall_seconds"],
+                       "main_profile_rho_nu": prof_out["wall_seconds"]},
+        traced_nu_grad_ms=grad_ms,
+        main_nuts={k: (main_out[k].tolist() if hasattr(main_out[k], "tolist")
+                       else main_out[k])
+                   for k in ("accept_rate", "divergences", "mean_tree_depth",
+                             "posterior_mean_log10_eta",
+                             "posterior_mean_log10_rho",
+                             "samples_per_second")},
+        main_nu={"joint_accept": nu_out["joint_accept"],
+                 "joint_mean": nu_out["joint_mean"].tolist(),
+                 "profile_accept": nu_out["profile_accept"],
+                 "profile_rho_median": nu_out["profile_rho_median"],
+                 "profile_nu_median": nu_out["profile_nu_median"],
+                 "map_refined": nu_out["map_refined"]},
+        main_profile_rho_nu={
+            "accept_rate": prof_out["accept_rate"].tolist(),
+            "rho_median": prof_out["rho_median"],
+            "nu_median": prof_out["nu_median"],
+            "map_refined": prof_out["map_refined"],
+            "split_rhat": {k: prof_out["diagnostics"][k]["rhat"]
+                           for k in ("log10_rho", "nu")}},
+        golden_map=GOLDEN_MAP, bounds=MAP_TOLS,
+        bound_rho_median=RHO_MEDIAN_TOL, launches=windows)
+    if not ok:
+        raise AssertionError(f"the sample_posterior twin failed: {checks}")
+    return windows
 
 
 def kernel_record(name, source, replaces, launches, measured,
@@ -4699,10 +5099,18 @@ def main():
         phase_rho_nu_surface(dev)
     launches_surface, launches_surface_general, large_surface = \
         phase_posterior_surface(dev)
-    launches_anchor = phase_hmc_dense_anchor(dev)
-    launches_hmc_large = phase_hmc_posterior_large(dev, large_surface)
-    launches_hmc_rho_nu = phase_hmc_rho_nu_large(dev, rho_nu_surface)
+    launches_anchor, hmc_dense = phase_hmc_dense_anchor(dev)
+    launches_hmc_large, hmc_large, hmc_large_state = \
+        phase_hmc_posterior_large(dev, large_surface)
+    launches_hmc_rho_nu, hmc_rho_nu_state = phase_hmc_rho_nu_large(
+        dev, rho_nu_surface)
+    phase_nuts_dense(dev, hmc_dense)
+    launches_nuts_large = phase_nuts_posterior_large(
+        dev, large_surface, hmc_large, hmc_large_state)
+    launches_nuts_rho_nu = phase_nuts_rho_nu_large(dev, rho_nu_surface,
+                                                   hmc_rho_nu_state)
     del large_surface, rho_nu_surface
+    launches_twin = phase_sample_posterior_twin(dev)
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
@@ -4713,10 +5121,15 @@ def main():
                "rho_nu_surface": launches_rho_nu,
                "rho_nu_probe_engines": launches_probes,
                "posterior_surface_nu1.2": launches_surface_general,
-               # phase 36's sampling on phase 32's surface: no launch
-               "hmc_rho_nu_large_sampling": launches_hmc_rho_nu}
+               # phases 36's and 39's sampling on phase 32's surface: no
+               # launch
+               "hmc_rho_nu_large_sampling": launches_hmc_rho_nu,
+               "nuts_rho_nu_large_sampling": launches_nuts_rho_nu,
+               # phase 40's entry points: the refinements of main_nu and
+               # main_profile_rho_nu on the assembly entry
+               **{f"twin_{k}": w for k, w in launches_twin.items()}}
     dense = ("dense_api_nu1.2", "dense_api_nu3.7", "main",
-             "general_csr_2e16")
+             "general_csr_2e16", "twin_main_nu", "twin_main_profile_rho_nu")
     # the offset tables of the FFT grid paths: the elementwise entry's
     # paths, and its only ones
     tables = ("grid_fft_operator_1024", "fft_fit_2e20_nu2.2",
@@ -4758,13 +5171,15 @@ def main():
         return rec
     def multirho_paths(counter):
         # the grid path (phase 10), the posterior surface (phase 33), the
-        # HMC anchor's n = 900 surface (phase 34) and phase 35's sampling
-        # on phase 33's surface (no launch)
+        # HMC anchor's n = 900 surface (phase 34), and phases 35's and
+        # 38's sampling on phase 33's surface (no launch)
         return {"grid_path": launches_2[counter],
                 "posterior_surface_1e5": launches_surface[counter],
                 "hmc_dense_anchor_surface_n900": launches_anchor[counter],
                 "hmc_posterior_large_sampling":
-                    launches_hmc_large.get(counter, 0)}
+                    launches_hmc_large.get(counter, 0),
+                "nuts_posterior_large_sampling":
+                    launches_nuts_large.get(counter, 0)}
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
                   for k in ("matern_matmat_mma", "matern_matmat")),

@@ -100,20 +100,17 @@ def _batched(log_prob_fn, grad_mode, dtype):
     return grads_and_values
 
 
-def _hmc_carry0(grads_and_values, init_theta, init_step_size,
-                init_inv_mass):
-    """Initial sampler carry: everything the chains need to continue,
-    the dual-averaging and Welford state included (the reference's, plus
-    ``step_size`` = exp(log_eps), which a resumed run takes as saved). The
-    initial lp comes from the same vmapped call as every later one, so a
-    resumed chain holds the bits the unbroken one held."""
+def _adapt_carry0(init_theta, lp, init_step_size, init_inv_mass):
+    """The carry every sampler shares: the chains' points and values, the
+    dual-averaging and Welford state (the reference's, plus ``step_size``
+    = exp(log_eps), which a resumed run takes as saved)."""
     chains, dim = init_theta.shape
     kw = dict(dtype=init_theta.dtype, device=init_theta.device)
     iss = torch.broadcast_to(torch.as_tensor(init_step_size, **kw),
                              (chains,))
     return {
         "theta": init_theta,
-        "lp": grads_and_values(init_theta)[1],
+        "lp": lp,
         "mu": torch.log(10.0 * iss),
         # log_eps_bar starts at log(init_step_size): warmup's first dual-
         # averaging step overwrites it (eta_1 = 1), and without warmup it
@@ -128,8 +125,18 @@ def _hmc_carry0(grads_and_values, init_theta, init_step_size,
                      else torch.broadcast_to(
                          torch.as_tensor(init_inv_mass, **kw),
                          (chains, dim)).clone()),
-        "n_accept": torch.zeros(chains, **kw),
     }
+
+
+def _hmc_carry0(grads_and_values, init_theta, init_step_size,
+                init_inv_mass):
+    """Initial HMC carry: everything the chains need to continue. The
+    initial lp comes from the same vmapped call as every later one, so a
+    resumed chain holds the bits the unbroken one held."""
+    carry = _adapt_carry0(init_theta, grads_and_values(init_theta)[1],
+                          init_step_size, init_inv_mass)
+    carry["n_accept"] = torch.zeros_like(carry["h_bar"])
+    return carry
 
 
 def _hmc_step(grads_and_values, c, it, normals, uniforms, num_warmup,
@@ -160,13 +167,25 @@ def _hmc_step(grads_and_values, c, it, normals, uniforms, num_warmup,
     lp = torch.where(accept, lp_new, lp)
 
     out = dict(c, theta=theta, lp=lp)
+    if not _adapt(c, out, it, accept_prob, num_warmup, target_accept):
+        out["n_accept"] = c["n_accept"] + accept.to(theta.dtype)
+    return out
+
+
+def _adapt(c, out, it, accept_stat, num_warmup, target_accept):
+    """Warmup's adaptation after step ``it`` (a Python int), written into
+    ``out``, the new carry that already holds the step's theta: dual
+    averaging of the step size on ``accept_stat`` (chains,), then the
+    Welford moments over warmup's second half, the adapted mass switched in
+    at warmup's last step. Returns whether ``it`` was a warmup step. The
+    reference's arithmetic (hmc.py:155-178, nuts.py:366-388)."""
     in_warmup = it < num_warmup
     if in_warmup:
         # dual averaging; the scalars in Python float64, as the reference
         # computes them
         t = it + 1.0
         h_bar = ((1.0 - 1.0 / (t + T0)) * c["h_bar"]
-                 + (target_accept - accept_prob) / (t + T0))
+                 + (target_accept - accept_stat) / (t + T0))
         log_eps = c["mu"] - math.sqrt(t) / GAMMA * h_bar
         eta_t = t ** (-KAPPA)
         out.update(h_bar=h_bar, log_eps=log_eps,
@@ -182,6 +201,7 @@ def _hmc_step(grads_and_values, c, it, normals, uniforms, num_warmup,
 
     # Welford moments over warmup's second half; the adapted mass
     # switched in at warmup's last step
+    theta = out["theta"]
     half = num_warmup // 2
     cnt = float(max(it - half + 1, 1))
     if in_warmup and it >= half:
@@ -192,9 +212,7 @@ def _hmc_step(grads_and_values, c, it, normals, uniforms, num_warmup,
         var = out["w_m2"] / max(cnt - 1.0, 1.0)
         out["inv_mass"] = torch.where(var > 1e-10, var,
                                       torch.ones_like(var))
-    if not in_warmup:
-        out["n_accept"] = c["n_accept"] + accept.to(theta.dtype)
-    return out
+    return in_warmup
 
 
 def _generator(generator, device):

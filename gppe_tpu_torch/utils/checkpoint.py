@@ -3,8 +3,9 @@
 Counterpart of :mod:`gppe_tpu.utils.checkpoint` (the reference's
 discipline, SURVEY.md §5.4: a long driver pickles a results dict and can
 resume from it without recomputing; reference
-examples/FindOptimalCovarianceParameters.py:714-754), plus the HMC chain
-state that :func:`gppe_tpu_torch.models.hmc.resume_hmc` continues from.
+examples/FindOptimalCovarianceParameters.py:714-754), plus the chain
+state that :func:`gppe_tpu_torch.models.hmc.resume_hmc` and
+:func:`gppe_tpu_torch.models.nuts.resume_nuts` continue from.
 Files hold numpy arrays and bytes only: no torch object, no device.
 """
 
@@ -47,11 +48,13 @@ def run_or_resume(path, compute_fn, use_saved=True, verbose=False):
 
 
 def save_hmc_state(result, path, verbose=False):
-    """Persist the full HMC chain state of an ``HMCResult``: theta, step
-    size and inverse mass as float64 numpy arrays, the generator's state
-    as the bytes of ``torch.Generator.get_state()``, and the accept rate,
-    so that :func:`gppe_tpu_torch.models.hmc.resume_hmc` (or a sampler's
-    ``resume_state``) continues the chains exactly where this run
+    """Persist the full chain state of an ``HMCResult`` or a
+    ``NUTSResult`` (their ``state()`` is the same dict): theta, step size
+    and inverse mass as float64 numpy arrays, the generator's state as the
+    bytes of ``torch.Generator.get_state()``, and the accept rate, so that
+    :func:`gppe_tpu_torch.models.hmc.resume_hmc`,
+    :func:`gppe_tpu_torch.models.nuts.resume_nuts` (or a sampler's
+    ``resume_state``) continue the chains exactly where this run
     stopped. The generator state belongs to the device type it came from
     (a CUDA generator's 16 bytes, a CPU one's 5056)."""
     state = {k: (v if isinstance(v, bytes) else
@@ -64,11 +67,12 @@ def save_hmc_state(result, path, verbose=False):
 
 def load_hmc_state(path):
     """Load a state saved by :func:`save_hmc_state`, or by the reference's
-    ``gppe_tpu.utils.checkpoint.save_hmc_state``, for ``resume_hmc`` or a
+    ``gppe_tpu.utils.checkpoint.save_hmc_state`` (of its ``hmc_sample``
+    or its ``nuts_sample``), for ``resume_hmc``, ``resume_nuts`` or a
     sampler's ``resume_state``. A reference state carries theta, step size
     and inverse mass across exactly; its JAX PRNG key (two uint32 words)
     has no torch counterpart, so it is replaced by ``"seed"``, the integer
-    word0 * 2^32 + word1, from which ``resume_hmc`` seeds a new generator:
+    word0 * 2^32 + word1, from which the resume seeds a new generator:
     the continued chains start from the same state and adaptation, on
     other random draws than the reference's."""
     state = load_results(path)

@@ -1938,3 +1938,69 @@ def test_sample_posterior_large_on_b2(dev):
     assert bool(((s[..., 0] > -3) & (s[..., 0] < 3)).all())
     assert bool(((s[..., 1] > -1.5) & (s[..., 1] < -0.5)).all())
     assert float(res.accept_rate.mean()) > 0.5
+
+
+_COV_PREC = np.linalg.inv(np.array([[1.0, 0.6], [0.6, 2.0]]))
+
+
+def _gauss(x):
+    """A correlated 2-D Gaussian, elementwise: a chain's value and gradient
+    the same bits alone and in a batch."""
+    d0, d1 = x[0] - 1.0, x[1] + 2.0
+    return -0.5 * (_COV_PREC[0, 0] * d0 * d0 + 2.0 * _COV_PREC[0, 1] * d0 * d1
+                   + _COV_PREC[1, 1] * d1 * d1)
+
+
+def test_nuts_resume_bits_on_the_card(dev):
+    """models.nuts on the card, its generator on the card: the dense (eta,
+    rho) sampler at n = 64, 4 chains, max_depth 6; a resume from a saved
+    state (a CUDA generator's state through a pickle) equals the unbroken
+    run's last steps bit for bit."""
+    import pickle
+
+    from gppe_tpu_torch.models import nuts
+    pts = data_utils.generate_points(8, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    kw = dict(num_chains=4, num_warmup=10, max_depth=6,
+              support_log10=((-3.0, 4.0), (-2.0, 0.0)), device=dev)
+    whole = nuts.sample_posterior(pts, z, X, num_samples=12, **kw)
+    assert whole.samples.is_cuda and bool(torch.isfinite(whole.samples).all())
+    first = nuts.sample_posterior(pts, z, X, num_samples=6, **kw)
+    assert torch.equal(first.samples, whole.samples[:6])
+    state = pickle.loads(pickle.dumps({
+        k: (v if isinstance(v, bytes) else v.cpu().numpy())
+        for k, v in first.state().items()}))
+    more = nuts.sample_posterior(pts, z, X, num_samples=6,
+                                 resume_state=state, **kw)
+    assert torch.equal(more.samples, whole.samples[6:])
+    assert more.final_generator_state == whole.final_generator_state
+
+
+def test_nuts_chains_independent_on_the_card(dev):
+    """models.nuts on the card on the Gaussian target: 3 chains together
+    equal each chain alone on its own rows of the same draws, bit for bit,
+    and the run that reads no loop condition on the host (every leaf up to
+    max_depth, the stopped chains masked) equals the one that does."""
+    from gppe_tpu_torch.models import hmc, nuts
+    g = torch.Generator(device=dev).manual_seed(5)
+    steps, max_depth = 20, 5
+    draws = [nuts._draws(g, 3, 2, max_depth, F64, dev) for _ in range(steps)]
+    init = 0.5 * torch.randn((3, 2), generator=g, dtype=F64, device=dev)
+    gv = hmc._batched(_gauss, "rev", F64)
+
+    def run(theta, blocks, early_exit=True):
+        carry = nuts._nuts_carry0(gv, theta, 0.1, None)
+        return nuts._sample_loop(gv, carry, 10, steps - 10, max_depth, 0.8,
+                                 lambda it: blocks[it], early_exit)
+    together = run(init, draws)
+    assert together.samples.is_cuda
+    for c in range(3):
+        alone = run(init[c:c + 1],
+                    [tuple(a[c:c + 1] for a in block) for block in draws])
+        assert torch.equal(alone.samples[:, 0], together.samples[:, c])
+        assert torch.equal(alone.step_size[0], together.step_size[c])
+    full = run(init, draws, early_exit=False)
+    assert torch.equal(full.samples, together.samples)
+    assert torch.equal(full.accept_rate, together.accept_rate)
+    assert set(full.leaves_per_step) == {2 ** max_depth - 1}

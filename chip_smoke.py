@@ -53,7 +53,16 @@ each against its plain PyTorch version on the card:
     at n = 2^20); the (eta, rho, nu) posterior surface
     KrylovPosteriorSurfaceRhoNu at n = 100,489 (batched FFT Lanczos over
     81 nodes, one elementwise launch per nu) and the (eta, rho) surface
-    KrylovPosteriorSurface at n = 100,000 (the multi-rho kernel).
+    KrylovPosteriorSurface at n = 100,000 (the multi-rho kernel);
+  * the multi-device slice (gppe_tpu_torch.parallel): the sharded
+    profile-likelihood MLE (ShardedKrylovProfileLikelihood: B1's product
+    on its rectangular form over the block ring or the all-gather, B1's
+    trace on the rectangular walk, G1's at a general nu) at phase 5's
+    size on one NCCL rank and on two gloo ranks sharing the card, the
+    sharded profile step over the probe axis at four ranks, the samplers'
+    mesh= on two ranks, and the scaling twin at 1, 2 and 4 ranks. Ranks
+    are processes (parallel.mesh.spawn); every multi-rank figure is
+    correctness-grade, since the ranks share one card.
 
     python3 chip_smoke.py
 
@@ -267,6 +276,32 @@ Phases, each raising on failure:
      Phases 37-40 cut warmup and samples (listed as "reduced"): a NUTS
      step on the surfaces builds 127-255 leaves of one vmapped gradient
      each, and a traced-nu gradient takes 0.4-1.1 s.
+ 41. ShardedKrylovProfileLikelihood on one rank, NCCL, at phase 5's
+     configuration and draws (key 0): eta and sigma0 within 5e-4 of phase
+     5's fit; 64 products on matern_matmat_mma and the square trace on
+     matern_matmat in its window; the card's compute mode logged (the
+     multi-rank phases need "Default": ranks share the card);
+ 42. the same at two gloo ranks on the card, mesh (1, 2), the ring and
+     the all-gather schedule: each fit's eta within 5e-4 of phase 5's; the
+     two factorizations' tridiagonals, U and trace(K^2) within 1e-5, G
+     and P (single late basis vectors) within 1e-3; the bytes each rank
+     moved through the host, a Lanczos step and in all, and its seconds;
+ 43. four gloo ranks, mesh (2, 2), ring: build_sharded_profile_step's
+     der1, traceinv and logdet at etas 0.3, 3, 30 within 1e-3 of one rank's
+     (der1 relative to traceinv, the size of its terms), every rank the
+     same; then nu = 1.2 at n = 10^4 on two ranks (phase 23's
+     configuration), eta within 5e-4 of phase 23's, G1's product and trace
+     launched and no closed-form kernel;
+ 44. the samplers' mesh= on two ranks (chains over probe) on phase 34's
+     dense target, 8 chains: HMC 10 + 10 (cut from 50 + 50) and NUTS 2 + 2
+     at max_depth 5: every rank the same gathered samples, HMC's means
+     within 3 MCSE of one process's run of the same draws;
+     then the scaling twin's main at 1, 2 and 4 ranks (n = 2^14; graded
+     correctness; 2 ranks' traceinv within 1e-3 of 1 rank's), and B1's
+     trace on the rectangular walk of a world-2 ring block (50,000 x
+     100,000) against float64, timed beside its bound.
+     Phases 42-44 run in one launch of four gloo ranks, each mesh made of
+     its first ranks.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -292,11 +327,13 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import gppe_tpu_torch
 from gppe_tpu_torch.drivers import (compare_various_num_points,
                                     find_optimal_covariance,
-                                    profile_kernel_matrix, roofline_matvec)
+                                    profile_kernel_matrix, roofline_matvec,
+                                    scaling_efficiency)
 from gppe_tpu_torch.models import (diagnostics, direct_likelihood, hmc,
                                    profile_likelihood)
 from gppe_tpu_torch.models.grid_krylov import GridKrylovProfileLikelihood
@@ -311,6 +348,8 @@ from gppe_tpu_torch.ops import stochastic, taper
 from gppe_tpu_torch.ops.operators import (GridMaternOperator, MaternOperator,
                                           SparseOperator)
 from gppe_tpu_torch.ops.taper import TaperedMaternOperator
+from gppe_tpu_torch.parallel import mesh as par_mesh
+from gppe_tpu_torch.parallel import sharded
 from gppe_tpu_torch.utils import checkpoint, config
 from gppe_tpu_torch.utils import data as data_utils
 
@@ -3113,7 +3152,7 @@ def phase_general_operator_route(dev):
     if not ok:
         raise AssertionError(f"general-nu operator route failed: {res}, "
                              f"eigh route {exact}, launches {window}")
-    return window, (
+    return window, res, (
         {"max_abs_err": max_abs, "ms": med["product"],
          "plain_ms": med["plain_product"], "bound_ms": prod_bound[0],
          "bound_by": prod_bound[1]},
@@ -5033,6 +5072,358 @@ def phase_sample_posterior_twin(dev):
     return windows
 
 
+# phases 41-44 and the scaling twin: the multi-device slice
+# (gppe_tpu_torch.parallel). The machine has one card, so every rank of a
+# mesh shares it: world 1 runs NCCL, larger worlds gloo, whose mesh moves
+# each collective's operands through pinned host buffers (its declared
+# transport; Mesh.staged_bytes). Every number here is correctness-grade:
+# no scaling claim is possible on one card. The ranks are processes that
+# parallel.mesh.spawn starts (each imports this script and loads the
+# library phase 2 built), and each counts its own launches.
+SHARDED_ETA_RTOL = 5e-4     # against phase 5's (23's) single-device eta
+# ring against all-gather factorization: the tridiagonals, U and trace(K^2)
+# to SCHEDULE_RTOL; G and P, Grams and probe overlaps of single basis
+# vectors, to BASIS_RTOL: the two schedules sum each product in another
+# float32 order, and the recurrences grow that in the late vectors while
+# the coefficients stay put (4.5e-5 and 4.1e-4 against the coefficients'
+# 8.1e-6 on an H100 80GB HBM3 at 700 W)
+SCHEDULE_RTOL, BASIS_RTOL = 1e-5, 1e-3
+SCHEDULE_STABLE = ("a_sd", "b_sd", "U", "a_p", "b_p", "fro2")
+STEP_RTOL = 1e-3            # 43's step at world 4 against world 1
+STEP_ETAS = (0.3, 3.0, 30.0)
+STEP_STEPS = 16             # the reference's profile step default
+SAMPLER_RUN = (10, 10)      # 44's HMC (warmup, samples); phase 34: 50 + 50
+SAMPLER_NUTS_RUN, SAMPLER_NUTS_DEPTH = (2, 2), 5
+SCALING_N = 1 << 14
+MESH_DEVICE = "cuda"        # every rank's device: the one card
+B1_COUNTERS = ("matern_matmat_mma", "matern_matmat")
+
+
+def compute_mode():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def sharded_fit(mesh, comm, n, nu, steps=STEPS, probes=PROBES):
+    """ShardedKrylovProfileLikelihood on make_problem(n, 7), rho RHO, with
+    key 0's draws (phase 5's and 23's: both engines draw them from a
+    generator seeded 0 on the card), fitted: this rank's fit, launches,
+    setup seconds, host-staged bytes and copies, and the factorization."""
+    pts, z, X = make_problem(n, 7)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    staged = mesh.staged_bytes, mesh.staged_copies
+    t0 = time.perf_counter()
+    eng = sharded.ShardedKrylovProfileLikelihood(
+        mesh, pts, X, z, RHO, nu=nu, lanczos_steps=steps, num_probes=probes,
+        comm=comm)
+    setup_s = sync_seconds(t0)
+    launches = window()
+    return {"fit": eng.fit(), "launches": launches, "setup_seconds": setup_s,
+            "staged_bytes": mesh.staged_bytes - staged[0],
+            "staged_copies": mesh.staged_copies - staged[1],
+            "factorization": eng.factorization}
+
+
+def world1_rank():
+    """Phase 41's rank: world 1, NCCL."""
+    mesh = par_mesh.make_mesh(device=MESH_DEVICE)
+    return {"backend": mesh.backend, "device": str(mesh.device),
+            **sharded_fit(mesh, "ring", N_MAIN, NU)}
+
+
+def step_inputs():
+    pts, z, X = make_problem(N_MAIN, 7)
+    probes = np.sign(np.random.RandomState(43).standard_normal(
+        (N_MAIN, PROBES)))
+    return pts, [RHO, RHO], X, z, probes, np.asarray(STEP_ETAS)
+
+
+def run_step(mesh):
+    step = sharded.build_sharded_profile_step(mesh, nu=NU,
+                                              lanczos_steps=STEP_STEPS)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(*step_inputs())
+    return {"out": [o.tolist() for o in out],
+            "seconds": time.perf_counter() - t0, "launches": window()}
+
+
+def sampler_runs(mesh):
+    """Phase 44's samplers on phase 34's dense target (HMC, then a short
+    NUTS run): ``mesh`` None (one process) or a mesh."""
+    from gppe_tpu_torch.models import nuts
+
+    pts, z, X = grid_problem(ANCHOR_SIDE)
+    dev = torch.device(MESH_DEVICE) if mesh is None else mesh.device
+    out = {}
+    for name, run in (
+            ("hmc", lambda: hmc.sample_posterior(
+                pts, z, X, nu=NU, num_chains=ANCHOR_CHAINS,
+                num_warmup=SAMPLER_RUN[0], num_samples=SAMPLER_RUN[1], key=0,
+                support_log10=ANCHOR_BOX, mesh=mesh, device=dev)),
+            ("nuts", lambda: nuts.sample_posterior(
+                pts, z, X, nu=NU, num_chains=ANCHOR_CHAINS,
+                num_warmup=SAMPLER_NUTS_RUN[0],
+                num_samples=SAMPLER_NUTS_RUN[1],
+                max_depth=SAMPLER_NUTS_DEPTH, key=0,
+                support_log10=ANCHOR_BOX, mesh=mesh, device=dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        seconds = sync_seconds(t0)
+        out[name] = {"samples": res.samples.cpu().numpy(),
+                     "seconds": seconds}
+    return out
+
+
+def multi_rank():
+    """Phases 42-44 on one launch of four gloo ranks sharing the card: each
+    mesh is made of the launch's first ranks, the others wait."""
+    out = {}
+    m2 = par_mesh.make_mesh(2, device=MESH_DEVICE)                  # (1, 2)
+    if m2 is not None:
+        for comm in ("ring", "allgather"):
+            out[f"fit_{comm}"] = sharded_fit(m2, comm, N_MAIN, NU)
+    dist.barrier()
+    m1 = par_mesh.make_mesh(1, device=MESH_DEVICE)
+    m22 = par_mesh.make_mesh(4, probe=2, device=MESH_DEVICE)
+    if m1 is not None:
+        out["step_world1"] = run_step(m1)
+    dist.barrier()
+    out["step_world4"] = run_step(m22)
+    if m2 is not None:
+        out["general"] = sharded_fit(m2, "ring", GENERAL_N, GENERAL_NU,
+                                     GENERAL_STEPS, GENERAL_PROBES)
+    dist.barrier()
+    m2p = par_mesh.make_mesh(2, probe=2, device=MESH_DEVICE)        # (2, 1)
+    if m2p is not None:
+        out["samplers"] = sampler_runs(m2p)
+    return out
+
+
+def summed(windows):
+    """The launches of a path's ranks, summed counter by counter."""
+    total = {}
+    for w in windows:
+        for k, v in w.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def fit_gaps(fit, want):
+    return {k: rel_gap(fit[k], want[k]) for k in ("eta", "sigma0")}
+
+
+def factorization_gaps(a, b):
+    """Each output's largest gap relative to its largest magnitude."""
+    return {k: float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k])))
+                     / max(float(np.max(np.abs(np.asarray(b[k])))), 1e-300))
+            for k in b}
+
+
+def phase_sharded_world1(main_fit):
+    """Phase 41: ShardedKrylovProfileLikelihood on one NCCL rank at phase
+    5's configuration (n = 100,000, nu 1/2, rho 0.1, 64 steps, 16 probes,
+    phase 5's draws): eta and sigma0 within SHARDED_ETA_RTOL of phase 5's
+    fit; its window's launches (64 products on matern_matmat_mma, the
+    square trace on matern_matmat: one block, no rectangle)."""
+    mode = compute_mode()
+    t0 = time.perf_counter()
+    r = par_mesh.spawn(world1_rank, 1, "nccl")[0]
+    wall = time.perf_counter() - t0
+    gaps = fit_gaps(r["fit"], main_fit)
+    ok = (r["fit"]["success"] and r["backend"] == "nccl"
+          and max(gaps.values()) < SHARDED_ETA_RTOL
+          and r["launches"].get("matern_matmat_mma", 0) == STEPS
+          and r["launches"].get("matern_matmat", 0) == 1)
+    log(phase="sharded_world1_nccl", ok=ok, compute_mode=mode, n=N_MAIN,
+        backend=r["backend"], device=r["device"], fit=r["fit"],
+        phase5_fit=main_fit, rel_gaps=gaps, bound=SHARDED_ETA_RTOL,
+        setup_seconds=r["setup_seconds"], launch_wall_seconds=wall,
+        launches=r["launches"])
+    if not ok:
+        raise AssertionError(f"phase 41: the world-1 sharded fit {r['fit']} "
+                             f"against phase 5's {main_fit}: {gaps}")
+    return mode, r["launches"]
+
+
+def phase_sharded_multi(main_fit, general_fit):
+    """Phases 42-44 from one launch of four gloo ranks on the card."""
+    t0 = time.perf_counter()
+    ranks = par_mesh.spawn(multi_rank, 4, "gloo")
+    wall = time.perf_counter() - t0
+    windows = {}
+
+    # 42: world 2, mesh (1, 2), ring and all-gather at phase 5's size
+    pair = [r for r in ranks if "fit_ring" in r]
+    fits = {comm: [r[f"fit_{comm}"] for r in pair]
+            for comm in ("ring", "allgather")}
+    gaps = {comm: [fit_gaps(f["fit"], main_fit) for f in fs]
+            for comm, fs in fits.items()}
+    schedules = factorization_gaps(fits["ring"][0]["factorization"],
+                                   fits["allgather"][0]["factorization"])
+    for comm, fs in fits.items():
+        windows[f"sharded_world2_{comm}"] = summed(f["launches"] for f in fs)
+    ok = (len(pair) == 2
+          and all(f["fit"]["success"] for fs in fits.values() for f in fs)
+          and max(v for gs in gaps.values() for g in gs
+                  for v in g.values()) < SHARDED_ETA_RTOL
+          and all(v < (SCHEDULE_RTOL if k in SCHEDULE_STABLE else BASIS_RTOL)
+                  for k, v in schedules.items())
+          and all(windows[f"sharded_world2_{c}"].get(k, 0) > 0
+                  for c in fits for k in B1_COUNTERS))
+    log(phase="sharded_world2_gloo", ok=ok, n=N_MAIN, mesh=[1, 2],
+        fits={c: [f["fit"] for f in fs] for c, fs in fits.items()},
+        rel_gaps_to_phase5=gaps, bound=SHARDED_ETA_RTOL,
+        schedule_gaps=schedules,
+        schedule_bounds={k: SCHEDULE_RTOL if k in SCHEDULE_STABLE
+                         else BASIS_RTOL for k in schedules},
+        setup_seconds={c: [f["setup_seconds"] for f in fs]
+                       for c, fs in fits.items()},
+        staged_bytes={c: [f["staged_bytes"] for f in fs]
+                      for c, fs in fits.items()},
+        staged_copies={c: [f["staged_copies"] for f in fs]
+                       for c, fs in fits.items()},
+        staged_bytes_a_step={c: [f["staged_bytes"] / STEPS for f in fs]
+                             for c, fs in fits.items()},
+        transport="pinned host copies (gloo)", grade="correctness",
+        launches=windows, launch_wall_seconds=wall)
+    if not ok:
+        raise AssertionError(f"phase 42 failed: {gaps}, {schedules}")
+
+    # 43: the profile step at world 4 (2, 2) against world 1; G1 at world 2
+    one = next(r["step_world1"] for r in ranks if "step_world1" in r)
+    four = [r["step_world4"] for r in ranks]
+    step_gaps = []
+    for got in (f["out"] for f in four):
+        d1, ti, ld = (np.asarray(a) for a in got)
+        w1, wt, wl = (np.asarray(a) for a in one["out"])
+        step_gaps.append({
+            # der1 is a difference of terms the size of traceinv
+            "der1": float(np.max(np.abs(d1 - w1) / np.abs(wt))),
+            "traceinv": float(np.max(np.abs(ti - wt) / np.abs(wt))),
+            "logdet": float(np.max(np.abs(ld - wl) / np.abs(wl)))})
+    windows["sharded_world4_step"] = summed(f["launches"] for f in four)
+    general = [r["general"] for r in ranks if "general" in r]
+    g_gaps = [fit_gaps(g["fit"], general_fit) for g in general]
+    windows["sharded_world2_nu1.2"] = summed(g["launches"] for g in general)
+    ranks_equal = all(f["out"] == four[0]["out"] for f in four)
+    # the step computes no trace(K^2): B1's product only
+    ok = (all(max(g.values()) < STEP_RTOL for g in step_gaps) and ranks_equal
+          and windows["sharded_world4_step"].get("matern_matmat_mma", 0) > 0
+          and len(general) == 2 and all(g["fit"]["success"] for g in general)
+          and max(v for g in g_gaps for v in g.values()) < SHARDED_ETA_RTOL
+          and windows["sharded_world2_nu1.2"].get(
+              "matern_general_product", 0) > 0
+          and windows["sharded_world2_nu1.2"].get(
+              "matern_general_trace", 0) > 0
+          and not any(windows["sharded_world2_nu1.2"].get(k, 0)
+                      for k in CLOSED_FORM_COUNTERS))
+    log(phase="sharded_world4_probe_axis", ok=ok, n=N_MAIN, mesh=[2, 2],
+        lanczos_steps=STEP_STEPS, etas=STEP_ETAS, world1=one["out"],
+        world4=four[0]["out"], rel_gaps=step_gaps, bound=STEP_RTOL,
+        every_rank_the_same_result=ranks_equal,
+        step_seconds={"world1": one["seconds"],
+                      "world4": [f["seconds"] for f in four]},
+        general={"n": GENERAL_N, "nu": GENERAL_NU, "mesh": [1, 2],
+                 "fits": [g["fit"] for g in general],
+                 "phase23_fit": general_fit, "rel_gaps": g_gaps,
+                 "bound": SHARDED_ETA_RTOL,
+                 "setup_seconds": [g["setup_seconds"] for g in general]},
+        launches={k: windows[k] for k in ("sharded_world4_step",
+                                          "sharded_world2_nu1.2")})
+    if not ok:
+        raise AssertionError(f"phase 43 failed: {step_gaps}, {g_gaps}")
+
+    # 44: the samplers' mesh= on 2 ranks against one process
+    runs = [r["samplers"] for r in ranks if "samplers" in r]
+    single = sampler_runs(None)
+    names = ["log10_eta", "log10_rho"]
+    same = all(np.array_equal(r[s]["samples"], runs[0][s]["samples"])
+               for r in runs for s in ("hmc", "nuts"))
+    sharded_d = diagnostics.summarize(torch.as_tensor(
+        runs[0]["hmc"]["samples"]), names)
+    single_d = diagnostics.summarize(torch.as_tensor(
+        single["hmc"]["samples"]), names)
+    checks = {k: mean_gap_check(sharded_d[k], single_d[k]) for k in names}
+    ok = (len(runs) == 2 and same
+          and all(in_box(torch.as_tensor(r[s]["samples"]), ANCHOR_BOX)
+                  for r in runs for s in ("hmc", "nuts"))
+          and all(gap <= mcse for gap, _, mcse in checks.values()))
+    log(phase="sharded_samplers", ok=ok, n=ANCHOR_SIDE ** 2, mesh=[2, 1],
+        chains=ANCHOR_CHAINS, hmc_run=SAMPLER_RUN,
+        reduced=reduced(SAMPLER_RUN, ANCHOR_RUN),
+        nuts_run=SAMPLER_NUTS_RUN, nuts_max_depth=SAMPLER_NUTS_DEPTH,
+        every_rank_the_same_result=same,
+        mean_gaps={k: {"gap": g, "bound_3_mcse": m}
+                   for k, (g, _, m) in checks.items()},
+        sharded_bits_equal_single=all(
+            np.array_equal(runs[0][s]["samples"], single[s]["samples"])
+            for s in ("hmc", "nuts")),
+        seconds={"mesh": {s: [r[s]["seconds"] for r in runs]
+                          for s in ("hmc", "nuts")},
+                 "single": {s: single[s]["seconds"] for s in ("hmc", "nuts")}})
+    if not ok:
+        raise AssertionError(f"phase 44 failed: same {same}, {checks}")
+    return windows
+
+
+def phase_scaling_twin():
+    """The scaling twin's main at 1, 2 and 4 ranks on the card (n = 2^14):
+    graded correctness (the ranks share one card); the step's traceinv at
+    2 ranks within STEP_RTOL of 1 rank's (the same 8 probes; the 4-rank
+    mesh, probe extent 2, draws 16, as the reference's twin does)."""
+    t0 = time.perf_counter()
+    out = scaling_efficiency.main(n=SCALING_N, device=MESH_DEVICE)
+    wall = time.perf_counter() - t0
+    base = np.asarray(out[1]["traceinv"])
+    gaps = {nd: float(np.max(np.abs(np.asarray(out[nd]["traceinv"]) - base)
+                             / np.abs(base)))
+            for nd in scaling_efficiency.DEVICE_COUNTS}
+    ok = out["grade"] == "correctness" and gaps[2] < STEP_RTOL
+    log(phase="scaling_twin", ok=ok, n=SCALING_N, grade=out["grade"],
+        backend=out["backend"],
+        per_world={nd: {k: out[nd][k] for k in ("seconds", "efficiency")}
+                   for nd in scaling_efficiency.DEVICE_COUNTS},
+        traceinv_gaps_to_world1=gaps, wall_seconds=wall)
+    if not ok:
+        raise AssertionError(f"the scaling twin failed: {out}")
+
+
+def rect_trace_time(dev):
+    """B1's trace on the rectangular walk at phase 42's shape (a world-2
+    ring block: 50,000 rows against 100,000 columns), against its plain
+    float64 version, timed beside its bound (every pair: no symmetry)."""
+    pts, _, _ = make_problem(N_MAIN, 7)
+    P = torch.as_tensor(pts, dtype=F32, device=dev)
+    rows = P[:N_MAIN // 2]
+    scale = kernels.broadcast_scale(RHO, 2, dtype=F32, device=dev)
+    kern = lambda: cuda_kernels.matern_matmat(  # noqa: E731
+        rows, scale, None, NU, points_cols=P, frobenius=True)[1]
+    got = float(kern())
+    want = float(cuda_kernels.matern_matmat_plain(
+        rows.double(), scale.double(), None, NU, points_cols=P.double(),
+        frobenius=True, block_rows=1024)[1])
+    med, times = median_in_turns({"kernel": kern})
+    pairs = rows.shape[0] * N_MAIN
+    bound_ms, bound_by, term = bound(
+        4 * (rows.shape[0] + N_MAIN) * 2 + 8, pairs * (3 * 2 + nu_ops(NU) + 2),
+        mufu_ops=pairs * nu_mufu(NU))
+    rel = abs(got - want) / want
+    ok = rel < DENSE_TRACE_RTOL
+    rec = {"shape": [rows.shape[0], N_MAIN], "ms": med["kernel"],
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
+           "rel_err_vs_f64": rel, "max_abs_err": abs(got - want)}
+    log(phase="rect_trace_time", ok=ok, **rec, ms_all=times["kernel"])
+    if not ok:
+        raise AssertionError(f"the rectangular trace disagrees: {rel}")
+    return rec
+
+
 def kernel_record(name, source, replaces, launches, measured,
                   launches_public_api=None, launches_per_path=None):
     """``launches``: the kernel's count on its path's run (phase 5, 10, 12,
@@ -5040,7 +5431,8 @@ def kernel_record(name, source, replaces, launches, measured,
     ``launches_per_path`` (phases 22-24, each path's count from its own
     window); ``launches_public_api``, for B1: its count in phase 20's two
     windows, the public API's operator-route fit and its
-    likelihood(z, hp)."""
+    likelihood(z, hp); for B1 ``launches_per_path`` holds the sharded
+    paths of phases 41-43, each the sum over its ranks."""
     # library_ms: no single PyTorch call computes any of these products,
     # because K is never stored (40 GB at n = 10^5)
     rec = {"name": name, "route": "cuda",
@@ -5084,7 +5476,7 @@ def main():
         dev, main_fit)
     phase_general_parity(dev)
     launches_22, measured_elem, measured_asm = phase_general_dense_api(dev)
-    launches_23, (measured_prod, measured_gtrace) = \
+    launches_23, general_fit, (measured_prod, measured_gtrace) = \
         phase_general_operator_route(dev)
     launches_large, launches_main, measured_sum = phase_general_search(dev)
     phase_g2_parity(dev)
@@ -5111,6 +5503,17 @@ def main():
                                                    hmc_rho_nu_state)
     del large_surface, rho_nu_surface
     launches_twin = phase_sample_posterior_twin(dev)
+    mode, launches_41 = phase_sharded_world1(main_fit)
+    sharded_windows = {"sharded_world1_nccl": launches_41}
+    if mode == "Default":
+        sharded_windows.update(phase_sharded_multi(main_fit, general_fit))
+        phase_scaling_twin()
+    else:
+        # ranks cannot share an exclusive card: the CPU tests carry the
+        # multi-rank parity
+        log(phase="sharded_multi_rank", ok=True, skipped=True,
+            compute_mode=mode)
+    rect_trace = rect_trace_time(dev)
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
@@ -5127,14 +5530,19 @@ def main():
                "nuts_rho_nu_large_sampling": launches_nuts_rho_nu,
                # phase 40's entry points: the refinements of main_nu and
                # main_profile_rho_nu on the assembly entry
-               **{f"twin_{k}": w for k, w in launches_twin.items()}}
+               **{f"twin_{k}": w for k, w in launches_twin.items()},
+               # phase 43's general-nu fit at world 2 (the ranks' sum), when
+               # the multi-rank phases ran
+               **{k: w for k, w in sharded_windows.items()
+                  if k == "sharded_world2_nu1.2"}}
     dense = ("dense_api_nu1.2", "dense_api_nu3.7", "main",
              "general_csr_2e16", "twin_main_nu", "twin_main_profile_rho_nu")
     # the offset tables of the FFT grid paths: the elementwise entry's
     # paths, and its only ones
     tables = ("grid_fft_operator_1024", "fft_fit_2e20_nu2.2",
               "main_fft_grid", "rho_nu_surface", "rho_nu_probe_engines")
-    products = ("operator_route", "main_large", "posterior_surface_nu1.2")
+    products = ("operator_route", "main_large", "posterior_surface_nu1.2",
+                *(k for k in windows if k == "sharded_world2_nu1.2"))
     expected = {"matern_general_assembly": dense,
                 "matern_general_elementwise": tables,
                 "matern_general_product": products,
@@ -5191,17 +5599,32 @@ def main():
                 launches_default["matern_matmat_multirho_mma"],
                 launches_default["matern_matmat_blocksparse_mma"])):
         raise AssertionError("a kernel of a path was never launched on it")
+    # B1 on the sharded paths (phases 41-43; every rank's launches summed):
+    # the product on its rectangular form, the trace on the rectangular
+    # walk but at world 1
+    b1_sharded = {c: {path: w.get(c, 0) for path, w in sharded_windows.items()
+                      if path != "sharded_world2_nu1.2"}
+                  for c in B1_COUNTERS}
+    if not all(n for c, paths in b1_sharded.items() for path, n in
+               paths.items() if (c, path) != ("matern_matmat",
+                                              "sharded_world4_step")):
+        raise AssertionError(f"B1 was not launched on a sharded path: "
+                             f"{b1_sharded}")
     print(nvidia_smi())
     print(json.dumps({"kernels": [
         # the main path: every product on the tensor-core kernel ('highest'
         # as 3xTF32), trace(K^2) on the FP32 kernel
         kernel_record("matern_matmat_mma[highest]", "matern_matmat_mma.cu",
                       f"{PALLAS}:103", launches_1["matern_matmat_mma"],
-                      measured_1, launches_api["matern_matmat_mma"]),
-        kernel_record("matern_matmat", "matern_matmat.cu",
-                      "gppe_tpu/ops/operators.py:42",
-                      launches_1["matern_matmat"], measured_trace,
-                      launches_api["matern_matmat"]),
+                      measured_1, launches_api["matern_matmat_mma"],
+                      launches_per_path=b1_sharded["matern_matmat_mma"]),
+        {**kernel_record("matern_matmat", "matern_matmat.cu",
+                         "gppe_tpu/ops/operators.py:42",
+                         launches_1["matern_matmat"], measured_trace,
+                         launches_api["matern_matmat"],
+                         launches_per_path=b1_sharded["matern_matmat"]),
+         # the rectangular walk of a world-2 ring block (50,000 x 100,000)
+         "rect_walk": rect_trace},
         # the grid and the tapered path, the same split: products on the
         # tensor-core kernels, traces on the FP32 ones
         kernel_record("matern_matmat_multirho_mma[highest]",

@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are eight paths; the
+counterpart sits at the same path. Ported so far are nine paths; the
 first four run hand-written CUDA kernels behind the wrappers of
 ``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
 tile-dot mode), the fifth reaches them through a matrix-free K:
@@ -49,7 +49,13 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   saved state, utils.checkpoint.save_hmc_state) over the dense targets of
   models.kernel_posterior (a float64 Cholesky per gradient, nu through
   the fixed-trip Bessel K_nu) and over both posterior surfaces;
-  models.diagnostics (split R-hat, ESS); drivers.sample_posterior.
+  models.diagnostics (split R-hat, ESS); drivers.sample_posterior;
+* multi-device, on torch.distributed: parallel.mesh (the (probe, block)
+  mesh of a process group's ranks, the one-host launcher ``spawn``) and
+  parallel.sharded (the ring and all-gather products on the rectangular
+  forms of ``matern_matmat`` and ``matern_general``, the sharded Lanczos,
+  profile step and ShardedKrylovProfileLikelihood); the samplers' ``mesh=``
+  shards their chains; drivers.scaling_efficiency.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 

@@ -28,7 +28,8 @@ config 5):
 runs on the card (``device="cpu"`` for a rehearsal: float64 there, the
 surface's Lanczos passes float32 on the card) and writes a file only when
 given ``results_path``. Every time ends with a device synchronise.
-Sharding the chains over devices is not ported yet (ROADMAP A14).
+Under an initialised process group of more than one rank (``torchrun``,
+``parallel.mesh.spawn``), :func:`main` shards its chains over the ranks.
 """
 
 import argparse
@@ -37,11 +38,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import diagnostics, hmc, nuts, priors
 from ..models.krylov_posterior import KrylovPosteriorSurfaceRhoNu
 from ..models.large_scale import KrylovProfileLikelihood
 from ..ops import operators
+from ..parallel import mesh as mesh_mod
 from ..utils import checkpoint
 from ..utils import data as data_utils
 from ..utils.config import resolve_device
@@ -60,16 +63,21 @@ def main(num_points=30, noise=0.2, num_chains=8, num_samples=500,
     rho in (0.02, 0.6) (reference :17-82); NUTS adds its divergences and
     mean tree depth to the results. With ``results_path`` it writes the
     results and, beside them at ``results_path + ".state"``, the chains'
-    state. The chains run as one batch on ``device``; ``use_mesh`` shards
-    nothing (ROADMAP A14) and is refused where it would, with more than one
-    card."""
+    state. With ``use_mesh`` inside an initialised process group of more
+    than one rank, the chains shard over a mesh of all its ranks, the probe
+    extent min(num_chains, ranks) (the reference's), each rank on its own
+    ``device`` (``parallel.mesh.make_mesh``); with a single process they
+    run as one batch on ``device``, as the reference does with one
+    device."""
     if sampler not in ("hmc", "nuts"):
         raise ValueError(f"sampler must be 'hmc' or 'nuts', got {sampler!r}")
+    mesh = None
+    if (use_mesh and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        mesh = mesh_mod.make_mesh(
+            probe=min(num_chains, dist.get_world_size()), device=device)
+        device = mesh.device
     device = resolve_device(device)
-    if (use_mesh and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise ValueError("use_mesh: sharding chains over devices is not "
-                         "ported yet (ROADMAP A14); pass use_mesh=False")
 
     pts = data_utils.generate_points(num_points, dimension=2)
     z = data_utils.generate_data(pts, noise)
@@ -86,7 +94,7 @@ def main(num_points=30, noise=0.2, num_chains=8, num_samples=500,
     sampler_mod = {"hmc": hmc, "nuts": nuts}[sampler]
     res = sampler_mod.sample_posterior(
         pts, z, X, nu=0.5, num_chains=num_chains, num_samples=num_samples,
-        num_warmup=num_warmup, key=0, log_prior=log_prior,
+        num_warmup=num_warmup, key=0, log_prior=log_prior, mesh=mesh,
         support_log10=support, device=device)
     _sync(device)
     wall = time.perf_counter() - t0
@@ -107,6 +115,9 @@ def main(num_points=30, noise=0.2, num_chains=8, num_samples=500,
     if sampler == "nuts":
         out["divergences"] = res.divergences.cpu().numpy()
         out["mean_tree_depth"] = res.mean_tree_depth.cpu().numpy()
+    if mesh is not None and mesh.rank:
+        # every rank holds the whole result; rank 0 reports and writes it
+        verbose, results_path = False, None
     if verbose:
         print(f"{total} samples in {wall:.1f}s "
               f"({out['samples_per_second']:.1f} samples/s); "

@@ -16,7 +16,12 @@ examples/FindOptimalCovarianceParameters.py). The design in PyTorch:
   during warmup, per chain, and a diagonal mass matrix from the Welford
   moments of the second half of warmup, switched in at its last step;
 * the warmup schedule reads the Python step index only: no host
-  synchronisation and no branch on a tensor's value inside a step.
+  synchronisation and no branch on a tensor's value inside a step;
+* ``mesh=`` (a :class:`gppe_tpu_torch.parallel.mesh.Mesh`) shards the
+  chains over its ``probe`` axis: each rank runs the contiguous share of
+  its probe coordinate (replicated over ``block``), makes the draws of
+  every chain and takes its own, and gathers the results, so that every
+  rank returns what ``mesh=None`` returns.
 
 State, draws and targets are float64.
 """
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import PROBE_AXIS, Mesh
 from ..utils.config import resolve_device
 
 F64 = torch.float64
@@ -33,11 +39,55 @@ F64 = torch.float64
 GAMMA, T0, KAPPA = 0.05, 10.0, 0.75
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("mesh=: sharding chains over devices is not ported "
-                         "yet (ROADMAP A14); the chains run as one batch on "
-                         "one device")
+def _check_mesh(mesh, num_chains=None):
+    """Refuse what cannot shard the chains: a ``mesh`` that is neither None
+    nor a :class:`~gppe_tpu_torch.parallel.mesh.Mesh`, or a chain count
+    its probe extent does not divide."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"mesh= takes a gppe_tpu_torch.parallel.mesh.Mesh "
+                         f"or None; got {type(mesh).__name__}")
+    probe = mesh.shape[PROBE_AXIS]
+    if num_chains is not None and num_chains % probe:
+        raise ValueError(f"{num_chains} chains do not divide over the "
+                         f"mesh's probe extent {probe}")
+
+
+class _Chains:
+    """The chains this rank runs: all of them without a mesh; with one,
+    the contiguous share of its probe coordinate. ``take`` cuts a
+    per-chain tensor (leading axis the chains) to that share, ``gather``
+    puts the shares of every probe rank back together along ``dim``,
+    ``any`` is a flag's "any chain" over all of them."""
+
+    def __init__(self, mesh, num_chains):
+        _check_mesh(mesh, num_chains)
+        self.mesh, self.num_chains = mesh, num_chains
+        self.lo, self.hi = 0, num_chains
+        if mesh is not None:
+            per = num_chains // mesh.shape[PROBE_AXIS]
+            self.lo = mesh.coords[PROBE_AXIS] * per
+            self.hi = self.lo + per
+
+    def take(self, t):
+        if (self.mesh is None or not torch.is_tensor(t) or t.dim() == 0
+                or t.shape[0] != self.num_chains):
+            return t
+        return t[self.lo:self.hi]
+
+    def gather(self, t, dim=0):
+        if self.mesh is None:
+            return t
+        whole = self.mesh.all_gather(t.movedim(dim, 0).contiguous(),
+                                     PROBE_AXIS)
+        return whole.movedim(0, dim)
+
+    def any(self, mask):
+        if self.mesh is None:
+            return bool(mask.any())
+        flag = mask.any().to(torch.int32).reshape(1)
+        return bool(self.mesh.all_reduce(flag, PROBE_AXIS, op="max")[0])
 
 
 class HMCResult(NamedTuple):
@@ -238,7 +288,7 @@ def _draws(g, chains, dim, dtype, device):
 def hmc_sample(log_prob_fn, init_theta, generator=0, num_samples=1000,
                num_warmup=500, num_leapfrog=16, init_step_size=0.1,
                target_accept=0.8, init_inv_mass=None, grad_mode="rev",
-               chunk_steps=None):
+               chunk_steps=None, mesh=None):
     """Run HMC. ``init_theta``: (chains, dim) float64 on the sampler's
     device; ``log_prob_fn`` maps (dim,) -> a scalar and is vmapped over the
     chains. ``generator``: a ``torch.Generator`` on that device (it
@@ -256,19 +306,24 @@ def hmc_sample(log_prob_fn, init_theta, generator=0, num_samples=1000,
     ``chunk_steps``: the reference's option (it split the scan into
     device programs of at most this many steps). Here the host waits for
     the device every ``chunk_steps`` steps; the bits are the same for every
-    value."""
+    value.
+
+    ``mesh``: shard the chains over its probe axis (module docstring);
+    ``init_theta`` and the per-chain options are whole, the result too."""
     theta = torch.as_tensor(init_theta)
     device, dtype = theta.device, theta.dtype
     chains, dim = theta.shape
+    share = _Chains(mesh, chains)
     g = _generator(generator, device)
     grads_and_values = _batched(log_prob_fn, grad_mode, dtype)
-    carry = _hmc_carry0(grads_and_values, theta, init_step_size,
-                        init_inv_mass)
+    carry = _hmc_carry0(grads_and_values, share.take(theta),
+                        share.take(init_step_size), share.take(init_inv_mass))
     thetas, lps = [], []
     for it in range(num_warmup + num_samples):
         normals, uniforms = _draws(g, chains, dim, dtype, device)
-        carry = _hmc_step(grads_and_values, carry, it, normals, uniforms,
-                          num_warmup, num_leapfrog, target_accept)
+        carry = _hmc_step(grads_and_values, carry, it, share.take(normals),
+                          share.take(uniforms), num_warmup, num_leapfrog,
+                          target_accept)
         if it >= num_warmup:
             thetas.append(carry["theta"])
             lps.append(carry["lp"])
@@ -276,14 +331,16 @@ def hmc_sample(log_prob_fn, init_theta, generator=0, num_samples=1000,
                 device.type == "cuda":
             torch.cuda.synchronize(device)
     samples = (torch.stack(thetas) if thetas else
-               torch.empty((0, chains, dim), dtype=dtype, device=device))
+               torch.empty((0, share.hi - share.lo, dim), dtype=dtype,
+                           device=device))
     return HMCResult(
-        samples=samples,
-        log_probs=torch.stack(lps) if lps else samples[..., 0],
-        accept_rate=carry["n_accept"] / num_samples,
-        step_size=carry["step_size"],
-        inv_mass=carry["inv_mass"],
-        final_theta=carry["theta"],
+        samples=share.gather(samples, 1),
+        log_probs=share.gather(torch.stack(lps) if lps else samples[..., 0],
+                               1),
+        accept_rate=share.gather(carry["n_accept"] / num_samples),
+        step_size=share.gather(carry["step_size"]),
+        inv_mass=share.gather(carry["inv_mass"]),
+        final_theta=share.gather(carry["theta"]),
         final_generator_state=bytes(g.get_state().numpy()))
 
 
@@ -304,7 +361,7 @@ def _state_generator(state, device):
 
 
 def resume_hmc(log_prob_fn, state, num_samples, num_leapfrog=16,
-               grad_mode="rev", chunk_steps=None, *, device=None):
+               grad_mode="rev", chunk_steps=None, *, device=None, mesh=None):
     """Continue chains from a saved ``HMCResult.state()`` (or a state from
     ``utils.checkpoint.load_hmc_state``): no warmup, adaptation frozen at
     the saved step size and inverse mass, the generator continued from
@@ -313,7 +370,8 @@ def resume_hmc(log_prob_fn, state, num_samples, num_leapfrog=16,
     saved theta's device if it is a tensor, else the card.
 
     ``grad_mode`` must match the original run for targets that need it
-    (the traced-nu Bessel posterior needs forward mode)."""
+    (the traced-nu Bessel posterior needs forward mode). ``mesh``: as
+    :func:`hmc_sample`'s; the state is the whole one."""
     theta = state["theta"]
     if device is None:
         device = theta.device if torch.is_tensor(theta) else "cuda"
@@ -328,7 +386,8 @@ def resume_hmc(log_prob_fn, state, num_samples, num_leapfrog=16,
                       num_leapfrog=num_leapfrog,
                       init_step_size=dev(state["step_size"]),
                       init_inv_mass=dev(state["inv_mass"]),
-                      grad_mode=grad_mode, chunk_steps=chunk_steps)
+                      grad_mode=grad_mode, chunk_steps=chunk_steps,
+                      mesh=mesh)
 
 
 def _init_draws(key, chains, dim, device):
@@ -356,11 +415,11 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
     mapped back. ``resume_state``: a saved ``HMCResult.state()``; the
     chains continue exactly (no warmup, adaptation frozen), the other
     arguments as in the original run. ``key`` seeds the generator that
-    draws the initial points and then the run. ``mesh`` is refused
-    (ROADMAP A14)."""
+    draws the initial points and then the run. ``mesh``: shard the chains
+    over its probe axis (:func:`hmc_sample`)."""
     from .kernel_posterior import (make_bounded_log_posterior,
                                    make_log_posterior)
-    _refuse_mesh(mesh)
+    _check_mesh(mesh, None if resume_state is not None else num_chains)
     device = resolve_device(device)
     u_to_theta = None
     if support_log10 is not None:
@@ -373,7 +432,7 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
     if resume_state is not None:
         res = resume_hmc(log_post, resume_state, num_samples,
                          num_leapfrog=num_leapfrog, chunk_steps=chunk_steps,
-                         device=device)
+                         device=device, mesh=mesh)
     else:
         g, draws = _init_draws(key, num_chains, 2, device)
         if init is None:
@@ -389,7 +448,7 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
         init = torch.as_tensor(init, dtype=F64, device=device)
         res = hmc_sample(log_post, init, g, num_samples=num_samples,
                          num_warmup=num_warmup, num_leapfrog=num_leapfrog,
-                         chunk_steps=chunk_steps)
+                         chunk_steps=chunk_steps, mesh=mesh)
     return res if u_to_theta is None else _with_theta(res, u_to_theta)
 
 
@@ -415,10 +474,11 @@ def sample_posterior_nu(points, z, X, num_chains=8, num_samples=500,
     golden pickle's priors; None for flat in the box; or a callable
     ``log_prior(eta, rho, nu)`` in natural parameters. Gradients in
     forward mode (``jacfwd``: reverse mode keeps the Bessel loops'
-    residuals, about 200 iterations of (n, n) per chain). Returns an
-    HMCResult with samples (S, C, 3) in (log10 eta, log10 rho, nu)."""
+    residuals, about 200 iterations of (n, n) per chain). ``mesh``: as
+    :func:`sample_posterior`'s. Returns an HMCResult with samples (S, C, 3)
+    in (log10 eta, log10 rho, nu)."""
     from .kernel_posterior import make_bounded_log_posterior_nu
-    _refuse_mesh(mesh)
+    _check_mesh(mesh, None if resume_state is not None else num_chains)
     device = resolve_device(device)
     if log_prior == "reference":
         log_prior = _reference_prior
@@ -428,12 +488,13 @@ def sample_posterior_nu(points, z, X, num_chains=8, num_samples=500,
     if resume_state is not None:
         res = resume_hmc(log_post, resume_state, num_samples,
                          num_leapfrog=num_leapfrog, grad_mode="fwd",
-                         chunk_steps=chunk_steps, device=device)
+                         chunk_steps=chunk_steps, device=device, mesh=mesh)
     else:
         g, init = _init_draws(key, num_chains, 3, device)
         res = hmc_sample(log_post, init, g, num_samples=num_samples,
                          num_warmup=num_warmup, num_leapfrog=num_leapfrog,
-                         grad_mode="fwd", chunk_steps=chunk_steps)
+                         grad_mode="fwd", chunk_steps=chunk_steps,
+                         mesh=mesh)
     return _with_theta(res, u_to_theta)
 
 
@@ -471,14 +532,16 @@ def sample_profile_posterior_rho_nu(points, z, X, num_chains=8,
 
 def _sample_surface(surface, log_post, u_to_theta, dim, num_chains,
                     num_samples, num_warmup, num_leapfrog, key,
-                    resume_state):
+                    resume_state, mesh):
     if resume_state is not None:
         res = resume_hmc(log_post, resume_state, num_samples,
-                         num_leapfrog=num_leapfrog, device=surface.device)
+                         num_leapfrog=num_leapfrog, device=surface.device,
+                         mesh=mesh)
     else:
         g, init = _init_draws(key, num_chains, dim, surface.device)
         res = hmc_sample(log_post, init, g, num_samples=num_samples,
-                         num_warmup=num_warmup, num_leapfrog=num_leapfrog)
+                         num_warmup=num_warmup, num_leapfrog=num_leapfrog,
+                         mesh=mesh)
     return _with_theta(res, u_to_theta), surface
 
 
@@ -499,11 +562,12 @@ def sample_posterior_rho_nu_large(points, z, X, num_chains=64,
     work happens once at the surface's construction, and each gradient
     afterwards is Ritz-space math whose cost does not grow with n. The
     chains run on the surface's device (a new surface's: ``device``).
-    ``log_prior`` as :func:`sample_posterior_nu`'s. Returns
+    ``log_prior`` as :func:`sample_posterior_nu`'s, ``mesh`` as
+    :func:`sample_posterior`'s (each rank builds the surface). Returns
     ``(HMCResult, surface)`` with samples (S, C, 3) in (log10 eta,
     log10 rho, nu)."""
     from .krylov_posterior import KrylovPosteriorSurfaceRhoNu
-    _refuse_mesh(mesh)
+    _check_mesh(mesh, None if resume_state is not None else num_chains)
     if log_prior == "reference":
         log_prior = _reference_prior
     if surface is None:
@@ -515,7 +579,7 @@ def sample_posterior_rho_nu_large(points, z, X, num_chains=64,
         log10_eta_bounds=log10_eta_bounds, log_prior=log_prior)
     return _sample_surface(surface, log_post, u_to_theta, 3, num_chains,
                            num_samples, num_warmup, num_leapfrog, key,
-                           resume_state)
+                           resume_state, mesh)
 
 
 def sample_posterior_large(points, z, X, nu=0.5, num_chains=64,
@@ -534,9 +598,10 @@ def sample_posterior_large(points, z, X, nu=0.5, num_chains=64,
     Ritz math. Sampling runs in unconstrained sigmoid coordinates over the
     (log10_eta_bounds x the surface's rho range) box. Returns
     ``(HMCResult, surface)``: keep the surface to resume (``resume_state``)
-    or to draw more samples without paying the setup again."""
+    or to draw more samples without paying the setup again. ``mesh``: as
+    :func:`sample_posterior`'s (each rank builds the surface)."""
     from .krylov_posterior import KrylovPosteriorSurface
-    _refuse_mesh(mesh)
+    _check_mesh(mesh, None if resume_state is not None else num_chains)
     if surface is None:
         surface = KrylovPosteriorSurface(
             points, z, X, nu=nu, log10_rho_bounds=log10_rho_bounds,
@@ -545,4 +610,4 @@ def sample_posterior_large(points, z, X, nu=0.5, num_chains=64,
         log10_eta_bounds=log10_eta_bounds, log_prior=log_prior)
     return _sample_surface(surface, log_post, u_to_theta, 2, num_chains,
                            num_samples, num_warmup, num_leapfrog, key,
-                           resume_state)
+                           resume_state, mesh)

@@ -29,7 +29,11 @@ of Betancourt 2017). The design in PyTorch:
   so the bits do not depend on whether a leaf whose chains have all
   stopped runs (``_sample_loop(early_exit=False)`` runs them all);
 * adaptation is ``hmc._adapt``: dual averaging on the mean acceptance
-  statistic of the tree, the Welford mass over warmup's second half.
+  statistic of the tree, the Welford mass over warmup's second half;
+* ``mesh=`` shards the chains over the mesh's ``probe`` axis as
+  ``hmc.hmc_sample`` does; each loop condition is then the maximum of the
+  probe ranks' flags (one all-reduce in place of the host read), so every
+  rank builds the same leaves and makes the same draws.
 
 State, draws and targets are float64.
 """
@@ -111,19 +115,20 @@ def _where(mask, new, old):
 
 
 class _Counter:
-    """Leaves (vmapped gradients) and host reads of one step."""
+    """Leaves (vmapped gradients) and host reads of one step; ``share``
+    (``hmc._Chains``) reduces a loop condition over the mesh's chains."""
 
-    def __init__(self, early_exit):
-        self.early_exit = early_exit
+    def __init__(self, early_exit, share):
+        self.early_exit, self.share = early_exit, share
         self.leaves = self.reads = 0
 
     def any(self, mask):
-        """Whether to go on: a host read of ``mask.any()``, or True
-        without ``early_exit``."""
+        """Whether to go on: a host read of "any chain" of ``mask``, or
+        True without ``early_exit``."""
         if not self.early_exit:
             return True
         self.reads += 1
-        return bool(mask.any())
+        return self.share.any(mask)
 
 
 def _subtree(grads_and_values, tree, fwd, active, d, eps, inv_mass,
@@ -299,17 +304,20 @@ def _draws(g, chains, dim, max_depth, dtype, device):
 
 
 def _sample_loop(grads_and_values, carry, num_warmup, num_samples,
-                 max_depth, target_accept, next_draws, early_exit=True):
+                 max_depth, target_accept, next_draws, early_exit=True,
+                 share=None):
     """Run ``num_warmup + num_samples`` steps from ``carry``, each on the
     block ``next_draws(it)``. Returns the NUTSResult without its generator
-    state. ``early_exit=False`` reads nothing on the host and runs every
-    leaf of every doubling up to ``max_depth``, the stopped chains masked:
-    the same bits at 2^max_depth - 1 gradients a step."""
+    state, gathered over ``share`` (``hmc._Chains``; default: the carry's
+    chains alone). ``early_exit=False`` reads nothing on the host and runs
+    every leaf of every doubling up to ``max_depth``, the stopped chains
+    masked: the same bits at 2^max_depth - 1 gradients a step."""
     theta = carry["theta"]
     chains, dim = theta.shape
+    share = share or hmc._Chains(None, chains)
     thetas, lps, leaves, reads = [], [], [], []
     for it in range(num_warmup + num_samples):
-        counter = _Counter(early_exit)
+        counter = _Counter(early_exit, share)
         carry = _nuts_step(grads_and_values, carry, it, next_draws(it),
                            num_warmup, max_depth, target_accept, counter)
         leaves.append(counter.leaves)
@@ -320,20 +328,21 @@ def _sample_loop(grads_and_values, carry, num_warmup, num_samples,
     samples = (torch.stack(thetas) if thetas else
                torch.empty((0, chains, dim), dtype=theta.dtype,
                            device=theta.device))
+    g = share.gather
     return NUTSResult(
-        samples=samples,
-        log_probs=torch.stack(lps) if lps else samples[..., 0],
-        accept_rate=carry["sum_accept"] / num_samples,
-        step_size=carry["step_size"], inv_mass=carry["inv_mass"],
-        mean_tree_depth=carry["sum_depth"] / num_samples,
-        divergences=carry["n_div"], final_theta=carry["theta"],
+        samples=g(samples, 1),
+        log_probs=g(torch.stack(lps) if lps else samples[..., 0], 1),
+        accept_rate=g(carry["sum_accept"] / num_samples),
+        step_size=g(carry["step_size"]), inv_mass=g(carry["inv_mass"]),
+        mean_tree_depth=g(carry["sum_depth"] / num_samples),
+        divergences=g(carry["n_div"]), final_theta=g(carry["theta"]),
         final_generator_state=b"", leaves_per_step=tuple(leaves),
         host_reads_per_step=tuple(reads))
 
 
 def nuts_sample(log_prob_fn, init_theta, generator=0, num_samples=1000,
                 num_warmup=500, max_depth=10, init_step_size=0.1,
-                target_accept=0.8, init_inv_mass=None):
+                target_accept=0.8, init_inv_mass=None, mesh=None):
     """Run NUTS. ``init_theta``: (chains, dim) float64 on the sampler's
     device; ``log_prob_fn`` maps (dim,) -> a scalar and is vmapped over the
     chains. ``generator``: a ``torch.Generator`` on that device (it
@@ -342,29 +351,35 @@ def nuts_sample(log_prob_fn, init_theta, generator=0, num_samples=1000,
 
     ``init_step_size``: a number or (chains,); ``init_inv_mass``: an
     optional (chains, dim) diagonal inverse mass. A saved
-    ``NUTSResult.state()`` continues exactly through :func:`resume_nuts`."""
+    ``NUTSResult.state()`` continues exactly through :func:`resume_nuts`.
+    ``mesh``: shard the chains over its probe axis (module docstring);
+    ``init_theta``, the per-chain options and the result are whole."""
     theta = torch.as_tensor(init_theta)
     device, dtype = theta.device, theta.dtype
     chains, dim = theta.shape
+    share = hmc._Chains(mesh, chains)
     g = hmc._generator(generator, device)
     grads_and_values = hmc._batched(log_prob_fn, "rev", dtype)
-    carry = _nuts_carry0(grads_and_values, theta, init_step_size,
-                         init_inv_mass)
+    carry = _nuts_carry0(grads_and_values, share.take(theta),
+                         share.take(init_step_size),
+                         share.take(init_inv_mass))
     res = _sample_loop(grads_and_values, carry, num_warmup, num_samples,
                        max_depth, target_accept,
-                       lambda it: _draws(g, chains, dim, max_depth, dtype,
-                                         device))
+                       lambda it: tuple(map(share.take, _draws(
+                           g, chains, dim, max_depth, dtype, device))),
+                       share=share)
     return res._replace(final_generator_state=bytes(g.get_state().numpy()))
 
 
 def resume_nuts(log_prob_fn, state, num_samples, max_depth=10, *,
-                device=None):
+                device=None, mesh=None):
     """Continue chains from a saved ``NUTSResult.state()`` (or a state from
     ``utils.checkpoint.load_hmc_state``): no warmup, adaptation frozen at
     the saved step size and inverse mass, the generator continued from its
     saved state. The samples are those the unbroken run goes on to draw,
     bit for bit. ``device``: where the chains run, by default the saved
-    theta's device if it is a tensor, else the card."""
+    theta's device if it is a tensor, else the card. ``mesh``: as
+    :func:`nuts_sample`'s; the state is the whole one."""
     theta = state["theta"]
     if device is None:
         device = theta.device if torch.is_tensor(theta) else "cuda"
@@ -378,7 +393,7 @@ def resume_nuts(log_prob_fn, state, num_samples, max_depth=10, *,
                        num_samples=num_samples, num_warmup=0,
                        max_depth=max_depth,
                        init_step_size=dev(state["step_size"]),
-                       init_inv_mass=dev(state["inv_mass"]))
+                       init_inv_mass=dev(state["inv_mass"]), mesh=mesh)
 
 
 def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
@@ -391,10 +406,11 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
     :func:`hmc.sample_posterior`, with the same arguments but
     ``max_depth`` for ``num_leapfrog``. Chains drawn outside the prior's
     support fall back to the base point (log10 eta, log10 rho) = (1, -1)
-    when no box is given. ``mesh`` is refused (ROADMAP A14)."""
+    when no box is given. ``mesh``: shard the chains over its probe axis
+    (:func:`nuts_sample`)."""
     from .kernel_posterior import (make_bounded_log_posterior,
                                    make_log_posterior)
-    hmc._refuse_mesh(mesh)
+    hmc._check_mesh(mesh, None if resume_state is not None else num_chains)
     device = resolve_device(device)
     u_to_theta = None
     if support_log10 is not None:
@@ -406,7 +422,7 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
                                       log_prior=log_prior, device=device)
     if resume_state is not None:
         res = resume_nuts(log_post, resume_state, num_samples,
-                          max_depth=max_depth, device=device)
+                          max_depth=max_depth, device=device, mesh=mesh)
     else:
         g, draws = hmc._init_draws(key, num_chains, 2, device)
         if init is None:
@@ -420,19 +436,23 @@ def sample_posterior(points, z, X, nu=0.5, num_chains=8, num_samples=500,
                 init = torch.where(ok[:, None], init, base)
         init = torch.as_tensor(init, dtype=hmc.F64, device=device)
         res = nuts_sample(log_post, init, g, num_samples=num_samples,
-                          num_warmup=num_warmup, max_depth=max_depth)
+                          num_warmup=num_warmup, max_depth=max_depth,
+                          mesh=mesh)
     return res if u_to_theta is None else hmc._with_theta(res, u_to_theta)
 
 
 def _sample_surface(surface, log_post, u_to_theta, dim, num_chains,
-                    num_samples, num_warmup, max_depth, key, resume_state):
+                    num_samples, num_warmup, max_depth, key, resume_state,
+                    mesh):
     if resume_state is not None:
         res = resume_nuts(log_post, resume_state, num_samples,
-                          max_depth=max_depth, device=surface.device)
+                          max_depth=max_depth, device=surface.device,
+                          mesh=mesh)
     else:
         g, init = hmc._init_draws(key, num_chains, dim, surface.device)
         res = nuts_sample(log_post, init, g, num_samples=num_samples,
-                          num_warmup=num_warmup, max_depth=max_depth)
+                          num_warmup=num_warmup, max_depth=max_depth,
+                          mesh=mesh)
     return hmc._with_theta(res, u_to_theta), surface
 
 
@@ -449,10 +469,11 @@ def sample_posterior_large(points, z, X, nu=0.5, num_chains=64,
     .KrylovPosteriorSurface`): all O(n) work happens once at construction,
     each tree leaf afterwards is elementwise Ritz math. The counterpart of
     :func:`hmc.sample_posterior_large`, in sigmoid coordinates over the
-    (log10_eta_bounds x the surface's rho range) box. Returns
+    (log10_eta_bounds x the surface's rho range) box. ``mesh``: as
+    :func:`sample_posterior`'s (each rank builds the surface). Returns
     ``(NUTSResult, surface)``."""
     from .krylov_posterior import KrylovPosteriorSurface
-    hmc._refuse_mesh(mesh)
+    hmc._check_mesh(mesh, None if resume_state is not None else num_chains)
     if surface is None:
         surface = KrylovPosteriorSurface(
             points, z, X, nu=nu, log10_rho_bounds=log10_rho_bounds,
@@ -461,7 +482,7 @@ def sample_posterior_large(points, z, X, nu=0.5, num_chains=64,
         log10_eta_bounds=log10_eta_bounds, log_prior=log_prior)
     return _sample_surface(surface, log_post, u_to_theta, 2, num_chains,
                            num_samples, num_warmup, max_depth, key,
-                           resume_state)
+                           resume_state, mesh)
 
 
 def sample_posterior_rho_nu_large(points, z, X, num_chains=64,
@@ -478,10 +499,11 @@ def sample_posterior_rho_nu_large(points, z, X, num_chains=64,
     on the tensor-node FFT surface (:class:`gppe_tpu_torch.models
     .krylov_posterior.KrylovPosteriorSurfaceRhoNu`; regular-grid points),
     the counterpart of :func:`hmc.sample_posterior_rho_nu_large`;
-    ``log_prior="reference"``: the golden pickle's priors. Returns
-    ``(NUTSResult, surface)`` with samples (S, C, 3)."""
+    ``log_prior="reference"``: the golden pickle's priors; ``mesh`` as
+    :func:`sample_posterior`'s. Returns ``(NUTSResult, surface)`` with
+    samples (S, C, 3)."""
     from .krylov_posterior import KrylovPosteriorSurfaceRhoNu
-    hmc._refuse_mesh(mesh)
+    hmc._check_mesh(mesh, None if resume_state is not None else num_chains)
     if log_prior == "reference":
         log_prior = hmc._reference_prior
     if surface is None:
@@ -493,4 +515,4 @@ def sample_posterior_rho_nu_large(points, z, X, num_chains=64,
         log10_eta_bounds=log10_eta_bounds, log_prior=log_prior)
     return _sample_surface(surface, log_post, u_to_theta, 3, num_chains,
                            num_samples, num_warmup, max_depth, key,
-                           resume_state)
+                           resume_state, mesh)

@@ -2004,3 +2004,91 @@ def test_nuts_chains_independent_on_the_card(dev):
     assert torch.equal(full.samples, together.samples)
     assert torch.equal(full.accept_rate, together.accept_rate)
     assert set(full.leaves_per_step) == {2 ** max_depth - 1}
+
+
+# -- the multi-device slice (gppe_tpu_torch.parallel) on the card -------------
+
+def _staging_rank():
+    """A gloo rank on the shared card: every collective of the mesh moves
+    its CUDA operands through host buffers and counts the bytes."""
+    from gppe_tpu_torch.parallel import mesh as par_mesh
+    mesh = par_mesh.make_mesh(device="cuda")
+    rank = mesh.rank
+    x = torch.full((1000, 3), float(rank + 1), device=mesh.device)
+    total = mesh.all_reduce(x, "block")
+    gathered = mesh.all_gather(x[:10], "block")
+    received = mesh.ring_start(x).wait()
+    flag = mesh.all_reduce(torch.tensor([rank], dtype=torch.int32,
+                                        device=mesh.device), "block",
+                           op="max")
+    return {"staged": mesh.staged, "bytes": mesh.staged_bytes,
+            "copies": mesh.staged_copies,
+            "devices": [str(t.device) for t in (total, gathered, received)],
+            "total": total.cpu().numpy(), "gathered": gathered.cpu().numpy(),
+            "received": received.cpu().numpy(), "x": x.cpu().numpy(),
+            "flag": int(flag[0]), "rank": rank}
+
+
+def test_mesh_host_staging_round_trip(dev):
+    """Two gloo ranks on one card: sum, gather, ring and max come back on
+    the card with the right values, each operand one host copy each way
+    (12,000 + 12,000 bytes the sum, 120 + 240 the gather, 12,000 + 12,000
+    the ring, 4 + 4 the max)."""
+    from gppe_tpu_torch.parallel import mesh as par_mesh
+    r0, r1 = par_mesh.spawn(_staging_rank, 2, "gloo")
+    for r, other in ((r0, r1), (r1, r0)):
+        assert r["staged"] and all(d.startswith("cuda") for d in r["devices"])
+        np.testing.assert_array_equal(r["total"], np.full((1000, 3), 3.0))
+        np.testing.assert_array_equal(
+            r["gathered"], np.concatenate([r0["x"][:10], r1["x"][:10]]))
+        np.testing.assert_array_equal(r["received"], other["x"])
+        assert r["flag"] == 1
+        assert r["copies"] == 8
+        assert r["bytes"] == 2 * 12000 + 120 + 240 + 2 * 12000 + 8
+
+
+def _nccl_rank(n, r):
+    """World 1 on NCCL: the ring and the all-gather products (no transfer
+    at one block) against the kernel's own call, and the mesh's sum."""
+    from gppe_tpu_torch.parallel import mesh as par_mesh
+    from gppe_tpu_torch.parallel import sharded
+    mesh = par_mesh.make_mesh(device="cuda")
+    g = torch.Generator(device=mesh.device).manual_seed(3)
+    pts = torch.rand((n, 2), generator=g, device=mesh.device)
+    V = torch.randn((n, r), generator=g, device=mesh.device)
+    scale = torch.full((2,), 0.1, device=mesh.device)
+    want = cuda_kernels.matern_matmat(pts, scale, V, 0.5)
+    out = {"backend": mesh.backend, "staged": mesh.staged}
+    for comm, fn in (("ring", sharded.ring_matern_matmat),
+                     ("allgather", sharded.allgather_matern_matmat)):
+        out[comm] = bool(torch.equal(fn(mesh, pts, pts, scale, V, 0.5),
+                                     want))
+    s = mesh.all_reduce(V[:4], "block")
+    out["sum_equal"] = bool(torch.equal(s, V[:4]))
+    torch.cuda.synchronize()
+    return out
+
+
+def test_world1_nccl_ring(dev):
+    from gppe_tpu_torch.parallel import mesh as par_mesh
+    (r,) = par_mesh.spawn(_nccl_rank, 1, "nccl", 4096, 24)
+    assert r == {"backend": "nccl", "staged": False, "ring": True,
+                 "allgather": True, "sum_equal": True}
+
+
+def test_rect_trace_at_a_ring_block(dev):
+    """B1's trace on the rectangular walk of a world-2 ring block (8,192
+    rows against 16,384 columns) against its plain float64 version, and
+    the two halves' rectangles summing to the square trace."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    pts = torch.rand((16384, 2), generator=g, device=dev)
+    halves = [cuda_kernels.matern_matmat(pts[i:i + 8192], 0.1, None, 0.5,
+                                         points_cols=pts, frobenius=True)[1]
+              for i in (0, 8192)]
+    want = cuda_kernels.matern_matmat_plain(
+        pts[:8192].double(), 0.1, None, 0.5, points_cols=pts.double(),
+        frobenius=True)[1]
+    assert abs(float(halves[0]) - float(want)) < 1e-5 * float(want)
+    square = cuda_kernels.matern_matmat(pts, 0.1, None, 0.5,
+                                        frobenius=True)[1]
+    assert abs(float(sum(halves)) - float(square)) < 1e-5 * float(square)

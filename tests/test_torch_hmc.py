@@ -406,12 +406,21 @@ def test_reference_state_loads(tmp_path):
 
 
 def test_mesh_refused():
+    """mesh= takes a parallel.mesh.Mesh, and refuses a chain count that its
+    probe extent does not divide, before anything is built (a mesh of
+    three probe ranks, made without a process group: the refusal comes
+    before any communication)."""
+    from gppe_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh((3, 1), rank=0, groups={}, device="cpu", backend="gloo")
     pts, z, X = grid_problem(4)
     for fn in (thmc.sample_posterior, thmc.sample_posterior_nu,
                thmc.sample_posterior_large,
                thmc.sample_posterior_rho_nu_large):
-        with pytest.raises(ValueError, match="A14"):
+        with pytest.raises(ValueError, match="takes a gppe_tpu_torch"):
             fn(pts, z, X, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="8 chains do not divide over "
+                           "the mesh's probe extent 3"):
+            fn(pts, z, X, num_chains=8, mesh=mesh, device="cpu")
 
 
 def test_generator_device_checked():

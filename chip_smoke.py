@@ -62,7 +62,13 @@ each against its plain PyTorch version on the card:
     sharded profile step over the probe axis at four ranks, the samplers'
     mesh= on two ranks, and the scaling twin at 1, 2 and 4 ranks. Ranks
     are processes (parallel.mesh.spawn); every multi-rank figure is
-    correctness-grade, since the ranks share one card.
+    correctness-grade, since the ranks share one card;
+  * the drivers and utilities: drivers.profile_grid_chunk (the grid
+    chunk's setup split into its Lanczos variants on the multi-rho
+    kernel), drivers.compare_various_noise_level (200 noise levels x 4
+    basis families on one K each), drivers.plot_log_likelihood_der1 and
+    plot_matern_kernel, every plot=True path where matplotlib is
+    installed, and utils.timing (phase_timer, device_trace).
 
     python3 chip_smoke.py
 
@@ -302,6 +308,24 @@ Phases, each raising on failure:
      100,000) against float64, timed beside its bound.
      Phases 42-44 run in one launch of four gloo ranks, each mesh made of
      its first ranks.
+ 45. drivers.profile_grid_chunk.main at its defaults (n = 100,000, 8
+     rhos, k = 40, C = 16): the Lanczos with and without
+     reorthogonalisation and the full chunk, timed after a two-step warm
+     chunk; exactly 2 + 3 x 40 launches of B2's product kernel and 2 of
+     its trace kernel; every derived cost finite and not negative, the
+     full chunk at least the base Lanczos;
+ 46. drivers.compare_various_noise_level.main at its defaults (a 30 x 30
+     grid, 200 levels, 4 families): the mean sigma0 / noise and
+     gcv_sigma0 / noise of each family's 20 highest levels in (0.7, 1.3)
+     and (0.6, 1.4) (the reference's test claim);
+ 47. plot_log_likelihood_der1.main on a 30 x 30 grid, its eta within
+     1e-3 of GaussianProcess's profiled fit on the same data;
+     plot_matern_kernel.main(test=True) under 0.02; the derivative plot's
+     numbers finite; where matplotlib is installed (logged), each
+     plot=True path once into a temporary directory, its file written;
+ 48. utils.timing: phase_timer around phase 45's full chunk within 5% of
+     CUDA events recorded in the same window; device_trace around one B2
+     launch writes a Chrome trace whose key_averages() name B2's kernel.
 The general-nu bounds count each pair's work from the trips this run's
 pairs take (a sample of 2^21 per shape) and the FP32 and MUFU operations
 of each piece of the device function in this checkout's machine code
@@ -315,8 +339,10 @@ split at best between the SFU and the FP32 pipe (see bound()), beside its
 bytes, CUDA-core and tensor-core operations.
 """
 
+import importlib.util
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -330,8 +356,11 @@ import torch
 import torch.distributed as dist
 
 import gppe_tpu_torch
-from gppe_tpu_torch.drivers import (compare_various_num_points,
+from gppe_tpu_torch.drivers import (compare_various_noise_level,
+                                    compare_various_num_points,
                                     find_optimal_covariance,
+                                    plot_log_likelihood_der1,
+                                    plot_matern_kernel, profile_grid_chunk,
                                     profile_kernel_matrix, roofline_matvec,
                                     scaling_efficiency)
 from gppe_tpu_torch.models import (diagnostics, direct_likelihood, hmc,
@@ -5424,6 +5453,221 @@ def rect_trace_time(dev):
     return rec
 
 
+# -- the last slice: drivers and utilities (phases 45-48) --------------------
+
+NOISE_RATIO_BOUNDS = {"sigma0": (0.7, 1.3), "gcv_sigma0": (0.6, 1.4)}
+NOISE_TOP_LEVELS = 20       # the highest levels the claim averages over
+DER1_SIDE = 30              # plot_log_likelihood_der1's default grid
+DER1_ETA_RTOL = 1e-3        # its eta against GaussianProcess's profiled fit
+MATERN_GAUSS_BOUND = 0.02   # the reference's max |k_25 - k_gauss| (:93-96)
+TIMER_EVENT_RTOL = 0.05     # phase_timer against CUDA events
+B2_KERNEL = "multirho_mma_kernel"
+
+
+def phase_grid_chunk_profile(dev):
+    """Phase 45: drivers.profile_grid_chunk.main at its defaults (n =
+    100,000, B = 8 rhos, k = 40, C = 16): the Lanczos with and without
+    reorthogonalisation and the full chunk, each timed once after a
+    two-step warm chunk; every product one launch of B2's tensor-core
+    kernel, every chunk one trace launch; each derived cost finite and
+    not negative, the full chunk at least the base Lanczos."""
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = profile_grid_chunk.main(verbose=False, device=dev)
+    wall = sync_seconds(t0)
+    launches = window()
+    k = out["k"]
+    want = {"matern_matmat_multirho_mma": 2 + 3 * k,
+            "matern_matmat_multirho": 2}
+    derived_ok = all(np.isfinite(v) and v >= 0
+                     for v in out["derived"].values())
+    ok = (derived_ok and launches == want and out["full_factorize_chunk"]
+          >= out["lanczos_ps_True_reorth_True"])
+    log(phase="grid_chunk_profile", ok=ok,
+        **{key: v for key, v in out.items() if key != "launches"},
+        launches=launches, launches_expected=want, wall_seconds=wall)
+    if not ok:
+        raise AssertionError(f"the grid-chunk profile failed: {out}, "
+                             f"launches {launches}")
+    return launches
+
+
+def phase_noise_level(dev):
+    """Phase 46: drivers.compare_various_noise_level.main at its defaults
+    (a 30 x 30 grid, 200 levels in logspace(-2, 1), the four basis
+    families; BASELINE config 4): one float32 K and one float64 eigh on
+    the card a family, the 200 data vectors rotated in one product, one
+    vectorised Chandrupatla, GCV a level. The reference's test claim on
+    the 20 highest levels of each family: mean sigma0 / noise in (0.7,
+    1.3), mean gcv_sigma0 / noise in (0.6, 1.4). No hand kernel (nu = 1/2:
+    a closed form in plain PyTorch)."""
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = compare_various_noise_level.main(verbose=False, device=dev)
+    wall = sync_seconds(t0)
+    launches = window()
+    ratios, counts = {}, {}
+    for fam, r in res.items():
+        top = slice(-NOISE_TOP_LEVELS, None)
+        ratios[fam] = {key: float(np.nanmean(r[key][top]
+                                             / r["noise_levels"][top]))
+                       for key in NOISE_RATIO_BOUNDS}
+        counts[fam] = {"root": int(np.sum(np.isfinite(r["eta"])
+                                          & (r["eta"] > 0))),
+                       "eta_inf": int(np.sum(np.isinf(r["eta"]))),
+                       "eta_zero": int(np.sum(r["eta"] == 0))}
+    finite = all(np.all(np.isfinite(r[key])) for r in res.values()
+                 for key in ("sigma", "sigma0", "gcv_sigma0"))
+    ok = (finite and set(res) == {name for name, _ in
+                                  compare_various_noise_level.FAMILIES}
+          and all(lo < ratios[fam][key] < hi for fam in ratios
+                  for key, (lo, hi) in NOISE_RATIO_BOUNDS.items()))
+    log(phase="noise_level", ok=ok, num_points=30, num_levels=200,
+        families=list(res), ratios_top20=ratios, bounds=NOISE_RATIO_BOUNDS,
+        lanes=counts, launches=launches, wall_seconds=wall,
+        seconds_per_family=wall / len(res))
+    if not ok:
+        raise AssertionError(f"the noise-level sweep failed: {ratios}")
+    return launches
+
+
+def a15_plots(dev):
+    """Each plot=True path once, at small sizes, into the working
+    directory: the files written."""
+    pts = data_utils.generate_points(DER1_SIDE, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    K = assembly.generate_correlation(pts, 0.1, nu=0.5, plot=True, device=dev)
+    for method in ("direct", "profiled"):
+        gppe_tpu_torch.GaussianProcess(X, K, method, device=dev).train(
+            z, plot=True)
+        os.replace("log_likelihood.svg" if method == "direct" else
+                   "log_likelihood_first_derivative.svg",
+                   f"train_{method}.svg")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the switch to 'slq'
+        gppe_tpu_torch.GaussianProcess(
+            X, MaternOperator(pts, 0.1, nu=0.5, device=dev), "profiled",
+            device=dev, lanczos_steps=32, num_probes=8).train(z, plot=True)
+    os.replace("log_likelihood_first_derivative.svg", "train_operator.svg")
+    find_optimal_covariance.main(num_points=10, grid_rho=5, grid_nu=4,
+                                 run_de=False, plot=True, verbose=False,
+                                 device=dev)
+    compare_various_num_points.plot_results(
+        {"dense": [{"n": n, "derivative": {"pre_s": 0.01 * n / 529,
+                                           "opt_s": 0.01},
+                    "direct": {"opt_s": 0.02}} for n in (529, 1024)]},
+        reference_rows=compare_various_num_points.DENSE_REFERENCE_TOTALS)
+    plot_matern_kernel.main(device=dev)
+    plot_log_likelihood_der1.main(DER1_SIDE, verbose=False, plot=True,
+                                  device=dev)
+    return sorted(os.listdir("."))
+
+
+def phase_plots(dev):
+    """Phase 47: plot_log_likelihood_der1.main on a 30 x 30 grid (K on the
+    card, float64 eigh there), its eta within 1e-3 of GaussianProcess's
+    profiled fit on the same data; plot_matern_kernel.main(test=True)
+    under 0.02; the derivative plot's numbers (no matplotlib needed); and,
+    where matplotlib is installed, each plot=True path once into a
+    temporary directory."""
+    from gppe_tpu_torch.utils import plot as plot_utils
+
+    t0 = time.perf_counter()
+    got = plot_log_likelihood_der1.main(DER1_SIDE, verbose=False, plot=False,
+                                        device=dev)
+    pts = data_utils.generate_points(DER1_SIDE, dimension=2)
+    z = data_utils.generate_data(pts, 0.2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    K = assembly.generate_correlation(pts, 0.1, nu=0.5, device=dev)
+    want = gppe_tpu_torch.GaussianProcess(X, K, "profiled",
+                                          device=dev).train(z)
+    eta_gap = rel_gap(got["eta"], want["eta"])
+    matern_gap = plot_matern_kernel.main(test=True, device=dev)
+    data = direct_likelihood.make_spectral_data(
+        MixedCorrelation(K, device=dev), X, z)
+    curves = plot_utils.der1_eta_curves(data, K, X, z, got["eta"])
+    curves_ok = all(np.all(np.isfinite(v)) for key, v in curves.items()
+                    if not key.startswith("roots"))
+    installed = importlib.util.find_spec("matplotlib") is not None
+    files = None
+    if installed:
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory(prefix="gppe_plots_") as tmp:
+            os.chdir(tmp)
+            try:
+                files = a15_plots(dev)
+            finally:
+                os.chdir(cwd)
+    want_files = sorted([
+        "matrix.svg", "train_direct.svg", "train_profiled.svg",
+        "train_operator.svg", "optimal_covariance_without_prior.svg",
+        "various_number_of_points.svg", "matern_kernel.svg",
+        "log_likelihood_first_derivative.svg"])
+    ok = (eta_gap < DER1_ETA_RTOL and matern_gap < MATERN_GAUSS_BOUND
+          and curves_ok and (not installed or files == want_files))
+    log(phase="plots", ok=ok, matplotlib_installed=installed,
+        der1_fit={k: got[k] for k in ("eta", "sigma", "sigma0")},
+        gaussian_process_fit={k: want[k] for k in ("eta", "sigma",
+                                                    "sigma0")},
+        eta_rel_gap=eta_gap, eta_rtol=DER1_ETA_RTOL,
+        matern_k25_gauss_gap=matern_gap, matern_bound=MATERN_GAUSS_BOUND,
+        der1_curves_finite=curves_ok, files=files,
+        seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"the plot phase failed: eta gap {eta_gap}, "
+                             f"matern gap {matern_gap}, files {files}")
+
+
+def phase_timing(dev):
+    """Phase 48: utils.timing on the card. phase_timer around phase 45's
+    full chunk (n = 100,000, B = 8, k = 40) against CUDA events recorded
+    inside the same window, within 5%; device_trace around one B2 launch
+    at phase 45's shape writes a Chrome trace whose key_averages() names
+    the kernel with device time."""
+    from gppe_tpu_torch.models.grid_krylov import _factorize_chunk_matrixfree
+    from gppe_tpu_torch.utils import timing
+
+    pts, AB, rhos, s = profile_grid_chunk.problem(N_MAIN, 8, 8)
+    P = torch.as_tensor(pts, dtype=F32, device=dev).contiguous()
+    R = torch.as_tensor(rhos, dtype=F32, device=dev)
+    A = torch.as_tensor(AB, dtype=F32, device=dev)
+    k = 40
+    results = {}
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cuda_kernels.reset_launch_counts()
+    with timing.phase_timer("full_factorize_chunk", results, device=dev):
+        start.record()
+        factors = _factorize_chunk_matrixfree(P, R, 0.5, A, k, s, 512)
+        stop.record()
+    [f.cpu() for f in factors]
+    events_s = start.elapsed_time(stop) / 1e3
+    timer_s = results["full_factorize_chunk"]
+    launches = window()
+    gap = abs(timer_s - events_s) / events_s
+    V = torch.randn((8, N_MAIN, 16), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    with tempfile.TemporaryDirectory(prefix="gppe_trace_") as tmp:
+        with timing.device_trace(tmp, device=dev) as prof:
+            cuda_kernels.matern_matmat_multirho(P, R, V, 0.5)
+        trace_bytes = os.path.getsize(prof.trace_path)
+    kernels_seen = {e.key: e.device_time_total / 1e3
+                    for e in prof.key_averages() if e.device_time_total > 0}
+    named = {key: ms for key, ms in kernels_seen.items() if B2_KERNEL in key}
+    ok = (gap < TIMER_EVENT_RTOL and bool(named) and trace_bytes > 0
+          and launches == {"matern_matmat_multirho_mma": k,
+                           "matern_matmat_multirho": 1})
+    log(phase="timing", ok=ok, phase_timer_seconds=timer_s,
+        cuda_event_seconds=events_s, rel_gap=gap, rtol=TIMER_EVENT_RTOL,
+        launches=launches, trace_bytes=trace_bytes,
+        trace_device_ms=named, trace_kernels=sorted(kernels_seen))
+    if not ok:
+        raise AssertionError(f"the timing phase failed: gap {gap}, "
+                             f"kernels {sorted(kernels_seen)}")
+
+
 def kernel_record(name, source, replaces, launches, measured,
                   launches_public_api=None, launches_per_path=None):
     """``launches``: the kernel's count on its path's run (phase 5, 10, 12,
@@ -5514,6 +5758,13 @@ def main():
         log(phase="sharded_multi_rank", ok=True, skipped=True,
             compute_mode=mode)
     rect_trace = rect_trace_time(dev)
+    t_last = time.perf_counter()
+    launches_chunk = phase_grid_chunk_profile(dev)
+    phase_noise_level(dev)
+    phase_plots(dev)
+    phase_timing(dev)
+    log(phase="last_slice", ok=True, phases=[45, 46, 47, 48],
+        seconds=time.perf_counter() - t_last)
     # each path's window, reset just before it; the entries each launches
     windows = {**{f"dense_api_nu{nu}": w for nu, w in launches_22.items()},
                "operator_route": launches_23, "main_large": launches_large,
@@ -5587,7 +5838,9 @@ def main():
                 "hmc_posterior_large_sampling":
                     launches_hmc_large.get(counter, 0),
                 "nuts_posterior_large_sampling":
-                    launches_nuts_large.get(counter, 0)}
+                    launches_nuts_large.get(counter, 0),
+                # phase 45: drivers.profile_grid_chunk's window
+                "profile_grid_chunk": launches_chunk[counter]}
     if not all((launches_1["matern_matmat_mma"], launches_1["matern_matmat"],
                 *(w.get(k, 0) for w in (launches_fit, launches_lp)
                   for k in ("matern_matmat_mma", "matern_matmat")),
@@ -5597,7 +5850,9 @@ def main():
                 launches_3["matern_matmat_blocksparse"],
                 launches_mma["bf16x3"], launches_mma["bf16"], launches_gram,
                 launches_default["matern_matmat_multirho_mma"],
-                launches_default["matern_matmat_blocksparse_mma"])):
+                launches_default["matern_matmat_blocksparse_mma"],
+                launches_chunk["matern_matmat_multirho_mma"],
+                launches_chunk["matern_matmat_multirho"])):
         raise AssertionError("a kernel of a path was never launched on it")
     # B1 on the sharded paths (phases 41-43; every rank's launches summed):
     # the product on its rectangular form, the trace on the rectangular

@@ -2,10 +2,11 @@
 
 A second package beside the JAX reference, written for one NVIDIA H100
 (``sm_90a``). It mirrors ``gppe_tpu``'s layout and names, so each
-counterpart sits at the same path. Ported so far are nine paths; the
-first four run hand-written CUDA kernels behind the wrappers of
-``ops.cuda_kernels`` (each product on a tensor-core kernel, in every
-tile-dot mode), the fifth reaches them through a matrix-free K:
+counterpart sits at the same path, and it covers the JAX package: ten
+paths, of which the first four run hand-written CUDA kernels behind the
+wrappers of ``ops.cuda_kernels`` (each product on a tensor-core kernel,
+in every tile-dot mode) and the fifth reaches them through a matrix-free
+K:
 
 * the matrix-free profile-likelihood MLE:
   utils.data -> ops.operators.MaternOperator (kernel ``matern_matmat``)
@@ -55,7 +56,15 @@ tile-dot mode), the fifth reaches them through a matrix-free K:
   parallel.sharded (the ring and all-gather products on the rectangular
   forms of ``matern_matmat`` and ``matern_general``, the sharded Lanczos,
   profile step and ShardedKrylovProfileLikelihood); the samplers' ``mesh=``
-  shards their chains; drivers.scaling_efficiency.
+  shards their chains; drivers.scaling_efficiency;
+* the drivers and utilities: utils.plot (every ``plot=True``; matplotlib
+  imported only to draw, each figure's numbers from a plain function),
+  utils.display, utils.timing (``phase_timer`` on a synchronised clock,
+  ``device_trace`` on torch.profiler), drivers.profile_grid_chunk (the
+  grid chunk's setup split into its Lanczos variants on
+  ``matern_matmat_multirho``), drivers.compare_various_noise_level (200
+  noise levels x 4 bases, one K, float64 eigh and vectorised root find a
+  basis), drivers.plot_log_likelihood_der1 and drivers.plot_matern_kernel.
 
 Policy (see :mod:`gppe_tpu_torch.utils.config`):
 

@@ -19,9 +19,8 @@ and the log-log scaling slopes (the reference's LogRegression :218-235).
 
 runs on the card (``device="cpu"`` for a rehearsal, float64 there, float32
 on the card) and writes a file only when given ``results_path``. Every
-time ends with a device synchronise. Not ported yet, and refused with the
-ROADMAP item that brings it: ``plot=True`` and :func:`plot_results`
-(A15).
+time ends with a device synchronise. ``plot=True`` draws the reference's
+log-log timing plot (:func:`plot_results`) into the working directory.
 """
 
 import argparse
@@ -42,6 +41,9 @@ from ..utils.config import resolve_device, setup
 # the reference's CPU totals of its tapered race, by n
 # (data/VariousNumberOfPoints-sparse.pickle)
 SPARSE_REFERENCE_TOTALS = {65536: 28.0, 262144: 485.0, 1048576: 10032.0}
+# and of its dense derivative method at the dense sweep's n
+DENSE_REFERENCE_TOTALS = {529: 0.40, 729: 0.71, 1024: 1.44, 2025: 7.52,
+                          2916: 20.8, 4096: 72.5}
 
 
 def _sync(device):
@@ -51,11 +53,6 @@ def _sync(device):
 
 def _dtype(device):
     return torch.float32 if device.type == "cuda" else torch.float64
-
-
-def _refuse_plot(what):
-    raise NotImplementedError(
-        f"compare_various_num_points.{what}: plotting comes with ROADMAP A15")
 
 
 def log_regression(Ns, times):
@@ -151,9 +148,8 @@ def main_sparse(ns=(65536, 262144, 1048576), density=1e-3, scale=0.005,
     (CompareVariousNumberOfPoints.py:243-248: grid points, rho = 0.005,
     nu = 0.5, tapered K, derivative method), each n's total beside the
     reference's CPU total (28.0 s at 2^16, 485 s at 2^18, 10,032 s at
-    2^20), and the slope; ``runs`` repetitions averaged."""
-    if plot:
-        _refuse_plot("main_sparse(plot=True)")
+    2^20), and the slope; ``runs`` repetitions averaged; ``plot`` draws
+    them beside the reference's totals."""
 
     def compute_once():
         out = {"sparse": []}
@@ -179,10 +175,14 @@ def main_sparse(ns=(65536, 262144, 1048576), density=1e-3, scale=0.005,
                   f"(reference sparse path: ~1.7)")
         return out
 
-    return checkpoint.run_or_resume(
+    results = checkpoint.run_or_resume(
         results_path, lambda: average_runs([compute_once()
                                             for _ in range(runs)]),
         use_saved=use_saved, verbose=verbose)
+    if plot:
+        plot_results(results, filename="various_number_of_points_sparse",
+                     reference_rows=SPARSE_REFERENCE_TOTALS, verbose=verbose)
+    return results
 
 
 def average_runs(results_list):
@@ -220,9 +220,57 @@ def average_runs(results_list):
     return out
 
 
-def plot_results(*args, **kwargs):
-    """The reference's log-log timing plot (:418-599): not ported yet."""
-    _refuse_plot("plot_results")
+def plot_results(results, filename="various_number_of_points",
+                 reference_rows=None, verbose=False):
+    """The reference's log-log timing plot
+    (CompareVariousNumberOfPoints.py:418-599): one curve per method, the
+    pre-computation and the total apart, each total's slope in its label,
+    and the reference's CPU totals (``reference_rows``, {n: seconds}) for
+    comparison; saved as ``filename``.svg."""
+    from ..utils import plot as plot_utils
+
+    plt = plot_utils._get_plt()
+    fig, ax = plt.subplots(figsize=(7, 5))
+
+    def draw(ns, totals, pres, label, color):
+        ns = np.asarray(ns, dtype=float)
+        totals = np.asarray(totals, dtype=float)
+        ax.loglog(ns, totals, "o-", color=color,
+                  label=f"{label} total (slope "
+                        f"{log_regression(ns, totals):.2f})")
+        if pres is not None:
+            ax.loglog(ns, np.asarray(pres, dtype=float), "s--",
+                      color=color, alpha=0.5, label=f"{label} pre-compute")
+
+    if results.get("dense"):
+        rows = results["dense"]
+        draw([r["n"] for r in rows],
+             [r["derivative"]["pre_s"] + r["derivative"]["opt_s"]
+              for r in rows],
+             [r["derivative"]["pre_s"] for r in rows],
+             "derivative (spectral)", "C0")
+        draw([r["n"] for r in rows],
+             [r["derivative"]["pre_s"] + r["direct"]["opt_s"]
+              for r in rows], None, "direct (spectral)", "C1")
+    if results.get("krylov"):
+        rows = results["krylov"]
+        draw([r["n"] for r in rows], [r["pre_s"] + r["opt_s"] for r in rows],
+             [r["pre_s"] for r in rows], "derivative (Krylov)", "C2")
+    if results.get("sparse"):
+        rows = results["sparse"]
+        draw([r["n"] for r in rows], [r["total_s"] for r in rows],
+             [r["pre_s"] for r in rows], "derivative (tapered sparse)", "C3")
+    if reference_rows:
+        ns = sorted(reference_rows)
+        ax.loglog(ns, [reference_rows[n] for n in ns], "x:", color="k",
+                  label="reference CPU (pickled)")
+    ax.set_xlabel("number of points n")
+    ax.set_ylabel("seconds")
+    ax.grid(True, which="both", alpha=0.3)
+    ax.legend(fontsize=8)
+    fig.tight_layout()
+    plot_utils.save_plot(plt, filename, verbose=verbose)
+    plt.close(fig)
 
 
 def main(dense_sides=(23, 27, 32, 45, 54, 64),
@@ -232,9 +280,9 @@ def main(dense_sides=(23, 27, 32, 45, 54, 64),
     """The dense sweep over the reference's n in {529 ... 4096} (grid
     sides 23, 27, 32, 45, 54, 64; CompareVariousNumberOfPoints.py:
     247-261) and the Krylov path at ``krylov_ns`` random points, with the
-    dense derivative method's slope; ``runs`` repetitions averaged."""
-    if plot:
-        _refuse_plot("main(plot=True)")
+    dense derivative method's slope; ``runs`` repetitions averaged;
+    ``plot`` draws them beside the reference's CPU totals of the dense
+    derivative method (:data:`DENSE_REFERENCE_TOTALS`)."""
 
     def compute_once():
         out = {"dense": [], "krylov": []}
@@ -263,10 +311,14 @@ def main(dense_sides=(23, 27, 32, 45, 54, 64),
                   f"(reference CPU path is ~3 for dense)")
         return out
 
-    return checkpoint.run_or_resume(
+    results = checkpoint.run_or_resume(
         results_path, lambda: average_runs([compute_once()
                                             for _ in range(runs)]),
         use_saved=use_saved, verbose=verbose)
+    if plot:
+        plot_results(results, filename="various_number_of_points",
+                     reference_rows=DENSE_REFERENCE_TOTALS, verbose=verbose)
+    return results
 
 
 if __name__ == "__main__":

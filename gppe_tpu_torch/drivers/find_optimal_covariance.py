@@ -27,8 +27,9 @@ elementwise entry), one ``KrylovProfileLikelihood`` fit a point.
     python -m gppe_tpu_torch.drivers.find_optimal_covariance [--large | --fft-grid]
 
 runs on the card (``device="cpu"`` for a rehearsal) and writes a file only
-when given ``results_path``. Not ported yet, and refused with the ROADMAP
-item that brings it: ``plot=True`` (A15).
+when given ``results_path``; ``main(plot=True)`` draws the (rho, nu)
+surface's smoothed contour with the DE optimum
+(:func:`gppe_tpu_torch.utils.plot.plot_contour_grid`).
 """
 
 import argparse
@@ -213,11 +214,9 @@ def main(num_points=30, noise=0.05, with_prior=False, grid_rho=25,
     (seed 31, ``popsize``, ``max_generations``, tol 1e-5); with
     ``four_param`` also the direct 4-parameter search (popsize 32, at most
     60 generations, as the reference's). Returns the
-    reference's result dict."""
-    if plot:
-        raise NotImplementedError(
-            "find_optimal_covariance.main(plot=True): plotting comes with "
-            "ROADMAP A15")
+    reference's result dict; ``plot`` draws the surface's smoothed contour
+    (reference :265-276) into optimal_covariance_{with,without}_prior.svg
+    in the working directory."""
     device = resolve_device(device)
 
     def compute():
@@ -273,8 +272,21 @@ def main(num_points=30, noise=0.05, with_prior=False, grid_rho=25,
                       f"sigma0={out['de4_sigma0']:.4f}")
         return out
 
-    return checkpoint.run_or_resume(results_path, compute,
-                                    use_saved=use_saved, verbose=verbose)
+    out = checkpoint.run_or_resume(results_path, compute,
+                                   use_saved=use_saved, verbose=verbose)
+    if plot:
+        # the smoothed, upsampled contour of the (rho, nu) surface
+        # (reference FindOptimalCovarianceParameters.py:475-626), marking
+        # the DE optimum where DE ran (it maximizes the same objective)
+        from ..utils.plot import plot_contour_grid
+        tag = "with" if with_prior else "without"
+        plot_contour_grid(
+            out["rhos"], out["nus"], out["Lp"], r"$\rho$", r"$\nu$",
+            optimum=(out.get("de_rho", out["optimal_rho"]),
+                     out.get("de_nu", out["optimal_nu"])),
+            filename=f"optimal_covariance_{tag}_prior",
+            title="log posterior" if with_prior else "log likelihood")
+    return out
 
 
 def large_problem(n=10_000, noise=0.1):

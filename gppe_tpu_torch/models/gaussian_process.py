@@ -10,7 +10,7 @@ K (densified up to ``dense_threshold`` points, else a SparseOperator on
 that device) or a matrix-free operator on that device.
 """
 
-from .likelihood import Likelihood, _refuse_plot
+from .likelihood import Likelihood
 
 
 class GaussianProcess:
@@ -24,8 +24,8 @@ class GaussianProcess:
     def train(self, z, plot=False, verbose=False):
         """Maximize the likelihood; returns a dict with sigma, sigma0 and
         eta (reference gaussian_process.py:52-59)."""
-        _refuse_plot(plot)
-        results = self.likelihood.maximize_log_likelihood(z, verbose=verbose)
+        results = self.likelihood.maximize_log_likelihood(
+            z, plot=plot, verbose=verbose)
         if verbose:
             print(f"sigma = {results['sigma']:.6g}, "
                   f"sigma0 = {results['sigma0']:.6g}, "

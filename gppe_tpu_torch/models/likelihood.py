@@ -23,7 +23,10 @@ Two routes, chosen by whether K has eigenvalues:
   logdet (SLQ through an operator, Cholesky for a dense K under
   'cholesky' and 'hutchinson').
 
-Unported: plotting (ROADMAP A15) raises.
+``plot=True`` draws the result (:func:`gppe_tpu_torch.utils.plot
+.plot_likelihood_result`): the direct lp surface or the profiled
+derivative plot from the spectral data, on the operator route the Krylov
+engine's derivative.
 """
 
 import numpy as np
@@ -37,12 +40,6 @@ def _host_float64(a):
     if torch.is_tensor(a):
         a = a.detach().cpu().numpy()
     return np.asarray(a, dtype=np.float64)
-
-
-def _refuse_plot(plot):
-    if plot:
-        raise NotImplementedError("plot=True: plotting comes with "
-                                  "ROADMAP A15")
 
 
 class Likelihood:
@@ -132,12 +129,18 @@ class Likelihood:
         return float(lp)
 
     def maximize_log_likelihood(self, z, plot=False, verbose=False):
-        _refuse_plot(plot)
+        engine = None
         if self.operator_mode:
-            return self._krylov_engine(z).fit(verbose=verbose)
-        data = self._data(z)
-        if self.likelihood_method == "direct":
-            return direct_likelihood.maximize_log_likelihood(
-                data, verbose=verbose)
-        return profile_likelihood.find_log_likelihood_der1_zeros(
-            data, [1e-4, 1e+3], verbose=verbose)
+            engine = self._krylov_engine(z)
+            results = engine.fit(verbose=verbose)
+        elif self.likelihood_method == "direct":
+            results = direct_likelihood.maximize_log_likelihood(
+                self._data(z), verbose=verbose)
+        else:
+            results = profile_likelihood.find_log_likelihood_der1_zeros(
+                self._data(z), [1e-4, 1e+3], verbose=verbose)
+        if plot:
+            from ..utils import plot as plot_utils
+            plot_utils.plot_likelihood_result(self, z, results,
+                                              engine=engine)
+        return results

@@ -13,10 +13,8 @@ plain PyTorch, the distances then k. Assembly runs in the compute dtype,
 float32 on the card, as the reference's does on its accelerator; the
 likelihood layer promotes what it needs to float64. ``sparse=True``
 returns the tapered correlation as a scipy CSR
-(:func:`gppe_tpu_torch.ops.taper.generate_tapered_correlation`).
-
-Not ported yet, and refused with the ROADMAP item that brings it: the
-plot (A15).
+(:func:`gppe_tpu_torch.ops.taper.generate_tapered_correlation`), and
+``plot=True`` draws it (:func:`gppe_tpu_torch.utils.plot.plot_matrix`).
 """
 
 import numpy as np
@@ -150,10 +148,6 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
         nu_ok = False
     if not nu_ok:
         raise ValueError(f"nu must be a positive scalar, got {nu!r}")
-    if plot:
-        raise NotImplementedError(
-            "generate_correlation(plot=True): plotting comes with "
-            "ROADMAP A15")
 
     if sparse:
         from . import taper
@@ -167,4 +161,7 @@ def generate_correlation(points, correlation_scale=0.1, nu=0.5, grid=True,
         n = points_np.shape[0]
         print(f"generated {n}x{n} correlation matrix "
               f"(sparse={sparse}, nu={nu})")
+    if plot:
+        from ..utils import plot as plot_utils
+        plot_utils.plot_matrix(matrix, sparse, verbose=verbose)
     return matrix

@@ -80,17 +80,27 @@ def test_same_value_errors(points, args):
 
 
 @pytest.mark.parametrize("args, item", [
-    (dict(sparse=True, density=0.05), None), (dict(plot=True), "A15"),
+    (dict(sparse=True, density=0.05), None),
+    (dict(plot=True), "matrix.svg"),
     (dict(nu=0.7, sparse=True, density=0.05), None)],
     ids=["sparse", "plot", "general-nu"])
-def test_unported_inputs_name_their_roadmap_item(points, args, item):
-    """What is not ported names its ROADMAP item; ``sparse=True`` (A9) is
-    ported: the tapered CSR of ``taper.generate_tapered_correlation``
+def test_unported_inputs_name_their_roadmap_item(points, args, item,
+                                                 tmp_path, monkeypatch):
+    """Every input is ported. ``plot=True`` (A15) draws K
+    (``utils.plot.plot_matrix``) into ``item`` in the working directory
+    and returns the same K; ``sparse=True`` (A9) is the tapered CSR of
+    ``taper.generate_tapered_correlation``
     (tests/test_torch_sparse_api.py holds it against the reference)."""
     args = {"nu": 0.5, **args}
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            tasm.generate_correlation(points, 0.1, **args, **CPU)
+        matplotlib = pytest.importorskip("matplotlib")
+        matplotlib.use("Agg")
+        monkeypatch.setenv("GPPE_NO_DISPLAY", "1")
+        monkeypatch.chdir(tmp_path)
+        got = tasm.generate_correlation(points, 0.1, **args, **CPU)
+        assert (tmp_path / item).is_file()
+        np.testing.assert_array_equal(
+            got.numpy(), tasm.generate_correlation(points, 0.1, **CPU).numpy())
         return
     import scipy.sparse
 

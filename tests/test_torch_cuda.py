@@ -2092,3 +2092,45 @@ def test_rect_trace_at_a_ring_block(dev):
     square = cuda_kernels.matern_matmat(pts, 0.1, None, 0.5,
                                         frobenius=True)[1]
     assert abs(float(sum(halves)) - float(square)) < 1e-5 * float(square)
+
+
+def test_noise_sweep_on_the_card(dev):
+    """compare_various_noise_level.sweep on the card (K in float32, its
+    float64 eigendecomposition and the batch's rotation on the card)
+    against the CPU's float64 sweep, 10 x 10 points, 12 levels, the
+    degree-2 basis: the same lanes take a boundary, the rest within
+    5e-2 (eta) and 5e-3 (sigma, sigma0, gcv_sigma0), the card-against-CPU
+    bounds of the engines."""
+    from gppe_tpu_torch.drivers import compare_various_noise_level as drv
+    pts = data_utils.generate_points(10, dimension=2)
+    X = data_utils.generate_basis_functions(pts, 2)
+    levels = np.logspace(-2, 1, 12)
+    card = drv.sweep(pts, X, levels, device=dev)
+    cpu = drv.sweep(pts, X, levels, device="cpu")
+    for key, rtol in (("eta", 5e-2), ("sigma", 5e-3), ("sigma0", 5e-3),
+                      ("gcv_sigma0", 5e-3)):
+        got, want = card[key], cpu[key]
+        boundary = ~np.isfinite(want) | (want == 0)
+        np.testing.assert_array_equal(got[boundary], want[boundary])
+        np.testing.assert_allclose(got[~boundary], want[~boundary],
+                                   rtol=rtol, err_msg=key)
+
+
+def test_grid_chunk_profile_on_the_card(dev, tmp_path):
+    """profile_grid_chunk.main at its defaults on the card (n = 100,000, 8
+    rhos, k = 40; ~13 s): every product one launch of B2's tensor-core
+    kernel (2 in the warm chunk, 3 x 40 timed), its trace kernel once a
+    chunk (2), every derived cost finite and not negative, the full chunk
+    at least the base Lanczos, the file only at out_path. At much smaller
+    sizes the reorthogonalisation and the projections (~50 ms each here)
+    fall within the clock's noise."""
+    from gppe_tpu_torch.drivers import profile_grid_chunk
+    path = tmp_path / "profile.json"
+    out = profile_grid_chunk.main(out_path=str(path), verbose=False,
+                                  device=dev)
+    assert out["launches"] == {"matern_matmat_multirho_mma": 2 + 3 * 40,
+                               "matern_matmat_multirho": 2}
+    assert path.is_file()
+    assert all(np.isfinite(v) and v >= 0 for v in out["derived"].values()), \
+        out
+    assert out["full_factorize_chunk"] >= out["lanczos_ps_True_reorth_True"]

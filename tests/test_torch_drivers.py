@@ -170,7 +170,14 @@ def test_entry_points_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['gppe_tpu'] = None; "
             "import gppe_tpu_torch.drivers.profile_kernel_matrix, "
-            "gppe_tpu_torch.drivers.roofline_matvec; print('ok')")
+            "gppe_tpu_torch.drivers.roofline_matvec, "
+            "gppe_tpu_torch.drivers.profile_grid_chunk, "
+            "gppe_tpu_torch.drivers.compare_various_noise_level, "
+            "gppe_tpu_torch.drivers.plot_log_likelihood_der1, "
+            "gppe_tpu_torch.drivers.plot_matern_kernel, "
+            "gppe_tpu_torch.utils.plot, gppe_tpu_torch.utils.display, "
+            "gppe_tpu_torch.utils.timing; "
+            "assert 'matplotlib' not in sys.modules; print('ok')")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

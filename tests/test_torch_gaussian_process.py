@@ -211,7 +211,7 @@ def test_matern_operator_route_likelihood(problem, spectral_fits,
         jgp.likelihood.likelihood(z, (1e-9, 0.2)), rtol=1e-10)
 
 
-def test_unported_and_invalid_inputs(problem):
+def test_unported_and_invalid_inputs(problem, tmp_path, monkeypatch):
     pts, z, X, _, tK = problem
     with pytest.raises(ValueError):
         gppe_tpu_torch.GaussianProcess(X, tK, "bogus", **CPU)
@@ -221,9 +221,15 @@ def test_unported_and_invalid_inputs(problem):
     assert gppe_tpu_torch.GaussianProcess(
         X, scipy.sparse.csr_matrix(tK.numpy()), **CPU
     ).likelihood.K_mixed.is_sparse
+    # plot=True is ported (A15): the profiled fit's derivative plot, drawn
+    # into the working directory beside the same fit as without it
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    monkeypatch.setenv("GPPE_NO_DISPLAY", "1")
+    monkeypatch.chdir(tmp_path)
     gp = gppe_tpu_torch.GaussianProcess(X, tK, "profiled", **CPU)
-    with pytest.raises(NotImplementedError, match="A15"):
-        gp.train(z, plot=True)
+    assert gp.train(z, plot=True) == gp.train(z)
+    assert (tmp_path / "log_likelihood_first_derivative.svg").is_file()
     with pytest.raises(ValueError, match="operator is on"):
         gppe_tpu_torch.GaussianProcess(
             X, MaternOperator(pts, 0.1, **CPU), device="meta")

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from gppe_tpu.models import direct_likelihood as jdl  # noqa: E402
@@ -259,6 +260,20 @@ def test_gcv(data):
     got = tgcv.minimize_gcv(tdata)
     for k in ("eta", "sigma0", "gcv"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-7, err_msg=k)
+
+
+def test_gcv_derivative_matches_reference_autodiff(data):
+    """The closed-form dV / d(log10 eta) against jax.grad of the
+    reference's V over eta in [1e-4, 1e3], and at a batch of log-etas of
+    shape (2, 5), within 1e-9 of its largest magnitude."""
+    jdata, tdata = data
+    les = np.linspace(-4.0, 3.0, 10)
+    dV = jax.grad(lambda le: jgcv.gcv_function(jdata, 10.0 ** le))
+    want = np.asarray([float(dV(jnp.asarray(le))) for le in les])
+    got = tgcv.gcv_der1_log_eta(tdata, torch.as_tensor(les.reshape(2, 5)))
+    assert got.shape == (2, 5) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy().ravel(), want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("kind, order", [("loglog-spline", 2),

@@ -255,11 +255,29 @@ def test_main_fft_grid_runs():
     assert not any(cuda_kernels.launch_counts.values())
 
 
-def test_unported_entry_points_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A15"):
-        tdrv.main(num_points=4, plot=True, device="cpu")
-    for call in (lambda: tcmp.main(plot=True, device="cpu"),
-                 lambda: tcmp.main_sparse(plot=True, device="cpu"),
-                 lambda: tcmp.plot_results({})):
-        with pytest.raises(NotImplementedError, match="A15"):
-            call()
+def test_unported_entry_points_name_their_roadmap_item(tmp_path,
+                                                       monkeypatch):
+    """Every entry point is ported, ``plot=True`` (A15) too: each draws its
+    figure into the working directory (matplotlib on Agg): the (rho, nu)
+    contour with the DE optimum, and the log-log timing plots of the
+    dense and the tapered scaling races."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    monkeypatch.setenv("GPPE_NO_DISPLAY", "1")
+    monkeypatch.chdir(tmp_path)
+    res = tdrv.main(num_points=5, grid_rho=5, grid_nu=4, popsize=4,
+                    max_generations=2, plot=True, verbose=False,
+                    device="cpu")
+    assert "de_rho" in res
+    assert (tmp_path / "optimal_covariance_without_prior.svg").is_file()
+    dense = tcmp.main(dense_sides=(5, 6), krylov_ns=(200,), plot=True,
+                      verbose=False, device="cpu")
+    assert len(dense["dense"]) == 2
+    assert (tmp_path / "various_number_of_points.svg").is_file()
+    sparse = tcmp.main_sparse(ns=(256,), density=0.1, scale=0.05,
+                              plot=True, verbose=False, device="cpu")
+    assert sparse["sparse"][0]["success"]
+    assert (tmp_path / "various_number_of_points_sparse.svg").is_file()
+    tcmp.plot_results(dense, filename="timing", reference_rows={
+        529: 0.40, 729: 0.71}, verbose=False)
+    assert (tmp_path / "timing.svg").is_file()
